@@ -1,0 +1,796 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (tts_tpu_torch) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero without the final line:
+
+1. Device: the card's name and power limit (nvidia-smi); build every kernel
+   from tts_tpu_torch/csrc with nvcc, all sources at once.
+2. Kernels: each kernel against its plain PyTorch version on the card, at
+   the main path's shapes, with the tolerance printed, and timed with CUDA
+   events beside the plain version, a one-call PyTorch yardstick where one
+   exists, and its bound (bytes over 3.35 TB/s, operations over the peak
+   rate for their type, the larger). The decode step (K2) is held layer by
+   layer, against the plain version on the CPU as a yardstick.
+3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
+   (plain versions), float32 caches on both; the card follows the CPU's
+   greedy token history and its logits must match at every step.
+4. Main path: a Parler-Mini-shaped Q4_0 GGUF (24 layers, H 1024, 16 heads,
+   F 4096, 9 heads x vocab 1088, DAC-44k vocoder; random weights from a
+   seed) written with the port's GGUF writer, turned into a WAV by the
+   port's CLI (sampled, fixed seed, 512 decode steps). Every kernel's
+   launch counter is set to 0 just before and read just after; each must
+   have risen. Then the same path timed stage by stage, and a device trace
+   of 32 decode steps (the card's busy share, device time by kernel).
+
+The last three lines of standard output are the card's name and power
+limit, one JSON object describing each kernel, and
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from tts_tpu_torch.gguf import GGUFWriter, quants
+from tts_tpu_torch.ops import _build
+from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import parler_megastep as pm
+from tts_tpu_torch.ops import quant_matmul as qm
+
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, CUDA cores / tensor cores
+SEED = 0
+DEV = torch.device("cuda")
+
+# Parler-TTS Mini v1 (tts_tpu/models/parler/model.py ParlerConfig defaults)
+MINI = dict(n_layers=24, hidden=1024, heads=16, ffn=4096, n_out=9,
+            vocab=1088, ctx=4096, enc_len=64)
+DECODE_STEPS = 512
+PROMPT = "hey, how are you doing today?"
+TOKENS = ["<unk>", "</s>", " ", ",", "?", "."] + [chr(c) for c in range(97, 123)] + \
+    ["he", "ow", "ar", "yo", "ou", "do", "in", "ng", "to", "da", "ay"]
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of fn() in ms: CUDA events around `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_trace(fn, label: str, per: int):
+    """Run fn() once under torch.profiler (device activity only) and print
+    the card's busy share over the span from the first kernel's start to
+    the last one's end, and device time by kernel name, per `per` units
+    (steps); returns fn()'s result. Only the profiler is a diagnostic:
+    where it fails to start or to report device activity the trace says
+    "not measured", but an error from fn() itself ends the run."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        prof.start()
+    except Exception as e:
+        log(f"  device trace, {label}: not measured ({e!r})")
+        prof = None
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    except BaseException:
+        if prof is not None:
+            with contextlib.suppress(Exception):   # fn()'s error is reported
+                prof.stop()
+        raise
+    if prof is None:
+        return out
+    try:
+        prof.stop()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:
+        log(f"  device trace, {label}: not measured ({e!r})")
+        return out
+    if not kernels:
+        log(f"  device trace, {label}: not measured (no device events)")
+        return out
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    span = (max(e.time_range.end for e in kernels) -
+            min(e.time_range.start for e in kernels)) / 1e3
+    by_name: dict = {}
+    for e in kernels:
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
+        key = re.split(r"[<(]", name)[0][:48]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    log(f"  device trace, {label}: {len(kernels) / per:.1f} kernels, "
+        f"busy {busy / per:.4f} ms of a {span / per:.4f} ms span per step "
+        f"(busy share {busy / span:.3f}); by kernel, ms per step: "
+        + ", ".join(f"{n} {t / per:.4f}" for n, t in top))
+    return out
+
+
+def bound(nbytes: float, flops: float, kind: str) -> tuple[float, str]:
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations /
+    the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_close(name, got, ref, rel: float, why: str) -> float:
+    """|got - ref| <= rel * max|ref|; prints the case; returns the error."""
+    err = max_err(got, ref)
+    tol = rel * float(ref.float().abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= tol
+    log(f"  {name}: max_abs_err {err:.3e} tol {tol:.3e} ({why}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# random quantized weights, made on the card from a seed
+# ---------------------------------------------------------------------------
+
+def rand_quant(gen, n, k, qtype, scale_dtype, packed=True):
+    """A random (n, k) QuantTensor on the card: codes uniform over the
+    type's range, scales uniform in [0.002, 0.006] (weights of std ~0.02)."""
+    hi = {quants.GGML_TYPE_Q4_0: 16, quants.GGML_TYPE_Q5_0: 32,
+          quants.GGML_TYPE_Q8_0: 256}[qtype]
+    codes = torch.randint(0, hi, (n, k), generator=gen, device=DEV,
+                          dtype=torch.int32)
+    if qtype == quants.GGML_TYPE_Q8_0:
+        codes = (codes - 128).to(torch.int8)
+    else:
+        codes = codes.to(torch.uint8)
+    scales = (torch.rand((n, k // 32), generator=gen, device=DEV) * 0.004
+              + 0.002).to(scale_dtype)
+    qt = qm.QuantTensor(codes, scales, qtype)
+    return qt.pack() if packed else qt
+
+
+def stack_quant(gen, layers, n, k, scale_dtype=torch.bfloat16):
+    ws = [rand_quant(gen, n, k, quants.GGML_TYPE_Q4_0, scale_dtype)
+          for _ in range(layers)]
+    return qm.QuantTensor(torch.stack([w.codes for w in ws]),
+                          torch.stack([w.scales for w in ws]),
+                          quants.GGML_TYPE_Q4_0)
+
+
+def quant_bytes(w: qm.QuantTensor) -> int:
+    return w.codes.numel() * w.codes.element_size() + \
+        w.scales.numel() * w.scales.element_size()
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def check_k1(gen) -> dict:
+    log("K1 quant_matmul (csrc/quant_matmul.cu) vs quant_matmul_plain:")
+    H, N = MINI["hidden"], MINI["n_out"] * 1280   # heads, per-head padded
+    Q4, Q5, Q8 = (quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
+                  quants.GGML_TYPE_Q8_0)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [  # name, M, N, K, qtype, scale dtype, packed
+        ("heads Q4_0 packed bf16", 1, N, H, Q4, bf16, True),
+        ("prefill Q4_0 packed f32", 64, 4 * H, H, Q4, f32, True),
+        ("Q4_0 unpacked f32", 8, 4 * H, H, Q4, f32, False),
+        ("Q8_0 f32", 64, 4 * H, H, Q8, f32, False),
+        ("Q8_0 bf16", 1, N, H, Q8, bf16, False),
+        ("Q5_0 f32", 64, 4 * H, H, Q5, f32, False),
+        ("Q5_0 bf16", 1, N, H, Q5, bf16, False),
+        ("ragged N Q8_0 f32", 3, 1001, H, Q8, f32, False),
+        ("fc2 K=4096 Q4_0 f32", 64, H, 4 * H, Q4, f32, True),
+    ]
+    errs = []
+    for name, m, n, k, qt, sd, packed in cases:
+        w = rand_quant(gen, n, k, qt, sd, packed)
+        x = torch.randn((m, k), generator=gen, device=DEV)
+        got = qm.quant_matmul_cuda(x, w)
+        ref = qm.quant_matmul_plain(x, w)
+        errs.append(check_close(name, got, ref, 1e-5,
+                                "same rounding, f32 sums in another order"))
+    # timed at the main path's per-step shape: the 9 stacked heads, cold in
+    # L2 as in the decode step (copies rotate through > 50 MB)
+    ws = [rand_quant(gen, N, H, Q4, bf16) for _ in range(12)]
+    x = torch.randn((1, H), generator=gen, device=DEV)
+    it = iter(range(1 << 30))
+
+    def nxt():
+        return ws[next(it) % len(ws)]
+
+    ms = cuda_ms(lambda: qm.quant_matmul_cuda(x, nxt()))
+    plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, nxt()))
+    lib_ms = cuda_ms(lambda: x @ nxt().dense().T)
+    b_ms, b_by = bound(quant_bytes(ws[0]) + x.numel() * 4 + N * 4,
+                       2 * N * H, "bf16")
+    log(f"  heads 1x{N}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"dequant+matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="quant_matmul", route="cuda",
+                source="tts_tpu_torch/csrc/quant_matmul.cu",
+                replaces="tts_tpu/ops/quant_matmul.py:134",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_k3(gen) -> dict:
+    log("K3 decode_attention (csrc/decode_attention.cu) vs decode_attention_plain:")
+    heads, ctx, d, L = MINI["heads"], MINI["ctx"], 64, MINI["n_layers"]
+    kc = torch.randn((L, heads, ctx, d), generator=gen, device=DEV).to(torch.bfloat16)
+    vc = torch.randn((L, heads, ctx, d), generator=gen, device=DEV).to(torch.bfloat16)
+    q = torch.randn((heads, d), generator=gen, device=DEV)
+    why = "f32 softmax over the same values, sums in another order"
+    errs = []
+    for p in (0, 1, 255, 256, 257, 1000, ctx - 1):
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        errs.append(check_close(f"bf16 cache pos {p}",
+                                da.decode_attention_cuda(q, kc[0], vc[0], pos),
+                                da.decode_attention_plain(q, kc[0], vc[0], pos),
+                                1e-5, why))
+    pos = torch.tensor([777], dtype=torch.int32, device=DEV)
+    k32, v32 = kc[1, :4].float(), vc[1, :4].float()
+    errs.append(check_close("f32 cache, GQA n_rep 4 pos 777",
+                            da.decode_attention_cuda(q, k32, v32, pos),
+                            da.decode_attention_plain(q, k32, v32, pos), 1e-5, why))
+    ck = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
+    cv = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
+    tc = torch.tensor([MINI["enc_len"] - 1], dtype=torch.int32, device=DEV)
+    errs.append(check_close("cross-attention f32 Tc 64",
+                            da.decode_attention_cuda(q, ck, cv, tc),
+                            da.decode_attention_plain(q, ck, cv, tc), 1e-5, why))
+    # timed at pos 1000, layers rotating (each layer's rows once per step)
+    p = 1000
+    pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+    it = iter(range(1 << 30))
+
+    def layer():
+        return next(it) % L
+
+    def kern():
+        l = layer()
+        return da.decode_attention_cuda(q, kc[l], vc[l], pos)
+
+    def plain():
+        l = layer()
+        return da.decode_attention_plain(q, kc[l], vc[l], pos)
+
+    qb = q.to(torch.bfloat16)[None, :, None, :]
+
+    def lib():
+        l = layer()
+        return torch.nn.functional.scaled_dot_product_attention(
+            qb, kc[l, None, :, :p + 1], vc[l, None, :, :p + 1])
+
+    ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+    nbytes = 2 * heads * (p + 1) * d * 2 + 2 * heads * d * 4
+    b_ms, b_by = bound(nbytes, 4 * heads * (p + 1) * d, "f32")
+    log(f"  16 heads, pos {p}, bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name="decode_attention", route="cuda",
+                source="tts_tpu_torch/csrc/decode_attention.cu",
+                replaces="tts_tpu/ops/decode_attention.py:27",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def mini_mega(gen):
+    """Random Parler-Mini MegaLayers on the card (Q4_0 packed, bf16 scales)."""
+    from tts_tpu_torch.models.parler.model import ParlerLayerWeights
+    L, H, F = MINI["n_layers"], MINI["hidden"], MINI["ffn"]
+    heads, tc = MINI["heads"], MINI["enc_len"]
+
+    def vec(scale=0.1, one=False):
+        return torch.randn((L, H), generator=gen, device=DEV) * scale + (1.0 if one else 0.0)
+
+    cross = [torch.randn((L, heads, tc, H // heads), generator=gen, device=DEV)
+             for _ in range(2)]
+    lw = ParlerLayerWeights(
+        ln1_w=vec(one=True), ln1_b=vec(), q_w=stack_quant(gen, L, H, H),
+        k_w=stack_quant(gen, L, H, H), v_w=stack_quant(gen, L, H, H),
+        o_w=stack_quant(gen, L, H, H), lnc_w=vec(one=True), lnc_b=vec(),
+        cq_w=stack_quant(gen, L, H, H), co_w=stack_quant(gen, L, H, H),
+        cross_k=cross[0], cross_v=cross[1], ln2_w=vec(one=True), ln2_b=vec(),
+        fc1=stack_quant(gen, L, F, H), fc2=stack_quant(gen, L, H, F))
+    return pm.prep_mega_layers(lw)
+
+
+def check_k2_layers(mega, x, kc, vc, pos, kw) -> list[float]:
+    """Layer by layer at full width: each layer's kernels and its plain
+    version take the same input (the kernels' output of the layer before)
+    and fresh copies of that layer's cache, and each layer's update of x
+    (x_out - x_in, the residual taken out so that it cannot hide the
+    layer's work), k_new and v_new are compared, relative to the largest
+    value. One layer computes the same bf16 roundings with f32 sums in
+    another order, so it agrees to f32 noise unless a rounding flips (a
+    2^-9 jump of one activation that moves the products it feeds). How
+    much that moves a layer is measured alongside: the plain version on
+    the host's CPU against the plain version on the card, two correct
+    versions whose sums run in other orders. Over the layers, the kernel's
+    largest and mean error must stay within 4x that pair's largest and
+    mean difference, or 1e-5. (The mean, not the median: a layer either
+    flips a rounding or agrees to f32 noise, and which of the two the
+    median layer does changes with the last bit of the input.) A missing
+    rounding or a lost K/V row moves every layer and fails the mean.
+    Returns the absolute errors."""
+    n_layers = mega.norms.shape[0]
+    p = int(pos)
+    names = ("x_out - x_in", "k_new", "v_new")
+    err = {nm: [] for nm in names}
+    base = {nm: [] for nm in names}
+    abs_errs, xin = [], x
+    for l in range(n_layers):
+        one = pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]), mega.cross_pos)
+
+        def run(fn, dev):
+            xl = xin.to(dev)
+            xo, k, v = fn(pm.MegaLayers(*(t.to(dev) for t in one)), xl,
+                          kc[l:l + 1].to(dev, copy=True),
+                          vc[l:l + 1].to(dev, copy=True), pos.to(dev), **kw)
+            return [t.to(DEV) for t in (xo - xl, k, v)]
+
+        got = run(pm.parler_megastep_cuda, DEV)
+        ref = run(pm.parler_megastep_plain, DEV)
+        host = run(pm.parler_megastep_plain, torch.device("cpu"))
+        for nm, a, b, c in zip(names, got, ref, host):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"K2 layer {l} {nm} is not finite")
+            scale = float(b.abs().max())
+            abs_errs.append(max_err(a, b))
+            err[nm].append(abs_errs[-1] / scale)
+            base[nm].append(max_err(c, b) / scale)
+        xin = xin + got[0]
+    for nm in names:
+        e, b = np.asarray(err[nm]), np.asarray(base[nm])
+        tol_max = max(4 * float(b.max()), 1e-5)
+        tol_mean = max(4 * float(b.mean()), 1e-5)
+        ok = e.max() <= tol_max and e.mean() <= tol_mean
+        log(f"  pos {p} layer by layer, {nm}: relative error max "
+            f"{e.max():.3e} (layer {int(e.argmax())}, tol {tol_max:.3e}), "
+            f"mean {e.mean():.3e} (tol {tol_mean:.3e}), median "
+            f"{np.median(e):.3e}; plain on the CPU vs plain on the card: "
+            f"max {b.max():.3e}, mean {b.mean():.3e}, median "
+            f"{np.median(b):.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2 layer by layer {nm}: kernel disagrees "
+                                 f"with its plain version")
+    return abs_errs
+
+
+def check_k2(gen) -> dict:
+    log("K2 parler_megastep (csrc/parler_megastep.cu + K3) vs parler_megastep_plain:")
+    mega, qtype = mini_mega(gen)
+    L, H, heads, ctx = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["ctx"]
+    d = H // heads
+    kc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((1, H), generator=gen, device=DEV)
+    kw = dict(qtype=qtype, use_cross=True, n_heads=heads)
+    errs = []
+    for p in (1, 1000):
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        errs += check_k2_layers(mega, x, kc, vc, pos, kw)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = pm.parler_megastep_cuda(mega, x, k1, v1, pos, **kw)
+        ref = pm.parler_megastep_plain(mega, x, k2, v2, pos, **kw)
+        # A sanity bound on the whole step. Over 24 random layers the step
+        # is chaotic at the bf16 roundings: the plain version itself moves
+        # this much when every element of x moves by one ulp (a flipped
+        # activation rounding is a 2^-9 jump that later layers spread),
+        # which is what another summation order does. The kernel must stay
+        # within 4x that self-sensitivity; the layer-by-layer check above is
+        # the tight one.
+        ulp = torch.randint(0, 2, x.shape, generator=gen, device=DEV) * 2 - 1
+        alt = pm.parler_megastep_plain(mega, x * (1 + ulp * 2 ** -23), kc.clone(),
+                                       vc.clone(), pos, **kw)
+        for nm, a, b, c in zip(("x_out", "k_new", "v_new"), got, ref, alt):
+            sens = max_err(c, b)
+            rel = max(4 * sens / float(b.abs().max()), 1e-4)   # 1e-4: one flip
+            check_close(f"pos {p} 24-layer {nm}", a, b, rel,
+                        f"4x the plain version's change under 1-ulp changes "
+                        f"of x, {sens:.3e}")
+        rows = torch.arange(ctx, device=DEV) != p
+        if not (torch.equal(k1[:, :, rows], k2[:, :, rows]) and
+                torch.equal(v1[:, :, rows], v2[:, :, rows])):
+            raise AssertionError("K2 wrote cache rows other than pos")
+        errs.append(check_close(f"pos {p} cache row k", k1[:, :, p].float(),
+                                got[1].reshape(L, heads, d).to(torch.bfloat16).float(),
+                                0.0, "the written row is k_new in bf16"))
+    p = 1000
+    pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+    ms = cuda_ms(lambda: pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw),
+                 iters=20)
+    plain_ms = cuda_ms(lambda: pm.parler_megastep_plain(mega, x, kc, vc, pos, **kw),
+                       iters=5, warmup=1)
+    # weights, norms and cross K/V read once; self-attention K/V rows up to
+    # pos read once; this token's k/v written; x in and out
+    wbytes = sum(t.numel() * t.element_size() for t in mega[:11])
+    kv_bytes = 2 * L * heads * (p + 1) * d * 2
+    flops = 2 * L * (6 * H * H + 2 * H * MINI["ffn"])
+    b_ms, b_by = bound(wbytes + kv_bytes + 2 * L * H * 2 + 2 * H * 4, flops, "bf16")
+    launches = 8 * L
+    log(f"  24 layers, pos {p}: kernels {ms:.4f} ms/step ({launches} launches: "
+        f"{6 * L} gemv + {2 * L} attention), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
+        f"{kv_bytes / 1e6:.1f} MB KV)")
+
+    def steps():
+        for _ in range(5):
+            pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw)
+
+    device_trace(steps, f"K2 step alone, pos {p}", 5)
+    return dict(name="parler_megastep", route="cuda",
+                source="tts_tpu_torch/csrc/parler_megastep.cu",
+                replaces="tts_tpu/ops/parler_megastep.py:253",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# Parler GGUFs written with the port's writer
+# ---------------------------------------------------------------------------
+
+def rand_q4_raw(rng, n, k) -> bytes:
+    """Random Q4_0 blocks: fp16 scales in [0.002, 0.006], random nibbles."""
+    nb = n * k // 32
+    blk = rng.integers(0, 256, (nb, 18), dtype=np.uint8)
+    d = rng.uniform(0.002, 0.006, nb).astype(np.float16)
+    blk[:, :2] = d.view(np.uint8).reshape(nb, 2)
+    return blk.tobytes()
+
+
+def write_parler(path, rng, *, n_layers, hidden, heads, ffn, n_out, vocab,
+                 ctx, enc_len, max_generation, dac_chans):
+    """A Q4_0 Parler GGUF as `tts_tpu.apps.quantize` leaves one (with
+    quantized LM heads): block-quantized projections, audio embeddings and
+    heads; F32 norms, prompt/positional embeddings, cross-attention K/V
+    projections, text encoding and DAC decoder."""
+    H = hidden
+    w = GGUFWriter(path, "parler-tts")
+    for key, v in (("parler-tts.decoder.hidden_size", H),
+                   ("parler-tts.decoder.num_hidden_layers", n_layers),
+                   ("parler-tts.decoder.attention.head_count", heads),
+                   ("parler-tts.decoder.output_heads", n_out),
+                   ("parler-tts.decoder.out_vocab_size", vocab),
+                   ("parler-tts.decoder.audio_vocab_size", 1024),
+                   ("parler-tts.decoder.max_generation", max_generation),
+                   ("parler-tts.decoder.context_length", ctx),
+                   ("parler-tts.decoder.encode_length", enc_len),
+                   ("audio.bos_token_id", 1025), ("audio.eos_token_id", 1024),
+                   ("tokenizer.ggml.unknown_token_id", 0),
+                   ("tokenizer.ggml.eos_token_id", 1),
+                   ("dac.up_sampling_factor", 512)):
+        w.add_u32(key, v)
+    w.add_str("tokenizer.ggml.model", "unigram")
+    w.add_array("tokenizer.ggml.tokens", TOKENS)
+    w.add_array("tokenizer.ggml.scores",
+                np.asarray([-10.0] + [-1.0] * (len(TOKENS) - 1), np.float32))
+    for i, (s, p) in enumerate(zip((8, 8, 4, 2), (4, 4, 2, 1))):
+        w.add_u32(f"dac.dac_layer_stride_{i}", s)
+        w.add_u32(f"dac.dac_layer_padding_{i}", p)
+    Q4 = quants.GGML_TYPE_Q4_0
+
+    def q4(name, n, k):
+        w.add_raw_tensor("decoder." + name, (n, k), Q4, rand_q4_raw(rng, n, k))
+
+    def f32(name, *shape, scale=0.02, one=False):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale + (1.0 if one else 0.0)
+        w.add_tensor(name, a)
+
+    for l in range(n_layers):
+        b = f"layers.{l}."
+        for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm",
+                   "final_layer_norm"):
+            f32(f"decoder.{b}{ln}.weight", H, one=True)
+            f32(f"decoder.{b}{ln}.bias", H)
+        for n in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                  "self_attn.out_proj", "encoder_attn.q_proj",
+                  "encoder_attn.out_proj"):
+            q4(f"{b}{n}.weight", H, H)
+        for n in ("encoder_attn.k_proj", "encoder_attn.v_proj"):
+            f32(f"decoder.{b}{n}.weight", H, H)
+        q4(f"{b}fc1.weight", ffn, H)
+        q4(f"{b}fc2.weight", H, ffn)
+    f32("decoder.layer_norm.weight", H, one=True)
+    f32("decoder.layer_norm.bias", H)
+    f32("decoder.embed_prompts", len(TOKENS), H, scale=1.0)
+    f32("decoder.positional_embed", ctx, H, scale=0.1)
+    f32("decoder.text_encoding", enc_len, H, scale=1.0)
+    for i in range(n_out):
+        q4(f"embed_tokens.{i}.weight", 1090, H)
+        q4(f"lm_heads.{i}.weight.head", vocab, H)
+    # DAC decoder (tts_tpu bench.py build_dac_44k shapes when dac_chans is
+    # the 44 kHz model's 1536/768/384/192/96), latent 1024, codebook dim 8
+    a = "audio_encoder."
+    f32(a + "initial.weight", dac_chans[0], 1024, 7, scale=0.05)
+    f32(a + "initial.bias", dac_chans[0], scale=0.05)
+    for i, s in enumerate((8, 8, 4, 2)):
+        cin, cout = dac_chans[i], dac_chans[i + 1]
+        b = f"{a}decoder_block.{i + 1}."
+        w.add_tensor(b + "final.alpha", np.abs(rng.standard_normal(
+            (1, cin, 1), dtype=np.float32) * 0.05) + 0.5)
+        f32(b + "final.weight", cin, cout, 2 * s, scale=0.05)
+        f32(b + "final.bias", cout, scale=0.05)
+        for j in range(3):
+            ub = f"{b}residual_unit.{j}.res."
+            for part, kk in (("initial", 7), ("final", 1)):
+                w.add_tensor(ub + part + ".alpha", np.abs(rng.standard_normal(
+                    (1, cout, 1), dtype=np.float32) * 0.05) + 0.5)
+                f32(ub + part + ".weight", cout, cout, kk, scale=0.05)
+                f32(ub + part + ".bias", cout, scale=0.05)
+    w.add_tensor(a + "final.alpha", np.abs(rng.standard_normal(
+        (1, dac_chans[-1], 1), dtype=np.float32) * 0.05) + 0.5)
+    f32(a + "final.weight", 1, dac_chans[-1], 7, scale=0.001)
+    f32(a + "final.bias", 1, scale=0.05)
+    for i in range(n_out):
+        b = f"{a}quantizers.{i}."
+        f32(b + "codebook.weight", 1024, 8, scale=0.05)
+        f32(b + "out_proj.weight", 1024, 8, 1, scale=0.05)
+        f32(b + "out_proj.bias", 1024, scale=0.05)
+    w.write()
+
+
+def prompt_len() -> int:
+    from tts_tpu_torch.text import UnigramTokenizer
+    tok = UnigramTokenizer({t: i for i, t in enumerate(TOKENS)}, 0,
+                           [-10.0] + [-1.0] * (len(TOKENS) - 1), 1)
+    return len(tok.tokenize(PROMPT)) + 1   # + EOS
+
+
+# ---------------------------------------------------------------------------
+# phase 3: a small model, kernels on the card vs plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+def check_small_reference(tmp) -> None:
+    """A small Q4_0 Parler decoded greedily on the CPU (plain versions); the
+    card (kernels) follows the same token history (teacher forcing) and its
+    logits must match at every step. Free-running greedy tokens are
+    reported too, but not required to match: with 9 x 1088 random logits a
+    near-tie flips on a last-bit difference, and the history then parts.
+    The tolerance comes from the CPU's own sensitivity, measured alongside
+    on a run whose positional embeddings moved by one ulp."""
+    from tts_tpu_torch.models.parler import model as pmodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    log("Reference: small Q4_0 Parler (L=2, H=256, 4 heads, 48 steps), f32 "
+        "caches, card kernels vs CPU plain versions:")
+    path = os.path.join(tmp, "parler-small.gguf")
+    write_parler(path, np.random.default_rng(SEED + 1), n_layers=2, hidden=256,
+                 heads=4, ffn=1024, n_out=9, vocab=1088, ctx=256, enc_len=16,
+                 max_generation=prompt_len() + 48, dac_chans=(64, 32, 16, 8, 4))
+    kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+              repetition_penalty=1.0)
+    runners, states = [], []
+    gen = torch.Generator().manual_seed(SEED)
+    for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
+                         (torch.device("cpu"), True)):
+        r = runner_from_file(path, device=dev)
+        assert r.mega is not None, "small model must take the megastep path"
+        if perturb:   # every positional embedding moved by one ulp, +-
+            pe = r.weights.pos_embd
+            pe.mul_(1 + (torch.randint(0, 2, pe.shape, generator=gen) * 2 - 1)
+                    * 2 ** -23)
+        cfg = r.cfg
+        ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
+        shape = (cfg.n_layers, cfg.n_attn_heads, cfg.max_ctx_length, cfg.head_size)
+        kk, vv = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+        pmodel.parler_prefill(cfg, r.weights, torch.tensor(ids, device=dev), kk, vv)
+        runners.append(r)
+        states.append(pmodel.init_state(cfg, len(ids), kk, vv))
+    (rg, rc, rp), (sg, sc, sp) = runners, states
+    worst, sens, first, agree, n = 0.0, 0.0, None, 0, 0
+    with torch.no_grad():
+        for _ in range(48):
+            lg, lc, lp = (pmodel.step_logits(r.cfg, r.weights, s, use_cross=True,
+                                             mega=r.mega)
+                          for r, s in zip(runners, (sg, sc, sp)))
+            lg = lg.cpu()
+            scale = float(lc.abs().max())
+            worst = max(worst, max_err(lg, lc) / scale)
+            sens = max(sens, max_err(lp, lc) / scale)
+            first = worst if first is None else first
+            agree += int((lg.argmax(-1) == lc.argmax(-1)).sum())
+            n += lc.shape[0]
+            sc = pmodel.advance(rc.cfg, sc, lc, None, **kw)
+            sg = pmodel.advance(rg.cfg, sg, lg.to(DEV), None, **kw)
+            sp = pmodel.advance(rp.cfg, sp, lp, None, **kw)
+            # the card and the perturbed run follow the CPU's history
+            sg = sg._replace(tokens_in=sc.tokens_in.to(DEV),
+                             eos_seen=sc.eos_seen.to(DEV))
+            sp = sp._replace(tokens_in=sc.tokens_in, eos_seen=sc.eos_seen)
+    # A last-bit difference can flip one bf16 rounding of an activation (a
+    # 2^-9 jump); the CPU's own logits move by `sens` when its inputs move
+    # by one ulp. The card must stay within 4x that, or 1e-3.
+    tol = max(4 * sens, 1e-3)
+    log(f"  teacher-forced logits, max |card - cpu| / max|logit|: {worst:.3e} "
+        f"(step 0: {first:.3e}); the CPU's own change under 1-ulp input "
+        f"changes: {sens:.3e}; tol {tol:.3e}; argmax agreement {agree}/{n}")
+    if worst > tol:
+        raise AssertionError("small-model logits differ between card and CPU")
+    steps = int(sc.step)
+    codes = pmodel.adjust_output_tokens(sc.out_tokens.numpy(), steps, rc.cfg)
+    wa, wb = (r.dac.decode(codes) for r in (rg, rc))
+    err = float(np.abs(wa - wb).max()) if codes.shape[0] else 0.0
+    log(f"  {codes.shape[0]} frames vocoded on both: waveform max_abs_err "
+        f"{err:.3e} (tol 1e-3: f32 convolutions, TF32 off, other sum order)")
+    if wa.shape != (codes.shape[0] * 512,) or wa.shape != wb.shape or err > 1e-3:
+        raise AssertionError("small-model waveform differs between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main path at Parler-Mini width
+# ---------------------------------------------------------------------------
+
+KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
+           "decode_attention": da.KERNEL}
+
+
+def run_main_path(tmp) -> dict:
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.audio.wav import read_audio_file
+    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.models.parler import model as pmodel
+    from tts_tpu_torch.models.registry import runner_from_file
+
+    n_prompt = prompt_len()
+    path = os.path.join(tmp, "parler-mini-q4.gguf")
+    t0 = time.perf_counter()
+    write_parler(path, np.random.default_rng(SEED), n_layers=MINI["n_layers"],
+                 hidden=MINI["hidden"], heads=MINI["heads"], ffn=MINI["ffn"],
+                 n_out=MINI["n_out"], vocab=MINI["vocab"], ctx=MINI["ctx"],
+                 enc_len=MINI["enc_len"],
+                 max_generation=n_prompt + DECODE_STEPS,
+                 dac_chans=(1536, 768, 384, 192, 96))
+    log(f"Main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
+        f"{time.perf_counter() - t0:.1f} s; prompt {n_prompt} tokens, "
+        f"{DECODE_STEPS} decode steps")
+    wav = os.path.join(tmp, "out.wav")
+    for k in KERNELS.values():
+        k.launches = 0
+    rc = cli.main(["-mp", path, "-p", PROMPT, "-sp", wav, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    if rc != 0:
+        raise AssertionError(f"CLI returned {rc}")
+    audio, rate = read_audio_file(wav)
+    log(f"  CLI wrote {wav}: {audio.size} samples at {rate} Hz; launches {launches}")
+    if rate != 44100 or audio.size == 0 or audio.size % 512 or \
+            not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
+        raise AssertionError("CLI output is not a valid waveform")
+    for n, c in launches.items():
+        if c == 0:
+            raise AssertionError(f"kernel {n} was not launched on the main path")
+
+    # the same path, stage by stage, synchronized
+    r = runner_from_file(path)
+    cfg = r.cfg
+    ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
+    tokens = torch.tensor(ids, device=DEV)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    shape = (cfg.n_layers, cfg.n_attn_heads, cfg.max_ctx_length, cfg.head_size)
+    kk = torch.zeros(shape, dtype=kv_cache_dtype(DEV), device=DEV)
+    vv = torch.zeros_like(kk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pmodel.parler_prefill(cfg, r.weights, tokens, kk, vv)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = {n: k.launches for n, k in KERNELS.items()}
+    out, steps = pmodel.generate_tokens_chunked(
+        cfg, r.weights, len(ids), kk, vv, gen, use_cross=True, do_sample=True,
+        temperature=1.0, top_k=50, top_p=1.0, repetition_penalty=1.0,
+        mega=r.mega)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    per_step = {n: (k.launches - before[n]) / steps for n, k in KERNELS.items()}
+    codes = pmodel.adjust_output_tokens(out.cpu().numpy(), steps, cfg)
+    t3 = time.perf_counter()
+    wav_np = r.dac.decode(codes)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    audio_s = wav_np.size / 44100.0
+    stats = dict(prefill_ms=(t1 - t0) * 1e3, decode_steps=steps,
+                 decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+                 vocode_ms=(t4 - t3) * 1e3, frames=int(codes.shape[0]),
+                 audio_s=audio_s,
+                 audio_s_per_wall_s=audio_s / (t4 - t0),
+                 decode_audio_s_per_wall_s=steps * 512 / 44100.0 / (t2 - t1),
+                 launches_per_step=per_step)
+    log(f"  timed: {json.dumps(stats)}")
+    if steps != DECODE_STEPS or wav_np.size != codes.shape[0] * 512 or \
+            not np.all(np.isfinite(wav_np)):
+        raise AssertionError("timed run produced the wrong shape")
+    # a steady window of 32 decode steps, from the prompt's end again
+    st = pmodel.init_state(cfg, len(ids), kk, vv)
+    st = device_trace(lambda: pmodel.decode_chunk(
+        cfg, r.weights, st, 32, gen, use_cross=True, do_sample=True,
+        temperature=1.0, top_k=50, top_p=1.0, repetition_penalty=1.0,
+        mega=r.mega), "main-path decode", 32)
+    toks = st.out_tokens[:min(32, steps)]
+    if int(st.step) != toks.shape[0] or bool((toks < 0).any()) or \
+            bool((toks >= cfg.output_vocab_size).any()):
+        raise AssertionError("traced decode window produced wrong tokens")
+    return launches
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    card = nvidia_smi()
+    log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
+        f"{torch.__version__} CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    times = _build.build()
+    log(f"built {sorted(times)} in {time.perf_counter() - t0:.1f} s "
+        f"(per source {', '.join(f'{k} {v:.1f} s' for k, v in times.items())})")
+    for src in _build.SOURCES:
+        for line in _build.ptxas_report(src).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {src}: {line.strip()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    rows = [check_k1(gen), check_k2(gen), check_k3(gen)]
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        check_small_reference(tmp)
+        launches = run_main_path(tmp)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(card)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except Exception:
+        traceback.print_exc()
+        sys.exit(1)

@@ -1,0 +1,108 @@
+"""PyTorch port: each hand-written kernel against its plain version on the
+card, at small shapes. Needs an NVIDIA GPU with nvcc (sm_90a); skipped
+elsewhere. On the card:
+
+    python -m pytest tests/test_torch_port_cuda.py --noconftest -m cuda
+
+(`--noconftest`: tests/conftest.py imports JAX, which the port's GPU
+machine need not have; this file uses none of its fixtures.)
+
+chip_smoke.py holds the same kernels to their plain versions at the main
+path's full shapes.
+"""
+import pytest
+import torch
+
+from tts_tpu_torch.gguf import quants
+from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import parler_megastep as pm
+from tts_tpu_torch.ops import quant_matmul as qm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _rand_quant(n, k, qtype, scale_dtype, dev):
+    hi = {quants.GGML_TYPE_Q4_0: 16, quants.GGML_TYPE_Q5_0: 32}.get(qtype, 256)
+    codes = torch.randint(0, hi, (n, k), device=dev, dtype=torch.int32)
+    codes = (codes - 128).to(torch.int8) if hi == 256 else codes.to(torch.uint8)
+    scales = (torch.rand((n, k // 32), device=dev) * 0.004 + 0.002).to(scale_dtype)
+    return qm.QuantTensor(codes, scales, qtype)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype,packed", [(quants.GGML_TYPE_Q4_0, True),
+                                          (quants.GGML_TYPE_Q4_0, False),
+                                          (quants.GGML_TYPE_Q5_0, False),
+                                          (quants.GGML_TYPE_Q8_0, False)])
+@pytest.mark.parametrize("m,n,k", [(1, 1001, 256), (37, 96, 4096)])
+def test_k1_matches_plain(dev, qtype, packed, scale_dtype, m, n, k):
+    """Same rounding on both sides, f32 sums in another order: 1e-5 of the
+    largest output."""
+    torch.manual_seed(0)
+    w = _rand_quant(n, k, qtype, scale_dtype, dev)
+    w = w.pack() if packed else w
+    x = torch.randn((m, k), device=dev)
+    got, ref = qm.quant_matmul_cuda(x, w), qm.quant_matmul_plain(x, w)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("pos", [0, 255, 256, 257, 639])
+def test_k3_matches_plain(dev, cache_dtype, n_rep, pos):
+    """f32 softmax over the same values in another order: 1e-5 absolute."""
+    torch.manual_seed(0)
+    q = torch.randn((4 * n_rep, 64), device=dev)
+    k = torch.randn((4, 640, 64), device=dev).to(cache_dtype)
+    v = torch.randn((4, 640, 64), device=dev).to(cache_dtype)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(da.decode_attention_cuda(q, k, v, p),
+                               da.decode_attention_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+@pytest.mark.parametrize("use_cross", [True, False])
+def test_k2_matches_plain(dev, qtype, use_cross):
+    """Two layers at H=256: bf16 roundings agree, f32 sums differ in order;
+    5e-4 of the largest value (see tests/test_torch_port_megastep.py)."""
+    from tts_tpu_torch.models.parler.model import ParlerLayerWeights
+    torch.manual_seed(0)
+    L, H, F, heads, ctx = 2, 256, 512, 4, 320
+
+    def stack(n, k):
+        ws = [_rand_quant(n, k, qtype, torch.bfloat16, dev).pack() for _ in range(L)]
+        return qm.QuantTensor(torch.stack([w.codes for w in ws]),
+                              torch.stack([w.scales for w in ws]), qtype)
+
+    vec = lambda one=0.0: torch.randn((L, H), device=dev) * 0.1 + one  # noqa: E731
+    lw = ParlerLayerWeights(
+        vec(1), vec(), stack(H, H), stack(H, H), stack(H, H), stack(H, H),
+        vec(1), vec(), stack(H, H), stack(H, H),
+        torch.randn((L, heads, 16, 64), device=dev),
+        torch.randn((L, heads, 16, 64), device=dev), vec(1), vec(),
+        stack(F, H), stack(H, F))
+    mega, qt = pm.prep_mega_layers(lw)
+    x = torch.randn((1, H), device=dev)
+    kc = torch.randn((L, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    pos = torch.tensor([300], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    kw = dict(qtype=qt, use_cross=use_cross, n_heads=heads)
+    got = pm.parler_megastep_cuda(mega, x, k1, v1, pos, **kw)
+    ref = pm.parler_megastep_plain(mega, x, k2, v2, pos, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * b.abs().max().item())
+    # the step wrote its own k/v (in bf16) at row pos and no other row
+    rows = torch.arange(ctx, device=dev) != 300
+    assert torch.equal(k1[:, :, rows], kc[:, :, rows])
+    assert torch.equal(v1[:, :, rows], vc[:, :, rows])
+    assert torch.equal(k1[:, :, 300], got[1].reshape(L, heads, 64).to(torch.bfloat16))
+    assert torch.equal(v1[:, :, 300], got[2].reshape(L, heads, 64).to(torch.bfloat16))

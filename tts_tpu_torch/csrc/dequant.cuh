@@ -1,0 +1,103 @@
+// Shared device helpers for the block-dequant kernels (quant_matmul.cu,
+// parler_megastep.cu): ggml Q4_0 / Q5_0 / Q8_0 weights held row-major, one
+// weight row (output feature n) = K/32 blocks of 32 codes plus one scale
+// per block.
+//
+// Code layout per row (ops/quant_matmul.py builds it):
+//   Q4_0 packed   : K/2 bytes; block b = bytes [16b, 16b+16): byte i holds
+//                   element i in its low nibble and element i+16 in its high
+//                   nibble (ggml's own block_q4_0.qs layout);
+//   Q4_0 unpacked : K bytes, codes 0..15;   Q5_0: K bytes, codes 0..31;
+//   Q8_0          : K bytes, int8 codes.
+// value = (code - bias) * scale, bias 8 / 16 / 0.
+//
+// Two numeric modes, as the TPU kernel keys them on the scale dtype:
+//   f32 scales : exact f32 weights, f32 activations, f32 sums;
+//   bf16 scales: the weight is dequantized in f32 and rounded once to bf16,
+//                the activation is rounded to bf16, products and sums in f32
+//                (the TPU megastep's `_dqdot` math).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace tts {
+
+constexpr int QK = 32;
+enum QType { Q4_0 = 2, Q5_0 = 6, Q8_0 = 8 };
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <bool BF16>
+__device__ __forceinline__ float load_scale(const void* scales, size_t i) {
+  if constexpr (BF16) {
+    return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(scales)[i]);
+  } else {
+    return reinterpret_cast<const float*>(scales)[i];
+  }
+}
+
+// Block b of one weight row -> w[32] = (code - bias) * s (bf16-rounded in
+// BF16 mode). The row pointer must be 16-byte aligned.
+template <int QT, bool PACKED, bool BF16>
+__device__ __forceinline__ void dequant_block(const uint8_t* __restrict__ row,
+                                              int b, float s, float w[QK]) {
+  if constexpr (PACKED) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + b * 16));
+    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t byte = (u[i / 4] >> (8 * (i % 4))) & 0xFFu;
+      w[i] = (float)(int)(byte & 15u) - 8.f;
+      w[i + 16] = (float)(int)(byte >> 4) - 8.f;
+    }
+  } else {
+    const uint4 q0 = __ldg(reinterpret_cast<const uint4*>(row + b * 32));
+    const uint4 q1 = __ldg(reinterpret_cast<const uint4*>(row + b * 32 + 16));
+    const uint32_t u[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+    for (int i = 0; i < QK; ++i) {
+      const uint32_t byte = (u[i / 4] >> (8 * (i % 4))) & 0xFFu;
+      if constexpr (QT == Q8_0) {
+        w[i] = (float)(int8_t)byte;
+      } else {
+        w[i] = (float)(int)byte - (QT == Q4_0 ? 8.f : 16.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < QK; ++i) {
+    w[i] = w[i] * s;
+    if constexpr (BF16) w[i] = bf16_round(w[i]);
+  }
+}
+
+// sum_i w[i] * x[i] over one 32-element block; x is 16-byte aligned (global
+// or shared memory). In BF16 mode each x is rounded to bf16 first.
+template <bool BF16>
+__device__ __forceinline__ float block_dot(const float* __restrict__ x,
+                                           const float w[QK]) {
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < QK / 4; ++j) {
+    float4 v = x4[j];
+    if constexpr (BF16) {
+      v.x = bf16_round(v.x); v.y = bf16_round(v.y);
+      v.z = bf16_round(v.z); v.w = bf16_round(v.w);
+    }
+    sum += w[4 * j] * v.x + w[4 * j + 1] * v.y + w[4 * j + 2] * v.z +
+           w[4 * j + 3] * v.w;
+  }
+  return sum;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+}  // namespace tts

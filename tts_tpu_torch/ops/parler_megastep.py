@@ -1,0 +1,247 @@
+"""One Parler decode step over all L layers: kernel K2.
+
+Computes the JAX package's `parler_megastep` (reference
+`parler_megastep_reference`): per layer LN -> qkv -> self-attention over the
+cache -> o -> LN -> cross-q -> cross-attention over the precomputed
+(heads, Tc, D) K/V -> co -> LN -> fc1 -> tanh-GELU -> fc2, with block-
+quantized weights at bf16-rounded dequant and bf16-rounded activations, f32
+sums (`_dqdot` numerics). Returns the pre-final-norm x and each layer's
+k_new / v_new.
+
+On the card the step is a sequence of hand-written kernels on one stream
+(csrc/parler_megastep.cu, its header says why): per layer 6 launches of
+K2's dequant GEMV, which fuses the layer norm before it and the residual add
+or GELU after it, and 2 launches of K3 (ops/decode_attention.py) for the
+self- and cross-attention. On CPU tensors `parler_megastep_plain` computes
+the same in plain PyTorch.
+
+Unlike the TPU kernel, which folds the current token's k/v into the softmax
+and leaves the cache write to its caller, this step writes k/v into cache
+row `pos` IN PLACE first and then attends rows [0, pos]. That is exact in
+f32; on a bf16 cache the current row is rounded to bf16 before it is
+attended (the plain version does the same, so kernel and plain agree).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from .decode_attention import decode_attention_cuda, decode_attention_plain
+from .quant_matmul import BIAS, QuantTensor, quant_matmul_plain
+
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int
+KERNEL = _build.Kernel(
+    "parler_megastep", "tts_parler_gemv",
+    [_vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _i32,
+     _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp])
+EPI_STORE, EPI_RESIDUAL, EPI_GELU, EPI_QKV = 0, 1, 2, 3
+LN_EPS = 1e-5
+
+
+class MegaLayers(NamedTuple):
+    """Per-layer weights in the megastep layout (all stacked on L).
+
+    Codes row-major (see ops/quant_matmul.py), Q4 nibble-packed; scales
+    bf16. qkv = concat(q, k, v) on N; occ = concat(o, cq, co) on N.
+    norms packs (ln1_w, ln1_b, lnc_w, lnc_b, ln2_w, ln2_b).
+    """
+
+    qkv_codes: torch.Tensor   # (L, 3H, Kc(H))
+    qkv_scales: torch.Tensor  # (L, 3H, H/32) bf16
+    occ_codes: torch.Tensor   # (L, 3H, Kc(H))
+    occ_scales: torch.Tensor  # (L, 3H, H/32) bf16
+    fc1_codes: torch.Tensor   # (L, F, Kc(H))
+    fc1_scales: torch.Tensor  # (L, F, H/32) bf16
+    fc2_codes: torch.Tensor   # (L, H, Kc(F))
+    fc2_scales: torch.Tensor  # (L, H, F/32) bf16
+    norms: torch.Tensor       # (L, 6, H) f32
+    cross_k: torch.Tensor     # (L, heads, Tc, D) f32
+    cross_v: torch.Tensor     # (L, heads, Tc, D) f32
+    cross_pos: torch.Tensor   # (1,) int32 = Tc - 1: cross-attention reads all rows
+
+
+def prep_mega_layers(layers) -> tuple[MegaLayers, int]:
+    """MegaLayers from stacked ParlerLayerWeights whose 8 projections are
+    QuantTensors of one block qtype. Raises ValueError otherwise (the caller
+    then takes the per-matmul path)."""
+    mats = [layers.q_w, layers.k_w, layers.v_w, layers.o_w, layers.cq_w,
+            layers.co_w, layers.fc1, layers.fc2]
+    if not all(isinstance(m, QuantTensor) for m in mats):
+        raise ValueError("megastep needs all projections quantized")
+    qtypes = {m.qtype for m in mats}
+    if len(qtypes) != 1 or next(iter(qtypes)) not in BIAS:
+        raise ValueError(f"megastep needs one uniform qtype, got {qtypes}")
+    qtype = next(iter(qtypes))
+    q, k, v, o, cq, co, f1, f2 = [m.pack() for m in mats]
+
+    def cat(ms):
+        return (torch.cat([m.codes for m in ms], dim=-2).contiguous(),
+                torch.cat([m.scales.to(torch.bfloat16) for m in ms],
+                          dim=-2).contiguous())
+
+    qkv_c, qkv_s = cat([q, k, v])
+    occ_c, occ_s = cat([o, cq, co])
+    norms = torch.stack([layers.ln1_w, layers.ln1_b, layers.lnc_w,
+                         layers.lnc_b, layers.ln2_w, layers.ln2_b], dim=1)
+    tc = layers.cross_k.shape[2]
+    mega = MegaLayers(
+        qkv_codes=qkv_c, qkv_scales=qkv_s, occ_codes=occ_c, occ_scales=occ_s,
+        fc1_codes=f1.codes.contiguous(),
+        fc1_scales=f1.scales.to(torch.bfloat16).contiguous(),
+        fc2_codes=f2.codes.contiguous(),
+        fc2_scales=f2.scales.to(torch.bfloat16).contiguous(),
+        norms=norms.float().contiguous(),
+        cross_k=layers.cross_k.float().contiguous(),
+        cross_v=layers.cross_v.float().contiguous(),
+        cross_pos=torch.tensor([tc - 1], dtype=torch.int32,
+                               device=norms.device))
+    return mega, qtype
+
+
+def layer_norm(x, w, b, eps: float = LN_EPS):
+    """(x - mean) * rsqrt(mean((x - mean)^2) + eps) * w + b over the last
+    axis, as the TPU kernel's `_ln` writes it."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * w + b
+
+
+def _qdot(h, codes, scales, qtype):
+    return quant_matmul_plain(h, QuantTensor(codes, scales, qtype))
+
+
+def _write_row(cache, p, rows, n_heads):
+    """cache (heads, CTX, D)[:, p, :] = rows (H,) — in place."""
+    cache.index_copy_(1, p, rows.reshape(n_heads, 1, -1).to(cache.dtype))
+
+
+def parler_megastep_plain(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                          qtype: int, use_cross: bool, n_heads: int):
+    """K2's plain PyTorch version. x (1, H); kv_k/kv_v (L, heads, CTX, D),
+    written in place at row pos; pos an int or one-element int tensor.
+    Returns (x_out (1, H) f32, k_new (L, H), v_new (L, H))."""
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    d = hidden // n_heads
+    ctx = kv_k.shape[2]
+    p = torch.as_tensor(pos, device=x.device).reshape(1).long().clamp(max=ctx - 1)
+    x = x.float()
+    k_new, v_new = [], []
+    for l in range(n_layers):
+        nm = mega.norms[l]
+        qkv = _qdot(layer_norm(x, nm[0], nm[1]), mega.qkv_codes[l],
+                    mega.qkv_scales[l], qtype)[0]
+        q, k, v = qkv[:hidden], qkv[hidden:2 * hidden], qkv[2 * hidden:]
+        _write_row(kv_k[l], p, k, n_heads)
+        _write_row(kv_v[l], p, v, n_heads)
+        attn = decode_attention_plain(q.reshape(n_heads, d), kv_k[l], kv_v[l], p)
+        x = x + _qdot(attn.reshape(1, hidden), mega.occ_codes[l, :hidden],
+                      mega.occ_scales[l, :hidden], qtype)
+        if use_cross:
+            cq = _qdot(layer_norm(x, nm[2], nm[3]),
+                       mega.occ_codes[l, hidden:2 * hidden],
+                       mega.occ_scales[l, hidden:2 * hidden], qtype)
+            ca = decode_attention_plain(cq.reshape(n_heads, d), mega.cross_k[l],
+                                        mega.cross_v[l], mega.cross_k.shape[2])
+            x = x + _qdot(ca.reshape(1, hidden), mega.occ_codes[l, 2 * hidden:],
+                          mega.occ_scales[l, 2 * hidden:], qtype)
+        up = _qdot(layer_norm(x, nm[4], nm[5]), mega.fc1_codes[l],
+                   mega.fc1_scales[l], qtype)
+        up = torch.nn.functional.gelu(up, approximate="tanh")
+        x = x + _qdot(up, mega.fc2_codes[l], mega.fc2_scales[l], qtype)
+        k_new.append(k)
+        v_new.append(v)
+    return x, torch.stack(k_new), torch.stack(v_new)
+
+
+def _addr(t: torch.Tensor, *idx) -> int:
+    """Address of t[idx] (leading indices) for a contiguous tensor: integer
+    arithmetic, cheaper on the host than a view per launch, and the step is
+    host-bound (PERF.md)."""
+    off = sum(i * s for i, s in zip(idx, t.stride()))
+    return t.data_ptr() + off * t.element_size()
+
+
+def parler_megastep_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                         qtype: int, use_cross: bool, n_heads: int):
+    """The step on the card: 6 K2 GEMV launches and 2 K3 launches per layer
+    on the current stream. Same contract as `parler_megastep_plain`, with
+    pos a one-element int32 CUDA tensor."""
+    dev = x.device
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    ffn = mega.fc1_codes.shape[1]
+    d = hidden // n_heads
+    ctx = kv_k.shape[2]
+    _build.require(kv_k, "kv_k", device=dev,
+                   dtypes=(torch.bfloat16, torch.float32), ndim=4)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=4)
+    _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
+                   ndim=3)
+    _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
+    for name in ("qkv_codes", "occ_codes", "fc1_codes", "fc2_codes"):
+        _build.require(getattr(mega, name), name, device=dev,
+                       dtypes=(torch.uint8, torch.int8), ndim=3)
+    for name in ("qkv_scales", "occ_scales", "fc1_scales", "fc2_scales"):
+        _build.require(getattr(mega, name), name, device=dev,
+                       dtypes=(torch.bfloat16,), ndim=3, align=2)
+    if (kv_k.shape != (n_layers, n_heads, ctx, d) or kv_v.shape != kv_k.shape
+            or x.numel() != hidden or pos.numel() != 1):
+        raise ValueError(f"parler_megastep: x {tuple(x.shape)}, "
+                         f"kv {tuple(kv_k.shape)}, L={n_layers} H={hidden}")
+    packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
+    cache_bf16 = int(kv_k.dtype == torch.bfloat16)
+    stream = _build.stream_ptr(dev)
+    xw = x.float().reshape(1, hidden).clone()
+    qkv = torch.empty((n_layers, 3 * hidden), dtype=torch.float32, device=dev)
+    cq = torch.empty((hidden,), dtype=torch.float32, device=dev)
+    up = torch.empty((ffn,), dtype=torch.float32, device=dev)
+    nm, vp = mega.norms, ctypes.c_void_p
+    null = vp(0)
+    bpr_h = mega.qkv_codes.shape[2] * mega.qkv_codes.element_size()
+    sbr_h = mega.qkv_scales.shape[2] * 2
+
+    def gemv(xin, ln, codes_addr, scales_addr, n, k, res, out, epi,
+             kc=null, vc=null, lnw=null, lnb=null):
+        KERNEL(xin, lnw, lnb, ln, vp(codes_addr), vp(scales_addr), qtype,
+               packed, n, k, res, out, epi, kc, vc, vp(pos.data_ptr()), hidden,
+               d, ctx, cache_bf16, stream)
+
+    x_p = vp(xw.data_ptr())
+    for l in range(n_layers):
+        q_out = qkv[l]
+        gemv(x_p, 1, _addr(mega.qkv_codes, l), _addr(mega.qkv_scales, l),
+             3 * hidden, hidden, null, vp(q_out.data_ptr()), EPI_QKV,
+             kc=vp(_addr(kv_k, l)), vc=vp(_addr(kv_v, l)),
+             lnw=vp(_addr(nm, l, 0)), lnb=vp(_addr(nm, l, 1)))
+        attn = decode_attention_cuda(q_out[:hidden].view(n_heads, d), kv_k[l],
+                                     kv_v[l], pos)
+        occ_c, occ_s = _addr(mega.occ_codes, l), _addr(mega.occ_scales, l)
+        gemv(vp(attn.data_ptr()), 0, occ_c, occ_s, hidden, hidden, x_p, x_p,
+             EPI_RESIDUAL)
+        if use_cross:
+            gemv(x_p, 1, occ_c + hidden * bpr_h, occ_s + hidden * sbr_h,
+                 hidden, hidden, null, vp(cq.data_ptr()), EPI_STORE,
+                 lnw=vp(_addr(nm, l, 2)), lnb=vp(_addr(nm, l, 3)))
+            ca = decode_attention_cuda(cq.view(n_heads, d), mega.cross_k[l],
+                                       mega.cross_v[l], mega.cross_pos)
+            gemv(vp(ca.data_ptr()), 0, occ_c + 2 * hidden * bpr_h,
+                 occ_s + 2 * hidden * sbr_h, hidden, hidden, x_p, x_p,
+                 EPI_RESIDUAL)
+        gemv(x_p, 1, _addr(mega.fc1_codes, l), _addr(mega.fc1_scales, l),
+             ffn, hidden, null, vp(up.data_ptr()), EPI_GELU,
+             lnw=vp(_addr(nm, l, 4)), lnb=vp(_addr(nm, l, 5)))
+        gemv(vp(up.data_ptr()), 0, _addr(mega.fc2_codes, l),
+             _addr(mega.fc2_scales, l), hidden, ffn, x_p, x_p, EPI_RESIDUAL)
+    return xw, qkv[:, hidden:2 * hidden], qkv[:, 2 * hidden:]
+
+
+def parler_megastep(mega: MegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
+                    use_cross: bool, n_heads: int):
+    """Dispatch: the kernels for CUDA tensors, the plain version for CPU
+    tensors. See `parler_megastep_plain` for the contract."""
+    fn = parler_megastep_plain if x.device.type == "cpu" else parler_megastep_cuda
+    return fn(mega, x, kv_k, kv_v, pos, qtype=qtype, use_cross=use_cross,
+              n_heads=n_heads)
