@@ -11,18 +11,26 @@ Phases, in order; any failure exits non-zero without the final line:
    the main path's shapes, with the tolerance printed, and timed with CUDA
    events beside the plain version, a one-call PyTorch yardstick where one
    exists, and its bound (bytes over 3.35 TB/s, operations over the peak
-   rate for their type, the larger). The decode step (K2) is held layer by
-   layer, against the plain version on the CPU as a yardstick.
+   rate for their type, the larger). The decode steps (K2, K5) are held
+   layer by layer, against the plain version on the CPU as a yardstick;
+   K4 and K5 at 8 slots at mixed positions across page boundaries, and
+   each of their slots against K3 / K2 on that slot's state, bit for bit.
 3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
    (plain versions), float32 caches on both; the card follows the CPU's
    greedy token history and its logits must match at every step.
 4. Main path: a Parler-Mini-shaped Q4_0 GGUF (24 layers, H 1024, 16 heads,
    F 4096, 9 heads x vocab 1088, DAC-44k vocoder; random weights from a
    seed) written with the port's GGUF writer, turned into a WAV by the
-   port's CLI (sampled, fixed seed, 512 decode steps). Every kernel's
-   launch counter is set to 0 just before and read just after; each must
+   port's CLI (sampled, fixed seed, 256 decode steps). Every kernel's
+   launch counter is set to 0 just before and read just after; K1-K3 must
    have risen. Then the same path timed stage by stage, and a device trace
    of 32 decode steps (the card's busy share, device time by kernel).
+5. Serving path: the port's HTTP server in this process (batch_slots 8,
+   the same GGUF) answers 12 concurrent requests with mixed sampling
+   parameters; counters set to 0 just before, read just after; K1, K4 and
+   K5 must have risen. Then the batched decode step timed and traced, one
+   request through batch_slots 0, and the engine's greedy codes against
+   the single-stream runner's (equal).
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing each kernel, and
@@ -31,14 +39,19 @@ limit, one JSON object describing each kernel, and
 from __future__ import annotations
 
 import contextlib
+import copy
+import dataclasses
 import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
+import urllib.error
+import urllib.request
 
 import numpy as np
 import torch
@@ -57,7 +70,7 @@ DEV = torch.device("cuda")
 # Parler-TTS Mini v1 (tts_tpu/models/parler/model.py ParlerConfig defaults)
 MINI = dict(n_layers=24, hidden=1024, heads=16, ffn=4096, n_out=9,
             vocab=1088, ctx=4096, enc_len=64)
-DECODE_STEPS = 512
+DECODE_STEPS = 256
 PROMPT = "hey, how are you doing today?"
 TOKENS = ["<unk>", "</s>", " ", ",", "?", "."] + [chr(c) for c in range(97, 123)] + \
     ["he", "ow", "ar", "yo", "ou", "do", "in", "ng", "to", "da", "ay"]
@@ -327,7 +340,8 @@ def mini_mega(gen):
     return pm.prep_mega_layers(lw)
 
 
-def check_k2_layers(mega, x, kc, vc, pos, kw) -> list[float]:
+def check_k2_layers(mega, x, kc, vc, pos, kw, kernel=None, plain=None,
+                    label="K2") -> list[float]:
     """Layer by layer at full width: each layer's kernels and its plain
     version take the same input (the kernels' output of the layer before)
     and fresh copies of that layer's cache, and each layer's update of x
@@ -344,9 +358,13 @@ def check_k2_layers(mega, x, kc, vc, pos, kw) -> list[float]:
     flips a rounding or agrees to f32 noise, and which of the two the
     median layer does changes with the last bit of the input.) A missing
     rounding or a lost K/V row moves every layer and fails the mean.
-    Returns the absolute errors."""
+    `kernel` / `plain` default to K2's step and its plain version; K5's
+    batched pair takes x (B, H), caches (L, B, ...) and pos (B,) the same
+    way. Returns the absolute errors."""
+    kernel = kernel or pm.parler_megastep_cuda
+    plain = plain or pm.parler_megastep_plain
     n_layers = mega.norms.shape[0]
-    p = int(pos)
+    p = pos.tolist()
     names = ("x_out - x_in", "k_new", "v_new")
     err = {nm: [] for nm in names}
     base = {nm: [] for nm in names}
@@ -361,12 +379,12 @@ def check_k2_layers(mega, x, kc, vc, pos, kw) -> list[float]:
                           vc[l:l + 1].to(dev, copy=True), pos.to(dev), **kw)
             return [t.to(DEV) for t in (xo - xl, k, v)]
 
-        got = run(pm.parler_megastep_cuda, DEV)
-        ref = run(pm.parler_megastep_plain, DEV)
-        host = run(pm.parler_megastep_plain, torch.device("cpu"))
+        got = run(kernel, DEV)
+        ref = run(plain, DEV)
+        host = run(plain, torch.device("cpu"))
         for nm, a, b, c in zip(names, got, ref, host):
             if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"K2 layer {l} {nm} is not finite")
+                raise AssertionError(f"{label} layer {l} {nm} is not finite")
             scale = float(b.abs().max())
             abs_errs.append(max_err(a, b))
             err[nm].append(abs_errs[-1] / scale)
@@ -384,14 +402,13 @@ def check_k2_layers(mega, x, kc, vc, pos, kw) -> list[float]:
             f"max {b.max():.3e}, mean {b.mean():.3e}, median "
             f"{np.median(b):.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"K2 layer by layer {nm}: kernel disagrees "
-                                 f"with its plain version")
+            raise AssertionError(f"{label} layer by layer {nm}: kernel "
+                                 f"disagrees with its plain version")
     return abs_errs
 
 
-def check_k2(gen) -> dict:
+def check_k2(gen, mega, qtype) -> dict:
     log("K2 parler_megastep (csrc/parler_megastep.cu + K3) vs parler_megastep_plain:")
-    mega, qtype = mini_mega(gen)
     L, H, heads, ctx = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["ctx"]
     d = H // heads
     kc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
@@ -454,6 +471,117 @@ def check_k2(gen) -> dict:
     return dict(name="parler_megastep", route="cuda",
                 source="tts_tpu_torch/csrc/parler_megastep.cu",
                 replaces="tts_tpu/ops/parler_megastep.py:253",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+MIXED_POS = (0, 1, 255, 256, 257, 1000, 2047, 4095)   # around page edges
+
+
+def check_k4(gen) -> dict:
+    log("K4 decode_attention batched (csrc/decode_attention.cu) vs "
+        "decode_attention_batched_plain:")
+    heads, ctx, d = MINI["heads"], MINI["ctx"], 64
+    b = len(MIXED_POS)
+    kc = torch.randn((b, heads, ctx, d), generator=gen, device=DEV).to(torch.bfloat16)
+    vc = torch.randn((b, heads, ctx, d), generator=gen, device=DEV).to(torch.bfloat16)
+    q = torch.randn((b, heads, d), generator=gen, device=DEV)
+    pos = torch.tensor(MIXED_POS, dtype=torch.int32, device=DEV)
+    why = "f32 softmax over the same values, sums in another order"
+    got = da.decode_attention_batched_cuda(q, kc, vc, pos)
+    errs = [check_close(f"B {b}, bf16 cache, pos {list(MIXED_POS)}", got,
+                        da.decode_attention_batched_plain(q, kc, vc, pos), 1e-5, why)]
+    # K3 is K4 with B = 1: every slot of the batch, and a one-slot batch,
+    # equal K3 on that slot bit for bit (same page split, same merge order)
+    for s in range(b):
+        k3 = da.decode_attention_cuda(q[s], kc[s], vc[s], pos[s:s + 1])
+        one = da.decode_attention_batched_cuda(q[s:s + 1], kc[s:s + 1],
+                                               vc[s:s + 1], pos[s:s + 1])[0]
+        if not (torch.equal(got[s], k3) and torch.equal(one, k3)):
+            raise AssertionError(f"K4 slot {s} (pos {MIXED_POS[s]}) is not "
+                                 f"K3 bit for bit")
+    log(f"  every slot, and a B = 1 call on it, equals K3 bit for bit: ok")
+    ck = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
+    cv = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
+    tc = torch.tensor([MINI["enc_len"] - 1], dtype=torch.int32, device=DEV)
+    errs.append(check_close("shared cross K/V, f32, Tc 64",
+                            da.decode_attention_batched_cuda(q, ck, cv, tc),
+                            da.decode_attention_batched_plain(q, ck, cv, tc),
+                            1e-5, why))
+    # timed at the mixed positions, with the engine's reused scratch
+    out = torch.empty_like(q)
+    scratch = da.attention_scratch(b, heads, ctx, d, DEV)
+    ms = cuda_ms(lambda: da.decode_attention_batched_cuda(
+        q, kc, vc, pos, out=out, scratch=scratch))
+    plain_ms = cuda_ms(lambda: da.decode_attention_batched_plain(q, kc, vc, pos),
+                       iters=10, warmup=2)
+    qb = q.to(torch.bfloat16)[:, :, None, :]
+    mask = (torch.arange(ctx, device=DEV)[None, :] <= pos[:, None])[:, None, None, :]
+    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qb, kc, vc, attn_mask=mask))
+    rows = sum(p + 1 for p in MIXED_POS)
+    nbytes = 2 * heads * rows * d * 2 + 2 * b * heads * d * 4 + b * 4
+    b_ms, b_by = bound(nbytes, 4 * heads * rows * d, "f32")
+    log(f"  B {b}, 16 heads, mixed pos, bf16: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, masked sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    return dict(name="decode_attention_batched", route="cuda",
+                source="tts_tpu_torch/csrc/decode_attention.cu",
+                replaces="tts_tpu/ops/decode_attention.py:148",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+def check_k5(gen, mega, qtype) -> dict:
+    log("K5 parler_megastep batched (csrc/parler_megastep.cu + K4) vs K2 and "
+        "parler_megastep_batched_plain:")
+    L, H, heads, ctx = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["ctx"]
+    d, b = H // heads, len(MIXED_POS)
+    shape = (L, b, heads, ctx, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((b, H), generator=gen, device=DEV)
+    pos = torch.tensor([min(p, ctx - 1) for p in MIXED_POS], dtype=torch.int32,
+                       device=DEV)
+    kw = dict(qtype=qtype, use_cross=True, n_heads=heads)
+    # (a) slot s of K5 is a K2 step on slot s's state, bit for bit
+    k5, v5 = kc.clone(), vc.clone()
+    xo, kn, vn = pm.parler_megastep_batched_cuda(mega, x, k5, v5, pos, **kw)
+    for s in range(b):
+        k2, v2 = kc[:, s].clone(), vc[:, s].clone()
+        xs, ks, vs = pm.parler_megastep_cuda(mega, x[s:s + 1], k2, v2,
+                                             pos[s:s + 1], **kw)
+        if not (torch.equal(xo[s:s + 1], xs) and torch.equal(kn[:, s], ks)
+                and torch.equal(vn[:, s], vs) and torch.equal(k5[:, s], k2)
+                and torch.equal(v5[:, s], v2)):
+            raise AssertionError(f"K5 slot {s} (pos {int(pos[s])}) differs "
+                                 f"from K2 on its state")
+    del k5, v5
+    log(f"  each slot's x_out, k_new, v_new and cache equal a K2 step on that "
+        f"slot's state bit for bit (max_abs_err 0): ok")
+    # (b) layer by layer against the plain version, K2's yardstick
+    errs = check_k2_layers(mega, x, kc, vc, pos, kw,
+                           kernel=pm.parler_megastep_batched_cuda,
+                           plain=pm.parler_megastep_batched_plain, label="K5")
+    scratch = pm.step_scratch(mega, b, heads, ctx, DEV)
+    ms = cuda_ms(lambda: pm.parler_megastep_batched_cuda(
+        mega, x, kc, vc, pos, scratch=scratch, **kw), iters=20)
+    plain_ms = cuda_ms(lambda: pm.parler_megastep_batched_plain(
+        mega, x, kc, vc, pos, **kw), iters=3, warmup=1)
+    # weights, norms and cross K/V read once for all slots; each slot's
+    # self-attention K/V rows up to its pos; this token's k/v written; x in
+    # and out
+    wbytes = sum(t.numel() * t.element_size() for t in mega[:11])
+    kv_bytes = 2 * L * heads * sum(int(p) + 1 for p in pos) * d * 2
+    flops = 2 * b * L * (6 * H * H + 2 * H * MINI["ffn"])
+    b_ms, b_by = bound(wbytes + kv_bytes + 2 * b * L * H * 2 + 2 * b * H * 4,
+                       flops, "bf16")
+    log(f"  B {b}, 24 layers, mixed pos: kernels {ms:.4f} ms/step "
+        f"({8 * L} launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
+    return dict(name="parler_megastep_batched", route="cuda",
+                source="tts_tpu_torch/csrc/parler_megastep.cu",
+                replaces="tts_tpu/ops/parler_megastep.py:406",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -653,10 +781,15 @@ def check_small_reference(tmp) -> None:
 # ---------------------------------------------------------------------------
 
 KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
-           "decode_attention": da.KERNEL}
+           "decode_attention": da.KERNEL,
+           "decode_attention_batched": da.KERNEL_BATCHED,
+           "parler_megastep_batched": pm.KERNEL_BATCHED}
+SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
+SERVING_PATH = ("quant_matmul", "decode_attention_batched",
+                "parler_megastep_batched")
 
 
-def run_main_path(tmp) -> dict:
+def run_main_path(tmp) -> tuple[dict, str]:
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
     from tts_tpu_torch.common import kv_cache_dtype
@@ -688,8 +821,8 @@ def run_main_path(tmp) -> dict:
     if rate != 44100 or audio.size == 0 or audio.size % 512 or \
             not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
         raise AssertionError("CLI output is not a valid waveform")
-    for n, c in launches.items():
-        if c == 0:
+    for n in SINGLE_PATH:
+        if launches[n] == 0:
             raise AssertionError(f"kernel {n} was not launched on the main path")
 
     # the same path, stage by stage, synchronized
@@ -742,6 +875,185 @@ def run_main_path(tmp) -> dict:
     if int(st.step) != toks.shape[0] or bool((toks < 0).any()) or \
             bool((toks >= cfg.output_vocab_size).any()):
         raise AssertionError("traced decode window produced wrong tokens")
+    return launches, path
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving path, continuous batching through the HTTP server
+# ---------------------------------------------------------------------------
+
+def _post(base, payload, timeout=600):
+    req = urllib.request.Request(base + "/v1/audio/speech",
+                                 data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read(), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), dict(e.headers)
+
+
+def start_server(path, config, batch_slots):
+    """The port's server in this process on 127.0.0.1, an ephemeral port;
+    returns (server, httpd, base url) once it is READY (kernels built,
+    model loaded), or raises."""
+    from tts_tpu_torch.server.server import build_server, serve
+    srv = build_server(path, config=config, batch_slots=batch_slots, device=DEV)
+    httpd = serve(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    t0 = time.perf_counter()
+    while srv.state == "LOADING" and time.perf_counter() - t0 < 300:
+        time.sleep(0.1)
+    if srv.state != "READY":
+        httpd.shutdown()
+        raise AssertionError(f"server not READY after {time.perf_counter() - t0:.0f} s: "
+                             f"{srv.state} {srv.load_error}")
+    log(f"  server READY in {time.perf_counter() - t0:.1f} s "
+        f"(batch_slots {batch_slots})")
+    return srv, httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def serving_prompts(tokenizer, n=12, lo=5, hi=60):
+    """n prompts whose token counts (EOS included) spread over [lo, hi]."""
+    text = (PROMPT + " ") * 8
+    out = []
+    for t in np.linspace(lo, hi, n).round().astype(int):
+        k = next(k for k in range(1, len(text))
+                 if len(tokenizer.tokenize(text[:k].strip())) + 1 >= t)
+        out.append(text[:k].strip())
+    return out
+
+
+def check_wav(body) -> float:
+    """Seconds of audio in a WAV response; raises if it is not one."""
+    from tts_tpu_torch.audio.wav import decode_wav
+    audio, rate = decode_wav(body)
+    if rate != 44100 or audio.size == 0 or audio.size % 512 or \
+            not np.all(np.isfinite(audio)):
+        raise AssertionError("response is not a valid waveform")
+    return audio.size / rate
+
+
+def run_serving(path) -> dict:
+    """12 concurrent requests with mixed sampling parameters through the
+    server's continuous-batching engine (8 slots, so slots refill); every
+    response must be a WAV, and K1, K4 and K5 must have been launched.
+    Then the batched decode step timed and traced, one request through
+    batch_slots 0, and greedy parity of the engine with the single-stream
+    runner. Returns the launch counts of the 12 requests."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
+    log("Serving: the port's server, batch_slots 8, sampled default config, "
+        "12 concurrent requests:")
+    srv, httpd, base = start_server(path, GenerationConfig(top_k=50), 8)
+    model = srv.default_model
+    runner = srv.runners[model]
+    prompts = serving_prompts(runner.tokenizer)
+    params = [dict(temperature=(0.7, 1.0)[i % 2], top_k=(50, 0)[i // 2 % 2],
+                   top_p=(1.0, 0.9)[i // 4 % 2],
+                   repetition_penalty=(1.0, 1.1)[i // 3 % 2])
+              for i in range(len(prompts))]
+    lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
+    results = [None] * len(prompts)
+
+    def req(i):
+        t0 = time.perf_counter()
+        r = _post(base, dict(input=prompts[i], **params[i]))
+        results[i] = (r, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=req, args=(i,)) for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    audio_s = 0.0
+    for i, ((code, body, headers), _) in enumerate(results):
+        if code != 200:
+            raise AssertionError(f"request {i} answered {code}: {body[:300]!r}")
+        audio_s += check_wav(body)
+        capped = headers.get("X-TTS-Top-K-Applied")
+        if capped != ("256" if params[i]["top_k"] == 0 else None):
+            raise AssertionError(f"request {i}: X-TTS-Top-K-Applied {capped!r}")
+    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+        m = json.loads(r.read())
+    lat = sorted(t for _, t in results)
+    log(f"  prompt tokens {lens}; every response a WAV, top-k cap headers "
+        f"right; /metrics requests {m['requests_total']}, failed "
+        f"{m['requests_failed']}; launches {launches}")
+    if m["requests_total"] != len(prompts) or m["requests_failed"]:
+        raise AssertionError("/metrics does not count 12 requests and 0 failures")
+    for n in SERVING_PATH:
+        if launches[n] == 0:
+            raise AssertionError(f"kernel {n} was not launched on the serving path")
+    stats = dict(requests=len(prompts), wall_s=wall, audio_s=audio_s,
+                 audio_s_per_wall_s=audio_s / wall,
+                 latency_p50_s=lat[len(lat) // 2], latency_max_s=lat[-1])
+    httpd.shutdown()
+
+    # the batched decode step alone: 8 live slots, a 32-step chunk timed
+    # (one host sync), then a 32-step chunk traced
+    eng = BatchedParlerEngine(runner.cfg, runner.weights, runner.tokenizer,
+                              n_slots=8, chunk=32)
+    for p, kw in zip(prompts[:8], params):
+        eng.submit(p, GenerationConfig(**kw))
+    eng.step()
+    torch.cuda.synchronize()
+    before = {n: k.launches for n, k in KERNELS.items()}
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    stats["decode_ms_per_batched_step"] = (time.perf_counter() - t0) * 1e3 / 32
+    stats["launches_per_batched_step"] = {
+        n: (k.launches - before[n]) / 32 for n, k in KERNELS.items()}
+    device_trace(eng.step, "batched decode, 8 slots", 32)
+    if any(r is None for r in eng.slot_req):
+        raise AssertionError("a slot finished inside the timed window")
+    del eng
+    torch.cuda.empty_cache()
+
+    # one request through batch_slots 0 (the single-stream worker pool)
+    srv0, httpd0, base0 = start_server(path, GenerationConfig(top_k=50), 0)
+    t0 = time.perf_counter()
+    code, body, _ = _post(base0, dict(input=prompts[5], **params[5]))
+    t1 = time.perf_counter()
+    httpd0.shutdown()
+    if code != 200:
+        raise AssertionError(f"batch_slots 0 request answered {code}")
+    one_s = check_wav(body)
+    stats.update(single_latency_s=t1 - t0, single_audio_s_per_wall_s=one_s / (t1 - t0))
+    log(f"  timed: {json.dumps(stats)}")
+    del srv0
+    torch.cuda.empty_cache()
+
+    # greedy parity: 4 prompts of different lengths in 8 slots against the
+    # single-stream runner (generation cut to 96 steps past the longest
+    # prompt: parity needs no more)
+    cfg = dataclasses.replace(runner.cfg, max_generation_size=max(lens) + 96)
+    single = copy.copy(runner)
+    single.cfg = cfg
+    greedy = GenerationConfig(sample=False)
+    eng = BatchedParlerEngine(cfg, runner.weights, runner.tokenizer, n_slots=8,
+                              chunk=32)
+    picks = [prompts[i] for i in (0, 4, 8, 11)]
+    rids = [eng.submit(p, greedy) for p in picks]
+    eng.run_until_done()
+    for rid, p in zip(rids, picks):
+        want = single.generate_codes(p, greedy)
+        got = eng.results[rid]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"greedy codes of the engine differ from the "
+                                 f"runner's for a {len(p)}-char prompt: "
+                                 f"{got.shape} vs {want.shape}")
+    log(f"  greedy parity: 4 requests in 8 slots give the single-stream "
+        f"runner's codes exactly ({[eng.results[r].shape[0] for r in rids]} "
+        f"frames): ok")
     return launches
 
 
@@ -759,7 +1071,7 @@ def main() -> int:
     card = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)} ({card}); torch "
         f"{torch.__version__} CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     times = _build.build()
     log(f"built {sorted(times)} in {time.perf_counter() - t0:.1f} s "
         f"(per source {', '.join(f'{k} {v:.1f} s' for k, v in times.items())})")
@@ -771,13 +1083,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
-    rows = [check_k1(gen), check_k2(gen), check_k3(gen)]
+    mega, qtype = mini_mega(gen)
+    rows = [check_k1(gen), check_k2(gen, mega, qtype), check_k3(gen),
+            check_k4(gen), check_k5(gen, mega, qtype)]
+    del mega
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         check_small_reference(tmp)
-        launches = run_main_path(tmp)
+        launches, path = run_main_path(tmp)
+        torch.cuda.empty_cache()
+        served = run_serving(path)
+    # each kernel's launches on the path it belongs to: K1-K3 on the CLI's
+    # single stream, K4 and K5 on the server's batched engine
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        row["launches"] = (served if row["name"] in ("decode_attention_batched",
+                                                     "parler_megastep_batched")
+                           else launches)[row["name"]]
+    log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -8,7 +8,9 @@ elsewhere. On the card:
 machine need not have; this file uses none of its fixtures.)
 
 chip_smoke.py holds the same kernels to their plain versions at the main
-path's full shapes.
+path's full shapes. The batched kernels (K4, K5) are checked with slots at
+mixed positions across 256-row page boundaries, and each slot against the
+one-sequence kernel (K3, K2) on that slot's state, bit for bit.
 """
 import pytest
 import torch
@@ -106,3 +108,91 @@ def test_k2_matches_plain(dev, qtype, use_cross):
     assert torch.equal(v1[:, :, rows], vc[:, :, rows])
     assert torch.equal(k1[:, :, 300], got[1].reshape(L, heads, 64).to(torch.bfloat16))
     assert torch.equal(v1[:, :, 300], got[2].reshape(L, heads, 64).to(torch.bfloat16))
+
+
+MIXED = [0, 255, 256, 257, 511, 639]
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [1, 4])
+def test_k4_matches_plain_and_k3(dev, cache_dtype, n_rep):
+    """Slots at mixed positions: 1e-5 absolute against the plain version;
+    each slot equals K3 on its own cache bit for bit."""
+    torch.manual_seed(0)
+    b = len(MIXED)
+    q = torch.randn((b, 4 * n_rep, 64), device=dev)
+    k = torch.randn((b, 4, 640, 64), device=dev).to(cache_dtype)
+    v = torch.randn((b, 4, 640, 64), device=dev).to(cache_dtype)
+    p = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    got = da.decode_attention_batched_cuda(q, k, v, p)
+    torch.testing.assert_close(got, da.decode_attention_batched_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+    for s in range(b):
+        assert torch.equal(got[s], da.decode_attention_cuda(q[s], k[s], v[s],
+                                                            p[s:s + 1]))
+
+
+def test_k4_shared_kv_and_strided_q(dev):
+    """Cross-attention mode (one K/V and one position for every slot) with q
+    a strided view of wider rows, as the batched step passes it."""
+    torch.manual_seed(0)
+    qkv = torch.randn((3, 3 * 256), device=dev)
+    q = qkv[:, :256].unflatten(1, (4, 64))
+    k = torch.randn((4, 40, 64), device=dev)
+    v = torch.randn((4, 40, 64), device=dev)
+    p = torch.tensor([39], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(da.decode_attention_batched_cuda(q, k, v, p),
+                               da.decode_attention_batched_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+
+
+def _tiny_mega(dev, qtype):
+    """Two random layers at H=256. Q8_0 scales are divided by 16 (exact in
+    bf16) so that its weights have Q4_0's magnitude (std ~0.02): with codes
+    up to +-128 at Q4's scales the activations grow to ~1e2 and one flipped
+    bf16 rounding moves a whole slot past any fixed tolerance."""
+    from tts_tpu_torch.models.parler.model import ParlerLayerWeights
+    L, H, F, heads = 2, 256, 512, 4
+    div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
+
+    def stack(n, k):
+        ws = [_rand_quant(n, k, qtype, torch.bfloat16, dev).pack() for _ in range(L)]
+        return qm.QuantTensor(torch.stack([w.codes for w in ws]),
+                              torch.stack([w.scales for w in ws]) / div, qtype)
+
+    vec = lambda one=0.0: torch.randn((L, H), device=dev) * 0.1 + one  # noqa: E731
+    lw = ParlerLayerWeights(
+        vec(1), vec(), stack(H, H), stack(H, H), stack(H, H), stack(H, H),
+        vec(1), vec(), stack(H, H), stack(H, H),
+        torch.randn((L, heads, 16, 64), device=dev),
+        torch.randn((L, heads, 16, 64), device=dev), vec(1), vec(),
+        stack(F, H), stack(H, F))
+    return pm.prep_mega_layers(lw)
+
+
+@pytest.mark.parametrize("b", [3, 12])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k5_matches_k2_and_plain(dev, qtype, b):
+    """B slots at mixed positions (B = 12 takes the 16-row kernel): each slot
+    equals a K2 step on that slot's state bit for bit; against the plain
+    version, 5e-4 of the largest value (see test_k2_matches_plain)."""
+    torch.manual_seed(0)
+    mega, qt = _tiny_mega(dev, qtype)
+    L, H, heads, ctx = 2, 256, 4, 640
+    pos = torch.tensor((MIXED * 2)[:b], dtype=torch.int32, device=dev)
+    kc = torch.randn((L, b, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, b, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((b, H), device=dev)
+    kw = dict(qtype=qt, use_cross=True, n_heads=heads)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = pm.parler_megastep_batched_cuda(mega, x, k1, v1, pos, **kw)
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        xs, kn, vn = pm.parler_megastep_cuda(mega, x[s:s + 1], ks, vs,
+                                             pos[s:s + 1], **kw)
+        assert torch.equal(got[0][s:s + 1], xs) and torch.equal(got[1][:, s], kn)
+        assert torch.equal(got[2][:, s], vn)
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+    ref = pm.parler_megastep_batched_plain(mega, x, k2, v2, pos, **kw)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0, atol=5e-4 * r.abs().max().item())

@@ -1,26 +1,31 @@
-// K3: single-query decode attention over a KV cache, reading rows [0, pos].
+// K3 and K4: single-query decode attention over a KV cache, reading rows
+// [0, pos], for one sequence (K3) or a batch of B sequences each at its own
+// position (K4). K3 is K4 with B = 1: one kernel serves both.
 //
-// Replaces the TPU kernel tts_tpu/ops/decode_attention.py:_kernel (wrapper
-// paged_decode_attention): q (Hq, D), k/v (Hkv, CTX, D) in bf16 or f32,
-// GQA (q head h reads kv head h / n_rep), softmax in f32 with a running max
-// and sum. `pos` is read from device memory, so a decode loop never has to
-// bring it to the host.
+// Replaces the TPU kernels tts_tpu/ops/decode_attention.py:_kernel (wrapper
+// paged_decode_attention) and :_batched_kernel (wrapper
+// paged_decode_attention_batched): q (B, Hq, D), k/v (B, Hkv, CTX, D) in
+// bf16 or f32, GQA (q head h reads kv head h / n_rep), softmax in f32 with a
+// running max and sum. `pos` (one per slot, or one shared) is read from
+// device memory, so a decode loop never has to bring it to the host.
 //
 // What bounds it on the H100: every K and V row up to pos is read once and
 // used for 2 flops per element: memory bandwidth (plus launch latency at
 // short contexts).
 //
-// Design: the TPU kernel walks 256-row pages in a sequential grid, carrying
+// Design: the TPU kernels walk 256-row pages in a sequential grid, carrying
 // the running max/sum in VMEM scratch. Blocks on the H100 run in no order,
-// so here each 256-row page of each q head is its own block (grid
-// (Hq, CTX / 256)); pages past pos exit at once. Inside a block, lanes that
-// share a cache row each read 16 bytes of it (8 lanes per 64-wide bf16 row),
-// so a warp reads several whole rows per coalesced pass; each lane keeps an
-// online-softmax state for its slice of D, merged across the warp with
-// shuffles and across warps through shared memory. A second kernel merges
-// the pages' partial (max, sum, weighted V) into the output; with one page
-// (a context of at most 256 rows, e.g. cross-attention) the first kernel
-// writes the output itself.
+// so here each 256-row page of each (slot, q head) is its own block (grid
+// (B * Hq, CTX / 256)); pages past the slot's pos exit at once. Inside a
+// block, lanes that share a cache row each read 16 bytes of it (8 lanes per
+// 64-wide bf16 row), so a warp reads several whole rows per coalesced pass;
+// each lane keeps an online-softmax state for its slice of D, merged across
+// the warp with shuffles and across warps through shared memory. A second
+// kernel merges each (slot, head)'s pages' partial (max, sum, weighted V)
+// into the output, in page order; with one page (a context of at most 256
+// rows, e.g. cross-attention) the first kernel writes the output itself.
+// The K/V batch stride may be 0: the Parler cross-attention K/V are shared
+// by every slot, so one kernel serves both attentions of the batched step.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -66,55 +71,60 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
   m = mn;
 }
 
-// Grid (Hq, n_pages). Writes out (Hq, D) directly when n_pages == 1, else
-// the page's partial state to part_ml (Hq, n_pages, 2) / part_acc
-// (Hq, n_pages, D).
+// Grid (B * Hq, n_pages). Writes out (B * Hq, D) directly when n_pages == 1,
+// else the page's partial state to part_ml (B * Hq, n_pages, 2) / part_acc
+// (B * Hq, n_pages, D). Slot s reads q at q + s * q_bstride, its cache at
+// kc/vc + s * kv_bstride and its position at pos[s * pos_stride].
 template <typename T, int D>
 __global__ void __launch_bounds__(NWARPS * 32)
 attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  const T* __restrict__ vc, const int* __restrict__ pos_ptr,
                  float* __restrict__ out, float* __restrict__ part_ml,
-                 float* __restrict__ part_acc, int n_rep, int ctx,
+                 float* __restrict__ part_acc, int hq, int n_rep, int ctx,
+                 long long q_bstride, long long kv_bstride, int pos_stride,
                  float scale) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / VEC;         // lanes per cache row
   constexpr int RPW = 32 / LPR;        // rows per warp pass
   static_assert(LPR <= 32 && 32 % LPR == 0, "unsupported head size");
-  const int h = blockIdx.x, page = blockIdx.y, n_pages = gridDim.y;
+  const int bh = blockIdx.x, page = blockIdx.y, n_pages = gridDim.y;
+  const int s = bh / hq, h = bh % hq;
   const int kvh = h / n_rep;
-  const int pos = min(*pos_ptr, ctx - 1);
+  const int pos = min(pos_ptr[(size_t)s * pos_stride], ctx - 1);
+  const int row0 = page * PAGE;
+  if (row0 > pos) return;  // past this slot's position: the combine skips it
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane % LPR, r = lane / LPR;
-  const int row0 = page * PAGE;
   const int row_end = min(row0 + PAGE - 1, pos);  // inclusive
 
+  const float* qs = q + (size_t)s * q_bstride + (size_t)h * D;
   float qv[VEC];
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) qv[i] = q[h * D + sub * VEC + i] * scale;
+  for (int i = 0; i < VEC; ++i) qv[i] = qs[sub * VEC + i] * scale;
 
   float m = -INFINITY, l = 0.f, acc[VEC];
 #pragma unroll
   for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
 
-  const size_t head_off = (size_t)kvh * ctx * D + sub * VEC;
+  const size_t head_off = (size_t)s * kv_bstride + (size_t)kvh * ctx * D + sub * VEC;
   // warp-uniform bound so every lane joins the shuffles
   for (int base = row0 + warp * RPW; base <= row_end; base += NWARPS * RPW) {
     const int t = base + r;
     const bool valid = t <= row_end;
     float kv[VEC];
-    float s = 0.f;
+    float sc = 0.f;
     if (valid) {
       load_vec<T>(kc + head_off + (size_t)t * D, kv);
 #pragma unroll
-      for (int i = 0; i < VEC; ++i) s += qv[i] * kv[i];
+      for (int i = 0; i < VEC; ++i) sc += qv[i] * kv[i];
     }
 #pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    for (int o = LPR / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
     if (valid) {
       load_vec<T>(vc + head_off + (size_t)t * D, kv);
-      const float mn = fmaxf(m, s);
+      const float mn = fmaxf(m, sc);
       const float c = expf(m - mn);  // m = -inf -> 0
-      const float p = expf(s - mn);
+      const float p = expf(sc - mn);
       l = l * c + p;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) acc[i] = acc[i] * c + p * kv[i];
@@ -144,66 +154,82 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
     float mm = -INFINITY, ll = 0.f, aa = 0.f;
     for (int w = 0; w < NWARPS; ++w) merge<1>(mm, ll, &aa, sm_ml[w][0], sm_ml[w][1], &sm_acc[w][d]);
     if (n_pages == 1) {
-      out[h * D + d] = aa / ll;
+      out[(size_t)bh * D + d] = aa / ll;
     } else {
-      const size_t pi = (size_t)h * n_pages + page;
+      const size_t pi = (size_t)bh * n_pages + page;
       part_acc[pi * D + d] = aa;
       if (d == 0) { part_ml[pi * 2] = mm; part_ml[pi * 2 + 1] = ll; }
     }
   }
 }
 
-// Grid (Hq), D threads: merge the pages' partial states.
+// Grid (B * Hq), D threads: merge the pages [0, pos / 256] of each
+// (slot, head) in page order.
 __global__ void attn_combine_kernel(const float* __restrict__ part_ml,
                                     const float* __restrict__ part_acc,
-                                    float* __restrict__ out, int n_pages,
+                                    const int* __restrict__ pos_ptr,
+                                    float* __restrict__ out, int hq,
+                                    int n_pages, int ctx, int pos_stride,
                                     int D) {
-  const int h = blockIdx.x, d = threadIdx.x;
+  const int bh = blockIdx.x, d = threadIdx.x;
+  const int s = bh / hq;
+  const int last = min(pos_ptr[(size_t)s * pos_stride], ctx - 1) / PAGE;
   float m = -INFINITY, l = 0.f, a = 0.f;
-  for (int p = 0; p < n_pages; ++p) {
-    const size_t pi = (size_t)h * n_pages + p;
+  for (int p = 0; p <= last; ++p) {
+    const size_t pi = (size_t)bh * n_pages + p;
     merge<1>(m, l, &a, part_ml[pi * 2], part_ml[pi * 2 + 1], &part_acc[pi * D + d]);
   }
-  out[h * D + d] = a / l;
+  out[(size_t)bh * D + d] = a / l;
 }
 
 template <typename T, int D>
 void launch(const float* q, const void* kc, const void* vc, const int* pos,
-            float* out, float* part_ml, float* part_acc, int hq, int n_rep,
-            int ctx, float scale, cudaStream_t s) {
+            float* out, float* part_ml, float* part_acc, int b, int hq,
+            int n_rep, int ctx, long long q_bstride, long long kv_bstride,
+            int pos_stride, float scale, cudaStream_t s) {
   const int n_pages = (ctx + PAGE - 1) / PAGE;
-  attn_page_kernel<T, D><<<dim3(hq, n_pages), NWARPS * 32, 0, s>>>(
+  attn_page_kernel<T, D><<<dim3(b * hq, n_pages), NWARPS * 32, 0, s>>>(
       q, reinterpret_cast<const T*>(kc), reinterpret_cast<const T*>(vc), pos,
-      out, part_ml, part_acc, n_rep, ctx, scale);
+      out, part_ml, part_acc, hq, n_rep, ctx, q_bstride, kv_bstride,
+      pos_stride, scale);
   if (n_pages > 1) {
-    attn_combine_kernel<<<hq, D, 0, s>>>(part_ml, part_acc, out, n_pages, D);
+    attn_combine_kernel<<<b * hq, D, 0, s>>>(part_ml, part_acc, pos, out, hq,
+                                             n_pages, ctx, pos_stride, D);
   }
 }
 
 }  // namespace
 
-// q (hq, d) f32; kc/vc (hq / n_rep, ctx, d), bf16 (cache_bf16) or f32; pos a
-// device int32; out (hq, d) f32; part_ml (hq, ceil(ctx/256), 2) and part_acc
-// (hq, ceil(ctx/256), d) f32 scratch. d must be 64 or 128.
-extern "C" int tts_decode_attention(const float* q, const void* kc,
-                                    const void* vc, const int* pos, float* out,
-                                    float* part_ml, float* part_acc, int hq,
-                                    int n_rep, int ctx, int d, int cache_bf16,
-                                    float scale, void* stream) {
+// q (b, hq, d) f32, slot s at q + s * q_bstride (the heads of a slot
+// contiguous); kc/vc (b, hq / n_rep, ctx, d), bf16 (cache_bf16) or f32,
+// slot s at + s * kv_bstride elements (0: one cache shared by every slot);
+// pos device int32, slot s at pos[s * pos_stride] (0: one shared position);
+// out (b, hq, d) f32; part_ml (b * hq, ceil(ctx/256), 2) and part_acc
+// (b * hq, ceil(ctx/256), d) f32 scratch. d must be 64 or 128. K3 is the
+// call with b = 1.
+extern "C" int tts_decode_attention(
+    const float* q, const void* kc, const void* vc, const int* pos,
+    float* out, float* part_ml, float* part_acc, int b, int hq, int n_rep,
+    int ctx, int d, int cache_bf16, long long q_bstride, long long kv_bstride,
+    int pos_stride, float scale, void* stream) {
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (hq <= 0 || n_rep <= 0 || hq % n_rep || ctx <= 0) {
+  if (b <= 0 || hq <= 0 || n_rep <= 0 || hq % n_rep || ctx <= 0 ||
+      (ctx + PAGE - 1) / PAGE > 65535) {
     return (int)cudaErrorInvalidValue;
   }
+#define TTS_ATTN_ARGS q, kc, vc, pos, out, part_ml, part_acc, b, hq, n_rep, ctx, \
+                      q_bstride, kv_bstride, pos_stride, scale, s
   if (cache_bf16 && d == 64) {
-    launch<__nv_bfloat16, 64>(q, kc, vc, pos, out, part_ml, part_acc, hq, n_rep, ctx, scale, s);
+    launch<__nv_bfloat16, 64>(TTS_ATTN_ARGS);
   } else if (cache_bf16 && d == 128) {
-    launch<__nv_bfloat16, 128>(q, kc, vc, pos, out, part_ml, part_acc, hq, n_rep, ctx, scale, s);
+    launch<__nv_bfloat16, 128>(TTS_ATTN_ARGS);
   } else if (!cache_bf16 && d == 64) {
-    launch<float, 64>(q, kc, vc, pos, out, part_ml, part_acc, hq, n_rep, ctx, scale, s);
+    launch<float, 64>(TTS_ATTN_ARGS);
   } else if (!cache_bf16 && d == 128) {
-    launch<float, 128>(q, kc, vc, pos, out, part_ml, part_acc, hq, n_rep, ctx, scale, s);
+    launch<float, 128>(TTS_ATTN_ARGS);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef TTS_ATTN_ARGS
   return (int)cudaGetLastError();
 }

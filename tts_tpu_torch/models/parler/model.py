@@ -42,7 +42,8 @@ from ...ops.attention import sdpa
 from ...ops.decode_attention import decode_attention
 from ...ops.linear import (Weight, dense, from_gguf_tensor, matmul,
                            stack_weights, take_rows)
-from ...ops.parler_megastep import layer_norm, parler_megastep, prep_mega_layers
+from ...ops.parler_megastep import (LN_EPS, layer_norm, parler_megastep,
+                                    prep_mega_layers)
 from ...ops.quant_matmul import QuantTensor
 from ...text import UnigramTokenizer
 from ..base import TTSRunner
@@ -148,22 +149,45 @@ def _layer_step(cfg: ParlerConfig, lw: ParlerLayerWeights, x, kv_k, kv_v,
     return x + matmul(h, lw.fc2)
 
 
+def final_norm(w: ParlerWeights, x):
+    """The decoder's final layer norm over rows x (T, H).
+
+    torch's layer_norm computes each row with the same threads and order
+    whatever the number of rows, so a batch row comes out bit for bit as
+    the same row alone: the batched engine's logits then equal the
+    single-stream step's (a two-pass mean over (B, H) is reduced with a
+    thread layout that depends on B)."""
+    return torch.nn.functional.layer_norm(x, x.shape[-1:], w.final_ln_w,
+                                          w.final_ln_b, eps=LN_EPS)
+
+
 def _transformer(cfg: ParlerConfig, w: ParlerWeights, x, kv_k, kv_v, pos,
                  attn_bias, use_cross: bool):
     """All layers, then the final layer norm. kv_k/kv_v: (L, heads, ctx, D)."""
     for i in range(cfg.n_layers):
         x = _layer_step(cfg, _layer(w.layers, i), x, kv_k[i], kv_v[i], pos,
                         attn_bias, use_cross)
-    return layer_norm(x, w.final_ln_w, w.final_ln_b)
+    return final_norm(w, x)
 
 
-def _logits_last(cfg: ParlerConfig, w: ParlerWeights, x_last):
-    """(H,) hidden -> (n_heads, vocab) logits via the stacked head matmul
-    (K1 for quantized heads). Per-head vocab padding (fast_stacked_heads)
-    gives exactly-zero columns, sliced off here."""
-    out = matmul(x_last[None, :], w.heads)[0]
+def _logits_last(cfg: ParlerConfig, w: ParlerWeights, x):
+    """(B, H) hidden rows -> (B, n_heads, vocab) logits via the stacked head
+    matmul (K1 for quantized heads, one row per slot). Per-head vocab
+    padding (fast_stacked_heads) gives exactly-zero columns, sliced off
+    here."""
+    out = matmul(x, w.heads)
     vocab_p = out.shape[-1] // cfg.n_output_heads
-    return out.reshape(cfg.n_output_heads, vocab_p)[:, : cfg.output_vocab_size]
+    return out.reshape(x.shape[0], cfg.n_output_heads, vocab_p)[
+        :, :, : cfg.output_vocab_size]
+
+
+def embed_step(cfg: ParlerConfig, w: ParlerWeights, tokens_in, pos):
+    """A decode step's input rows: the sum of the 9 codebook embeddings of
+    tokens_in (B, n_heads) plus the positional embedding at pos (B,)."""
+    heads_i = torch.arange(cfg.n_output_heads, device=tokens_in.device)
+    tok = tokens_in.clamp(max=w.embds.shape[1] - 1)
+    return w.embds[heads_i[None, :], tok].sum(dim=1) + \
+        w.pos_embd[pos.long().clamp(max=w.pos_embd.shape[0] - 1)]
 
 
 @torch.no_grad()
@@ -228,18 +252,15 @@ def step_logits(cfg: ParlerConfig, w: ParlerWeights, st: DecodeState, *,
     """The forward half of a decode step: embeddings sum, transformer
     (megastep or per matmul), final LN, LM heads -> (n_heads, vocab)
     logits. Writes this step's K/V into the cache in place."""
-    heads_i = torch.arange(cfg.n_output_heads, device=st.tokens_in.device)
-    tok = st.tokens_in.clamp(max=w.embds.shape[1] - 1)
-    x = w.embds[heads_i, tok].sum(dim=0, keepdim=True) + \
-        w.pos_embd[st.pos.long().clamp(max=w.pos_embd.shape[0] - 1)]
+    x = embed_step(cfg, w, st.tokens_in[None, :], st.pos)
     if mega is not None:
         xo, _, _ = parler_megastep(mega.layers, x, st.kv_k, st.kv_v, st.pos,
                                    qtype=mega.qtype, use_cross=use_cross,
                                    n_heads=cfg.n_attn_heads)
-        x = layer_norm(xo, w.final_ln_w, w.final_ln_b)
+        x = final_norm(w, xo)
     else:
         x = _transformer(cfg, w, x, st.kv_k, st.kv_v, st.pos, None, use_cross)
-    return _logits_last(cfg, w, x[0])
+    return _logits_last(cfg, w, x)[0]
 
 
 def advance(cfg: ParlerConfig, st: DecodeState, logits: torch.Tensor,

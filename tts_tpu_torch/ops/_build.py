@@ -28,7 +28,7 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "decode_attention", "parler_megastep")
+SOURCES = ("quant_matmul", "decode_attention", "parler_megastep")  # K1; K3/K4; K2/K5
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -118,8 +118,9 @@ class Kernel:
 
     `launches` is a plain integer: the wrapper adds one each time it
     launches the kernel, and nowhere else, so a run can show which kernels
-    its path went through. `entry()` builds and loads the library on first
-    use and declares the entry's ctypes signature.
+    its path went through (under a lock: the server launches from several
+    threads). `entry()` builds and loads the library on first use and
+    declares the entry's ctypes signature.
     """
 
     def __init__(self, source: str, symbol: str, argtypes):
@@ -128,6 +129,7 @@ class Kernel:
         self.argtypes = argtypes
         self.launches = 0
         self._fn = None
+        self._count_lock = threading.Lock()
 
     def entry(self):
         if self._fn is None:
@@ -140,7 +142,8 @@ class Kernel:
     def __call__(self, *args) -> None:
         """Launch through the C entry; raise on a CUDA error."""
         check(self.entry()(*args), self.symbol)
-        self.launches += 1
+        with self._count_lock:
+            self.launches += 1
 
 
 def check(err: int, what: str) -> None:

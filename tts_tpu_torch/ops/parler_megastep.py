@@ -1,19 +1,25 @@
-"""One Parler decode step over all L layers: kernel K2.
+"""One Parler decode step over all L layers: kernels K2 (one sequence) and
+K5 (B batch slots sharing one read of the weights).
 
 Computes the JAX package's `parler_megastep` (reference
-`parler_megastep_reference`): per layer LN -> qkv -> self-attention over the
-cache -> o -> LN -> cross-q -> cross-attention over the precomputed
+`parler_megastep_reference`) and `parler_megastep_batched` (reference
+`parler_megastep_batched_reference`): per layer LN -> qkv -> self-attention
+over the cache -> o -> LN -> cross-q -> cross-attention over the precomputed
 (heads, Tc, D) K/V -> co -> LN -> fc1 -> tanh-GELU -> fc2, with block-
 quantized weights at bf16-rounded dequant and bf16-rounded activations, f32
 sums (`_dqdot` numerics). Returns the pre-final-norm x and each layer's
 k_new / v_new.
 
 On the card the step is a sequence of hand-written kernels on one stream
-(csrc/parler_megastep.cu, its header says why): per layer 6 launches of
-K2's dequant GEMV, which fuses the layer norm before it and the residual add
-or GELU after it, and 2 launches of K3 (ops/decode_attention.py) for the
-self- and cross-attention. On CPU tensors `parler_megastep_plain` computes
-the same in plain PyTorch.
+(csrc/parler_megastep.cu, its header says why): per layer 6 launches of the
+dequant GEMV, which fuses the layer norm before it and the residual add or
+GELU after it, and 2 launches of the decode attention
+(ops/decode_attention.py) for the self- and cross-attention. K2 and K5 are
+one kernel (K2 is B = 1) and one launch sequence, `_megastep_cuda`; K2
+uses K3 for attention and K5 uses K4. Each row of a batched GEMV sums in the order a
+one-row GEMV does, so slot s of K5 equals K2 on slot s's state bit for bit.
+On CPU tensors `parler_megastep_plain` / `parler_megastep_batched_plain`
+compute the same in plain PyTorch.
 
 Unlike the TPU kernel, which folds the current token's k/v into the softmax
 and leaves the cache write to its caller, this step writes k/v into cache
@@ -29,17 +35,20 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .decode_attention import decode_attention_cuda, decode_attention_plain
+from . import decode_attention as da
+from .decode_attention import decode_attention_plain
 from .quant_matmul import BIAS, QuantTensor, quant_matmul_plain
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
-KERNEL = _build.Kernel(
-    "parler_megastep", "tts_parler_gemv",
-    [_vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _vp, _vp, _i32,
-     _vp, _vp, _vp, _i32, _i32, _i32, _i32, _vp])
+_ARGS = [_vp, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _vp, _vp,
+         _i32, _vp, _vp, _vp, _i32, _i32, _i32, _i32, ctypes.c_longlong, _vp]
+# One C entry serves both; each path counts its own launches.
+KERNEL = _build.Kernel("parler_megastep", "tts_parler_gemv", _ARGS)          # K2
+KERNEL_BATCHED = _build.Kernel("parler_megastep", "tts_parler_gemv", _ARGS)  # K5
 EPI_STORE, EPI_RESIDUAL, EPI_GELU, EPI_QKV = 0, 1, 2, 3
 LN_EPS = 1e-5
+MAX_BATCH = 16  # rows one batched GEMV launch takes (its register array)
 
 
 class MegaLayers(NamedTuple):
@@ -157,6 +166,22 @@ def parler_megastep_plain(mega: MegaLayers, x, kv_k, kv_v, pos, *,
     return x, torch.stack(k_new), torch.stack(v_new)
 
 
+def parler_megastep_batched_plain(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                                  qtype: int, use_cross: bool, n_heads: int):
+    """K5's plain PyTorch version: `parler_megastep_plain` per slot, as the
+    JAX package's `parler_megastep_batched_reference` (its spec) loops over
+    the single-slot reference. x (B, H); kv_k/kv_v (L, B, heads, CTX, D),
+    each slot written in place at its row pos[s]; pos (B,). Returns
+    (x_out (B, H), k_new (L, B, H), v_new (L, B, H))."""
+    p = torch.as_tensor(pos).reshape(-1)
+    outs = [parler_megastep_plain(mega, x[s:s + 1], kv_k[:, s], kv_v[:, s],
+                                  p[s], qtype=qtype, use_cross=use_cross,
+                                  n_heads=n_heads)
+            for s in range(x.shape[0])]
+    return (torch.cat([o[0] for o in outs]), torch.stack([o[1] for o in outs], 1),
+            torch.stack([o[2] for o in outs], 1))
+
+
 def _addr(t: torch.Tensor, *idx) -> int:
     """Address of t[idx] (leading indices) for a contiguous tensor: integer
     arithmetic, cheaper on the host than a view per launch, and the step is
@@ -165,19 +190,43 @@ def _addr(t: torch.Tensor, *idx) -> int:
     return t.data_ptr() + off * t.element_size()
 
 
-def parler_megastep_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
-                         qtype: int, use_cross: bool, n_heads: int):
-    """The step on the card: 6 K2 GEMV launches and 2 K3 launches per layer
-    on the current stream. Same contract as `parler_megastep_plain`, with
-    pos a one-element int32 CUDA tensor."""
+class StepScratch(NamedTuple):
+    """Buffers one step on the card reuses layer after layer; a caller that
+    steps often (the batched engine) allocates them once."""
+
+    attn: torch.Tensor   # (B, heads, D) self-/cross-attention output
+    cq: torch.Tensor     # (B, H) cross-attention query
+    up: torch.Tensor     # (B, F) GELU(fc1) output
+    part: tuple          # the attention kernel's partial states
+
+
+def step_scratch(mega: MegaLayers, b: int, n_heads: int, ctx: int,
+                 device) -> StepScratch:
+    hidden, ffn = mega.norms.shape[2], mega.fc1_codes.shape[1]
+    d = hidden // n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return StepScratch(
+        attn=torch.empty((b, n_heads, d), **f32),
+        cq=torch.empty((b, hidden), **f32), up=torch.empty((b, ffn), **f32),
+        part=da.attention_scratch(b, n_heads, max(ctx, mega.cross_k.shape[2]),
+                                  d, device))
+
+
+def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
+                   pos, *, qtype: int, use_cross: bool, n_heads: int,
+                   scratch: StepScratch | None):
+    """The step on the card for B rows: x (B, H), kv_k/kv_v
+    (L, B, heads, CTX, D), pos (B,) int32. Per layer 6 GEMV launches through
+    `gemv_kernel` and 2 attention launches through `attn_kernel`, on the
+    current stream."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.fc1_codes.shape[1]
     d = hidden // n_heads
-    ctx = kv_k.shape[2]
+    b, ctx = x.shape[0], kv_k.shape[3]
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32), ndim=4)
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=4)
+                   dtypes=(torch.bfloat16, torch.float32), ndim=5)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5)
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
@@ -187,55 +236,75 @@ def parler_megastep_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
     for name in ("qkv_scales", "occ_scales", "fc1_scales", "fc2_scales"):
         _build.require(getattr(mega, name), name, device=dev,
                        dtypes=(torch.bfloat16,), ndim=3, align=2)
-    if (kv_k.shape != (n_layers, n_heads, ctx, d) or kv_v.shape != kv_k.shape
-            or x.numel() != hidden or pos.numel() != 1):
+    if (kv_k.shape != (n_layers, b, n_heads, ctx, d) or kv_v.shape != kv_k.shape
+            or x.shape != (b, hidden) or pos.numel() != b
+            or not 0 < b <= MAX_BATCH):
         raise ValueError(f"parler_megastep: x {tuple(x.shape)}, "
-                         f"kv {tuple(kv_k.shape)}, L={n_layers} H={hidden}")
+                         f"kv {tuple(kv_k.shape)}, pos {tuple(pos.shape)}, "
+                         f"L={n_layers} H={hidden}, at most {MAX_BATCH} rows")
+    sc = scratch or step_scratch(mega, b, n_heads, ctx, dev)
     packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
     cache_bf16 = int(kv_k.dtype == torch.bfloat16)
+    kv_bstride = n_heads * ctx * d
     stream = _build.stream_ptr(dev)
-    xw = x.float().reshape(1, hidden).clone()
-    qkv = torch.empty((n_layers, 3 * hidden), dtype=torch.float32, device=dev)
-    cq = torch.empty((hidden,), dtype=torch.float32, device=dev)
-    up = torch.empty((ffn,), dtype=torch.float32, device=dev)
+    xw = x.float().clone()
+    qkv = torch.empty((n_layers, b, 3 * hidden), dtype=torch.float32, device=dev)
     nm, vp = mega.norms, ctypes.c_void_p
     null = vp(0)
+    pos_p = vp(pos.data_ptr())
     bpr_h = mega.qkv_codes.shape[2] * mega.qkv_codes.element_size()
     sbr_h = mega.qkv_scales.shape[2] * 2
 
     def gemv(xin, ln, codes_addr, scales_addr, n, k, res, out, epi,
              kc=null, vc=null, lnw=null, lnb=null):
-        KERNEL(xin, lnw, lnb, ln, vp(codes_addr), vp(scales_addr), qtype,
-               packed, n, k, res, out, epi, kc, vc, vp(pos.data_ptr()), hidden,
-               d, ctx, cache_bf16, stream)
+        gemv_kernel(xin, lnw, lnb, ln, vp(codes_addr), vp(scales_addr), qtype,
+                    packed, b, n, k, res, out, epi, kc, vc, pos_p, hidden, d,
+                    ctx, cache_bf16, kv_bstride, stream)
 
-    x_p = vp(xw.data_ptr())
+    def attend(q, kk, vv, p):
+        da._launch(attn_kernel, q, kk, vv, p, None, sc.attn, sc.part)
+
+    x_p, attn_p = vp(xw.data_ptr()), vp(sc.attn.data_ptr())
     for l in range(n_layers):
         q_out = qkv[l]
         gemv(x_p, 1, _addr(mega.qkv_codes, l), _addr(mega.qkv_scales, l),
              3 * hidden, hidden, null, vp(q_out.data_ptr()), EPI_QKV,
              kc=vp(_addr(kv_k, l)), vc=vp(_addr(kv_v, l)),
              lnw=vp(_addr(nm, l, 0)), lnb=vp(_addr(nm, l, 1)))
-        attn = decode_attention_cuda(q_out[:hidden].view(n_heads, d), kv_k[l],
-                                     kv_v[l], pos)
+        attend(q_out[:, :hidden].unflatten(1, (n_heads, d)), kv_k[l], kv_v[l],
+               pos)
         occ_c, occ_s = _addr(mega.occ_codes, l), _addr(mega.occ_scales, l)
-        gemv(vp(attn.data_ptr()), 0, occ_c, occ_s, hidden, hidden, x_p, x_p,
-             EPI_RESIDUAL)
+        gemv(attn_p, 0, occ_c, occ_s, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
         if use_cross:
             gemv(x_p, 1, occ_c + hidden * bpr_h, occ_s + hidden * sbr_h,
-                 hidden, hidden, null, vp(cq.data_ptr()), EPI_STORE,
+                 hidden, hidden, null, vp(sc.cq.data_ptr()), EPI_STORE,
                  lnw=vp(_addr(nm, l, 2)), lnb=vp(_addr(nm, l, 3)))
-            ca = decode_attention_cuda(cq.view(n_heads, d), mega.cross_k[l],
-                                       mega.cross_v[l], mega.cross_pos)
-            gemv(vp(ca.data_ptr()), 0, occ_c + 2 * hidden * bpr_h,
+            attend(sc.cq.view(b, n_heads, d), mega.cross_k[l], mega.cross_v[l],
+                   mega.cross_pos)
+            gemv(attn_p, 0, occ_c + 2 * hidden * bpr_h,
                  occ_s + 2 * hidden * sbr_h, hidden, hidden, x_p, x_p,
                  EPI_RESIDUAL)
         gemv(x_p, 1, _addr(mega.fc1_codes, l), _addr(mega.fc1_scales, l),
-             ffn, hidden, null, vp(up.data_ptr()), EPI_GELU,
+             ffn, hidden, null, vp(sc.up.data_ptr()), EPI_GELU,
              lnw=vp(_addr(nm, l, 4)), lnb=vp(_addr(nm, l, 5)))
-        gemv(vp(up.data_ptr()), 0, _addr(mega.fc2_codes, l),
+        gemv(vp(sc.up.data_ptr()), 0, _addr(mega.fc2_codes, l),
              _addr(mega.fc2_scales, l), hidden, ffn, x_p, x_p, EPI_RESIDUAL)
-    return xw, qkv[:, hidden:2 * hidden], qkv[:, 2 * hidden:]
+    return xw, qkv[:, :, hidden:2 * hidden], qkv[:, :, 2 * hidden:]
+
+
+def parler_megastep_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                         qtype: int, use_cross: bool, n_heads: int):
+    """K2 on the card: 6 GEMV launches and 2 K3 launches per layer on the
+    current stream. Same contract as `parler_megastep_plain`, with pos a
+    one-element int32 CUDA tensor."""
+    if x.numel() != mega.norms.shape[2] or kv_k.dim() != 4:
+        raise ValueError(f"parler_megastep: x {tuple(x.shape)}, "
+                         f"kv {tuple(kv_k.shape)}")
+    xo, kn, vn = _megastep_cuda(
+        KERNEL, da.KERNEL, mega, x.reshape(1, -1), kv_k.unsqueeze(1),
+        kv_v.unsqueeze(1), pos, qtype=qtype, use_cross=use_cross,
+        n_heads=n_heads, scratch=None)
+    return xo, kn[:, 0], vn[:, 0]
 
 
 def parler_megastep(mega: MegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
@@ -245,3 +314,27 @@ def parler_megastep(mega: MegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
     fn = parler_megastep_plain if x.device.type == "cpu" else parler_megastep_cuda
     return fn(mega, x, kv_k, kv_v, pos, qtype=qtype, use_cross=use_cross,
               n_heads=n_heads)
+
+
+def parler_megastep_batched_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                                 qtype: int, use_cross: bool, n_heads: int,
+                                 scratch: StepScratch | None = None):
+    """K5 on the card: 6 batched GEMV launches and 2 K4 launches per layer
+    for B <= 16 slots. Same contract as `parler_megastep_batched_plain`,
+    with pos a (B,) int32 CUDA tensor; `scratch` (step_scratch) is allocated
+    when not given."""
+    return _megastep_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, mega, x, kv_k,
+                          kv_v, pos, qtype=qtype, use_cross=use_cross,
+                          n_heads=n_heads, scratch=scratch)
+
+
+def parler_megastep_batched(mega: MegaLayers, x, kv_k, kv_v, pos, *,
+                            qtype: int, use_cross: bool, n_heads: int,
+                            scratch: StepScratch | None = None):
+    """Dispatch: K5 for CUDA tensors, the plain version for CPU tensors (which
+    ignores `scratch`). See `parler_megastep_batched_plain`."""
+    kw = dict(qtype=qtype, use_cross=use_cross, n_heads=n_heads)
+    if x.device.type == "cpu":
+        return parler_megastep_batched_plain(mega, x, kv_k, kv_v, pos, **kw)
+    return parler_megastep_batched_cuda(mega, x, kv_k, kv_v, pos,
+                                        scratch=scratch, **kw)
