@@ -31,6 +31,21 @@ Phases, in order; any failure exits non-zero without the final line:
    K5 must have risen. Then the batched decode step timed and traced, one
    request through batch_slots 0, and the engine's greedy codes against
    the single-stream runner's (equal).
+6. Orpheus reference: a small Q4_0 Orpheus on both decode routes (Q4_0
+   head: K6; F16 head: K8) on the card and on the CPU, teacher-forced
+   logits compared at every step, and the tokens vocoded through SNAC on
+   both.
+7. Orpheus main path: an Orpheus-3B-shaped Q4_0 GGUF (28 layers, H 3072,
+   24/8 heads of 128, F 8192, vocab 156,940, Q4_0 head, F16 embeddings,
+   SNAC-24k; random weights from a seed) turned into a WAV by the port's
+   CLI with a voice (sampled, fixed seed, up to 2100 tokens); counters set
+   to 0 just before, read just after; K1, K3 and K6 must have risen. Then
+   the path timed stage by stage and a device trace of 32 decode steps,
+   and the K8 route (the head swapped for an F16 one, 64 decode steps):
+   K8 must have risen.
+
+Phase 2 also holds K8 and K6 at Orpheus-3B width against their plain
+versions, layer by layer at positions around K3's pages, and times them.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing each kernel, and
@@ -52,6 +67,7 @@ import time
 import traceback
 import urllib.error
 import urllib.request
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -59,6 +75,8 @@ import torch
 from tts_tpu_torch.gguf import GGUFWriter, quants
 from tts_tpu_torch.ops import _build
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import llama_flat as lf
+from tts_tpu_torch.ops import llama_megastep as lm
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
 
@@ -202,9 +220,8 @@ def stack_quant(gen, layers, n, k, scale_dtype=torch.bfloat16):
                           quants.GGML_TYPE_Q4_0)
 
 
-def quant_bytes(w: qm.QuantTensor) -> int:
-    return w.codes.numel() * w.codes.element_size() + \
-        w.scales.numel() * w.scales.element_size()
+def tensor_bytes(ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +265,8 @@ def check_k1(gen) -> dict:
     ms = cuda_ms(lambda: qm.quant_matmul_cuda(x, nxt()))
     plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, nxt()))
     lib_ms = cuda_ms(lambda: x @ nxt().dense().T)
-    b_ms, b_by = bound(quant_bytes(ws[0]) + x.numel() * 4 + N * 4,
-                       2 * N * H, "bf16")
+    b_ms, b_by = bound(tensor_bytes((ws[0].codes, ws[0].scales)) +
+                       x.numel() * 4 + N * 4, 2 * N * H, "bf16")
     log(f"  heads 1x{N}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"dequant+matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="quant_matmul", route="cuda",
@@ -340,70 +357,87 @@ def mini_mega(gen):
     return pm.prep_mega_layers(lw)
 
 
-def check_k2_layers(mega, x, kc, vc, pos, kw, kernel=None, plain=None,
-                    label="K2") -> list[float]:
+def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
+                 err, base, layers=None) -> list[float]:
     """Layer by layer at full width: each layer's kernels and its plain
     version take the same input (the kernels' output of the layer before)
     and fresh copies of that layer's cache, and each layer's update of x
     (x_out - x_in, the residual taken out so that it cannot hide the
     layer's work), k_new and v_new are compared, relative to the largest
-    value. One layer computes the same bf16 roundings with f32 sums in
-    another order, so it agrees to f32 noise unless a rounding flips (a
-    2^-9 jump of one activation that moves the products it feeds). How
-    much that moves a layer is measured alongside: the plain version on
-    the host's CPU against the plain version on the card, two correct
-    versions whose sums run in other orders. Over the layers, the kernel's
-    largest and mean error must stay within 4x that pair's largest and
-    mean difference, or 1e-5. (The mean, not the median: a layer either
-    flips a rounding or agrees to f32 noise, and which of the two the
-    median layer does changes with the last bit of the input.) A missing
-    rounding or a lost K/V row moves every layer and fails the mean.
-    `kernel` / `plain` default to K2's step and its plain version; K5's
-    batched pair takes x (B, H), caches (L, B, ...) and pos (B,) the same
-    way. Returns the absolute errors."""
-    kernel = kernel or pm.parler_megastep_cuda
-    plain = plain or pm.parler_megastep_plain
-    n_layers = mega.norms.shape[0]
-    p = pos.tolist()
+    value. `one(l)` gives layer l's weights as a one-layer stack; `layers`
+    (default all) are the layers compared, the others run the kernels only.
+    How much a correct version moves is measured alongside: the plain
+    version on the host's CPU against the plain version on the card, two
+    correct versions whose sums run in other orders. Appends each compared
+    layer's relative error and yardstick to `err` / `base` (defaultdicts of
+    lists, by output name) and returns the absolute errors."""
     names = ("x_out - x_in", "k_new", "v_new")
-    err = {nm: [] for nm in names}
-    base = {nm: [] for nm in names}
     abs_errs, xin = [], x
     for l in range(n_layers):
-        one = pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]), mega.cross_pos)
+        w = one(l)
 
         def run(fn, dev):
             xl = xin.to(dev)
-            xo, k, v = fn(pm.MegaLayers(*(t.to(dev) for t in one)), xl,
+            kwd = {k: v.to(dev) if torch.is_tensor(v) else v for k, v in kw.items()}
+            xo, k, v = fn(type(w)(*(t.to(dev) for t in w)), xl,
                           kc[l:l + 1].to(dev, copy=True),
-                          vc[l:l + 1].to(dev, copy=True), pos.to(dev), **kw)
+                          vc[l:l + 1].to(dev, copy=True), pos.to(dev), **kwd)
             return [t.to(DEV) for t in (xo - xl, k, v)]
 
         got = run(kernel, DEV)
-        ref = run(plain, DEV)
-        host = run(plain, torch.device("cpu"))
-        for nm, a, b, c in zip(names, got, ref, host):
-            if not bool(torch.isfinite(a).all()):
-                raise AssertionError(f"{label} layer {l} {nm} is not finite")
-            scale = float(b.abs().max())
-            abs_errs.append(max_err(a, b))
-            err[nm].append(abs_errs[-1] / scale)
-            base[nm].append(max_err(c, b) / scale)
+        if layers is None or l in layers:
+            ref = run(plain, DEV)
+            host = run(plain, torch.device("cpu"))
+            for nm, a, b, c in zip(names, got, ref, host):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{label} layer {l} {nm} is not finite")
+                scale = float(b.abs().max())
+                abs_errs.append(max_err(a, b))
+                err[nm].append(abs_errs[-1] / scale)
+                base[nm].append(max_err(c, b) / scale)
         xin = xin + got[0]
-    for nm in names:
+    return abs_errs
+
+
+def judge_layers(err, base, label, where) -> None:
+    """One layer computes the same bf16 roundings with f32 sums in another
+    order, so it agrees to f32 noise unless a rounding flips (a 2^-9 jump
+    of one activation that moves the products it feeds). Over the compared
+    cases, the kernel's largest and mean error must stay within 4x the
+    yardstick pair's largest and mean difference, or 1e-5. (The mean, not
+    the median: a layer either flips a rounding or agrees to f32 noise, and
+    which of the two the median layer does changes with the last bit of
+    the input.) A missing rounding or a lost K/V row moves every layer and
+    fails the mean."""
+    for nm in err:
         e, b = np.asarray(err[nm]), np.asarray(base[nm])
         tol_max = max(4 * float(b.max()), 1e-5)
         tol_mean = max(4 * float(b.mean()), 1e-5)
         ok = e.max() <= tol_max and e.mean() <= tol_mean
-        log(f"  pos {p} layer by layer, {nm}: relative error max "
-            f"{e.max():.3e} (layer {int(e.argmax())}, tol {tol_max:.3e}), "
-            f"mean {e.mean():.3e} (tol {tol_mean:.3e}), median "
-            f"{np.median(e):.3e}; plain on the CPU vs plain on the card: "
-            f"max {b.max():.3e}, mean {b.mean():.3e}, median "
-            f"{np.median(b):.3e} {'ok' if ok else 'FAIL'}")
+        log(f"  {where} ({e.size} cases), {nm}: relative error max "
+            f"{e.max():.3e} (tol {tol_max:.3e}), mean {e.mean():.3e} (tol "
+            f"{tol_mean:.3e}), median {np.median(e):.3e}; yardstick pair: max "
+            f"{b.max():.3e}, mean {b.mean():.3e}, median {np.median(b):.3e} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"{label} layer by layer {nm}: kernel "
-                                 f"disagrees with its plain version")
+            raise AssertionError(f"{label} {where} {nm}: kernel disagrees "
+                                 f"with its plain version")
+
+
+def check_k2_layers(mega, x, kc, vc, pos, kw, kernel=None, plain=None,
+                    label="K2") -> list[float]:
+    """`layer_errors` and `judge_layers` over every layer of a Parler step
+    at one position. `kernel` / `plain` default to K2's step and its plain
+    version; K5's batched pair takes x (B, H), caches (L, B, ...) and pos
+    (B,) the same way. Returns the absolute errors."""
+    err, base = defaultdict(list), defaultdict(list)
+    abs_errs = layer_errors(
+        lambda l: pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]), mega.cross_pos),
+        mega.norms.shape[0], x, kc, vc, pos, kw,
+        kernel or pm.parler_megastep_cuda, plain or pm.parler_megastep_plain,
+        label, err, base)
+    judge_layers(err, base, label, f"pos {pos.tolist()} layer by layer, "
+                 f"yardstick plain on the CPU vs plain on the card")
     return abs_errs
 
 
@@ -453,7 +487,7 @@ def check_k2(gen, mega, qtype) -> dict:
                        iters=5, warmup=1)
     # weights, norms and cross K/V read once; self-attention K/V rows up to
     # pos read once; this token's k/v written; x in and out
-    wbytes = sum(t.numel() * t.element_size() for t in mega[:11])
+    wbytes = tensor_bytes(mega[:11])
     kv_bytes = 2 * L * heads * (p + 1) * d * 2
     flops = 2 * L * (6 * H * H + 2 * H * MINI["ffn"])
     b_ms, b_by = bound(wbytes + kv_bytes + 2 * L * H * 2 + 2 * H * 4, flops, "bf16")
@@ -571,7 +605,7 @@ def check_k5(gen, mega, qtype) -> dict:
     # weights, norms and cross K/V read once for all slots; each slot's
     # self-attention K/V rows up to its pos; this token's k/v written; x in
     # and out
-    wbytes = sum(t.numel() * t.element_size() for t in mega[:11])
+    wbytes = tensor_bytes(mega[:11])
     kv_bytes = 2 * L * heads * sum(int(p) + 1 for p in pos) * d * 2
     flops = 2 * b * L * (6 * H * H + 2 * H * MINI["ffn"])
     b_ms, b_by = bound(wbytes + kv_bytes + 2 * b * L * H * 2 + 2 * b * H * 4,
@@ -584,6 +618,186 @@ def check_k5(gen, mega, qtype) -> dict:
                 replaces="tts_tpu/ops/parler_megastep.py:406",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase 2, Orpheus: K8 and K6 at Orpheus-3B width
+# ---------------------------------------------------------------------------
+
+# Orpheus-3B: canopylabs' config, a Llama-3.2-3B body (the JAX package's
+# OrpheusConfig defaults). The cache has cache_ctx(OrpheusConfig()) rows.
+ORPHEUS = dict(n_layers=28, hidden=3072, heads=24, kv_heads=8, ffn=8192,
+               vocab=156940, ctx=3584, theta=500000.0)
+LLAMA_POS = (0, 255, 256, 511, 512, 1000, 3000)  # around K3's 256-row pages
+LLAMA_LAYERS = (0, 9, 18, 27)                    # compared at every position
+VOICE = "zoe"
+
+
+def llama3_rope_factors(d: int, theta: float) -> np.ndarray:
+    """The llama3 RoPE frequency factors of Llama-3.2's rope_scaling (factor
+    32, low 1, high 4, 8192 original positions), as a GGUF stores them in
+    `orpheus.rope_frequencies`: inv_freq is divided by them."""
+    factor, low, high, old_ctx = 32.0, 1.0, 4.0, 8192.0
+    wavelen = 2 * np.pi * theta ** (np.arange(0, d, 2) / d)
+    smooth = (old_ctx / wavelen - low) / (high - low)
+    f = np.where(wavelen < old_ctx / high, 1.0,
+                 np.where(wavelen > old_ctx / low, factor,
+                          1.0 / ((1 - smooth) / factor + smooth)))
+    return f.astype(np.float32)
+
+
+def orpheus_kernel_weights(gen):
+    """Random Orpheus-3B weights on the card as the two steps take them: K8's
+    layers (Q4_0 packed, qkv scales f32, the others bf16), K6's (every scale
+    bf16, the head padded from 156,940 to 157,184 rows), and the step's
+    keyword arguments (RoPE inverse frequencies with the llama3 factors)."""
+    from tts_tpu_torch.models.orpheus.model import OrpheusLayer
+    from tts_tpu_torch.ops.attention import rope_freqs
+    L, H, F = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["ffn"]
+    d = H // ORPHEUS["heads"]
+    kvn, f32 = ORPHEUS["kv_heads"] * d, torch.float32
+
+    def vec():
+        return torch.randn((L, H), generator=gen, device=DEV) * 0.1 + 1.0
+
+    lw = OrpheusLayer(vec(), stack_quant(gen, L, H, H, f32),
+                      stack_quant(gen, L, kvn, H, f32),
+                      stack_quant(gen, L, kvn, H, f32),
+                      stack_quant(gen, L, H, H, f32), vec(),
+                      stack_quant(gen, L, F, H, f32), stack_quant(gen, L, F, H, f32),
+                      stack_quant(gen, L, H, F, f32))
+    mega, qtype = lm.prep_llama_mega(lw)
+    del lw
+    head = rand_quant(gen, ORPHEUS["vocab"], H, quants.GGML_TYPE_Q4_0, f32)
+    flat = lf.prep_llama_flat(mega, head, vec()[0], qtype, ORPHEUS["heads"],
+                              ORPHEUS["kv_heads"])
+    inv = rope_freqs(d, ORPHEUS["theta"], torch.from_numpy(
+        llama3_rope_factors(d, ORPHEUS["theta"])).to(DEV))
+    return mega, flat, dict(qtype=qtype, n_heads=ORPHEUS["heads"],
+                            n_kv=ORPHEUS["kv_heads"], inv_freq=inv)
+
+
+def k6_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
+    """K6's layer sequence alone (its launch counter, no head)."""
+    return lm.layers_cuda(lf.KERNEL, m, x, kc, vc, pos, qtype=qtype,
+                          n_heads=n_heads, inv_freq=inv_freq)
+
+
+@contextlib.contextmanager
+def split_k_products():
+    """The plain llama steps with every `_dqdot` product summed in another
+    order (the two halves of K apart, then added): another correct version,
+    whose difference from the plain version is the yardstick of the
+    whole-step check. (The Parler check moves x by one ulp instead; here the
+    RMS norm's bf16 rounding of x absorbs such a move, so it would measure
+    nothing.)"""
+    def dqdot(x, codes, scales, qtype):
+        w = qm.dequant(codes, scales, qtype).to(torch.bfloat16).float()
+        xb, h = x.to(torch.bfloat16).float(), w.shape[-1] // 2
+        return xb[:, :h] @ w[:, :h].T + xb[:, h:] @ w[:, h:].T
+
+    saved = lm.dqdot, lf.dqdot
+    lm.dqdot = lf.dqdot = dqdot
+    try:
+        yield
+    finally:
+        lm.dqdot, lf.dqdot = saved
+
+
+def check_llama(gen, mega, flat, kw) -> list[dict]:
+    log("K8 llama_megastep and K6 llama_flat_megastep (csrc/llama_megastep.cu "
+        "+ K3) vs their plain versions, Orpheus-3B width, bf16 cache of "
+        f"{ORPHEUS['ctx']} rows, positions {list(LLAMA_POS)}:")
+    L, H, vocab = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["vocab"]
+    nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
+    shape = (L, nkv, ctx, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((1, H), generator=gen, device=DEV)
+    steps = {  # label: (weights, kernel step, plain step, layer kernel, names)
+        "K8": (mega, lm.llama_megastep_cuda, lm.llama_megastep_plain,
+               lm.llama_megastep_cuda, ("x_out", "k_new", "v_new")),
+        "K6": (flat, lf.llama_flat_megastep_cuda, lf.llama_flat_megastep_plain,
+               k6_layers, ("logits", "k_new", "v_new"))}
+    errs = {label: [] for label in steps}
+    pooled = {label: (defaultdict(list), defaultdict(list)) for label in steps}
+    whole = {label: (defaultdict(list), defaultdict(list)) for label in steps}
+    agree = 0
+    for p in LLAMA_POS:
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        for label, (w, kern, plain, layer_kern, names) in steps.items():
+            layers = w if label == "K8" else w.layers
+            errs[label] += layer_errors(
+                lambda l: lm.LlamaMegaLayers(*(t[l:l + 1] for t in layers)),
+                L, x, kc, vc, pos, kw, layer_kern, lm.llama_megastep_plain,
+                label, *pooled[label], layers=LLAMA_LAYERS)
+            # the whole step, pooled over the positions: 28 random layers
+            # are chaotic at the bf16 roundings (as 24 Parler layers are,
+            # K2), so it is held to the plain version summed in another
+            # order, and K6's logits are reported
+            got = kern(w, x, kc.clone(), vc.clone(), pos, **kw)
+            ref = plain(w, x, kc.clone(), vc.clone(), pos, **kw)
+            with split_k_products():
+                alt = plain(w, x, kc.clone(), vc.clone(), pos, **kw)
+            if label == "K6":
+                if got[0][:, vocab:].any():
+                    raise AssertionError("K6's padded logits are not 0")
+                got, ref, alt = ([t[0][:, :vocab], t[1], t[2]]
+                                 for t in (got, ref, alt))
+                agree += int(got[0].argmax() == ref[0].argmax())
+                log(f"  pos {p} K6 logits: max |kernel - plain| / max|logit| "
+                    f"{max_err(got[0], ref[0]) / float(ref[0].abs().max()):.3e}")
+            for nm, a, b, c in zip(names, got, ref, alt):
+                if not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"{label} pos {p} {nm} is not finite")
+                scale = float(b.abs().max())
+                whole[label][0][nm].append(max_err(a, b) / scale)
+                whole[label][1][nm].append(max_err(c, b) / scale)
+    log(f"  K6 logits argmax equal to the plain version's at "
+        f"{agree}/{len(LLAMA_POS)} positions (a near-tie among 156,940 "
+        f"random logits may part them)")
+    for label in steps:
+        judge_layers(*pooled[label], label, f"{label} layers "
+                     f"{list(LLAMA_LAYERS)} at positions {list(LLAMA_POS)}, "
+                     f"layer by layer, yardstick plain on the CPU vs plain "
+                     f"on the card")
+        judge_layers(*whole[label], label, f"{label} whole 28-layer step at "
+                     f"positions {list(LLAMA_POS)}, yardstick plain vs plain "
+                     f"summed split-K")
+    rows = []
+    p = 1000
+    pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+    kv_bytes = 2 * L * nkv * (p + 1) * d * 2   # rows 0..pos, bf16
+    for label, (w, kern, plain, _, _) in steps.items():
+        ms = cuda_ms(lambda: kern(w, x, kc, vc, pos, **kw), iters=20)
+        plain_ms = cuda_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=3,
+                           warmup=1)
+        if label == "K8":
+            wts = list(w)
+        else:
+            wts = list(w.layers) + [w.head.codes, w.head.scales, w.out_norm]
+        wbytes = tensor_bytes(wts)
+        n_weights = sum(t.numel() for t in wts if t.dtype == torch.uint8) * 2
+        out_bytes = (w.head.shape[0] * 4 if label == "K6" else H * 4) + \
+            2 * L * nkv * d * 4
+        b_ms, b_by = bound(wbytes + kv_bytes + H * 4 + out_bytes,
+                           2 * n_weights, "bf16")
+        gemv = 4 * L + (label == "K6")
+        log(f"  {label} 28 layers{' + head' if label == 'K6' else ''}, pos "
+            f"{p}: kernels {ms:.4f} ms/step ({gemv} gemv + {L} attention "
+            f"launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
+        if label == "K6":
+            device_trace(lambda: [kern(w, x, kc, vc, pos, **kw) for _ in range(5)],
+                         f"K6 step alone, pos {p}", 5)
+        rows.append(dict(
+            name="llama_megastep" if label == "K8" else "llama_flat_megastep",
+            route="cuda", source="tts_tpu_torch/csrc/llama_megastep.cu",
+            replaces="tts_tpu/ops/llama_megastep.py:124" if label == "K8"
+            else "tts_tpu/ops/llama_flat.py:381",
+            max_abs_err=max(errs[label]), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -783,7 +997,8 @@ def check_small_reference(tmp) -> None:
 KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
            "decode_attention": da.KERNEL,
            "decode_attention_batched": da.KERNEL_BATCHED,
-           "parler_megastep_batched": pm.KERNEL_BATCHED}
+           "parler_megastep_batched": pm.KERNEL_BATCHED,
+           "llama_flat_megastep": lf.KERNEL, "llama_megastep": lm.KERNEL}
 SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
 SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                 "parler_megastep_batched")
@@ -1057,6 +1272,353 @@ def run_serving(path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Orpheus GGUFs written with the port's writer
+# ---------------------------------------------------------------------------
+
+# SNAC-24k (hubertsiuzdak/snac_24khz): latent 768, decoder 1024 channels
+# halving per block at rates 8/8/4/2, 3 codebooks of 4096 x 8 at strides
+# 4/2/1, noise blocks, depthwise convolutions.
+SNAC_24K = dict(latent=768, dims=(1024, 512, 256, 128, 64), codebook=4096)
+ORPHEUS_PIECES = ["a", "b", "c", "d", "e", "f", "g", "h", "i", "j", "k", "l",
+                  "m", "n", "o", "p", "q", "r", "s", "t", "u", "v", "w", "x",
+                  "y", "z", ",", "?", ":", "Ġ", "he", "hey", "ow", "Ġh", "Ġhow",
+                  "ar", "Ġar", "Ġare", "yo", "Ġyo", "Ġyou", "do", "Ġdo", "in",
+                  "ing", "Ġdoing", "to", "da", "ay", "Ġto", "Ġtoda", "Ġtoday",
+                  "zo", "zoe"]
+ORPHEUS_MERGES = ["h e", "he y", "o w", "Ġ h", "Ġh ow", "a r", "Ġ ar",
+                  "Ġar e", "y o", "Ġ yo", "Ġyo u", "d o", "Ġ do", "i n",
+                  "in g", "Ġdo ing", "t o", "d a", "a y", "Ġ to", "Ġto da",
+                  "Ġtoda y", "z o", "zo e"]
+SPECIAL = (128000, 128009, 128257, 128258, 128259, 128260, 128261)
+
+
+def orpheus_vocab(n: int) -> list[str]:
+    """n token strings: <unk>, the BPE pieces above, then placeholders; the
+    BPE merge loop runs on the prompt, and the special ids of the prompt
+    format sit where PREPENDED_TOKENS / APPENDED_TOKENS want them."""
+    base = ["<unk>"] + ORPHEUS_PIECES
+    return base + [f"<|{'special' if i in SPECIAL else 'piece'}_{i}|>"
+                   for i in range(len(base), n)]
+
+
+def write_orpheus(path, rng, *, n_layers, hidden, heads, kv_heads, ffn,
+                  vocab, q4_head, snac_dims, snac_latent):
+    """An Orpheus GGUF as `tts_tpu.apps.quantize -qt Q4_0` leaves one:
+    Q4_0 projections (and with q4_head, as -qh gives it, a Q4_0 LM head;
+    else F16), an F16 embed_tokens, F32 norms and llama3 RoPE factors, and
+    a SNAC decoder in F32 under `snac.` (residual units depthwise)."""
+    d = hidden // heads
+    w = GGUFWriter(path, "orpheus")
+    for key, v in (("orpheus.vocab_size", vocab), ("orpheus.attn_heads", heads),
+                   ("orpheus.kv_attn_heads", kv_heads), ("orpheus.head_dim", d),
+                   ("orpheus.hidden_size", hidden), ("orpheus.layers", n_layers),
+                   ("orpheus.stopping_token_id", 128258),
+                   ("tokenizer.ggml.bos_token_id", 128000),
+                   ("tokenizer.ggml.eos_token_id", 128009),
+                   ("snac.audio_token_channels", 3),
+                   ("snac.up_sampling_factor", 512)):
+        w.add_u32(key, v)
+    w.add_str("tokenizer.ggml.model", "bpe")
+    w.add_array("tokenizer.ggml.tokens", orpheus_vocab(vocab))
+    w.add_array("tokenizer.ggml.merges", ORPHEUS_MERGES)
+    Q4 = quants.GGML_TYPE_Q4_0
+
+    def q4(name, n, k):
+        w.add_raw_tensor(name, (n, k), Q4, rand_q4_raw(rng, n, k))
+
+    def f32(name, *shape, scale=0.02, one=False):
+        a = rng.standard_normal(shape, dtype=np.float32) * scale + (1.0 if one else 0.0)
+        w.add_tensor(name, a)
+
+    def f16(name, *shape):
+        w.add_tensor(name, (rng.standard_normal(shape, dtype=np.float32)
+                            * 0.02).astype(np.float16))
+
+    for l in range(n_layers):
+        b = f"orpheus.layers.{l}."
+        f32(b + "input_layernorm", hidden, scale=0.1, one=True)
+        f32(b + "post_attention_layernorm", hidden, scale=0.1, one=True)
+        for n, rows, cols in (("self_attn.q_proj", hidden, hidden),
+                              ("self_attn.k_proj", kv_heads * d, hidden),
+                              ("self_attn.v_proj", kv_heads * d, hidden),
+                              ("self_attn.o_proj", hidden, hidden),
+                              ("mlp.gate_proj", ffn, hidden),
+                              ("mlp.up_proj", ffn, hidden),
+                              ("mlp.down_proj", hidden, ffn)):
+            q4(b + n, rows, cols)
+    f16("orpheus.embed_tokens", vocab, hidden)
+    f32("orpheus.norm", hidden, scale=0.1, one=True)
+    if q4_head:
+        q4("orpheus.lm_head", vocab, hidden)
+    else:
+        f16("orpheus.lm_head", vocab, hidden)
+    w.add_tensor("orpheus.rope_frequencies",
+                 llama3_rope_factors(d, ORPHEUS["theta"]))
+    s = "snac."
+    for i in range(3):
+        f32(f"{s}quantizers.{i}.codebook.weight", SNAC_24K["codebook"], 8, scale=0.5)
+        f32(f"{s}quantizers.{i}.out_proj.weight", snac_latent, 8, 1, scale=0.3)
+        f32(f"{s}quantizers.{i}.out_proj.bias", snac_latent, scale=0.05)
+    f32(s + "in.weight", snac_latent, 1, 7, scale=0.3)
+    f32(s + "in.bias", snac_latent, scale=0.05)
+    f32(s + "up.weight", snac_dims[0], snac_latent, 1, scale=snac_latent ** -0.5)
+    f32(s + "up.bias", snac_dims[0], scale=0.05)
+
+    def alpha(name, c):
+        w.add_tensor(name, np.abs(rng.standard_normal((1, c, 1), dtype=np.float32)
+                                  * 0.05) + 0.5)
+
+    for i, (st, pad) in enumerate(zip((8, 8, 4, 2), (4, 4, 2, 1))):
+        cin, cout = snac_dims[i], snac_dims[i + 1]
+        w.add_u32(f"snac.snac_layer_stride_{i}", st)
+        w.add_u32(f"snac.snac_layer_padding_{i}", pad)
+        w.add_u32(f"snac.snac_layer_grouping_{i}", cout)
+        b = f"{s}layers.{i}."
+        alpha(b + "alpha", cin)
+        f32(b + "weight", cin, cout, 2 * st, scale=(cin * st) ** -0.5)
+        f32(b + "bias", cout, scale=0.05)
+        f32(b + "noise_weight", cout, cout, 1, scale=0.1 * cout ** -0.5)
+        for j in range(3):
+            ub = f"{b}residual_unit.{j}.res."
+            alpha(ub + "initial.alpha", cout)
+            f32(ub + "initial.weight", cout, 1, 7, scale=0.2)
+            f32(ub + "initial.bias", cout, scale=0.05)
+            alpha(ub + "final.alpha", cout)
+            f32(ub + "final.weight", cout, cout, 1, scale=0.5 * cout ** -0.5)
+            f32(ub + "final.bias", cout, scale=0.05)
+    alpha(s + "alpha_out", snac_dims[-1])
+    f32(s + "final.weight", 1, snac_dims[-1], 7, scale=0.05)
+    f32(s + "final.bias", 1, scale=0.05)
+    w.write()
+
+
+# ---------------------------------------------------------------------------
+# phase 6: a small Orpheus, kernels on the card vs plain versions on the CPU
+# ---------------------------------------------------------------------------
+
+def check_small_orpheus(tmp) -> None:
+    """A small Q4_0 Orpheus on both decode routes (Q4_0 head: K6; F16 head:
+    K8), decoded greedily on the CPU (plain versions); the card (kernels)
+    follows the same token history (teacher forcing) and its logits must
+    match at every step, within 4x the CPU's own change when every
+    embedding moves by one ulp, or 1e-3 (the Parler check's rule). Then
+    the CPU's tokens are vocoded on both (SNAC, 4 channel widths)."""
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops.llama_flat import LlamaFlat
+    n_steps = 48
+    kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+              repetition_penalty=1.0, max_steps=n_steps + 1)
+    for q4_head, route in ((True, "K6"), (False, "K8")):
+        log(f"Reference: small Q4_0 Orpheus (L=2, H=256, 4/2 heads, F 1024, "
+            f"{'Q4_0' if q4_head else 'F16'} head: {route}), f32 caches, "
+            f"{n_steps} steps, card kernels vs CPU plain versions:")
+        path = os.path.join(tmp, f"orpheus-small-{route}.gguf")
+        write_orpheus(path, np.random.default_rng(SEED + 2), n_layers=2,
+                      hidden=256, heads=4, kv_heads=2, ffn=1024, vocab=1000,
+                      q4_head=q4_head, snac_dims=(64, 32, 16, 8, 4),
+                      snac_latent=32)
+        gen = torch.Generator().manual_seed(SEED)
+        runs = []
+        for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
+                             (torch.device("cpu"), True)):
+            r = runner_from_file(path, device=dev)
+            if (route == "K6") != isinstance(r.mega.step, LlamaFlat):
+                raise AssertionError(f"small model did not take the {route} route")
+            if perturb:   # every embedding moved by one ulp, +-
+                e = r.weights.embd
+                e.mul_(1 + (torch.randint(0, 2, e.shape, generator=gen) * 2 - 1)
+                       * 2 ** -23)
+            cfg = r.cfg
+            ids = [1, 2] + r.tokenizer.tokenize(f"{VOICE}: {PROMPT}") + [3]
+            shape = (cfg.n_layers, cfg.n_kv_heads, 512, cfg.head_size)
+            kk, vv = torch.zeros(shape, device=dev), torch.zeros(shape, device=dev)
+            lg = omodel.orpheus_prefill(cfg, r.weights, r.inv_freq,
+                                        torch.tensor(ids, device=dev), kk, vv)
+            runs.append([r, lg, kk, vv, len(ids)])
+        first = runs[1][1].argmax().reshape(1)
+        pre = max_err(runs[0][1].cpu(), runs[1][1]) / float(runs[1][1].abs().max())
+        states = [omodel.init_state(r.cfg, first.to(kk.device), n, kk, vv,
+                                    n_steps + 1) for r, _, kk, vv, n in runs]
+        worst, sens, agree = 0.0, 0.0, 0
+        with torch.no_grad():
+            for _ in range(n_steps):
+                lg, lc, lp = (omodel.step_logits(r.cfg, r.weights, r.inv_freq, s,
+                                                 r.mega)
+                              for (r, *_), s in zip(runs, states))
+                lg = lg.cpu()
+                scale = float(lc.abs().max())
+                worst = max(worst, max_err(lg, lc) / scale)
+                sens = max(sens, max_err(lp, lc) / scale)
+                agree += int(lg.argmax() == lc.argmax())
+                sc = omodel.advance(runs[1][0].cfg, states[1], lc, None, **kw)
+                # the card and the perturbed run follow the CPU's history
+                states = [omodel.advance(r.cfg, s, l.to(s.kv_k.device), None, **kw)
+                          ._replace(token_in=sc.token_in.to(s.kv_k.device))
+                          for (r, *_), s, l in zip(runs, states, (lg, lc, lp))]
+                states[1] = sc
+        tol = max(4 * sens, 1e-3)
+        log(f"  prefill logits (K1) max |card - cpu| / max|logit| {pre:.3e}; "
+            f"teacher-forced decode logits ({route}): {worst:.3e}; the CPU's own "
+            f"change under 1-ulp embedding changes: {sens:.3e}; tol {tol:.3e}; "
+            f"argmax agreement {agree}/{n_steps}")
+        if worst > tol or pre > tol:
+            raise AssertionError(f"small-model {route} logits differ between "
+                                 f"card and CPU")
+        out, n_out = states[1].out_tokens.numpy(), int(states[1].n_out)
+        if n_out != n_steps + 1:
+            raise AssertionError(f"small model ran {n_out} tokens")
+        wa, wb = (r.vocode(out, n_out, SEED) for r, *_ in runs[:2])
+        err = float(np.abs(wa - wb).max())
+        log(f"  {n_out} tokens vocoded on both: {wa.size} samples, waveform "
+            f"max_abs_err {err:.3e} (tol 1e-3: f32 convolutions, TF32 off, "
+            f"other sum order)")
+        if wa.size != 4 * (n_out // 7) * 512 or wa.shape != wb.shape or err > 1e-3:
+            raise AssertionError("small-model waveform differs between card and CPU")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the Orpheus main path at Orpheus-3B width, and the K8 route
+# ---------------------------------------------------------------------------
+
+ORPHEUS_PATH = ("quant_matmul", "decode_attention", "llama_flat_megastep")
+K8_ROUTE_STEPS = 64
+TOKEN_AUDIO_S = 2048 / 7 / 24000   # 7 tokens -> 4 SNAC frames of 512 samples
+
+
+def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
+    """Orpheus-3B Q4_0 (Q4_0 head) + SNAC-24k text -> WAV through the port's
+    CLI on the card (sampled, top-k 50, fixed seed, up to 2100 tokens);
+    counters set to 0 just before, read just after: K1, K3 and K6 must have
+    risen. Then the same path timed stage by stage and traced, and the K8
+    route: the loaded weights with the head swapped for an F16 one, 64
+    decode steps through the runner's decode loop."""
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.audio.wav import read_audio_file
+    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.ops import sampling
+    from tts_tpu_torch.ops.llama_flat import LlamaFlat
+    path = os.path.join(tmp, "orpheus-3b-q4.gguf")
+    t0 = time.perf_counter()
+    write_orpheus(path, np.random.default_rng(SEED), n_layers=ORPHEUS["n_layers"],
+                  hidden=ORPHEUS["hidden"], heads=ORPHEUS["heads"],
+                  kv_heads=ORPHEUS["kv_heads"], ffn=ORPHEUS["ffn"],
+                  vocab=ORPHEUS["vocab"], q4_head=True,
+                  snac_dims=SNAC_24K["dims"], snac_latent=SNAC_24K["latent"])
+    log(f"Orpheus main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
+        f"{time.perf_counter() - t0:.1f} s; voice {VOICE!r}, prompt {PROMPT!r}")
+    wav = os.path.join(tmp, "orpheus.wav")
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["-mp", path, "-p", PROMPT, "-v", VOICE, "-sp", wav,
+                   "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    if rc != 0:
+        raise AssertionError(f"CLI returned {rc}")
+    audio, rate = read_audio_file(wav)
+    log(f"  CLI wrote {wav} in {cli_s:.1f} s (load included): {audio.size} "
+        f"samples at {rate} Hz; launches {launches}")
+    if rate != 24000 or audio.size == 0 or audio.size % 2048 or \
+            not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
+        raise AssertionError("CLI output is not a valid waveform")
+    for n in ORPHEUS_PATH:
+        if launches[n] == 0:
+            raise AssertionError(f"kernel {n} was not launched on the Orpheus path")
+
+    # the same path, stage by stage, synchronized
+    t0 = time.perf_counter()
+    r = runner_from_file(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg, w, inv = r.cfg, r.weights, r.inv_freq
+    if not isinstance(r.mega.step, LlamaFlat):
+        raise AssertionError("Orpheus-3B with a Q4_0 head did not take K6")
+    ids = r._prompt_ids(PROMPT, VOICE)
+    shape = (cfg.n_layers, cfg.n_kv_heads, omodel.cache_ctx(cfg), cfg.head_size)
+    kk = torch.zeros(shape, dtype=kv_cache_dtype(DEV), device=DEV)
+    vv = torch.zeros_like(kk)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    kw = dict(do_sample=True, temperature=1.0, top_k=50, top_p=1.0,
+              repetition_penalty=1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits = omodel.orpheus_prefill(cfg, w, inv, torch.tensor(ids, device=DEV),
+                                    kk, vv)
+    first, _ = sampling.sample_or_greedy(gen, logits[None], sampling.init_state(1, DEV),
+                                         **kw)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = {n: k.launches for n, k in KERNELS.items()}
+    out, n_out = omodel.orpheus_generate_tokens_chunked(
+        cfg, w, inv, first, len(ids), kk, vv, gen,
+        max_steps=cfg.max_generation_size, mega=r.mega, **kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    steps = n_out - 1
+    per_step = {n: (k.launches - before[n]) / steps for n, k in KERNELS.items()}
+    out_np = out.cpu().numpy()
+    t3 = time.perf_counter()
+    wav_np = r.vocode(out_np, n_out, SEED)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    audio_s = wav_np.size / 24000.0
+    stats = dict(prompt_tokens=len(ids), load_s=load_s,
+                 prefill_ms=(t1 - t0) * 1e3, tokens=n_out, decode_steps=steps,
+                 decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+                 snac_ms=(t4 - t3) * 1e3, audio_s=audio_s,
+                 audio_s_per_wall_s=audio_s / (t4 - t0),
+                 decode_audio_s_per_wall_s=steps * TOKEN_AUDIO_S / (t2 - t1),
+                 launches_per_step=per_step)
+    log(f"  timed: {json.dumps(stats)}")
+    if n_out != cfg.max_generation_size and out_np[n_out - 1] != cfg.stopping_token_id:
+        raise AssertionError(f"generation stopped at {n_out} tokens without "
+                             f"the stopping token")
+    if wav_np.size != 4 * (n_out // 7) * 512 or not np.all(np.isfinite(wav_np)):
+        raise AssertionError("timed run produced the wrong shape")
+    if not ((out_np[:n_out] >= 0) & (out_np[:n_out] < cfg.vocab_size)).all():
+        raise AssertionError("a token is out of the vocabulary")
+    # a steady window of 32 decode steps, from the prompt's end again
+    st = omodel.init_state(cfg, first, len(ids), kk, vv, cfg.max_generation_size)
+    st = device_trace(lambda: omodel.decode_chunk(
+        cfg, w, inv, st, 32, gen, mega=r.mega,
+        max_steps=cfg.max_generation_size, **kw), "Orpheus decode (K6)", 32)
+    if int(st.n_out) != 33:
+        raise AssertionError("traced decode window produced the wrong count")
+
+    # the K8 route: the same layers with an F16 head (as the quantizer leaves
+    # it without -qh), through the runner's decode loop
+    head = w.head.dense()[:cfg.vocab_size].to(torch.float16).float()
+    r8 = omodel.OrpheusRunner(cfg, w._replace(head=head), r.tokenizer, r.snac)
+    if not isinstance(r8.mega.step, lm.LlamaMegaLayers):
+        raise AssertionError("the F16 head did not take the K8 route")
+    del r
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    out8, n8 = omodel.orpheus_generate_tokens_chunked(
+        cfg, r8.weights, inv, first, len(ids), kk, vv, gen,
+        max_steps=K8_ROUTE_STEPS + 1, mega=r8.mega, **kw)
+    torch.cuda.synchronize()
+    k8_launches = {n: k.launches for n, k in KERNELS.items()}
+    t8 = (time.perf_counter() - t0) * 1e3 / (n8 - 1)
+    toks = out8[:n8].cpu()
+    log(f"  K8 route (F16 head): {n8 - 1} decode steps, {t8:.4f} ms/step; "
+        f"launches {k8_launches}")
+    if n8 != K8_ROUTE_STEPS + 1 or k8_launches["llama_megastep"] == 0 or \
+            k8_launches["llama_flat_megastep"] or bool((toks < 0).any()) or \
+            bool((toks >= cfg.vocab_size).any()):
+        raise AssertionError("the K8 route did not decode through K8")
+    return launches, k8_launches
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1088,17 +1650,26 @@ def main() -> int:
             check_k4(gen), check_k5(gen, mega, qtype)]
     del mega
     torch.cuda.empty_cache()
+    lmega, flat, lkw = orpheus_kernel_weights(gen)
+    rows += check_llama(gen, lmega, flat, lkw)
+    del lmega, flat, lkw
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         check_small_reference(tmp)
         launches, path = run_main_path(tmp)
         torch.cuda.empty_cache()
         served = run_serving(path)
-    # each kernel's launches on the path it belongs to: K1-K3 on the CLI's
-    # single stream, K4 and K5 on the server's batched engine
+        os.remove(path)
+        torch.cuda.empty_cache()
+        check_small_orpheus(tmp)
+        orpheus, k8_route = run_orpheus_main_path(tmp)
+    # each kernel's launches on the path it belongs to: K1-K3 on the Parler
+    # CLI's single stream, K4 and K5 on the server's batched engine, K6 on
+    # the Orpheus CLI's single stream, K8 on the Orpheus K8 route
+    paths = {"decode_attention_batched": served, "parler_megastep_batched": served,
+             "llama_flat_megastep": orpheus, "llama_megastep": k8_route}
     for row in rows:
-        row["launches"] = (served if row["name"] in ("decode_attention_batched",
-                                                     "parler_megastep_batched")
-                           else launches)[row["name"]]
+        row["launches"] = paths.get(row["name"], launches)[row["name"]]
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -10,13 +10,17 @@ machine need not have; this file uses none of its fixtures.)
 chip_smoke.py holds the same kernels to their plain versions at the main
 path's full shapes. The batched kernels (K4, K5) are checked with slots at
 mixed positions across 256-row page boundaries, and each slot against the
-one-sequence kernel (K3, K2) on that slot's state, bit for bit.
+one-sequence kernel (K3, K2) on that slot's state, bit for bit. The Orpheus
+steps (K8, K6) are checked at positions on both sides of K3's 256-row
+pages, with bf16 caches.
 """
 import pytest
 import torch
 
 from tts_tpu_torch.gguf import quants
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import llama_flat as lf
+from tts_tpu_torch.ops import llama_megastep as lm
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
 
@@ -196,3 +200,98 @@ def test_k5_matches_k2_and_plain(dev, qtype, b):
     ref = pm.parler_megastep_batched_plain(mega, x, k2, v2, pos, **kw)
     for a, r in zip(got, ref):
         torch.testing.assert_close(a, r, rtol=0, atol=5e-4 * r.abs().max().item())
+
+
+def _tiny_llama(dev, qtype):
+    """Two random llama layers at H=256 (4 q / 2 kv heads of 64, F 512) as
+    K8's and K6's weights, with a 1000-row head (padded to 1024), llama3
+    frequency factors of 1.25. Q8_0 scales are divided by 16, as in
+    _tiny_mega."""
+    from tts_tpu_torch.models.orpheus.model import OrpheusLayer
+    from tts_tpu_torch.ops.attention import rope_freqs
+    L, H, F, heads, kv = 2, 256, 512, 4, 2
+    div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
+
+    def quant(n, k):
+        w = _rand_quant(n, k, qtype, torch.float32, dev).pack()
+        return qm.QuantTensor(w.codes, w.scales / div, qtype)
+
+    def stack(n, k):
+        ws = [quant(n, k) for _ in range(L)]
+        return qm.QuantTensor(torch.stack([w.codes for w in ws]),
+                              torch.stack([w.scales for w in ws]), qtype)
+
+    vec = lambda: torch.randn((L, H), device=dev) * 0.1 + 1  # noqa: E731
+    lw = OrpheusLayer(vec(), stack(H, H), stack(128, H), stack(128, H),
+                      stack(H, H), vec(), stack(F, H), stack(F, H), stack(H, F))
+    mega, qt = lm.prep_llama_mega(lw)
+    flat = lf.prep_llama_flat(mega, quant(1000, H), vec()[0], qt, heads, kv)
+    inv = rope_freqs(64, 500000.0, torch.full((32,), 1.25, device=dev))
+    return mega, flat, qt, dict(qtype=qt, n_heads=heads, n_kv=kv, inv_freq=inv)
+
+
+def _llama_inputs(dev, pos):
+    kc = torch.randn((2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((1, 256), device=dev)
+    return x, kc, vc, torch.tensor([pos], dtype=torch.int32, device=dev)
+
+
+# Same bf16 roundings, f32 sums in another order; one flipped bf16 rounding
+# of an activation spreads through the next projections (measured 0.1% of
+# the largest value on the CPU, tests/test_torch_port_llama_ops.py): 1e-2 of
+# the largest value.
+LLAMA_TOL = 1e-2
+
+
+@pytest.mark.parametrize("pos", [0, 255, 256, 300, 639])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k8_matches_plain(dev, qtype, pos):
+    """K8 (f32 qkv scales, bf16 others) against its plain version; the step
+    writes its own k/v (in bf16) at row pos and no other row."""
+    torch.manual_seed(0)
+    mega, _, _, kw = _tiny_llama(dev, qtype)
+    assert mega.qkv_scales.dtype == torch.float32
+    x, kc, vc, p = _llama_inputs(dev, pos)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = lm.llama_megastep_cuda(mega, x, k1, v1, p, **kw)
+    ref = lm.llama_megastep_plain(mega, x, k2, v2, p, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=LLAMA_TOL * b.abs().max().item())
+    rows = torch.arange(640, device=dev) != pos
+    assert torch.equal(k1[:, :, rows], kc[:, :, rows])
+    assert torch.equal(v1[:, :, rows], vc[:, :, rows])
+    assert torch.equal(k1[:, :, pos], got[1].reshape(2, 2, 64).to(torch.bfloat16))
+    assert torch.equal(v1[:, :, pos], got[2].reshape(2, 2, 64).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("pos", [0, 255, 256, 639])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k6_matches_plain(dev, qtype, pos):
+    """K6 (every scale bf16, the padded head) against its plain version: the
+    logits, whose 24 padded rows are exactly 0, k_new and v_new."""
+    torch.manual_seed(0)
+    _, flat, _, kw = _tiny_llama(dev, qtype)
+    x, kc, vc, p = _llama_inputs(dev, pos)
+    got = lf.llama_flat_megastep_cuda(flat, x, kc.clone(), vc.clone(), p, **kw)
+    ref = lf.llama_flat_megastep_plain(flat, x, kc.clone(), vc.clone(), p, **kw)
+    assert got[0].shape == (1, 1024)
+    assert not got[0][:, 1000:].any()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=LLAMA_TOL * b.abs().max().item())
+
+
+def test_llama_launch_counters(dev):
+    """Each wrapper counts its own launches: per layer 4 GEMVs on K8's or
+    K6's counter and 1 K3, and K6's head GEMV on K6's."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, p = _llama_inputs(dev, 300)
+    before = (lm.KERNEL.launches, lf.KERNEL.launches, da.KERNEL.launches)
+    lm.llama_megastep(mega, x, kc, vc, p, **kw)
+    lf.llama_flat_megastep(flat, x, kc, vc, p, **kw)
+    torch.cuda.synchronize()
+    after = (lm.KERNEL.launches, lf.KERNEL.launches, da.KERNEL.launches)
+    assert [a - b for a, b in zip(after, before)] == [8, 9, 4]

@@ -25,7 +25,11 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "tts_tpu"
              or k.startswith("tts_tpu."))
 assert {"tts_tpu_torch.runtime.batched_parler",
-        "tts_tpu_torch.server.server"} <= set(names), names
+        "tts_tpu_torch.server.server", "tts_tpu_torch.ops.llama_megastep",
+        "tts_tpu_torch.ops.llama_flat", "tts_tpu_torch.models.codec.snac",
+        "tts_tpu_torch.models.orpheus.model",
+        "tts_tpu_torch.models.orpheus.loader",
+        "tts_tpu_torch.models.orpheus.convert"} <= set(names), names
 print(len(names), bad)
 """
 
@@ -36,7 +40,7 @@ def test_port_imports_no_jax_and_no_tts_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 24          # every module was walked
+    assert int(n) >= 31          # every module was walked
     assert bad == "[]", bad
 
 
@@ -68,9 +72,27 @@ def test_no_hidden_cpu_fallback(tmp_path):
     from tts_tpu_torch.ops import sampling
     from tts_tpu_torch.ops.quant_matmul import QuantTensor
     from tts_tpu_torch.server.server import TTSServer, build_server
+    from tts_tpu_torch.models.codec.snac import SNACConfig, load_snac_weights
+    from tts_tpu_torch.models.orpheus.convert import (
+        llama_mega_from_numpy, orpheus_weights_from_numpy)
+    from tts_tpu_torch.models.orpheus.loader import load_orpheus_runner
+    from tts_tpu_torch.models.orpheus.model import (OrpheusConfig,
+                                                    load_orpheus_weights)
+    # an Orpheus runner and its SNAC runner are built from weights that
+    # these make, on the card unless asked
+    orpheus = str(tmp_path / "o.gguf")
+    GGUFWriter(orpheus, "orpheus").write()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner_from_file(orpheus)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_orpheus_runner(GGUFReader(orpheus), GenerationConfig())
     r = GGUFReader(path)
     try:
-        for make in (lambda: load_parler_weights(r, ParlerConfig()),
+        for make in (lambda: load_orpheus_weights(r, OrpheusConfig()),
+                     lambda: load_snac_weights(r, SNACConfig()),
+                     lambda: orpheus_weights_from_numpy({}),
+                     lambda: llama_mega_from_numpy({}, 2),
+                     lambda: load_parler_weights(r, ParlerConfig()),
                      lambda: load_dac_weights(r, DACConfig()),
                      lambda: parler_weights_from_numpy({}),
                      lambda: QuantTensor.from_planar(
@@ -107,10 +129,12 @@ def test_cpu_tensors_take_the_plain_versions():
     run the plain versions there without touching nvcc, and the launch
     counters stay at zero."""
     from tts_tpu_torch.ops import decode_attention as da
+    from tts_tpu_torch.ops import llama_flat as lf
+    from tts_tpu_torch.ops import llama_megastep as lm
     from tts_tpu_torch.ops import parler_megastep as pm
     from tts_tpu_torch.ops import quant_matmul as qm
     kernels = (qm.KERNEL, da.KERNEL, pm.KERNEL, da.KERNEL_BATCHED,
-               pm.KERNEL_BATCHED)
+               pm.KERNEL_BATCHED, lf.KERNEL, lm.KERNEL)
     before = [k.launches for k in kernels]
     q = torch.randn(4, 64)
     kv = torch.randn(4, 300, 64)
@@ -121,5 +145,24 @@ def test_cpu_tensors_take_the_plain_versions():
     w = qm.QuantTensor(torch.randint(0, 16, (8, 64), dtype=torch.uint8),
                        torch.rand(8, 2), 2)
     qm.quant_matmul(torch.randn(1, 64), w)
+    # one llama layer at H 64 (2 q / 1 kv heads of 32) through K8 and K6
+    def c(n, k):
+        return torch.randint(0, 16, (1, n, k // 2), dtype=torch.uint8)
+
+    def s(n, k):
+        return torch.rand(1, n, k // 32).to(torch.bfloat16)
+
+    mega = lm.LlamaMegaLayers(c(128, 64), s(128, 64), c(64, 64), s(64, 64),
+                              c(128, 64), s(128, 64), c(128, 64), s(128, 64),
+                              c(64, 128), s(64, 128), torch.ones(1, 2, 64))
+    head = qm.QuantTensor(c(70, 64)[0], torch.rand(70, 2), 2)
+    flat = lf.prep_llama_flat(mega, head, torch.ones(64), 2, 2, 1)
+    step = dict(qtype=2, n_heads=2, n_kv=1, inv_freq=torch.rand(16))
+    kv = torch.zeros(1, 1, 40, 32)
+    pos = torch.tensor([5], dtype=torch.int32)
+    lm.llama_megastep(mega, torch.randn(1, 64), kv, kv.clone(), pos, **step)
+    lg, _, _ = lf.llama_flat_megastep(flat, torch.randn(1, 64), kv, kv.clone(),
+                                      pos, **step)
+    assert lg.shape == (1, 256) and not lg[:, 70:].any()
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)

@@ -12,6 +12,8 @@ import urllib.request
 
 import pytest
 
+from test_torch_port_orpheus import (cut_port_window, small_prompt_ids,  # noqa: F401
+                                     write_tiny_orpheus)
 from test_torch_port_parler import _gguf
 from tts_tpu.gguf import quants
 from tts_tpu_torch.audio.wav import decode_wav
@@ -203,3 +205,37 @@ def test_main_refuses_text_encoder(capsys):
     assert srv_mod.main(["-mp", "test:dummy", "-tep", "t5.gguf",
                          "--device", "cpu"]) == 1
     assert "not supported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("slots", [0, 8])
+def test_orpheus_served_by_the_pool(tmp_path, capsys, monkeypatch,
+                                    small_prompt_ids, slots):
+    """An Orpheus model is served by the worker pool whatever --batch-slots
+    says (with one log line when batching was asked for): a request with a
+    voice gives a 24 kHz WAV, an unknown voice the runner's error, and
+    /v1/audio/voices lists the Orpheus voices. The tiny GGUF, its in-vocab
+    prompt ids and the cut generation window come from
+    tests/test_torch_port_orpheus.py."""
+    import numpy as np
+    cut_port_window(monkeypatch)
+    path = str(tmp_path / "orpheus.gguf")
+    write_tiny_orpheus(path, np.random.default_rng(0))
+    srv = build_server(path, config=GenerationConfig(sample=False),
+                       batch_slots=slots, device="cpu")
+    httpd, base = _start(srv)
+    try:
+        assert srv.batched_workers == {}
+        code, body, _ = _get(base + "/v1/audio/voices")
+        assert code == 200 and "zoe" in json.loads(body)["voices"]["orpheus"]
+        code, body, headers = _post(base + "/v1/audio/speech",
+                                    {"input": "abcd cab", "voice": "zoe"})
+        assert code == 200 and headers["Content-Type"] == "audio/wav"
+        audio, rate = decode_wav(body)
+        assert rate == 24000 and audio.size == 12 * 8
+        code, body, _ = _post(base + "/v1/audio/speech",
+                              {"input": "abcd", "voice": "bob"})
+        assert code == 500 and b"not a valid Orpheus voice" in body
+    finally:
+        httpd.shutdown()
+    logged = "batching Orpheus is ROADMAP item 8" in capsys.readouterr().err
+    assert logged == (slots > 1)

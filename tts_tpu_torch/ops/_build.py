@@ -28,7 +28,8 @@ from typing import Dict, Iterable
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("quant_matmul", "decode_attention", "parler_megastep")  # K1; K3/K4; K2/K5
+SOURCES = ("quant_matmul", "decode_attention", "parler_megastep",
+           "llama_megastep")  # K1; K3/K4; K2/K5; K6/K8
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -159,6 +160,14 @@ def stream_ptr(device) -> ctypes.c_void_p:
 
 def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def addr(t, *idx) -> int:
+    """Address of t[idx] (leading indices) for a contiguous tensor: integer
+    arithmetic, cheaper on the host than a view per launch (the decode steps
+    are host-bound, PERF.md)."""
+    off = sum(i * s for i, s in zip(idx, t.stride()))
+    return t.data_ptr() + off * t.element_size()
 
 
 def require(t, name: str, *, device, dtypes, ndim: int | None = None,

@@ -1,0 +1,113 @@
+"""The whole Orpheus decode step, all L layers plus the final RMS norm and
+the LM head: kernel K6.
+
+Computes the JAX package's `llama_flat_megastep`: K8's layer math
+(ops/llama_megastep.py) with every weight scale in bf16, the qkv ones
+included, then RMS(out_norm) and the LM head padded to a multiple of 256
+rows with zero scales (`QuantTensor.fast_lm_head`), so that the padded
+logits are exactly 0. Returns (logits (1, vocab_pad), k_new, v_new); the
+caller slices the real vocab.
+
+The TPU kernel streams every weight of the step as one flat sequence of
+tiles, with a schedule and a `meta` array that drive Mosaic's sequential
+grid; none of that carries over (blocks on the H100 run in no order). On
+the card the step is K8's launch sequence (`llama_megastep.layers_cuda`)
+counted on K6's own counter, plus one more launch of the same GEMV for the
+head with the RMS(out_norm) prologue (csrc/llama_megastep.cu). On CPU
+tensors `llama_flat_megastep_plain` computes the same in plain PyTorch.
+As K8, the step writes the current token's k/v into cache row `pos` in
+place before it attends rows [0, pos].
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from .llama_megastep import (ARGS, EPI_STORE, LlamaMegaLayers, dqdot,
+                             layers_cuda, llama_megastep_plain, rms_norm)
+from .quant_matmul import QuantTensor
+
+KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K6
+
+
+class LlamaFlat(NamedTuple):
+    """K6's weights: the layers with bf16 scales everywhere, the padded
+    bf16-scale LM head (N = vocab_pad rows) and the final norm's weight."""
+
+    layers: LlamaMegaLayers
+    head: QuantTensor
+    out_norm: torch.Tensor   # (H,) f32
+
+
+def prep_llama_flat(mega: LlamaMegaLayers, head, out_norm, qtype: int,
+                    n_heads: int, n_kv: int) -> LlamaFlat:
+    """LlamaFlat from K8's layers and the LM head. Raises ValueError when the
+    head is not a QuantTensor of the layers' qtype or the GQA group is not
+    one the TPU kernel takes (the caller then keeps K8), as the JAX
+    package's `prep_llama_flat` does."""
+    if not isinstance(head, QuantTensor) or head.qtype != qtype:
+        raise ValueError("flat megastep needs a QuantTensor LM head of the "
+                         "layer qtype")
+    if n_heads // n_kv > 8 or n_heads % n_kv:
+        raise ValueError("flat megastep assumes GQA group size <= 8")
+    layers = mega._replace(qkv_scales=mega.qkv_scales.to(torch.bfloat16))
+    return LlamaFlat(layers, head.fast_lm_head(), out_norm.float().contiguous())
+
+
+def llama_flat_megastep_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
+                              qtype: int, n_heads: int, n_kv: int, inv_freq):
+    """K6's plain PyTorch version: `llama_megastep_plain` on the bf16-scale
+    layers, then the head's `_dqdot` product on RMS(out_norm) of x_out.
+    Returns (logits (1, vocab_pad) f32, k_new (L, KV), v_new (L, KV))."""
+    xo, kn, vn = llama_megastep_plain(flat.layers, x, kv_k, kv_v, pos,
+                                      qtype=qtype, n_heads=n_heads, n_kv=n_kv,
+                                      inv_freq=inv_freq)
+    h = rms_norm(xo, flat.out_norm)
+    return dqdot(h, flat.head.codes, flat.head.scales, qtype), kn, vn
+
+
+def llama_flat_megastep_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
+                             qtype: int, n_heads: int, n_kv: int, inv_freq):
+    """K6 on the card: 4 GEMV launches and 1 K3 launch per layer, then the
+    head GEMV, on the current stream. Same contract as
+    `llama_flat_megastep_plain`, with pos a one-element int32 CUDA tensor."""
+    dev = x.device
+    head = flat.head
+    hidden = flat.layers.norms.shape[2]
+    if kv_k.dim() != 4 or kv_k.shape[1] != n_kv:
+        raise ValueError(f"llama_flat_megastep: kv {tuple(kv_k.shape)}, "
+                         f"n_kv {n_kv}")
+    _build.require(head.codes, "head codes", device=dev,
+                   dtypes=(torch.uint8, torch.int8), ndim=2)
+    _build.require(head.scales, "head scales", device=dev,
+                   dtypes=(torch.bfloat16,), ndim=2, align=2)
+    _build.require(flat.out_norm, "out_norm", device=dev,
+                   dtypes=(torch.float32,), ndim=1)
+    if head.shape[1] != hidden or head.shape[0] % 2 or \
+            flat.out_norm.numel() != hidden:
+        raise ValueError(f"llama_flat_megastep: head {head.shape}, "
+                         f"out_norm {tuple(flat.out_norm.shape)}, H={hidden}")
+    xo, kn, vn = layers_cuda(KERNEL, flat.layers,
+                             x.float().reshape(1, -1).contiguous(), kv_k, kv_v,
+                             pos, qtype=qtype, n_heads=n_heads,
+                             inv_freq=inv_freq)
+    logits = torch.empty((1, head.shape[0]), dtype=torch.float32, device=dev)
+    vp, null = _build.ptr, ctypes.c_void_p(0)
+    KERNEL(vp(xo), vp(flat.out_norm), 1, vp(head.codes), vp(head.scales),
+           vp(head.codes), vp(head.scales), qtype, int(head.is_packed), 1, 1,
+           head.shape[0], hidden, null, vp(logits), EPI_STORE, null, null, 0,
+           null, null, 0, 0, 0, 0, 0, 0, _build.stream_ptr(dev))
+    return logits, kn, vn
+
+
+def llama_flat_megastep(flat: LlamaFlat, x, kv_k, kv_v, pos, *, qtype: int,
+                        n_heads: int, n_kv: int, inv_freq):
+    """Dispatch: K6 for CUDA tensors, the plain version for CPU tensors. See
+    `llama_flat_megastep_plain` for the contract."""
+    fn = llama_flat_megastep_plain if x.device.type == "cpu" \
+        else llama_flat_megastep_cuda
+    return fn(flat, x, kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
+              n_kv=n_kv, inv_freq=inv_freq)

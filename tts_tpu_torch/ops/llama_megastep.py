@@ -1,0 +1,258 @@
+"""One Orpheus (llama-family) decode step over all L layers: kernel K8.
+
+Computes the JAX package's `llama_megastep` (reference
+`llama_megastep_reference`): per layer RMS -> qkv -> NeoX RoPE with the
+llama3 frequency factors -> GQA attention over the cache -> o -> RMS ->
+SiLU(gate) * up -> down, with block-quantized weights at bf16-rounded
+dequant and bf16-rounded activations, f32 sums (`_dqdot` numerics, whatever
+the scale dtype). Returns the pre-final-norm x and each layer's k_new /
+v_new; the caller applies the final norm and the LM head.
+
+On the card the step is a sequence of hand-written kernels on one stream
+(csrc/llama_megastep.cu, its header says why): per layer 4 launches of the
+dequant GEMV, which fuses the RMS norm before it and the RoPE + KV-row
+write, SiLU(gate) * up or residual add after it, and 1 launch of the decode
+attention K3 (ops/decode_attention.py). K6 (ops/llama_flat.py) runs the
+same layers through `layers_cuda` and adds the LM head. On CPU tensors
+`llama_megastep_plain` computes the same in plain PyTorch.
+
+Unlike the TPU kernel, which folds the current token's f32 k/v into the
+softmax and leaves the cache write to its caller, this step writes k/v into
+cache row `pos` IN PLACE first and then attends rows [0, pos], as K2 does.
+That is exact in f32; on a bf16 cache the current row is rounded to bf16
+before it is attended (the plain version does the same).
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import _build
+from ._build import addr
+from . import decode_attention as da
+from .decode_attention import decode_attention_plain
+from .quant_matmul import BIAS, QuantTensor, dequant
+
+_vp = ctypes.c_void_p
+_i32 = ctypes.c_int
+ARGS = [_vp, _vp, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
+        _vp, _vp, _i32, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+        ctypes.c_longlong, _vp]
+KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K8
+EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
+RMS_EPS = 1e-5
+
+
+class LlamaMegaLayers(NamedTuple):
+    """Per-layer weights in the megastep layout (all stacked on L).
+
+    Codes row-major (see ops/quant_matmul.py), Q4 nibble-packed. Scales as
+    the TPU kernel's prep keeps them: qkv float32, the others bfloat16 (K6's
+    copy, `ops/llama_flat.prep_llama_flat`, has every scale in bfloat16).
+    qkv = concat(q, k, v) on N; norms packs (in_norm, post_norm).
+    """
+
+    qkv_codes: torch.Tensor    # (L, H + 2 KV, Kc(H))
+    qkv_scales: torch.Tensor   # (L, H + 2 KV, H/32)
+    o_codes: torch.Tensor      # (L, H, Kc(H))
+    o_scales: torch.Tensor
+    gate_codes: torch.Tensor   # (L, F, Kc(H))
+    gate_scales: torch.Tensor
+    up_codes: torch.Tensor     # (L, F, Kc(H))
+    up_scales: torch.Tensor
+    down_codes: torch.Tensor   # (L, H, Kc(F))
+    down_scales: torch.Tensor  # (L, H, F/32)
+    norms: torch.Tensor        # (L, 2, H) f32
+
+
+def prep_llama_mega(layers) -> tuple[LlamaMegaLayers, int]:
+    """LlamaMegaLayers from stacked OrpheusLayer weights whose 7 projections
+    are QuantTensors of one block qtype. Raises ValueError otherwise (the
+    caller then takes the per-matmul path)."""
+    mats = [layers.q, layers.k, layers.v, layers.o, layers.gate, layers.up,
+            layers.down]
+    if not all(isinstance(m, QuantTensor) for m in mats):
+        raise ValueError("llama megastep needs all projections quantized")
+    qtypes = {m.qtype for m in mats}
+    if len(qtypes) != 1 or next(iter(qtypes)) not in BIAS:
+        raise ValueError(f"llama megastep needs one uniform qtype, got {qtypes}")
+    qtype = next(iter(qtypes))
+    q, k, v, o, gate, up, down = [m.pack() for m in mats]
+
+    def bf16(m):
+        return m.scales.to(torch.bfloat16).contiguous()
+
+    mega = LlamaMegaLayers(
+        qkv_codes=torch.cat([q.codes, k.codes, v.codes], dim=-2).contiguous(),
+        qkv_scales=torch.cat([q.scales, k.scales, v.scales],
+                             dim=-2).float().contiguous(),
+        o_codes=o.codes.contiguous(), o_scales=bf16(o),
+        gate_codes=gate.codes.contiguous(), gate_scales=bf16(gate),
+        up_codes=up.codes.contiguous(), up_scales=bf16(up),
+        down_codes=down.codes.contiguous(), down_scales=bf16(down),
+        norms=torch.stack([layers.in_norm, layers.post_norm],
+                          dim=1).float().contiguous())
+    return mega, qtype
+
+
+def rms_norm(x, w, eps: float = RMS_EPS):
+    """x * rsqrt(mean(x^2) + eps) * w over the last axis, as the TPU kernel's
+    `_rms` writes it."""
+    return x * torch.rsqrt(x.square().mean(dim=-1, keepdim=True) + eps) * w
+
+
+def dqdot(x, codes, scales, qtype):
+    """The `_dqdot` product x (M, K) @ W^T whatever the scale dtype: W
+    dequantized in f32 and rounded to bf16, x rounded to bf16, f32 sums."""
+    w = dequant(codes, scales, qtype).to(torch.bfloat16).float()
+    return x.to(torch.bfloat16).float() @ w.T
+
+
+def _rope(y, cos, sin):
+    """NeoX rotation of y (heads, d) with cos/sin (d/2,)."""
+    h = y.shape[-1] // 2
+    y1, y2 = y[:, :h], y[:, h:]
+    return torch.cat([y1 * cos - y2 * sin, y2 * cos + y1 * sin], dim=1)
+
+
+def _write_row(cache, p, rows, n_heads):
+    """cache (heads, CTX, D)[:, p, :] = rows (heads * D,) — in place."""
+    cache.index_copy_(1, p, rows.reshape(n_heads, 1, -1).to(cache.dtype))
+
+
+def llama_megastep_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                         qtype: int, n_heads: int, n_kv: int, inv_freq):
+    """K8's plain PyTorch version. x (1, H); kv_k/kv_v (L, n_kv, CTX, D),
+    written in place at row pos; pos an int or one-element int tensor;
+    inv_freq (D/2,) float32 (`ops/attention.rope_freqs`). Returns
+    (x_out (1, H) f32 before the final norm, k_new (L, KV), v_new (L, KV))."""
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    d = hidden // n_heads
+    kvh = n_kv * d
+    ctx = kv_k.shape[2]
+    p = torch.as_tensor(pos, device=x.device).reshape(1).long()
+    ang = p.float() * inv_freq.float()
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    p = p.clamp(max=ctx - 1)
+    x = x.float()
+    k_new, v_new = [], []
+    for l in range(n_layers):
+        nm = mega.norms[l]
+        qkv = dqdot(rms_norm(x, nm[0]), mega.qkv_codes[l], mega.qkv_scales[l],
+                    qtype)[0]
+        q = _rope(qkv[:hidden].reshape(n_heads, d), cos, sin)
+        k = _rope(qkv[hidden:hidden + kvh].reshape(n_kv, d), cos, sin).reshape(-1)
+        v = qkv[hidden + kvh:]
+        _write_row(kv_k[l], p, k, n_kv)
+        _write_row(kv_v[l], p, v, n_kv)
+        attn = decode_attention_plain(q, kv_k[l], kv_v[l], p)
+        x = x + dqdot(attn.reshape(1, hidden), mega.o_codes[l],
+                      mega.o_scales[l], qtype)
+        h = rms_norm(x, nm[1])
+        act = torch.nn.functional.silu(
+            dqdot(h, mega.gate_codes[l], mega.gate_scales[l], qtype)) * \
+            dqdot(h, mega.up_codes[l], mega.up_scales[l], qtype)
+        x = x + dqdot(act, mega.down_codes[l], mega.down_scales[l], qtype)
+        k_new.append(k)
+        v_new.append(v)
+    return x, torch.stack(k_new), torch.stack(v_new)
+
+
+def layers_cuda(gemv_kernel, mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                qtype: int, n_heads: int, inv_freq):
+    """The L layers on the card for one row: x (1, H), kv_k/kv_v
+    (L, n_kv, CTX, D), pos (1,) int32, inv_freq (D/2,) float32, all on the
+    card. Per layer 4 GEMV launches through `gemv_kernel` (K8's or K6's
+    counter) and 1 K3 launch, on the current stream. Returns (x_out, k_new,
+    v_new) as `llama_megastep_plain`."""
+    dev = x.device
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    ffn = mega.gate_codes.shape[1]
+    kvn = mega.qkv_codes.shape[1]
+    n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3]
+    kvh = n_kv * d
+    _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
+    _build.require(kv_k, "kv_k", device=dev,
+                   dtypes=(torch.bfloat16, torch.float32), ndim=4)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=4)
+    _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
+                   ndim=3)
+    _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
+    _build.require(inv_freq, "inv_freq", device=dev, dtypes=(torch.float32,),
+                   ndim=1, align=4)
+    for name in ("qkv", "o", "gate", "up", "down"):
+        _build.require(getattr(mega, name + "_codes"), name + "_codes",
+                       device=dev, dtypes=(torch.uint8, torch.int8), ndim=3)
+        _build.require(getattr(mega, name + "_scales"), name + "_scales",
+                       device=dev, dtypes=(torch.float32, torch.bfloat16),
+                       ndim=3, align=2)
+    if (x.shape != (1, hidden) or kv_k.shape != (n_layers, n_kv, ctx, d)
+            or kv_v.shape != kv_k.shape or kvn != hidden + 2 * kvh
+            or hidden != n_heads * d or inv_freq.numel() != d // 2
+            or pos.numel() != 1
+            or mega.gate_scales.dtype != mega.up_scales.dtype):
+        raise ValueError(f"llama_megastep: x {tuple(x.shape)}, kv "
+                         f"{tuple(kv_k.shape)}, qkv rows {kvn}, L={n_layers} "
+                         f"H={hidden}, {n_heads} heads, inv_freq "
+                         f"{tuple(inv_freq.shape)}, pos {tuple(pos.shape)}")
+    packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
+    cache_bf16 = int(kv_k.dtype == torch.bfloat16)
+    stream = _build.stream_ptr(dev)
+    xw = x.clone()
+    qkv = torch.empty((n_layers, 1, kvn), dtype=torch.float32, device=dev)
+    attn = torch.empty((1, n_heads, d), dtype=torch.float32, device=dev)
+    act = torch.empty((1, ffn), dtype=torch.float32, device=dev)
+    part = da.attention_scratch(1, n_heads, ctx, d, dev)
+    nm, vp = mega.norms, ctypes.c_void_p
+    null = vp(0)
+    pos_p, inv_p = vp(pos.data_ptr()), vp(inv_freq.data_ptr())
+    x_p, attn_p, act_p = (vp(t.data_ptr()) for t in (xw, attn, act))
+
+    def gemv(xin, rms, name, l, n, k, res, out, epi, b=None, norm=null,
+             kc=null, vc=null):
+        scales = getattr(mega, name + "_scales")
+        ca = vp(addr(getattr(mega, name + "_codes"), l))
+        sa = vp(addr(scales, l))
+        cb, sb = (ca, sa) if b is None else (
+            vp(addr(getattr(mega, b + "_codes"), l)),
+            vp(addr(getattr(mega, b + "_scales"), l)))
+        gemv_kernel(xin, norm, rms, ca, sa, cb, sb, qtype, packed,
+                    int(scales.dtype == torch.bfloat16), 1, n, k, res, out,
+                    epi, inv_p, pos_p, 0, kc, vc, hidden,
+                    kvh, d, ctx, cache_bf16, 0, stream)
+
+    for l in range(n_layers):
+        q_out = qkv[l]
+        gemv(x_p, 1, "qkv", l, kvn, hidden, null, vp(q_out.data_ptr()),
+             EPI_ROPE_QKV, norm=vp(addr(nm, l, 0)),
+             kc=vp(addr(kv_k, l)), vc=vp(addr(kv_v, l)))
+        da._launch(da.KERNEL, q_out[:, :hidden].unflatten(1, (n_heads, d)),
+                   kv_k[l], kv_v[l], pos, None, attn, part)
+        gemv(attn_p, 0, "o", l, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
+        gemv(x_p, 1, "gate", l, ffn, hidden, null, act_p, EPI_SILU_MUL,
+             b="up", norm=vp(addr(nm, l, 1)))
+        gemv(act_p, 0, "down", l, hidden, ffn, x_p, x_p, EPI_RESIDUAL)
+    return xw, qkv[:, 0, hidden:hidden + kvh], qkv[:, 0, hidden + kvh:]
+
+
+def llama_megastep_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                        qtype: int, n_heads: int, n_kv: int, inv_freq):
+    """K8 on the card: 4 GEMV launches and 1 K3 launch per layer on the
+    current stream. Same contract as `llama_megastep_plain`, with pos a
+    one-element int32 CUDA tensor."""
+    if kv_k.dim() != 4 or kv_k.shape[1] != n_kv:
+        raise ValueError(f"llama_megastep: kv {tuple(kv_k.shape)}, n_kv {n_kv}")
+    return layers_cuda(KERNEL, mega, x.float().reshape(1, -1).contiguous(),
+                       kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
+                       inv_freq=inv_freq)
+
+
+def llama_megastep(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
+                   n_heads: int, n_kv: int, inv_freq):
+    """Dispatch: K8 for CUDA tensors, the plain version for CPU tensors. See
+    `llama_megastep_plain` for the contract."""
+    fn = llama_megastep_plain if x.device.type == "cpu" else llama_megastep_cuda
+    return fn(mega, x, kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
+              n_kv=n_kv, inv_freq=inv_freq)

@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from ._build import addr
 from . import decode_attention as da
 from .decode_attention import decode_attention_plain
 from .quant_matmul import BIAS, QuantTensor, quant_matmul_plain
@@ -182,14 +183,6 @@ def parler_megastep_batched_plain(mega: MegaLayers, x, kv_k, kv_v, pos, *,
             torch.stack([o[2] for o in outs], 1))
 
 
-def _addr(t: torch.Tensor, *idx) -> int:
-    """Address of t[idx] (leading indices) for a contiguous tensor: integer
-    arithmetic, cheaper on the host than a view per launch, and the step is
-    host-bound (PERF.md)."""
-    off = sum(i * s for i, s in zip(idx, t.stride()))
-    return t.data_ptr() + off * t.element_size()
-
-
 class StepScratch(NamedTuple):
     """Buffers one step on the card reuses layer after layer; a caller that
     steps often (the batched engine) allocates them once."""
@@ -267,28 +260,28 @@ def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
     x_p, attn_p = vp(xw.data_ptr()), vp(sc.attn.data_ptr())
     for l in range(n_layers):
         q_out = qkv[l]
-        gemv(x_p, 1, _addr(mega.qkv_codes, l), _addr(mega.qkv_scales, l),
+        gemv(x_p, 1, addr(mega.qkv_codes, l), addr(mega.qkv_scales, l),
              3 * hidden, hidden, null, vp(q_out.data_ptr()), EPI_QKV,
-             kc=vp(_addr(kv_k, l)), vc=vp(_addr(kv_v, l)),
-             lnw=vp(_addr(nm, l, 0)), lnb=vp(_addr(nm, l, 1)))
+             kc=vp(addr(kv_k, l)), vc=vp(addr(kv_v, l)),
+             lnw=vp(addr(nm, l, 0)), lnb=vp(addr(nm, l, 1)))
         attend(q_out[:, :hidden].unflatten(1, (n_heads, d)), kv_k[l], kv_v[l],
                pos)
-        occ_c, occ_s = _addr(mega.occ_codes, l), _addr(mega.occ_scales, l)
+        occ_c, occ_s = addr(mega.occ_codes, l), addr(mega.occ_scales, l)
         gemv(attn_p, 0, occ_c, occ_s, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
         if use_cross:
             gemv(x_p, 1, occ_c + hidden * bpr_h, occ_s + hidden * sbr_h,
                  hidden, hidden, null, vp(sc.cq.data_ptr()), EPI_STORE,
-                 lnw=vp(_addr(nm, l, 2)), lnb=vp(_addr(nm, l, 3)))
+                 lnw=vp(addr(nm, l, 2)), lnb=vp(addr(nm, l, 3)))
             attend(sc.cq.view(b, n_heads, d), mega.cross_k[l], mega.cross_v[l],
                    mega.cross_pos)
             gemv(attn_p, 0, occ_c + 2 * hidden * bpr_h,
                  occ_s + 2 * hidden * sbr_h, hidden, hidden, x_p, x_p,
                  EPI_RESIDUAL)
-        gemv(x_p, 1, _addr(mega.fc1_codes, l), _addr(mega.fc1_scales, l),
+        gemv(x_p, 1, addr(mega.fc1_codes, l), addr(mega.fc1_scales, l),
              ffn, hidden, null, vp(sc.up.data_ptr()), EPI_GELU,
-             lnw=vp(_addr(nm, l, 4)), lnb=vp(_addr(nm, l, 5)))
-        gemv(vp(sc.up.data_ptr()), 0, _addr(mega.fc2_codes, l),
-             _addr(mega.fc2_scales, l), hidden, ffn, x_p, x_p, EPI_RESIDUAL)
+             lnw=vp(addr(nm, l, 4)), lnb=vp(addr(nm, l, 5)))
+        gemv(vp(sc.up.data_ptr()), 0, addr(mega.fc2_codes, l),
+             addr(mega.fc2_scales, l), hidden, ffn, x_p, x_p, EPI_RESIDUAL)
     return xw, qkv[:, :, hidden:2 * hidden], qkv[:, :, 2 * hidden:]
 
 

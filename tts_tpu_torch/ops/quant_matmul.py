@@ -175,6 +175,15 @@ class QuantTensor:
             torch.nn.functional.pad(self.codes, (0, 0, 0, pad)),
             torch.nn.functional.pad(self.scales, (0, 0, 0, pad)), self.qtype)
 
+    def fast_lm_head(self, align: int = 256) -> "QuantTensor":
+        """Prep an LM head for the decode loop, as the JAX package does: N
+        padded to a multiple of `align` with zero scales (exactly-zero
+        logits that callers slice off), bf16 scales (the `_dqdot`
+        numerics), Q4 codes packed."""
+        h = self.pad_n(align)
+        return QuantTensor(h.codes, h.scales.to(torch.bfloat16),
+                           h.qtype).pack()
+
     def fast_stacked_heads(self, n_heads: int, vocab: int,
                            align: int = 256) -> "QuantTensor":
         """Prep a stacked multi-codebook LM head (N = n_heads * vocab) for

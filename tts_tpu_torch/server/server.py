@@ -13,7 +13,8 @@ serializes on the card's stream). With `--batch-slots N` (N > 1), Parler
 requests go to the continuous-batching engine instead
 (runtime/batched_parler.py): concurrent requests decode together, one read
 of the weights serving every slot. A prompt longer than the engine takes
-goes to the worker pool.
+goes to the worker pool. Orpheus models are served by the worker pool
+whatever `--batch-slots` says: their batched engine is a later slice.
 
 Not in the port yet, each answered with a clear error: `"stream": true`
 (501, PCM streaming is a later slice) and conditional prompts (the route
@@ -257,10 +258,15 @@ class TTSServer:
                 runner = runner_from_file(path, self.default_config,
                                           device=self.device)
                 self.runners[model_id] = runner
-                if self.batch_slots > 1 and \
-                        getattr(runner, "arch", "") in BATCHABLE_ARCHS:
+                arch = getattr(runner, "arch", "")
+                if self.batch_slots > 1 and arch in BATCHABLE_ARCHS:
                     self.batched_workers[model_id] = BatchedModelWorker(
                         runner, n_slots=self.batch_slots)
+                elif self.batch_slots > 1 and arch == "orpheus":
+                    print(f"server: model {model_id!r} ({arch}) is served "
+                          "by the worker pool: batching Orpheus is ROADMAP "
+                          "item 8, not ported yet", file=sys.stderr,
+                          flush=True)
         except Exception as e:  # noqa: BLE001
             self.load_error = f"{type(e).__name__}: {e}"
             self.state = "FAILED"
@@ -513,7 +519,8 @@ def main(argv=None) -> int:
     p.add_argument("--n-parallelism", "-np", type=int, default=1)
     p.add_argument("--batch-slots", "-bs", type=int, default=0,
                    help="continuous-batching slots for Parler models "
-                        "(0 = off); requests decode together on the card")
+                        "(0 = off); requests decode together on the card; "
+                        "Orpheus models stay on the worker pool")
     p.add_argument("--timeout", type=int, default=300)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")

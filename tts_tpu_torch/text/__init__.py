@@ -1,1 +1,1 @@
-from .tokenizer import UnigramTokenizer  # noqa: F401
+from .tokenizer import BPETokenizer, UnigramTokenizer  # noqa: F401
