@@ -41,11 +41,21 @@ Phases, in order; any failure exits non-zero without the final line:
    CLI with a voice (sampled, fixed seed, up to 2100 tokens); counters set
    to 0 just before, read just after; K1, K3 and K6 must have risen. Then
    the path timed stage by stage and a device trace of 32 decode steps,
-   and the K8 route (the head swapped for an F16 one, 64 decode steps):
-   K8 must have risen.
+   the K8 route (the head swapped for an F16 one, 64 decode steps): K8
+   must have risen, and the K9 route (the batched engine on those weights,
+   8 slots, 64 batched steps): K9 must have risen, K7 not.
+8. Orpheus serving: the port's HTTP server in this process (batch_slots 8,
+   the Orpheus-3B GGUF) answers 12 concurrent requests with a voice and
+   mixed sampling parameters; counters set to 0 just before, read just
+   after; K1, K4 and K7 must have risen. Then the batched step timed and
+   traced, one request through batch_slots 0, and the engine's greedy
+   tokens against the single-stream runner's (K6's; equal).
 
 Phase 2 also holds K8 and K6 at Orpheus-3B width against their plain
-versions, layer by layer at positions around K3's pages, and times them.
+versions, layer by layer at positions around K3's pages, and times them;
+and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
+bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
+layer against the plain versions, K7's logits per slot, timed.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing each kernel, and
@@ -358,7 +368,7 @@ def mini_mega(gen):
 
 
 def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
-                 err, base, layers=None) -> list[float]:
+                 err, base, layers=None, alt=None) -> list[float]:
     """Layer by layer at full width: each layer's kernels and its plain
     version take the same input (the kernels' output of the layer before)
     and fresh copies of that layer's cache, and each layer's update of x
@@ -370,7 +380,14 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
     version on the host's CPU against the plain version on the card, two
     correct versions whose sums run in other orders. Appends each compared
     layer's relative error and yardstick to `err` / `base` (defaultdicts of
-    lists, by output name) and returns the absolute errors."""
+    lists, by output name) and returns the absolute errors.
+
+    With `alt` (a batched step's plain version summed in another order, on
+    the card), each slot of the batch is a case of its own, and its
+    yardstick is the larger of the two pairs' differences: a case shows
+    a flipped bf16 rounding or none, so the pair of one case often shows
+    none, and 8 slots of 4 layers give the yardstick 64 chances to show
+    one."""
     names = ("x_out - x_in", "k_new", "v_new")
     abs_errs, xin = [], x
     for l in range(n_layers):
@@ -388,13 +405,24 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
         if layers is None or l in layers:
             ref = run(plain, DEV)
             host = run(plain, torch.device("cpu"))
-            for nm, a, b, c in zip(names, got, ref, host):
-                if not bool(torch.isfinite(a).all()):
-                    raise AssertionError(f"{label} layer {l} {nm} is not finite")
-                scale = float(b.abs().max())
-                abs_errs.append(max_err(a, b))
-                err[nm].append(abs_errs[-1] / scale)
-                base[nm].append(max_err(c, b) / scale)
+            pairs = [host] + ([run(alt, DEV)] if alt is not None else [])
+            for i, nm in enumerate(names):
+                if alt is None:
+                    cases = [(got[i], ref[i], [p[i] for p in pairs])]
+                else:   # (x_out - x_in) is (B, H), k_new / v_new (1, B, KV)
+                    def take(t, s, i=i):
+                        return t[s] if i == 0 else t[:, s]
+                    cases = [(take(got[i], s), take(ref[i], s),
+                              [take(p[i], s) for p in pairs])
+                             for s in range(x.shape[0])]
+                for a, b, cs in cases:
+                    if not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"{label} layer {l} {nm} is not "
+                                             f"finite")
+                    scale = float(b.abs().max())
+                    abs_errs.append(max_err(a, b))
+                    err[nm].append(abs_errs[-1] / scale)
+                    base[nm].append(max(max_err(c, b) for c in cs) / scale)
         xin = xin + got[0]
     return abs_errs
 
@@ -679,8 +707,16 @@ def orpheus_kernel_weights(gen):
 
 def k6_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
     """K6's layer sequence alone (its launch counter, no head)."""
-    return lm.layers_cuda(lf.KERNEL, m, x, kc, vc, pos, qtype=qtype,
-                          n_heads=n_heads, inv_freq=inv_freq)
+    xo, kn, vn = lm.layers_cuda(lf.KERNEL, da.KERNEL, m, x, kc.unsqueeze(1),
+                                vc.unsqueeze(1), pos, qtype=qtype,
+                                n_heads=n_heads, inv_freq=inv_freq)
+    return xo, kn[:, 0], vn[:, 0]
+
+
+def k7_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
+    """K7's batched layer sequence alone (its launch counter, no head)."""
+    return lm.layers_cuda(lf.KERNEL_BATCHED, da.KERNEL_BATCHED, m, x, kc, vc,
+                          pos, qtype=qtype, n_heads=n_heads, inv_freq=inv_freq)
 
 
 @contextlib.contextmanager
@@ -797,6 +833,185 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
             else "tts_tpu/ops/llama_flat.py:381",
             max_abs_err=max(errs[label]), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    return rows
+
+
+# slots of the batched Orpheus steps: both sides of K4's 256-row pages, one
+# at pos 0; 16 slots spread over 0..3000 for the bit-identity repeat
+LLAMA_SLOTS = (0, 255, 256, 257, 511, 1000, 2047, 3000)
+LLAMA_SLOTS_16 = (0, 1, 255, 256, 257, 511, 512, 700, 1000, 1023, 1024, 1500,
+                  2047, 2048, 2600, 3000)
+
+
+def llama_slots_equal_single(mega, flat, kw, pos, layers_note) -> None:
+    """Each slot of K9 (K7) equals K8 (K6) run alone on that slot's state,
+    bit for bit: x_out (logits), k_new, v_new and the slot's cache."""
+    L, H = mega.norms.shape[0], ORPHEUS["hidden"]
+    nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
+    b = pos.numel()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + b)
+    shape = (L, b, nkv, ctx, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((b, H), generator=gen, device=DEV)
+    pairs = (("K9", "K8", mega, lm.llama_megastep_batched_cuda,
+              lm.llama_megastep_cuda),
+             ("K7", "K6", flat, lf.llama_flat_megastep_batched_cuda,
+              lf.llama_flat_megastep_cuda))
+    for batched, single, w, kern_b, kern_1 in pairs:
+        kb, vb = kc.clone(), vc.clone()
+        got = kern_b(w, x, kb, vb, pos, **kw)
+        for s in range(b):
+            k1, v1 = kc[:, s].clone(), vc[:, s].clone()
+            one = kern_1(w, x[s:s + 1], k1, v1, pos[s:s + 1], **kw)
+            if not (torch.equal(got[0][s:s + 1], one[0])
+                    and torch.equal(got[1][:, s], one[1])
+                    and torch.equal(got[2][:, s], one[2])
+                    and torch.equal(kb[:, s], k1) and torch.equal(vb[:, s], v1)):
+                raise AssertionError(f"{batched} slot {s} (pos {int(pos[s])}) "
+                                     f"differs from {single} on its state")
+        del kb, vb
+        log(f"  {batched} at {b} slots ({layers_note}), positions "
+            f"{pos.tolist()}: each slot's outputs and cache equal {single} "
+            f"on that slot's state bit for bit: ok")
+    del kc, vc
+    torch.cuda.empty_cache()
+
+
+def split_k_batched_plain(*a, **k):
+    """K9's plain version with every product summed split-K."""
+    with split_k_products():
+        return lm.llama_megastep_batched_plain(*a, **k)
+
+
+def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
+    """K9 and K7 at Orpheus-3B width, 8 slots at LLAMA_SLOTS: each slot bit
+    for bit against K8 / K6 on its state (and at 16 slots on the
+    LLAMA_LAYERS stack), layer by layer against the plain version (the
+    yardstick of check_llama), K7's whole-step logits against the plain
+    version's per slot, then timed."""
+    log("K9 llama_megastep_batched and K7 llama_flat_megastep_batched "
+        "(csrc/llama_megastep.cu + K4) vs K8 / K6 and their plain versions, "
+        f"Orpheus-3B width, bf16 cache of {ORPHEUS['ctx']} rows, 8 slots at "
+        f"positions {list(LLAMA_SLOTS)}:")
+    L, H, vocab = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["vocab"]
+    nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
+    b = len(LLAMA_SLOTS)
+    pos = torch.tensor(LLAMA_SLOTS, dtype=torch.int32, device=DEV)
+    llama_slots_equal_single(mega, flat, kw, pos, "28 layers")
+    sub = list(LLAMA_LAYERS)
+    mega4 = lm.LlamaMegaLayers(*(t[sub] for t in mega))
+    flat4 = lf.LlamaFlat(lm.LlamaMegaLayers(*(t[sub] for t in flat.layers)),
+                         flat.head, flat.out_norm)
+    llama_slots_equal_single(mega4, flat4, kw, torch.tensor(
+        LLAMA_SLOTS_16, dtype=torch.int32, device=DEV),
+        f"layers {list(LLAMA_LAYERS)}")
+    del mega4, flat4
+    shape = (L, b, nkv, ctx, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((b, H), generator=gen, device=DEV)
+    steps = {  # label: (weights, kernel step, plain step, layer kernel)
+        "K9": (mega, lm.llama_megastep_batched_cuda,
+               lm.llama_megastep_batched_plain, lm.llama_megastep_batched_cuda),
+        "K7": (flat, lf.llama_flat_megastep_batched_cuda,
+               lf.llama_flat_megastep_batched_plain, k7_layers)}
+    errs = {}
+    for label, (w, kern, plain, layer_kern) in steps.items():
+        layers = w if label == "K9" else w.layers
+        err, base = defaultdict(list), defaultdict(list)
+        errs[label] = layer_errors(
+            lambda l: lm.LlamaMegaLayers(*(t[l:l + 1] for t in layers)),
+            L, x, kc, vc, pos, kw, layer_kern, lm.llama_megastep_batched_plain,
+            label, err, base, layers=LLAMA_LAYERS, alt=split_k_batched_plain)
+        judge_layers(err, base, label, f"{label} layers {list(LLAMA_LAYERS)} x "
+                     f"8 slots, layer by layer, yardstick the larger of plain "
+                     f"on the CPU and plain summed split-K vs plain on the "
+                     f"card")
+    # K7's whole step per slot: logits against the plain version's, with
+    # the plain version summed split-K beside it. Every K7 slot is a K6 step
+    # bit for bit (checked above), and K6's whole step is held to this
+    # yardstick pooled over 7 positions in check_llama; 8 slots of a
+    # 28-layer step chaotic at the bf16 roundings are too few cases for a
+    # yardstick of their own (a flipped rounding in one slot moved k_new
+    # by 3.0e-3 against the yardstick pair's 6.3e-4 in one run), so this
+    # is a sanity bound: 1e-2 of the largest value, the CPU tests' bound
+    # between these two functions.
+    w = flat
+    got = lf.llama_flat_megastep_batched_cuda(w, x, kc.clone(), vc.clone(), pos, **kw)
+    ref = lf.llama_flat_megastep_batched_plain(w, x, kc.clone(), vc.clone(), pos, **kw)
+    with split_k_products():
+        alt = lf.llama_flat_megastep_batched_plain(w, x, kc.clone(), vc.clone(),
+                                                   pos, **kw)
+    if got[0][:, vocab:].any():
+        raise AssertionError("K7's padded logits are not 0")
+    err, base = defaultdict(list), defaultdict(list)
+    agree, rels = 0, []
+    for s in range(b):
+        for nm, a, r, c in zip(("logits", "k_new", "v_new"),
+                               (got[0][s, :vocab], got[1][:, s], got[2][:, s]),
+                               (ref[0][s, :vocab], ref[1][:, s], ref[2][:, s]),
+                               (alt[0][s, :vocab], alt[1][:, s], alt[2][:, s])):
+            if not bool(torch.isfinite(a).all()):
+                raise AssertionError(f"K7 slot {s} {nm} is not finite")
+            scale = float(r.abs().max())
+            err[nm].append(max_err(a, r) / scale)
+            base[nm].append(max_err(c, r) / scale)
+        rels.append(err["logits"][-1])
+        agree += int(got[0][s, :vocab].argmax() == ref[0][s, :vocab].argmax())
+    log(f"  K7 logits per slot, max |kernel - plain| / max|logit|: "
+        f"{', '.join(f'{r:.3e}' for r in rels)}; argmax equal to the plain "
+        f"version's in {agree}/{b} slots (a near-tie among 156,940 random "
+        f"logits may part them)")
+    for nm in err:
+        e, yb = np.asarray(err[nm]), np.asarray(base[nm])
+        ok = e.max() <= 1e-2
+        log(f"  K7 whole 28-layer step, 8 slots, {nm}: relative error max "
+            f"{e.max():.3e}, mean {e.mean():.3e} (sanity bound 1e-2); plain "
+            f"vs plain summed split-K: max {yb.max():.3e}, mean "
+            f"{yb.mean():.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K7 whole step {nm}: kernel disagrees with "
+                                 f"its plain version")
+    del got, ref, alt
+    rows = []
+    kv_bytes = 2 * L * nkv * sum(p + 1 for p in LLAMA_SLOTS) * d * 2
+    scratch = lm.step_scratch(mega, b, ORPHEUS["heads"], ctx, DEV)
+    for label, (w, kern, plain, _) in steps.items():
+        ms = cuda_ms(lambda: kern(w, x, kc, vc, pos, scratch=scratch, **kw),
+                     iters=20)
+        plain_ms = cuda_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=2,
+                           warmup=1)
+        if label == "K9":
+            wts = list(w)
+        else:
+            wts = list(w.layers) + [w.head.codes, w.head.scales, w.out_norm]
+        wbytes = tensor_bytes(wts)
+        n_weights = sum(t.numel() for t in wts if t.dtype == torch.uint8) * 2
+        out_bytes = b * ((w.head.shape[0] if label == "K7" else H) * 4 +
+                         2 * L * nkv * d * 4)
+        b_ms, b_by = bound(wbytes + kv_bytes + b * H * 4 + out_bytes,
+                           2 * b * n_weights, "bf16")
+        gemv = 4 * L + (label == "K7")
+        log(f"  {label} 28 layers{' + head' if label == 'K7' else ''}, 8 slots "
+            f"at {list(LLAMA_SLOTS)}: kernels {ms:.4f} ms per batched step "
+            f"({gemv} gemv + {L} K4 launches), plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
+            f"{kv_bytes / 1e6:.1f} MB KV), library none")
+        if label == "K7":
+            device_trace(lambda: [kern(w, x, kc, vc, pos, scratch=scratch, **kw)
+                                  for _ in range(5)], "K7 step alone, 8 slots", 5)
+        rows.append(dict(
+            name="llama_megastep_batched" if label == "K9"
+            else "llama_flat_megastep_batched",
+            route="cuda", source="tts_tpu_torch/csrc/llama_megastep.cu",
+            replaces="tts_tpu/ops/llama_megastep.py:395" if label == "K9"
+            else "tts_tpu/ops/llama_flat.py:381",
+            max_abs_err=max(errs[label]), ms=ms, plain_ms=plain_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    del kc, vc
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -998,7 +1213,9 @@ KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
            "decode_attention": da.KERNEL,
            "decode_attention_batched": da.KERNEL_BATCHED,
            "parler_megastep_batched": pm.KERNEL_BATCHED,
-           "llama_flat_megastep": lf.KERNEL, "llama_megastep": lm.KERNEL}
+           "llama_flat_megastep": lf.KERNEL, "llama_megastep": lm.KERNEL,
+           "llama_flat_megastep_batched": lf.KERNEL_BATCHED,
+           "llama_megastep_batched": lm.KERNEL_BATCHED}
 SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
 SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                 "parler_megastep_batched")
@@ -1113,7 +1330,8 @@ def start_server(path, config, batch_slots):
     returns (server, httpd, base url) once it is READY (kernels built,
     model loaded), or raises."""
     from tts_tpu_torch.server.server import build_server, serve
-    srv = build_server(path, config=config, batch_slots=batch_slots, device=DEV)
+    srv = build_server(path, config=config, batch_slots=batch_slots,
+                       timeout=900.0, device=DEV)
     httpd = serve(srv, "127.0.0.1", 0)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     t0 = time.perf_counter()
@@ -1139,36 +1357,33 @@ def serving_prompts(tokenizer, n=12, lo=5, hi=60):
     return out
 
 
-def check_wav(body) -> float:
+def check_wav(body, want_rate=44100, frame=512) -> float:
     """Seconds of audio in a WAV response; raises if it is not one."""
     from tts_tpu_torch.audio.wav import decode_wav
     audio, rate = decode_wav(body)
-    if rate != 44100 or audio.size == 0 or audio.size % 512 or \
+    if rate != want_rate or audio.size == 0 or audio.size % frame or \
             not np.all(np.isfinite(audio)):
         raise AssertionError("response is not a valid waveform")
     return audio.size / rate
 
 
-def run_serving(path) -> dict:
-    """12 concurrent requests with mixed sampling parameters through the
-    server's continuous-batching engine (8 slots, so slots refill); every
-    response must be a WAV, and K1, K4 and K5 must have been launched.
-    Then the batched decode step timed and traced, one request through
-    batch_slots 0, and greedy parity of the engine with the single-stream
-    runner. Returns the launch counts of the 12 requests."""
+def serving_burst(path, engine_cls, params, rate, frame, kernels, label):
+    """The port's server in this process (batch_slots 8, a sampled default
+    config with top-k 50) answers 12 concurrent requests with the given
+    per-request parameters; every response must be a WAV at `rate` of
+    whole `frame`s with the right top-k cap header, /metrics must count 12
+    requests and no failure, and each of `kernels` must have been launched
+    (counters set to 0 just before, read just after). Then the batched
+    decode step alone: an `engine_cls` engine with 8 live slots, a 32-step
+    chunk timed (one host sync), a 32-step chunk traced; and one request
+    through batch_slots 0. Returns (runner, prompts, stats, launches)."""
     from tts_tpu_torch.common import GenerationConfig
-    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
-    log("Serving: the port's server, batch_slots 8, sampled default config, "
-        "12 concurrent requests:")
+    log(f"{label} serving: the port's server, batch_slots 8, sampled default "
+        f"config, 12 concurrent requests:")
     srv, httpd, base = start_server(path, GenerationConfig(top_k=50), 8)
-    model = srv.default_model
-    runner = srv.runners[model]
+    runner = srv.runners[srv.default_model]
     prompts = serving_prompts(runner.tokenizer)
-    params = [dict(temperature=(0.7, 1.0)[i % 2], top_k=(50, 0)[i // 2 % 2],
-                   top_p=(1.0, 0.9)[i // 4 % 2],
-                   repetition_penalty=(1.0, 1.1)[i // 3 % 2])
-              for i in range(len(prompts))]
-    lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
+    params = params[:len(prompts)]
     results = [None] * len(prompts)
 
     def req(i):
@@ -1188,34 +1403,33 @@ def run_serving(path) -> dict:
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = {n: k.launches for n, k in KERNELS.items()}
-    audio_s = 0.0
+    httpd.shutdown()
+    secs = []
     for i, ((code, body, headers), _) in enumerate(results):
         if code != 200:
             raise AssertionError(f"request {i} answered {code}: {body[:300]!r}")
-        audio_s += check_wav(body)
+        secs.append(check_wav(body, rate, frame))
         capped = headers.get("X-TTS-Top-K-Applied")
         if capped != ("256" if params[i]["top_k"] == 0 else None):
             raise AssertionError(f"request {i}: X-TTS-Top-K-Applied {capped!r}")
-    with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
-        m = json.loads(r.read())
+    m = srv.metrics_json()
     lat = sorted(t for _, t in results)
-    log(f"  prompt tokens {lens}; every response a WAV, top-k cap headers "
-        f"right; /metrics requests {m['requests_total']}, failed "
-        f"{m['requests_failed']}; launches {launches}")
+    log(f"  audio seconds per request {[round(x, 3) for x in secs]}; every "
+        f"response a WAV, top-k cap headers right; /metrics requests "
+        f"{m['requests_total']}, failed {m['requests_failed']}; launches "
+        f"{launches}")
     if m["requests_total"] != len(prompts) or m["requests_failed"]:
         raise AssertionError("/metrics does not count 12 requests and 0 failures")
-    for n in SERVING_PATH:
+    for n in kernels:
         if launches[n] == 0:
-            raise AssertionError(f"kernel {n} was not launched on the serving path")
-    stats = dict(requests=len(prompts), wall_s=wall, audio_s=audio_s,
-                 audio_s_per_wall_s=audio_s / wall,
+            raise AssertionError(f"kernel {n} was not launched on the {label} "
+                                 f"serving path")
+    stats = dict(requests=len(prompts), wall_s=wall, audio_s=sum(secs),
+                 audio_s_per_wall_s=sum(secs) / wall,
                  latency_p50_s=lat[len(lat) // 2], latency_max_s=lat[-1])
-    httpd.shutdown()
 
-    # the batched decode step alone: 8 live slots, a 32-step chunk timed
-    # (one host sync), then a 32-step chunk traced
-    eng = BatchedParlerEngine(runner.cfg, runner.weights, runner.tokenizer,
-                              n_slots=8, chunk=32)
+    eng = engine_cls(runner.cfg, runner.weights, runner.tokenizer, n_slots=8,
+                     chunk=32)
     for p, kw in zip(prompts[:8], params):
         eng.submit(p, GenerationConfig(**kw))
     eng.step()
@@ -1227,13 +1441,12 @@ def run_serving(path) -> dict:
     stats["decode_ms_per_batched_step"] = (time.perf_counter() - t0) * 1e3 / 32
     stats["launches_per_batched_step"] = {
         n: (k.launches - before[n]) / 32 for n, k in KERNELS.items()}
-    device_trace(eng.step, "batched decode, 8 slots", 32)
+    device_trace(eng.step, f"{label} batched decode, 8 slots", 32)
     if any(r is None for r in eng.slot_req):
         raise AssertionError("a slot finished inside the timed window")
     del eng
     torch.cuda.empty_cache()
 
-    # one request through batch_slots 0 (the single-stream worker pool)
     srv0, httpd0, base0 = start_server(path, GenerationConfig(top_k=50), 0)
     t0 = time.perf_counter()
     code, body, _ = _post(base0, dict(input=prompts[5], **params[5]))
@@ -1241,12 +1454,33 @@ def run_serving(path) -> dict:
     httpd0.shutdown()
     if code != 200:
         raise AssertionError(f"batch_slots 0 request answered {code}")
-    one_s = check_wav(body)
+    one_s = check_wav(body, rate, frame)
     stats.update(single_latency_s=t1 - t0, single_audio_s_per_wall_s=one_s / (t1 - t0))
     log(f"  timed: {json.dumps(stats)}")
     del srv0
     torch.cuda.empty_cache()
+    return runner, prompts, stats, launches
 
+
+def serving_params(**extra) -> list[dict]:
+    """12 requests' mixed sampling parameters."""
+    return [dict(temperature=(0.7, 1.0)[i % 2], top_k=(50, 0)[i // 2 % 2],
+                 top_p=(1.0, 0.9)[i // 4 % 2],
+                 repetition_penalty=(1.0, 1.1)[i // 3 % 2], **extra)
+            for i in range(12)]
+
+
+def run_serving(path) -> dict:
+    """The Parler serving path (`serving_burst`: K1, K4 and K5 must have
+    been launched), then greedy parity of the engine with the single-stream
+    runner. Returns the launch counts of the 12 requests."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
+    runner, prompts, _, launches = serving_burst(
+        path, BatchedParlerEngine, serving_params(), 44100, 512, SERVING_PATH,
+        "Parler")
+    lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
+    log(f"  Parler prompt tokens {lens}")
     # greedy parity: 4 prompts of different lengths in 8 slots against the
     # single-stream runner (generation cut to 96 steps past the longest
     # prompt: parity needs no more)
@@ -1484,6 +1718,7 @@ def check_small_orpheus(tmp) -> None:
 
 ORPHEUS_PATH = ("quant_matmul", "decode_attention", "llama_flat_megastep")
 K8_ROUTE_STEPS = 64
+K9_ROUTE_STEPS = 64
 TOKEN_AUDIO_S = 2048 / 7 / 24000   # 7 tokens -> 4 SNAC frames of 512 samples
 
 
@@ -1496,11 +1731,12 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     decode steps through the runner's decode loop."""
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
-    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.common import GenerationConfig, kv_cache_dtype
     from tts_tpu_torch.models.orpheus import model as omodel
     from tts_tpu_torch.models.registry import runner_from_file
     from tts_tpu_torch.ops import sampling
     from tts_tpu_torch.ops.llama_flat import LlamaFlat
+    from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
     path = os.path.join(tmp, "orpheus-3b-q4.gguf")
     t0 = time.perf_counter()
     write_orpheus(path, np.random.default_rng(SEED), n_layers=ORPHEUS["n_layers"],
@@ -1616,7 +1852,132 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
             k8_launches["llama_flat_megastep"] or bool((toks < 0).any()) or \
             bool((toks >= cfg.vocab_size).any()):
         raise AssertionError("the K8 route did not decode through K8")
-    return launches, k8_launches
+    del kk, vv
+    torch.cuda.empty_cache()
+
+    # the K9 route: the batched engine on the same F16-head weights, 8 slots
+    # (prompts of mixed length, sampled), K9_ROUTE_STEPS batched steps
+    eng = BatchedLlamaEngine(cfg, r8.weights, r8.tokenizer, n_slots=8,
+                             chunk=K9_ROUTE_STEPS // 2)
+    if not isinstance(eng.mega.step, lm.LlamaMegaLayers):
+        raise AssertionError("the F16 head did not take the K9 route")
+    texts = serving_prompts(r8.tokenizer, n=8)
+    for i, text in enumerate(texts):
+        eng.submit(text, GenerationConfig(voice=VOICE, top_k=50, seed=i))
+    torch.cuda.synchronize()
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    t9 = (time.perf_counter() - t0) * 1e3 / K9_ROUTE_STEPS
+    k9_launches = {n: k.launches for n, k in KERNELS.items()}
+    st = eng.state
+    n_out = st.n_out.cpu()
+    toks = st.out_tokens.cpu()
+    log(f"  K9 route (F16 head, batched engine, 8 slots): {K9_ROUTE_STEPS} "
+        f"batched steps, {t9:.4f} ms per step (host clock, prefill of the "
+        f"8 prompts before); tokens per slot {n_out.tolist()}; launches "
+        f"{k9_launches}")
+    for s in range(8):
+        n, t = int(n_out[s]), toks[s, :int(n_out[s])]
+        # every step until the stopping token (if one was sampled) is real
+        if n != K9_ROUTE_STEPS + 1 and t[-1] != cfg.stopping_token_id or \
+                bool((t < 0).any()) or bool((t >= cfg.vocab_size).any()):
+            raise AssertionError(f"K9 route slot {s}: {n} tokens, out of "
+                                 f"range or stopped early")
+    if k9_launches["llama_megastep_batched"] == 0 or \
+            k9_launches["llama_flat_megastep_batched"]:
+        raise AssertionError("the K9 route did not decode through K9")
+    return launches, k8_launches, k9_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 8: serving Orpheus-3B, continuous batching through the HTTP server
+# ---------------------------------------------------------------------------
+
+ORPHEUS_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
+                        "llama_flat_megastep_batched")
+GREEDY_TOKENS = 300   # the greedy parity check's generation window
+
+
+def run_orpheus_serving(path) -> dict:
+    """The Orpheus serving path (`serving_burst` with a voice on every
+    request: K1, K4 and K7 must have been launched), then the engine's
+    greedy tokens against the single-stream runner's (K6). Returns the
+    launch counts of the 12 requests."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
+    params = [dict(p, seed=i) for i, p in enumerate(serving_params(voice=VOICE))]
+    runner, prompts, stats, launches = serving_burst(
+        path, BatchedLlamaEngine, params, 24000, 2048, ORPHEUS_SERVING_PATH,
+        "Orpheus")
+    lens = [len(runner._prompt_ids(p, VOICE)) for p in prompts]
+    log(f"  Orpheus prompt tokens {lens}; tokens per request (whole 7-token "
+        f"groups, from the audio): {round(stats['audio_s'] / 12 / TOKEN_AUDIO_S)}"
+        f" on average")
+
+    # greedy parity: 2 greedy requests among 4 sampled ones in 8 slots
+    # against the single-stream runner (K6), generation cut to
+    # GREEDY_TOKENS tokens (parity needs no more)
+    cfg = dataclasses.replace(runner.cfg, max_generation_size=GREEDY_TOKENS)
+    single = copy.copy(runner)
+    single.cfg = cfg
+    single._mega, single._mega_ready = runner.mega, True
+    eng = BatchedLlamaEngine(cfg, runner.weights, runner.tokenizer, n_slots=8,
+                             chunk=32)
+    greedy = GenerationConfig(sample=False, voice=VOICE)
+    picks = [0, 4, 8, 11, 2, 6]
+    rids = [eng.submit(prompts[i], greedy if j < 2 else GenerationConfig(
+        **params[i])) for j, i in enumerate(picks)]
+    eng.run_until_done()
+    for rid, i in zip(rids[:2], picks):
+        out, n_out, _ = single.generate_tokens(prompts[i], greedy)
+        want = omodel.prepare_output_tokens(out, n_out)
+        if eng.results[rid] != want:
+            raise AssertionError(f"greedy tokens of the engine differ from the "
+                                 f"runner's for prompt {i} ({lens[i]} tokens)")
+    log(f"  greedy parity: 2 greedy requests among 4 sampled ones in 8 slots "
+        f"give the single-stream runner's (K6's) tokens exactly "
+        f"({GREEDY_TOKENS} tokens each): ok")
+    return launches
+
+
+def kernel_name(mangled: str) -> str:
+    """The unqualified name in a mangled kernel symbol: the last
+    length-prefixed identifier before the template arguments."""
+    head = re.split(r"I(?:L|N|P)", mangled, maxsplit=1)[0]
+    for i in range(len(head)):
+        m = re.match(r"(\d+)(\D\w*)$", head[i:])
+        if m and len(m.group(2)) == int(m.group(1)):
+            return m.group(2)
+    return head[-24:]
+
+
+def ptxas_summary(src: str) -> list[str]:
+    """nvcc's register and spill report for one source, by the kernels'
+    row count (the last int of their template arguments: ROWS for the
+    GEMVs) where their names carry one."""
+    groups, name, spill = defaultdict(list), None, 0
+    for line in _build.ptxas_report(src).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            ints = re.findall(r"Li(\d+)E", name)
+            groups[f"{kernel_name(name)} {ints[-1] if ints else '-'}"].append(
+                (int(m.group(1)), spill))
+            name = None
+    return [f"{key}: {len(v)} kernels, {min(r for r, _ in v)}-"
+            f"{max(r for r, _ in v)} registers, spill stores up to "
+            f"{max(sp for _, sp in v)} bytes ({sum(sp > 0 for _, sp in v)} "
+            f"spill)" for key, v in sorted(groups.items())]
 
 
 def nvidia_smi() -> str:
@@ -1638,36 +1999,50 @@ def main() -> int:
     log(f"built {sorted(times)} in {time.perf_counter() - t0:.1f} s "
         f"(per source {', '.join(f'{k} {v:.1f} s' for k, v in times.items())})")
     for src in _build.SOURCES:
-        for line in _build.ptxas_report(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_summary(src):
+            log(f"  ptxas {src}: {line}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED)
+
+    def phase(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        log(f"[{fn.__name__}: {time.perf_counter() - t:.1f} s]")
+        return out
+
     mega, qtype = mini_mega(gen)
-    rows = [check_k1(gen), check_k2(gen, mega, qtype), check_k3(gen),
-            check_k4(gen), check_k5(gen, mega, qtype)]
+    rows = [phase(check_k1, gen), phase(check_k2, gen, mega, qtype),
+            phase(check_k3, gen), phase(check_k4, gen),
+            phase(check_k5, gen, mega, qtype)]
     del mega
     torch.cuda.empty_cache()
     lmega, flat, lkw = orpheus_kernel_weights(gen)
-    rows += check_llama(gen, lmega, flat, lkw)
+    rows += phase(check_llama, gen, lmega, flat, lkw)
+    rows += phase(check_llama_batched, gen, lmega, flat, lkw)
     del lmega, flat, lkw
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        check_small_reference(tmp)
-        launches, path = run_main_path(tmp)
+        phase(check_small_reference, tmp)
+        launches, path = phase(run_main_path, tmp)
         torch.cuda.empty_cache()
-        served = run_serving(path)
+        served = phase(run_serving, path)
         os.remove(path)
         torch.cuda.empty_cache()
-        check_small_orpheus(tmp)
-        orpheus, k8_route = run_orpheus_main_path(tmp)
+        phase(check_small_orpheus, tmp)
+        orpheus, k8_route, k9_route = phase(run_orpheus_main_path, tmp)
+        torch.cuda.empty_cache()
+        served_orpheus = phase(run_orpheus_serving,
+                               os.path.join(tmp, "orpheus-3b-q4.gguf"))
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
     # CLI's single stream, K4 and K5 on the server's batched engine, K6 on
-    # the Orpheus CLI's single stream, K8 on the Orpheus K8 route
+    # the Orpheus CLI's single stream, K8 on the Orpheus K8 route, K7 on
+    # the Orpheus server's batched engine, K9 on the Orpheus K9 route
     paths = {"decode_attention_batched": served, "parler_megastep_batched": served,
-             "llama_flat_megastep": orpheus, "llama_megastep": k8_route}
+             "llama_flat_megastep": orpheus, "llama_megastep": k8_route,
+             "llama_flat_megastep_batched": served_orpheus,
+             "llama_megastep_batched": k9_route}
     for row in rows:
         row["launches"] = paths.get(row["name"], launches)[row["name"]]
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")

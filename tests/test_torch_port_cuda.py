@@ -12,7 +12,9 @@ path's full shapes. The batched kernels (K4, K5) are checked with slots at
 mixed positions across 256-row page boundaries, and each slot against the
 one-sequence kernel (K3, K2) on that slot's state, bit for bit. The Orpheus
 steps (K8, K6) are checked at positions on both sides of K3's 256-row
-pages, with bf16 caches.
+pages, with bf16 caches; their batched forms (K9, K7) at 1, 5, 8 and 16
+slots at mixed positions (one at 0), each slot against K8 / K6 bit for
+bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge.
 """
 import pytest
 import torch
@@ -295,3 +297,140 @@ def test_llama_launch_counters(dev):
     torch.cuda.synchronize()
     after = (lm.KERNEL.launches, lf.KERNEL.launches, da.KERNEL.launches)
     assert [a - b for a, b in zip(after, before)] == [8, 9, 4]
+
+
+# slots of the batched llama steps: at positions on both sides of K4's
+# 256-row pages, the first at pos 0 (B = 1 takes it alone)
+LLAMA_MIXED = (0, 255, 256, 257, 639, 511, 1, 300, 128, 383, 384, 500, 512,
+               600, 2, 638)
+
+
+def _llama_batch(dev, b):
+    kc = torch.randn((2, b, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, b, 2, 640, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((b, 256), device=dev)
+    pos = torch.tensor(LLAMA_MIXED[:b], dtype=torch.int32, device=dev)
+    return x, kc, vc, pos
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 16])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k9_matches_k8_and_plain(dev, qtype, b):
+    """B slots at mixed positions (B = 5 and 8 take the 8-row GEMV, 16 the
+    16-row one): each slot's x_out, k_new, v_new and cache equal a K8 step
+    on that slot's state bit for bit; against the plain version, LLAMA_TOL
+    of the largest value."""
+    torch.manual_seed(0)
+    mega, _, _, kw = _tiny_llama(dev, qtype)
+    x, kc, vc, pos = _llama_batch(dev, b)
+    k1, v1 = kc.clone(), vc.clone()
+    got = lm.llama_megastep_batched_cuda(mega, x, k1, v1, pos, **kw)
+    assert got[0].shape == (b, 256) and got[1].shape == (2, b, 128)
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        xs, kn, vn = lm.llama_megastep_cuda(mega, x[s:s + 1], ks, vs,
+                                            pos[s:s + 1], **kw)
+        assert torch.equal(got[0][s:s + 1], xs), s
+        assert torch.equal(got[1][:, s], kn) and torch.equal(got[2][:, s], vn)
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+    ref = lm.llama_megastep_batched_plain(mega, x, kc.clone(), vc.clone(),
+                                          pos, **kw)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=LLAMA_TOL * r.abs().max().item())
+
+
+@pytest.mark.parametrize("b", [1, 5, 8, 16])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k7_matches_k6_and_plain(dev, qtype, b):
+    """K7 at mixed positions: each slot's logits, k_new, v_new and cache
+    equal a K6 step on that slot's state bit for bit; the padded logits are
+    exactly 0; against the plain version, LLAMA_TOL."""
+    torch.manual_seed(0)
+    _, flat, _, kw = _tiny_llama(dev, qtype)
+    x, kc, vc, pos = _llama_batch(dev, b)
+    k1, v1 = kc.clone(), vc.clone()
+    got = lf.llama_flat_megastep_batched_cuda(flat, x, k1, v1, pos, **kw)
+    assert got[0].shape == (b, 1024) and not got[0][:, 1000:].any()
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        lg, kn, vn = lf.llama_flat_megastep_cuda(flat, x[s:s + 1], ks, vs,
+                                                 pos[s:s + 1], **kw)
+        assert torch.equal(got[0][s:s + 1], lg), s
+        assert torch.equal(got[1][:, s], kn) and torch.equal(got[2][:, s], vn)
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+    ref = lf.llama_flat_megastep_batched_plain(flat, x, kc.clone(), vc.clone(),
+                                               pos, **kw)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=LLAMA_TOL * r.abs().max().item())
+
+
+def test_batched_llama_launch_counters(dev):
+    """K9 and K7 count their own launches: per layer 4 GEMVs on K9's or
+    K7's counter and 1 K4, and K7's head GEMV on K7's; K6, K8 and K3 stay
+    where they were."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, pos = _llama_batch(dev, 5)
+    counters = (lm.KERNEL_BATCHED, lf.KERNEL_BATCHED, da.KERNEL_BATCHED,
+                lm.KERNEL, lf.KERNEL, da.KERNEL)
+    before = [k.launches for k in counters]
+    scratch = lm.step_scratch(mega, 5, 4, 640, dev)
+    lm.llama_megastep_batched(mega, x, kc, vc, pos, scratch=scratch, **kw)
+    lf.llama_flat_megastep_batched(flat, x, kc, vc, pos, scratch=scratch, **kw)
+    torch.cuda.synchronize()
+    after = [k.launches for k in counters]
+    assert [a - b for a, b in zip(after, before)] == [8, 9, 4, 0, 0, 0]
+
+
+# The norm's statistics are summed in another order than the plain
+# version's, which can flip the bf16 rounding of a few normalized inputs; a
+# flip moves an output by about |w x| 2^-8, up to ~1e-3 of the largest one.
+BOUNDARY_TOL = 5e-3
+
+
+@pytest.mark.parametrize("b,k", [(8, 3072), (16, 1536)])
+def test_llama_gemv_at_the_48k_shared_memory_boundary(dev, b, k):
+    """b rows of K bf16 stage exactly 48 KB, the shared memory a block gets
+    without opting in, which the kernel's static shared memory then
+    exceeds: the launch opts in (8 rows at Orpheus-3B's K 3072 are K7/K9's
+    qkv, gate/up and head GEMVs). The RMS-prologue GEMV against its plain
+    version, within BOUNDARY_TOL."""
+    import ctypes
+    from tts_tpu_torch.ops import _build
+    torch.manual_seed(0)
+    qt, n = quants.GGML_TYPE_Q4_0, 64
+    w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
+    x = torch.randn((b, k), device=dev)
+    nw = torch.rand(k, device=dev) + 0.5
+    out = torch.empty((b, n), device=dev)
+    vp, null = _build.ptr, ctypes.c_void_p(0)
+    lm.KERNEL_BATCHED(vp(x), vp(nw), 1, vp(w.codes), vp(w.scales),
+                      vp(w.codes), vp(w.scales), qt, 1, 1, b, n, k, null,
+                      vp(out), lm.EPI_STORE, null, null, 0, null, null, 0, 0,
+                      0, 0, 0, 0, _build.stream_ptr(dev))
+    ref = lm.dqdot(lm.rms_norm(x, nw), w.codes, w.scales, qt)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+def test_parler_gemv_at_the_48k_shared_memory_boundary(dev):
+    """12 rows of Parler-Mini's K 1024 in f32 are exactly 48 KB (K5 at 12
+    slots): the LN-prologue launch opts in, and agrees with its plain
+    version within BOUNDARY_TOL."""
+    import ctypes
+    from tts_tpu_torch.ops import _build
+    torch.manual_seed(0)
+    qt, b, k, n = quants.GGML_TYPE_Q4_0, 12, 1024, 64
+    w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
+    x = torch.randn((b, k), device=dev)
+    lw, lb = torch.rand(k, device=dev) + 0.5, torch.randn(k, device=dev) * 0.1
+    out = torch.empty((b, n), device=dev)
+    vp, null = _build.ptr, ctypes.c_void_p(0)
+    pm.KERNEL_BATCHED(vp(x), vp(lw), vp(lb), 1, vp(w.codes), vp(w.scales), qt,
+                      1, b, n, k, null, vp(out), pm.EPI_STORE, null, null, null,
+                      0, 0, 0, 0, 0, _build.stream_ptr(dev))
+    ref = pm._qdot(pm.layer_norm(x, lw, lb), w.codes, w.scales, qt)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=BOUNDARY_TOL * ref.abs().max().item())

@@ -25,6 +25,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "tts_tpu"
              or k.startswith("tts_tpu."))
 assert {"tts_tpu_torch.runtime.batched_parler",
+        "tts_tpu_torch.runtime.batched_llama",
         "tts_tpu_torch.server.server", "tts_tpu_torch.ops.llama_megastep",
         "tts_tpu_torch.ops.llama_flat", "tts_tpu_torch.models.codec.snac",
         "tts_tpu_torch.models.orpheus.model",
@@ -134,7 +135,8 @@ def test_cpu_tensors_take_the_plain_versions():
     from tts_tpu_torch.ops import parler_megastep as pm
     from tts_tpu_torch.ops import quant_matmul as qm
     kernels = (qm.KERNEL, da.KERNEL, pm.KERNEL, da.KERNEL_BATCHED,
-               pm.KERNEL_BATCHED, lf.KERNEL, lm.KERNEL)
+               pm.KERNEL_BATCHED, lf.KERNEL, lm.KERNEL, lf.KERNEL_BATCHED,
+               lm.KERNEL_BATCHED)
     before = [k.launches for k in kernels]
     q = torch.randn(4, 64)
     kv = torch.randn(4, 300, 64)
@@ -164,5 +166,25 @@ def test_cpu_tensors_take_the_plain_versions():
     lg, _, _ = lf.llama_flat_megastep(flat, torch.randn(1, 64), kv, kv.clone(),
                                       pos, **step)
     assert lg.shape == (1, 256) and not lg[:, 70:].any()
+    # and through K9 and K7 for two slots at different positions
+    kv2 = torch.zeros(1, 2, 1, 40, 32)
+    pos2 = torch.tensor([0, 39], dtype=torch.int32)
+    lm.llama_megastep_batched(mega, torch.randn(2, 64), kv2, kv2.clone(), pos2,
+                              **step)
+    lg, _, _ = lf.llama_flat_megastep_batched(flat, torch.randn(2, 64), kv2,
+                                              kv2.clone(), pos2, **step)
+    assert lg.shape == (2, 256) and not lg[:, 70:].any()
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
+
+
+def test_batched_llama_engine_names_no_device():
+    """The batched Orpheus engine runs on its weights' device (the card
+    unless the loader was given device="cpu"): the module names no device
+    of its own to move work to (it asks only whether its own is the
+    card)."""
+    from tts_tpu_torch.runtime import batched_llama
+    with open(batched_llama.__file__) as f:
+        src = f.read()
+    for name in ('"cpu"', "'cpu'", "device=None", "default_device"):
+        assert name not in src, name

@@ -173,25 +173,26 @@ TEXT, VOICE = "abcd cab", "zoe"
 MAX_GEN, MAX_CTX = 21, 64
 
 
-def write_tiny_orpheus(path, rng):
+def write_tiny_orpheus(path, rng, heads=HEADS, kv=KV):
     """Random F32 Orpheus + SNAC weights (projections of std 0.05, head 0.1,
     embeddings 1.0: logits of O(1)), a BPE vocab with merges, and the
-    special ids PRE/APP/STOP inside the 300-token vocab."""
+    special ids PRE/APP/STOP inside the 300-token vocab. `heads` / `kv` set
+    the attention heads (head_d = H / heads)."""
     def r(*s, scale=0.05):
         return rng.standard_normal(s).astype(np.float32) * scale
 
     t = {"orpheus.embed_tokens": r(VOCAB, H, scale=1.0),
          "orpheus.norm": r(H) + 1, "orpheus.lm_head": r(VOCAB, H, scale=0.1),
          "orpheus.rope_frequencies":
-             (1.0 + rng.random(H // HEADS // 2)).astype(np.float32)}
-    d = H // HEADS
+             (1.0 + rng.random(H // heads // 2)).astype(np.float32)}
+    d = H // heads
     for l in range(L):
         b = f"orpheus.layers.{l}."
         t[b + "input_layernorm"] = r(H) + 1
         t[b + "post_attention_layernorm"] = r(H) + 1
         for n, shape in (("self_attn.q_proj", (H, H)),
-                         ("self_attn.k_proj", (KV * d, H)),
-                         ("self_attn.v_proj", (KV * d, H)),
+                         ("self_attn.k_proj", (kv * d, H)),
+                         ("self_attn.v_proj", (kv * d, H)),
                          ("self_attn.o_proj", (H, H)),
                          ("mlp.gate_proj", (F, H)), ("mlp.up_proj", (F, H)),
                          ("mlp.down_proj", (H, F))):
@@ -216,7 +217,7 @@ def write_tiny_orpheus(path, rng):
     vocab = BPE_TOKENS + [f"tok{i}" for i in range(len(BPE_TOKENS), VOCAB)]
     vocab[20:26] = ["z", "o", "e", "zo", "zoe", ":"]
     write_orpheus_gguf(
-        path, vocab_size=VOCAB, attn_heads=HEADS, kv_attn_heads=KV,
+        path, vocab_size=VOCAB, attn_heads=heads, kv_attn_heads=kv,
         head_dim=d, hidden_size=H, n_layers=L, stopping_token_id=STOP,
         bos_token_id=PRE[1], eos_token_id=APP[0],
         tensors=t, tokenizer_tokens=vocab,

@@ -3,7 +3,8 @@
 error JSON, /metrics, LOADING 503, the answers for what the port does not
 have yet (streaming, conditional prompts), concurrent requests, and
 `--batch-slots 2` against `--batch-slots 0` on a tiny Parler GGUF under a
-greedy default config: byte-identical WAVs."""
+greedy default config: byte-identical WAVs, and the same for a tiny
+Orpheus GGUF (its batched engine against the worker pool)."""
 import json
 import threading
 import time
@@ -208,34 +209,57 @@ def test_main_refuses_text_encoder(capsys):
 
 
 @pytest.mark.parametrize("slots", [0, 8])
-def test_orpheus_served_by_the_pool(tmp_path, capsys, monkeypatch,
-                                    small_prompt_ids, slots):
-    """An Orpheus model is served by the worker pool whatever --batch-slots
-    says (with one log line when batching was asked for): a request with a
-    voice gives a 24 kHz WAV, an unknown voice the runner's error, and
-    /v1/audio/voices lists the Orpheus voices. The tiny GGUF, its in-vocab
-    prompt ids and the cut generation window come from
+def test_orpheus_served_by_the_pool(tmp_path, monkeypatch, small_prompt_ids,
+                                    slots):
+    """An Orpheus model under --batch-slots 8 gets a batched worker (the
+    continuous-batching engine), under --batch-slots 0 the worker pool.
+    Concurrent greedy requests with a voice and a seed give 24 kHz WAVs,
+    byte-identical to the pool's answers; an unknown voice gets the
+    runner's error, and /v1/audio/voices lists the Orpheus voices. The tiny
+    GGUF, its in-vocab prompt ids and the cut generation window come from
     tests/test_torch_port_orpheus.py."""
     import numpy as np
     cut_port_window(monkeypatch)
     path = str(tmp_path / "orpheus.gguf")
     write_tiny_orpheus(path, np.random.default_rng(0))
+    texts = ("abcd cab", "ab", "dd cadd")
+
+    def payload(text):
+        return {"input": text, "voice": "zoe", "seed": 7}
+
+    def boot(n):
+        return _start(build_server(path, config=GenerationConfig(sample=False),
+                                   batch_slots=n, device="cpu"))
+
+    httpd, base = boot(0)
+    ref = {t: _post(base + "/v1/audio/speech", payload(t)) for t in texts}
+    httpd.shutdown()
     srv = build_server(path, config=GenerationConfig(sample=False),
                        batch_slots=slots, device="cpu")
     httpd, base = _start(srv)
+    results = {}
+
+    def req(text):
+        results[text] = _post(base + "/v1/audio/speech", payload(text))
+
     try:
-        assert srv.batched_workers == {}
+        assert list(srv.batched_workers) == (["orpheus"] if slots else [])
         code, body, _ = _get(base + "/v1/audio/voices")
         assert code == 200 and "zoe" in json.loads(body)["voices"]["orpheus"]
-        code, body, headers = _post(base + "/v1/audio/speech",
-                                    {"input": "abcd cab", "voice": "zoe"})
-        assert code == 200 and headers["Content-Type"] == "audio/wav"
-        audio, rate = decode_wav(body)
-        assert rate == 24000 and audio.size == 12 * 8
+        threads = [threading.Thread(target=req, args=(t,)) for t in texts]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
         code, body, _ = _post(base + "/v1/audio/speech",
                               {"input": "abcd", "voice": "bob"})
         assert code == 500 and b"not a valid Orpheus voice" in body
     finally:
         httpd.shutdown()
-    logged = "batching Orpheus is ROADMAP item 8" in capsys.readouterr().err
-    assert logged == (slots > 1)
+    for text in texts:
+        code, body, headers = results[text]
+        assert code == ref[text][0] == 200, (text, body[:200])
+        assert headers["Content-Type"] == "audio/wav" and body == ref[text][1]
+        audio, rate = decode_wav(body)
+        assert rate == 24000 and audio.size == 12 * 8
+        assert "X-TTS-Top-K-Applied" not in headers   # greedy: no cap applies

@@ -160,6 +160,8 @@ gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   }
 }
 
+constexpr size_t OPT_IN_FROM = 47 * 1024;
+
 template <int QT, bool PACKED, bool LN, int EPI, int ROWS>
 int launch_one(const float* x, const float* ln_w, const float* ln_b,
                const uint8_t* codes, const __nv_bfloat16* sc, int B, int N,
@@ -168,7 +170,9 @@ int launch_one(const float* x, const float* ln_w, const float* ln_b,
   const dim3 grid((N + WARPS - 1) / WARPS);
   const size_t smem = LN ? (size_t)B * K * sizeof(float) : 0;
   auto kern = gemv_kernel<QT, PACKED, LN, EPI, ROWS>;
-  if (smem > 48 * 1024) {  // above 48 KB only as opted-in dynamic memory
+  // A block gets 48 KB without opting in, its static shared memory (the
+  // norm's block sum) included: opt in before the dynamic rows reach it.
+  if (smem > OPT_IN_FROM) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;

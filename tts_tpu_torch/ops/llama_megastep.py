@@ -1,4 +1,5 @@
-"""One Orpheus (llama-family) decode step over all L layers: kernel K8.
+"""One Orpheus (llama-family) decode step over all L layers: kernel K8, and
+kernel K9 for B batch slots.
 
 Computes the JAX package's `llama_megastep` (reference
 `llama_megastep_reference`): per layer RMS -> qkv -> NeoX RoPE with the
@@ -6,15 +7,26 @@ llama3 frequency factors -> GQA attention over the cache -> o -> RMS ->
 SiLU(gate) * up -> down, with block-quantized weights at bf16-rounded
 dequant and bf16-rounded activations, f32 sums (`_dqdot` numerics, whatever
 the scale dtype). Returns the pre-final-norm x and each layer's k_new /
-v_new; the caller applies the final norm and the LM head.
+v_new; the caller applies the final norm and the LM head. K9 computes
+`llama_megastep_batched` (reference `llama_megastep_batched_reference`, the
+single-stream reference per slot): one row per slot, each slot at its own
+position with its own cache.
 
 On the card the step is a sequence of hand-written kernels on one stream
 (csrc/llama_megastep.cu, its header says why): per layer 4 launches of the
 dequant GEMV, which fuses the RMS norm before it and the RoPE + KV-row
 write, SiLU(gate) * up or residual add after it, and 1 launch of the decode
-attention K3 (ops/decode_attention.py). K6 (ops/llama_flat.py) runs the
-same layers through `layers_cuda` and adds the LM head. On CPU tensors
-`llama_megastep_plain` computes the same in plain PyTorch.
+attention (K3 for one row, K4 for B rows, ops/decode_attention.py). K9 is
+the same sequence with B rows, one weight read for every slot; each of its
+slots equals K8 on that slot's state bit for bit. K6 and K7
+(ops/llama_flat.py) run the same layers through `layers_cuda` and add the
+LM head. On CPU tensors `llama_megastep_plain` and
+`llama_megastep_batched_plain` compute the same in plain PyTorch.
+
+K9 departs from the TPU batched kernel in one rounding: that kernel rounds
+q, K/V and the softmax probabilities to bf16 for its attention dots, which
+the single-stream kernel does not; here K4 keeps K3's f32 softmax, so that
+a slot equals K8.
 
 Unlike the TPU kernel, which folds the current token's f32 k/v into the
 softmax and leaves the cache write to its caller, this step writes k/v into
@@ -40,9 +52,12 @@ _i32 = ctypes.c_int
 ARGS = [_vp, _vp, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
         _vp, _vp, _i32, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
         ctypes.c_longlong, _vp]
-KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K8
+# One C entry serves K6-K9; each path counts its own launches.
+KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)           # K8
+KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K9
 EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
 RMS_EPS = 1e-5
+MAX_BATCH = 16   # rows the GEMV takes (csrc/llama_megastep.cu MAX_ROWS)
 
 
 class LlamaMegaLayers(NamedTuple):
@@ -160,23 +175,62 @@ def llama_megastep_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
     return x, torch.stack(k_new), torch.stack(v_new)
 
 
-def layers_cuda(gemv_kernel, mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
-                qtype: int, n_heads: int, inv_freq):
-    """The L layers on the card for one row: x (1, H), kv_k/kv_v
-    (L, n_kv, CTX, D), pos (1,) int32, inv_freq (D/2,) float32, all on the
-    card. Per layer 4 GEMV launches through `gemv_kernel` (K8's or K6's
-    counter) and 1 K3 launch, on the current stream. Returns (x_out, k_new,
-    v_new) as `llama_megastep_plain`."""
+def llama_megastep_batched_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos,
+                                 *, qtype: int, n_heads: int, n_kv: int,
+                                 inv_freq):
+    """K9's plain PyTorch version: `llama_megastep_plain` applied per slot,
+    as the JAX package's `llama_megastep_batched_reference` is. x (B, H);
+    kv_k/kv_v (L, B, n_kv, CTX, D), each slot's row pos[s] written in place;
+    pos (B,). Returns (x_out (B, H), k_new (L, B, KV), v_new (L, B, KV))."""
+    p = torch.as_tensor(pos).reshape(-1)
+    outs = [llama_megastep_plain(mega, x[s:s + 1], kv_k[:, s], kv_v[:, s],
+                                 p[s], qtype=qtype, n_heads=n_heads,
+                                 n_kv=n_kv, inv_freq=inv_freq)
+            for s in range(x.shape[0])]
+    return (torch.cat([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs], 1),
+            torch.stack([o[2] for o in outs], 1))
+
+
+class StepScratch(NamedTuple):
+    """Buffers a step on the card reuses layer after layer; a caller that
+    steps often (the batched engine) allocates them once."""
+
+    attn: torch.Tensor   # (B, heads, D) attention output
+    act: torch.Tensor    # (B, F) SiLU(gate) * up
+    part: tuple          # the attention kernel's partial states
+
+
+def step_scratch(mega: LlamaMegaLayers, b: int, n_heads: int, ctx: int,
+                 device) -> StepScratch:
+    hidden, ffn = mega.norms.shape[2], mega.gate_codes.shape[1]
+    d = hidden // n_heads
+    f32 = dict(dtype=torch.float32, device=device)
+    return StepScratch(attn=torch.empty((b, n_heads, d), **f32),
+                       act=torch.empty((b, ffn), **f32),
+                       part=da.attention_scratch(b, n_heads, ctx, d, device))
+
+
+def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
+                kv_v, pos, *, qtype: int, n_heads: int, inv_freq,
+                scratch: StepScratch | None = None):
+    """The L layers on the card for B <= 16 rows: x (B, H), kv_k/kv_v
+    (L, B, n_kv, CTX, D), pos (B,) int32, inv_freq (D/2,) float32, all on
+    the card. Per layer 4 GEMV launches through `gemv_kernel` (K8's, K6's,
+    K9's or K7's counter) and 1 attention launch through `attn_kernel` (K3's
+    or K4's), on the current stream. `scratch` (step_scratch) is allocated
+    when not given. Returns (x_out (B, H), k_new (L, B, KV), v_new
+    (L, B, KV))."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.gate_codes.shape[1]
     kvn = mega.qkv_codes.shape[1]
-    n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3]
+    b, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
     kvh = n_kv * d
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32), ndim=4)
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=4)
+                   dtypes=(torch.bfloat16, torch.float32), ndim=5)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5)
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
@@ -188,53 +242,56 @@ def layers_cuda(gemv_kernel, mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
         _build.require(getattr(mega, name + "_scales"), name + "_scales",
                        device=dev, dtypes=(torch.float32, torch.bfloat16),
                        ndim=3, align=2)
-    if (x.shape != (1, hidden) or kv_k.shape != (n_layers, n_kv, ctx, d)
+    if (x.shape != (b, hidden) or kv_k.shape != (n_layers, b, n_kv, ctx, d)
             or kv_v.shape != kv_k.shape or kvn != hidden + 2 * kvh
             or hidden != n_heads * d or inv_freq.numel() != d // 2
-            or pos.numel() != 1
+            or pos.numel() != b or not 0 < b <= MAX_BATCH
             or mega.gate_scales.dtype != mega.up_scales.dtype):
         raise ValueError(f"llama_megastep: x {tuple(x.shape)}, kv "
                          f"{tuple(kv_k.shape)}, qkv rows {kvn}, L={n_layers} "
                          f"H={hidden}, {n_heads} heads, inv_freq "
-                         f"{tuple(inv_freq.shape)}, pos {tuple(pos.shape)}")
+                         f"{tuple(inv_freq.shape)}, pos {tuple(pos.shape)}, "
+                         f"at most {MAX_BATCH} rows")
+    sc = scratch or step_scratch(mega, b, n_heads, ctx, dev)
+    if sc.attn.shape != (b, n_heads, d) or sc.act.shape != (b, ffn):
+        raise ValueError(f"llama_megastep: scratch for {tuple(sc.act.shape)} "
+                         f"does not fit {b} rows")
     packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
     cache_bf16 = int(kv_k.dtype == torch.bfloat16)
+    kv_bstride = n_kv * ctx * d
     stream = _build.stream_ptr(dev)
     xw = x.clone()
-    qkv = torch.empty((n_layers, 1, kvn), dtype=torch.float32, device=dev)
-    attn = torch.empty((1, n_heads, d), dtype=torch.float32, device=dev)
-    act = torch.empty((1, ffn), dtype=torch.float32, device=dev)
-    part = da.attention_scratch(1, n_heads, ctx, d, dev)
+    qkv = torch.empty((n_layers, b, kvn), dtype=torch.float32, device=dev)
     nm, vp = mega.norms, ctypes.c_void_p
     null = vp(0)
     pos_p, inv_p = vp(pos.data_ptr()), vp(inv_freq.data_ptr())
-    x_p, attn_p, act_p = (vp(t.data_ptr()) for t in (xw, attn, act))
+    x_p, attn_p, act_p = (vp(t.data_ptr()) for t in (xw, sc.attn, sc.act))
 
-    def gemv(xin, rms, name, l, n, k, res, out, epi, b=None, norm=null,
+    def gemv(xin, rms, name, l, n, k, res, out, epi, pair=None, norm=null,
              kc=null, vc=null):
         scales = getattr(mega, name + "_scales")
         ca = vp(addr(getattr(mega, name + "_codes"), l))
         sa = vp(addr(scales, l))
-        cb, sb = (ca, sa) if b is None else (
-            vp(addr(getattr(mega, b + "_codes"), l)),
-            vp(addr(getattr(mega, b + "_scales"), l)))
+        cb, sb = (ca, sa) if pair is None else (
+            vp(addr(getattr(mega, pair + "_codes"), l)),
+            vp(addr(getattr(mega, pair + "_scales"), l)))
         gemv_kernel(xin, norm, rms, ca, sa, cb, sb, qtype, packed,
-                    int(scales.dtype == torch.bfloat16), 1, n, k, res, out,
-                    epi, inv_p, pos_p, 0, kc, vc, hidden,
-                    kvh, d, ctx, cache_bf16, 0, stream)
+                    int(scales.dtype == torch.bfloat16), b, n, k, res, out,
+                    epi, inv_p, pos_p, 1, kc, vc, hidden,
+                    kvh, d, ctx, cache_bf16, kv_bstride, stream)
 
     for l in range(n_layers):
         q_out = qkv[l]
         gemv(x_p, 1, "qkv", l, kvn, hidden, null, vp(q_out.data_ptr()),
              EPI_ROPE_QKV, norm=vp(addr(nm, l, 0)),
              kc=vp(addr(kv_k, l)), vc=vp(addr(kv_v, l)))
-        da._launch(da.KERNEL, q_out[:, :hidden].unflatten(1, (n_heads, d)),
-                   kv_k[l], kv_v[l], pos, None, attn, part)
+        da._launch(attn_kernel, q_out[:, :hidden].unflatten(1, (n_heads, d)),
+                   kv_k[l], kv_v[l], pos, None, sc.attn, sc.part)
         gemv(attn_p, 0, "o", l, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
         gemv(x_p, 1, "gate", l, ffn, hidden, null, act_p, EPI_SILU_MUL,
-             b="up", norm=vp(addr(nm, l, 1)))
+             pair="up", norm=vp(addr(nm, l, 1)))
         gemv(act_p, 0, "down", l, hidden, ffn, x_p, x_p, EPI_RESIDUAL)
-    return xw, qkv[:, 0, hidden:hidden + kvh], qkv[:, 0, hidden + kvh:]
+    return xw, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]
 
 
 def llama_megastep_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
@@ -244,9 +301,11 @@ def llama_megastep_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
     one-element int32 CUDA tensor."""
     if kv_k.dim() != 4 or kv_k.shape[1] != n_kv:
         raise ValueError(f"llama_megastep: kv {tuple(kv_k.shape)}, n_kv {n_kv}")
-    return layers_cuda(KERNEL, mega, x.float().reshape(1, -1).contiguous(),
-                       kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
-                       inv_freq=inv_freq)
+    xo, kn, vn = layers_cuda(KERNEL, da.KERNEL, mega,
+                             x.float().reshape(1, -1).contiguous(),
+                             kv_k.unsqueeze(1), kv_v.unsqueeze(1), pos,
+                             qtype=qtype, n_heads=n_heads, inv_freq=inv_freq)
+    return xo, kn[:, 0], vn[:, 0]
 
 
 def llama_megastep(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
@@ -256,3 +315,29 @@ def llama_megastep(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
     fn = llama_megastep_plain if x.device.type == "cpu" else llama_megastep_cuda
     return fn(mega, x, kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
               n_kv=n_kv, inv_freq=inv_freq)
+
+
+def llama_megastep_batched_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                                qtype: int, n_heads: int, n_kv: int, inv_freq,
+                                scratch: StepScratch | None = None):
+    """K9 on the card: 4 batched GEMV launches and 1 K4 launch per layer for
+    B <= 16 slots, on the current stream. Same contract as
+    `llama_megastep_batched_plain`, with pos a (B,) int32 CUDA tensor."""
+    if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
+        raise ValueError(f"llama_megastep_batched: kv {tuple(kv_k.shape)}, "
+                         f"n_kv {n_kv}")
+    return layers_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, mega,
+                       x.float().contiguous(), kv_k, kv_v, pos, qtype=qtype,
+                       n_heads=n_heads, inv_freq=inv_freq, scratch=scratch)
+
+
+def llama_megastep_batched(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                           qtype: int, n_heads: int, n_kv: int, inv_freq,
+                           scratch: StepScratch | None = None):
+    """Dispatch: K9 for CUDA tensors, the plain version for CPU tensors
+    (which ignores `scratch`). See `llama_megastep_batched_plain`."""
+    kw = dict(qtype=qtype, n_heads=n_heads, n_kv=n_kv, inv_freq=inv_freq)
+    if x.device.type == "cpu":
+        return llama_megastep_batched_plain(mega, x, kv_k, kv_v, pos, **kw)
+    return llama_megastep_batched_cuda(mega, x, kv_k, kv_v, pos,
+                                       scratch=scratch, **kw)

@@ -10,11 +10,11 @@ task queue.
 Workers share one loaded model per model id, so N workers cost one copy of
 the weights and the pool size sets request-level concurrency (their work
 serializes on the card's stream). With `--batch-slots N` (N > 1), Parler
-requests go to the continuous-batching engine instead
-(runtime/batched_parler.py): concurrent requests decode together, one read
-of the weights serving every slot. A prompt longer than the engine takes
-goes to the worker pool. Orpheus models are served by the worker pool
-whatever `--batch-slots` says: their batched engine is a later slice.
+and Orpheus requests go to a continuous-batching engine instead
+(runtime/batched_parler.py, runtime/batched_llama.py): concurrent requests
+decode together, one read of the weights serving every slot. A request the
+engine does not take (a prompt longer than it takes) goes to the worker
+pool.
 
 Not in the port yet, each answered with a clear error: `"stream": true`
 (501, PCM streaming is a later slice) and conditional prompts (the route
@@ -40,7 +40,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..audio.wav import encode_aiff, encode_wav
-from ..common import SAMPLE_RATE_DAC, GenerationConfig, default_device
+from ..common import (SAMPLE_RATE_DAC, SAMPLE_RATE_SNAC, GenerationConfig,
+                      default_device)
 from ..models.registry import runner_from_file
 from ..ops import sampling
 
@@ -112,12 +113,12 @@ class ServerTask:
         self.sample_rate = 0
 
 
-# Orpheus and Dia join when the port has their engines.
-BATCHABLE_ARCHS = ("parler-tts",)
+# Dia joins when the port has its engine.
+BATCHABLE_ARCHS = ("parler-tts", "orpheus")
 
 
 class BatchedModelWorker:
-    """Continuous-batching dispatcher for one Parler model.
+    """Continuous-batching dispatcher for one Parler or Orpheus model.
 
     HTTP threads hand over ServerTasks through a queue; one worker thread
     owns the engine and its tensors, refills slots between chunks, vocodes
@@ -125,11 +126,14 @@ class BatchedModelWorker:
     """
 
     def __init__(self, runner, n_slots: int, chunk: int = 32):
-        from ..runtime.batched_parler import BatchedParlerEngine
         self.runner = runner
-        self.engine = BatchedParlerEngine(runner.cfg, runner.weights,
-                                          runner.tokenizer, n_slots=n_slots,
-                                          chunk=chunk)
+        self.arch = getattr(runner, "arch", "")
+        if self.arch == "orpheus":
+            from ..runtime.batched_llama import BatchedLlamaEngine as Engine
+        else:
+            from ..runtime.batched_parler import BatchedParlerEngine as Engine
+        self.engine = Engine(runner.cfg, runner.weights, runner.tokenizer,
+                             n_slots=n_slots, chunk=chunk)
         self.q: "queue.Queue[ServerTask]" = queue.Queue()
         self.tasks: Dict[int, ServerTask] = {}
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -185,12 +189,18 @@ class BatchedModelWorker:
                 if t is None:
                     continue
                 try:
-                    t.audio, t.sample_rate = self._vocode(codes)
+                    t.audio, t.sample_rate = self._vocode(t, codes)
                     self._finish(t)
                 except Exception as e:  # noqa: BLE001
                     self._finish(t, str(e))
 
-    def _vocode(self, codes):
+    def _vocode(self, task: ServerTask, codes):
+        if self.arch == "orpheus":
+            # the runner's SNAC path: codebook ids clipped, position-stable
+            # noise keyed by the request's seed
+            seed = task.config.seed if task.config.seed is not None else \
+                np.random.randint(2 ** 31)
+            return self.runner.vocode_heads(codes, seed), SAMPLE_RATE_SNAC
         dac = self.runner.dac
         if dac is not None and codes is not None and codes.shape[0] > 0:
             return np.asarray(dac.decode(codes), np.float32), SAMPLE_RATE_DAC
@@ -262,11 +272,6 @@ class TTSServer:
                 if self.batch_slots > 1 and arch in BATCHABLE_ARCHS:
                     self.batched_workers[model_id] = BatchedModelWorker(
                         runner, n_slots=self.batch_slots)
-                elif self.batch_slots > 1 and arch == "orpheus":
-                    print(f"server: model {model_id!r} ({arch}) is served "
-                          "by the worker pool: batching Orpheus is ROADMAP "
-                          "item 8, not ported yet", file=sys.stderr,
-                          flush=True)
         except Exception as e:  # noqa: BLE001
             self.load_error = f"{type(e).__name__}: {e}"
             self.state = "FAILED"
@@ -300,8 +305,9 @@ class TTSServer:
             try:
                 bw.engine.validate_prompt(task.prompt, task.config)
             except ValueError:
-                # longer than the batched engine takes: the worker pool
-                # accepts larger prompts or raises its own per-request error
+                # not a request the batched engine takes (e.g. longer than
+                # its window): the worker pool accepts it or raises its own
+                # per-request error
                 bw = None
         if bw is not None:
             bw.submit(task)
@@ -518,9 +524,9 @@ def main(argv=None) -> int:
     p.add_argument("--text-encoder-path", "-tep", default="")
     p.add_argument("--n-parallelism", "-np", type=int, default=1)
     p.add_argument("--batch-slots", "-bs", type=int, default=0,
-                   help="continuous-batching slots for Parler models "
-                        "(0 = off); requests decode together on the card; "
-                        "Orpheus models stay on the worker pool")
+                   help="continuous-batching slots for Parler and Orpheus "
+                        "models (0 = off; at most 16 on the card); "
+                        "requests decode together on the card")
     p.add_argument("--timeout", type=int, default=300)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
