@@ -51,11 +51,35 @@ Phases, in order; any failure exits non-zero without the final line:
    traced, one request through batch_slots 0, and the engine's greedy
    tokens against the single-stream runner's (K6's; equal).
 
+9. Dia reference: a small Q4_0 Dia's encoder on the card against the CPU's,
+   then its teacher-forced CFG-merged logits (K10) card vs CPU from the
+   same cross K/V, and the codes vocoded on both.
+10. Dia main path: a Dia-1.6B-shaped Q4_0 GGUF (encoder 12 layers of H
+   1024, decoder 18 layers of H 2048, 16 q / 4 kv heads of 128, F 8192, 9
+   codebooks of vocab 1028, DAC-44k; random weights from a seed; the
+   generation window cut to 1024 steps) turned into a WAV by the port's
+   CLI; counters set to 0 just before, read just after; K1, K4, K10 and its
+   cross-attention must have risen. Then the path timed stage by stage and
+   a device trace of 32 decode steps.
+11. Dia serving: the port's HTTP server in this process (batch_slots 8, the
+   Dia-1.6B GGUF) answers 12 concurrent dialogue requests of 20-200 bytes
+   with mixed sampling parameters; K1, K4, K11 and its cross-attention
+   must have risen. Then the batched step timed and traced, one request
+   through batch slots 0, and the engine's greedy codes against the
+   runner's (K10's) over 300 steps.
+
 Phase 2 also holds K8 and K6 at Orpheus-3B width against their plain
 versions, layer by layer at positions around K3's pages, and times them;
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
-layer against the plain versions, K7's logits per slot, timed.
+layer against the plain versions, K7's logits per slot, timed. It holds K10
+at Dia-1.6B width layer by layer at positions 0-3071 over cross buckets of
+128 (with an 896-row tail) and 1024 rows, and K11 at 4 and 8 pairs at mixed
+positions, each pair bit for bit against K10, and times both. The CPU
+yardsticks of the layer checks compare a few layers of each step (K5 6 of
+24, K6-K9 4 of 28, K10 / K11 2 of 18; the llama and Dia steps'
+dequantization done once per layer for all slots), to keep the run in its
+time.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing each kernel, and
@@ -63,6 +87,7 @@ limit, one JSON object describing each kernel, and
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -85,6 +110,7 @@ import torch
 from tts_tpu_torch.gguf import GGUFWriter, quants
 from tts_tpu_torch.ops import _build
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
 from tts_tpu_torch.ops import parler_megastep as pm
@@ -404,7 +430,8 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
         got = run(kernel, DEV)
         if layers is None or l in layers:
             ref = run(plain, DEV)
-            host = run(plain, torch.device("cpu"))
+            with dequant_once():
+                host = run(plain, torch.device("cpu"))
             pairs = [host] + ([run(alt, DEV)] if alt is not None else [])
             for i, nm in enumerate(names):
                 if alt is None:
@@ -425,6 +452,28 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
                     base[nm].append(max(max_err(c, b) for c in cs) / scale)
         xin = xin + got[0]
     return abs_errs
+
+
+@contextlib.contextmanager
+def dequant_once():
+    """Within the block the plain llama and Dia steps dequantize each weight
+    once: their batched plain versions loop over the slots, which all read
+    the same layer's weights, and that dequantization is most of the CPU
+    yardstick's time. The values are the same."""
+    real, memo = lm.dequant, {}
+
+    def dequant(codes, scales, qtype, dtype=torch.float32):
+        key = (codes.data_ptr(), scales.data_ptr(), tuple(codes.shape), qtype,
+               dtype)
+        if key not in memo:   # the codes are kept, so their address is not reused
+            memo[key] = codes, real(codes, scales, qtype, dtype)
+        return memo[key][1]
+
+    lm.dequant = dequant
+    try:
+        yield
+    finally:
+        lm.dequant = real
 
 
 def judge_layers(err, base, label, where) -> None:
@@ -453,18 +502,20 @@ def judge_layers(err, base, label, where) -> None:
 
 
 def check_k2_layers(mega, x, kc, vc, pos, kw, kernel=None, plain=None,
-                    label="K2") -> list[float]:
-    """`layer_errors` and `judge_layers` over every layer of a Parler step
-    at one position. `kernel` / `plain` default to K2's step and its plain
-    version; K5's batched pair takes x (B, H), caches (L, B, ...) and pos
-    (B,) the same way. Returns the absolute errors."""
+                    label="K2", layers=None) -> list[float]:
+    """`layer_errors` and `judge_layers` over the layers of a Parler step
+    at one position (`layers`, default every one). `kernel` / `plain`
+    default to K2's step and its plain version; K5's batched pair takes x
+    (B, H), caches (L, B, ...) and pos (B,) the same way. Returns the
+    absolute errors."""
     err, base = defaultdict(list), defaultdict(list)
     abs_errs = layer_errors(
         lambda l: pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]), mega.cross_pos),
         mega.norms.shape[0], x, kc, vc, pos, kw,
         kernel or pm.parler_megastep_cuda, plain or pm.parler_megastep_plain,
-        label, err, base)
-    judge_layers(err, base, label, f"pos {pos.tolist()} layer by layer, "
+        label, err, base, layers=layers)
+    judge_layers(err, base, label, f"pos {pos.tolist()} layers "
+                 f"{'all' if layers is None else list(layers)} layer by layer, "
                  f"yardstick plain on the CPU vs plain on the card")
     return abs_errs
 
@@ -538,6 +589,7 @@ def check_k2(gen, mega, qtype) -> dict:
 
 
 MIXED_POS = (0, 1, 255, 256, 257, 1000, 2047, 4095)   # around page edges
+K5_LAYERS = (0, 4, 9, 14, 19, 23)   # compared with the CPU yardstick
 
 
 def check_k4(gen) -> dict:
@@ -621,10 +673,12 @@ def check_k5(gen, mega, qtype) -> dict:
     del k5, v5
     log(f"  each slot's x_out, k_new, v_new and cache equal a K2 step on that "
         f"slot's state bit for bit (max_abs_err 0): ok")
-    # (b) layer by layer against the plain version, K2's yardstick
+    # (b) layer by layer against the plain version, K2's yardstick; the
+    # CPU yardstick runs the plain step per slot, so K5_LAYERS of the 24
     errs = check_k2_layers(mega, x, kc, vc, pos, kw,
                            kernel=pm.parler_megastep_batched_cuda,
-                           plain=pm.parler_megastep_batched_plain, label="K5")
+                           plain=pm.parler_megastep_batched_plain, label="K5",
+                           layers=K5_LAYERS)
     scratch = pm.step_scratch(mega, b, heads, ctx, DEV)
     ms = cuda_ms(lambda: pm.parler_megastep_batched_cuda(
         mega, x, kc, vc, pos, scratch=scratch, **kw), iters=20)
@@ -720,24 +774,33 @@ def k7_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
 
 
 @contextlib.contextmanager
-def split_k_products():
-    """The plain llama steps with every `_dqdot` product summed in another
-    order (the two halves of K apart, then added): another correct version,
-    whose difference from the plain version is the yardstick of the
-    whole-step check. (The Parler check moves x by one ulp instead; here the
-    RMS norm's bf16 rounding of x absorbs such a move, so it would measure
-    nothing.)"""
+def other_order():
+    """The plain llama and Dia steps summed in another order: every `_dqdot`
+    product with the two halves of K summed apart, then added, and every
+    RMS norm's mean of squares taken in float64: another correct version,
+    whose difference from the plain version is a yardstick of the checks
+    (the kernels' block sums change rstd in its last bits, and so flip the
+    bf16 rounding of an activation now and then, as this does). (The Parler
+    check moves x by one ulp instead; here the RMS norm's bf16 rounding of
+    x absorbs such a move, so it would measure nothing.)"""
     def dqdot(x, codes, scales, qtype):
         w = qm.dequant(codes, scales, qtype).to(torch.bfloat16).float()
         xb, h = x.to(torch.bfloat16).float(), w.shape[-1] // 2
         return xb[:, :h] @ w[:, :h].T + xb[:, h:] @ w[:, h:].T
 
-    saved = lm.dqdot, lf.dqdot
-    lm.dqdot = lf.dqdot = dqdot
+    def rms_norm(x, w, eps=lm.RMS_EPS):
+        ms = x.double().square().mean(dim=-1, keepdim=True).float()
+        return x * torch.rsqrt(ms + eps) * w
+
+    mods = (lm, lf, dm)
+    saved = [(m.dqdot, m.rms_norm) for m in mods]
+    for m in mods:
+        m.dqdot, m.rms_norm = dqdot, rms_norm
     try:
         yield
     finally:
-        lm.dqdot, lf.dqdot = saved
+        for m, (d, r) in zip(mods, saved):
+            m.dqdot, m.rms_norm = d, r
 
 
 def check_llama(gen, mega, flat, kw) -> list[dict]:
@@ -773,7 +836,7 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
             # order, and K6's logits are reported
             got = kern(w, x, kc.clone(), vc.clone(), pos, **kw)
             ref = plain(w, x, kc.clone(), vc.clone(), pos, **kw)
-            with split_k_products():
+            with other_order():
                 alt = plain(w, x, kc.clone(), vc.clone(), pos, **kw)
             if label == "K6":
                 if got[0][:, vocab:].any():
@@ -799,7 +862,7 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
                      f"on the card")
         judge_layers(*whole[label], label, f"{label} whole 28-layer step at "
                      f"positions {list(LLAMA_POS)}, yardstick plain vs plain "
-                     f"summed split-K")
+                     f"summed in another order")
     rows = []
     p = 1000
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
@@ -879,9 +942,9 @@ def llama_slots_equal_single(mega, flat, kw, pos, layers_note) -> None:
     torch.cuda.empty_cache()
 
 
-def split_k_batched_plain(*a, **k):
-    """K9's plain version with every product summed split-K."""
-    with split_k_products():
+def other_order_batched_plain(*a, **k):
+    """K9's plain version summed in another order (other_order)."""
+    with other_order():
         return lm.llama_megastep_batched_plain(*a, **k)
 
 
@@ -924,13 +987,13 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
         errs[label] = layer_errors(
             lambda l: lm.LlamaMegaLayers(*(t[l:l + 1] for t in layers)),
             L, x, kc, vc, pos, kw, layer_kern, lm.llama_megastep_batched_plain,
-            label, err, base, layers=LLAMA_LAYERS, alt=split_k_batched_plain)
+            label, err, base, layers=LLAMA_LAYERS, alt=other_order_batched_plain)
         judge_layers(err, base, label, f"{label} layers {list(LLAMA_LAYERS)} x "
                      f"8 slots, layer by layer, yardstick the larger of plain "
-                     f"on the CPU and plain summed split-K vs plain on the "
+                     f"on the CPU and plain summed in another order vs plain on the "
                      f"card")
     # K7's whole step per slot: logits against the plain version's, with
-    # the plain version summed split-K beside it. Every K7 slot is a K6 step
+    # the plain version summed in another order beside it. Every K7 slot is a K6 step
     # bit for bit (checked above), and K6's whole step is held to this
     # yardstick pooled over 7 positions in check_llama; 8 slots of a
     # 28-layer step chaotic at the bf16 roundings are too few cases for a
@@ -941,7 +1004,7 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     w = flat
     got = lf.llama_flat_megastep_batched_cuda(w, x, kc.clone(), vc.clone(), pos, **kw)
     ref = lf.llama_flat_megastep_batched_plain(w, x, kc.clone(), vc.clone(), pos, **kw)
-    with split_k_products():
+    with other_order():
         alt = lf.llama_flat_megastep_batched_plain(w, x, kc.clone(), vc.clone(),
                                                    pos, **kw)
     if got[0][:, vocab:].any():
@@ -969,7 +1032,7 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
         ok = e.max() <= 1e-2
         log(f"  K7 whole 28-layer step, 8 slots, {nm}: relative error max "
             f"{e.max():.3e}, mean {e.mean():.3e} (sanity bound 1e-2); plain "
-            f"vs plain summed split-K: max {yb.max():.3e}, mean "
+            f"vs plain summed in another order: max {yb.max():.3e}, mean "
             f"{yb.mean():.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"K7 whole step {nm}: kernel disagrees with "
@@ -1026,6 +1089,41 @@ def rand_q4_raw(rng, n, k) -> bytes:
     d = rng.uniform(0.002, 0.006, nb).astype(np.float16)
     blk[:, :2] = d.view(np.uint8).reshape(nb, 2)
     return blk.tobytes()
+
+
+def add_dac(w, rng, dac_chans, n_q) -> None:
+    """A DAC decoder under `audio_encoder.` (tts_tpu bench.py build_dac_44k
+    shapes when dac_chans is the 44 kHz model's 1536/768/384/192/96),
+    latent 1024, n_q codebooks of dim 8, random from rng."""
+    def f32(name, *shape, scale=0.02):
+        w.add_tensor(name, rng.standard_normal(shape, dtype=np.float32) * scale)
+
+    a = "audio_encoder."
+    f32(a + "initial.weight", dac_chans[0], 1024, 7, scale=0.05)
+    f32(a + "initial.bias", dac_chans[0], scale=0.05)
+    for i, s in enumerate((8, 8, 4, 2)):
+        cin, cout = dac_chans[i], dac_chans[i + 1]
+        b = f"{a}decoder_block.{i + 1}."
+        w.add_tensor(b + "final.alpha", np.abs(rng.standard_normal(
+            (1, cin, 1), dtype=np.float32) * 0.05) + 0.5)
+        f32(b + "final.weight", cin, cout, 2 * s, scale=0.05)
+        f32(b + "final.bias", cout, scale=0.05)
+        for j in range(3):
+            ub = f"{b}residual_unit.{j}.res."
+            for part, kk in (("initial", 7), ("final", 1)):
+                w.add_tensor(ub + part + ".alpha", np.abs(rng.standard_normal(
+                    (1, cout, 1), dtype=np.float32) * 0.05) + 0.5)
+                f32(ub + part + ".weight", cout, cout, kk, scale=0.05)
+                f32(ub + part + ".bias", cout, scale=0.05)
+    w.add_tensor(a + "final.alpha", np.abs(rng.standard_normal(
+        (1, dac_chans[-1], 1), dtype=np.float32) * 0.05) + 0.5)
+    f32(a + "final.weight", 1, dac_chans[-1], 7, scale=0.001)
+    f32(a + "final.bias", 1, scale=0.05)
+    for i in range(n_q):
+        b = f"{a}quantizers.{i}."
+        f32(b + "codebook.weight", 1024, 8, scale=0.05)
+        f32(b + "out_proj.weight", 1024, 8, 1, scale=0.05)
+        f32(b + "out_proj.bias", 1024, scale=0.05)
 
 
 def write_parler(path, rng, *, n_layers, hidden, heads, ffn, n_out, vocab,
@@ -1088,34 +1186,7 @@ def write_parler(path, rng, *, n_layers, hidden, heads, ffn, n_out, vocab,
     for i in range(n_out):
         q4(f"embed_tokens.{i}.weight", 1090, H)
         q4(f"lm_heads.{i}.weight.head", vocab, H)
-    # DAC decoder (tts_tpu bench.py build_dac_44k shapes when dac_chans is
-    # the 44 kHz model's 1536/768/384/192/96), latent 1024, codebook dim 8
-    a = "audio_encoder."
-    f32(a + "initial.weight", dac_chans[0], 1024, 7, scale=0.05)
-    f32(a + "initial.bias", dac_chans[0], scale=0.05)
-    for i, s in enumerate((8, 8, 4, 2)):
-        cin, cout = dac_chans[i], dac_chans[i + 1]
-        b = f"{a}decoder_block.{i + 1}."
-        w.add_tensor(b + "final.alpha", np.abs(rng.standard_normal(
-            (1, cin, 1), dtype=np.float32) * 0.05) + 0.5)
-        f32(b + "final.weight", cin, cout, 2 * s, scale=0.05)
-        f32(b + "final.bias", cout, scale=0.05)
-        for j in range(3):
-            ub = f"{b}residual_unit.{j}.res."
-            for part, kk in (("initial", 7), ("final", 1)):
-                w.add_tensor(ub + part + ".alpha", np.abs(rng.standard_normal(
-                    (1, cout, 1), dtype=np.float32) * 0.05) + 0.5)
-                f32(ub + part + ".weight", cout, cout, kk, scale=0.05)
-                f32(ub + part + ".bias", cout, scale=0.05)
-    w.add_tensor(a + "final.alpha", np.abs(rng.standard_normal(
-        (1, dac_chans[-1], 1), dtype=np.float32) * 0.05) + 0.5)
-    f32(a + "final.weight", 1, dac_chans[-1], 7, scale=0.001)
-    f32(a + "final.bias", 1, scale=0.05)
-    for i in range(n_out):
-        b = f"{a}quantizers.{i}."
-        f32(b + "codebook.weight", 1024, 8, scale=0.05)
-        f32(b + "out_proj.weight", 1024, 8, 1, scale=0.05)
-        f32(b + "out_proj.bias", 1024, scale=0.05)
+    add_dac(w, rng, dac_chans, n_out)
     w.write()
 
 
@@ -1215,7 +1286,10 @@ KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
            "parler_megastep_batched": pm.KERNEL_BATCHED,
            "llama_flat_megastep": lf.KERNEL, "llama_megastep": lm.KERNEL,
            "llama_flat_megastep_batched": lf.KERNEL_BATCHED,
-           "llama_megastep_batched": lm.KERNEL_BATCHED}
+           "llama_megastep_batched": lm.KERNEL_BATCHED,
+           "dia_megastep": dm.KERNEL, "dia_cross_attention": dm.CROSS,
+           "dia_megastep_batched": dm.KERNEL_BATCHED,
+           "dia_cross_attention_batched": dm.CROSS_BATCHED}
 SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
 SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                 "parler_megastep_batched")
@@ -1367,7 +1441,8 @@ def check_wav(body, want_rate=44100, frame=512) -> float:
     return audio.size / rate
 
 
-def serving_burst(path, engine_cls, params, rate, frame, kernels, label):
+def serving_burst(path, engine_cls, params, rate, frame, kernels, label,
+                  prompts=None):
     """The port's server in this process (batch_slots 8, a sampled default
     config with top-k 50) answers 12 concurrent requests with the given
     per-request parameters; every response must be a WAV at `rate` of
@@ -1376,13 +1451,14 @@ def serving_burst(path, engine_cls, params, rate, frame, kernels, label):
     (counters set to 0 just before, read just after). Then the batched
     decode step alone: an `engine_cls` engine with 8 live slots, a 32-step
     chunk timed (one host sync), a 32-step chunk traced; and one request
-    through batch_slots 0. Returns (runner, prompts, stats, launches)."""
+    through batch_slots 0. `prompts` default to `serving_prompts` of the
+    runner's tokenizer. Returns (runner, prompts, stats, launches)."""
     from tts_tpu_torch.common import GenerationConfig
     log(f"{label} serving: the port's server, batch_slots 8, sampled default "
         f"config, 12 concurrent requests:")
     srv, httpd, base = start_server(path, GenerationConfig(top_k=50), 8)
     runner = srv.runners[srv.default_model]
-    prompts = serving_prompts(runner.tokenizer)
+    prompts = prompts or serving_prompts(runner.tokenizer)
     params = params[:len(prompts)]
     results = [None] * len(prompts)
 
@@ -1945,6 +2021,596 @@ def run_orpheus_serving(path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Dia-1.6B: K10 and K11 against their plain versions
+# ---------------------------------------------------------------------------
+
+# Dia-1.6B: nari-labs' config (the JAX package's DiaConfig defaults): a
+# 12-layer encoder of H 1024 (16 heads of 128, F 4096) over a 1024-byte
+# window, an 18-layer decoder of H 2048 (16 q / 4 kv heads of 128, F 8192,
+# cross-attention 16 x 128), 9 codebooks of vocab 1028, the DAC-44k decoder.
+# The one cut: max_generation_size 1024 of 3072 in the GGUF, so that the
+# runs fit (the kernel checks keep the 3072-row cache).
+DIA = dict(enc_layers=12, enc_hidden=1024, enc_heads=16, enc_ffn=4096,
+           n_layers=18, hidden=2048, heads=16, kv_heads=4, ffn=8192, n_out=9,
+           vocab=1028, tc=1024, max_gen=1024)
+DIA_CTX = 3072                                 # the published cache rows
+DIA_POS = (0, 255, 256, 1000, 3071)            # around K4's 256-row pages
+DIA_BUCKETS = ((128, 896), (1024, 0))          # (Sb, n_tail)
+DIA_YARDSTICK = (0, 17)                        # compared with the CPU yardstick
+DIA_SLOTS = {4: (0, 255, 256, 3000),
+             8: (0, 255, 256, 257, 511, 1000, 2047, 3071)}
+DiaStepLayer = collections.namedtuple(
+    "DiaStepLayer", dm.DiaMegaLayers._fields + ("ck", "cv", "vtail"))
+
+
+def dia_kernel_weights(gen):
+    """Random Dia-1.6B decoder weights on the card in K10's layout (Q4_0
+    packed, bf16 scales) and the step's keyword arguments."""
+    from tts_tpu_torch.models.dia.model import DiaDecoderLayer
+    L, H, F = DIA["n_layers"], DIA["hidden"], DIA["ffn"]
+    kvn = DIA["kv_heads"] * H // DIA["heads"]
+
+    def vec():
+        return torch.randn((L, H), generator=gen, device=DEV) * 0.1 + 1.0
+
+    lw = DiaDecoderLayer(
+        vec(), stack_quant(gen, L, H, H), stack_quant(gen, L, kvn, H),
+        stack_quant(gen, L, kvn, H), stack_quant(gen, L, H, H), vec(),
+        stack_quant(gen, L, H, H), None, None, stack_quant(gen, L, H, H),
+        vec(), stack_quant(gen, L, F, H), stack_quant(gen, L, F, H),
+        stack_quant(gen, L, H, F))
+    mega, qtype = dm.prep_dia_mega(lw)
+    return mega, dict(qtype=qtype, n_heads=DIA["heads"], n_kv=DIA["kv_heads"])
+
+
+def dia_cross(gen, lead, sb):
+    """Random bucketed cross K/V (bf16, (L, *lead, heads, sb, D)) and the
+    tail's V sums (f32, (L, *lead, heads, D)) on the card."""
+    d = DIA["hidden"] // DIA["heads"]
+    shape = (DIA["n_layers"], *lead, DIA["heads"], sb, d)
+    ck, cv = ((torch.randn(shape, generator=gen, device=DEV) * 0.5)
+              .to(torch.bfloat16) for _ in range(2))
+    vt = torch.randn((DIA["n_layers"], *lead, DIA["heads"], d), generator=gen,
+                     device=DEV) * 8
+    return ck, cv, vt
+
+
+def dia_step(fn):
+    """A Dia step in `layer_errors`' form: the weights of one layer come
+    with that layer's cross K/V (DiaStepLayer)."""
+    def run(w, x, kc, vc, pos, **kw):
+        return fn(dm.DiaMegaLayers(*w[:11]), x, kc, vc, pos, w.ck, w.cv,
+                  w.vtail, **kw)
+    return run
+
+
+def one_dia_layer(mega, ck, cv, vt):
+    return lambda l: DiaStepLayer(*(t[l:l + 1] for t in (*mega, ck, cv, vt)))
+
+
+def other_order_dia_plain(*a, **k):
+    """K10's plain version summed in another order (other_order)."""
+    with other_order():
+        return dm.dia_megastep_plain(*a, **k)
+
+
+def other_order_dia_batched_plain(*a, **k):
+    """K11's plain version summed in another order (other_order)."""
+    with other_order():
+        return dm.dia_megastep_batched_plain(*a, **k)
+
+
+def dia_bound(mega, rows, kv_rows, cross, sb):
+    """(bound_ms, bound_by, MB of weights, MB of K/V) of a Dia step over
+    `rows` rows: weights, norms, the bucketed cross K/V and the tail sums
+    read once; `kv_rows` self-attention K/V rows (summed over the rows'
+    caches, bf16) read; x in and out, each row's k/v written (f32 out, bf16
+    cache); 2 operations per weight and row, 4 per attended element and
+    head."""
+    L, H, heads, nkv = DIA["n_layers"], DIA["hidden"], DIA["heads"], DIA["kv_heads"]
+    d = H // heads
+    wbytes = tensor_bytes(mega)
+    kv_bytes = 2 * L * nkv * kv_rows * d * 2
+    n_weights = sum(t.numel() for t in mega if t.dtype == torch.uint8) * 2
+    flops = 2 * rows * n_weights + 4 * L * heads * d * (kv_rows + rows * sb)
+    io = 2 * rows * H * 4 + rows * L * 2 * nkv * d * (4 + 2)
+    b_ms, b_by = bound(wbytes + kv_bytes + tensor_bytes(cross) + io, flops,
+                       "bf16")
+    return b_ms, b_by, wbytes / 1e6, kv_bytes / 1e6
+
+
+def check_dia(gen, mega, kw) -> dict:
+    """K10 at Dia-1.6B width against its plain version: the cross-attention
+    kernel alone (with and without a tail), then layer by layer at
+    DIA_POS x DIA_BUCKETS (Sb 128 with an 896-row tail, Sb 1024 with none),
+    judged against the yardstick pair; the cache rows it writes; timed at
+    pos 1000 over the engine's bucket (256, tail 768)."""
+    log("K10 dia_megastep (csrc/dia_megastep.cu + K4 + the cross-attention "
+        "of csrc/decode_attention.cu) vs dia_megastep_plain, Dia-1.6B width, "
+        f"bf16 cache of {DIA_CTX} rows, positions {list(DIA_POS)}, buckets "
+        f"(Sb, n_tail) {list(DIA_BUCKETS)}:")
+    L, H, heads, nkv = DIA["n_layers"], DIA["hidden"], DIA["heads"], DIA["kv_heads"]
+    d = H // heads
+    errs = []
+    why = "f32 softmax over the same values, sums in another order"
+    for sb, nt in DIA_BUCKETS + ((256, 768),):
+        ck, cv, vt = (t[0] for t in dia_cross(gen, (2,), sb))
+        q = torch.randn((2, heads, d), generator=gen, device=DEV)
+        for tail in sorted({nt, 0}):
+            errs.append(check_close(
+                f"cross-attention Sb {sb} n_tail {tail}",
+                dm.cross_attention_cuda(q, ck, cv, vt, tail),
+                dm.cross_attention_plain(q, ck, cv, vt, tail), 1e-5, why))
+    shape = (L, 2, nkv, DIA_CTX, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((2, H), generator=gen, device=DEV)
+    err, base = defaultdict(list), defaultdict(list)
+    for sb, nt in DIA_BUCKETS:
+        ck, cv, vt = (t.flatten(1, 2) for t in dia_cross(gen, (2,), sb))
+        for p in DIA_POS:
+            pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+            errs += layer_errors(one_dia_layer(mega, ck, cv, vt), L, x, kc, vc,
+                                 pos, dict(kw, n_tail=nt),
+                                 dia_step(dm.dia_megastep_cuda),
+                                 dia_step(dm.dia_megastep_plain), "K10", err,
+                                 base, layers=DIA_YARDSTICK,
+                                 alt=dia_step(other_order_dia_plain))
+    judge_layers(err, base, "K10", f"K10 layers {list(DIA_YARDSTICK)} x 2 rows "
+                 f"at positions {list(DIA_POS)} x buckets {list(DIA_BUCKETS)}, "
+                 f"layer by layer, yardstick the larger of plain on the CPU "
+                 f"and plain summed in another order vs plain on the card")
+    p = 1000
+    pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+    ck, cv, vt = (t.flatten(1, 2) for t in dia_cross(gen, (2,), 256))
+    k1, v1 = kc.clone(), vc.clone()
+    got = dm.dia_megastep_cuda(mega, x, k1, v1, pos, ck, cv, vt, 768, **kw)
+    rows = torch.arange(DIA_CTX, device=DEV) != p
+    if not (torch.equal(k1[:, :, :, rows], kc[:, :, :, rows]) and
+            torch.equal(v1[:, :, :, rows], vc[:, :, :, rows])):
+        raise AssertionError("K10 wrote cache rows other than pos")
+    errs.append(check_close("pos 1000 cache row k", k1[:, :, :, p].float(),
+                            got[1].reshape(L, 2, nkv, d).to(torch.bfloat16).float(),
+                            0.0, "the written row is k_new in bf16"))
+    del k1, v1
+    ms = cuda_ms(lambda: dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
+                                              768, **kw), iters=20)
+    plain_ms = cuda_ms(lambda: dm.dia_megastep_plain(mega, x, kc, vc, pos, ck,
+                                                     cv, vt, 768, **kw),
+                       iters=3, warmup=1)
+    b_ms, b_by, wmb, kvmb = dia_bound(mega, 2, 2 * (p + 1), (ck, cv, vt), 256)
+    log(f"  {L} layers, pos {p}, Sb 256: kernels {ms:.4f} ms/step ({6 * L} "
+        f"gemv + {L} K4 + {L} cross launches), plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {wmb:.1f} MB weights + {kvmb:.1f} MB KV + "
+        f"{tensor_bytes((ck, cv, vt)) / 1e6:.1f} MB cross), library none")
+    device_trace(lambda: [dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
+                                               768, **kw) for _ in range(5)],
+                 f"K10 step alone, pos {p}", 5)
+    del kc, vc
+    torch.cuda.empty_cache()
+    return dict(name="dia_megastep", route="cuda",
+                source="tts_tpu_torch/csrc/dia_megastep.cu",
+                replaces="tts_tpu/ops/dia_megastep.py:148",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_dia_batched(gen, mega, kw) -> dict:
+    """K11 at Dia-1.6B width: at 4 and 8 pairs at mixed positions (one at
+    0, both sides of K4's pages), each pair's outputs and caches bit for
+    bit against K10 on that pair's state; at 8 pairs layer by layer against
+    the plain version (each row a case, the yardstick the larger of plain
+    on the CPU and plain summed in another order); timed."""
+    log("K11 dia_megastep_batched (csrc/dia_megastep.cu + K4 + the "
+        "cross-attention) vs K10 and dia_megastep_batched_plain, Dia-1.6B "
+        f"width, bf16 caches of {DIA_CTX} rows, cross bucket 256 (n_tail 768):")
+    L, H, heads, nkv = DIA["n_layers"], DIA["hidden"], DIA["heads"], DIA["kv_heads"]
+    d = H // heads
+    for b, slots in DIA_SLOTS.items():
+        pos = torch.tensor(slots, dtype=torch.int32, device=DEV)
+        shape = (L, b, 2, nkv, DIA_CTX, d)
+        kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+        ck, cv, vt = dia_cross(gen, (b, 2), 256)
+        x = torch.randn((2 * b, H), generator=gen, device=DEV)
+        kb, vb = kc.clone(), vc.clone()
+        got = dm.dia_megastep_batched_cuda(mega, x, kb, vb, pos, ck, cv, vt,
+                                           768, **kw)
+        for s in range(b):
+            k1, v1 = kc[:, s].clone(), vc[:, s].clone()
+            one = dm.dia_megastep_cuda(
+                mega, x[2 * s:2 * s + 2], k1, v1, pos[s:s + 1],
+                *(t[:, s].flatten(1, 2).contiguous() for t in (ck, cv, vt)),
+                768, **kw)
+            r = slice(2 * s, 2 * s + 2)
+            if not (torch.equal(got[0][r], one[0]) and torch.equal(got[1][:, r], one[1])
+                    and torch.equal(got[2][:, r], one[2])
+                    and torch.equal(kb[:, s], k1) and torch.equal(vb[:, s], v1)):
+                raise AssertionError(f"K11 pair {s} (pos {slots[s]}) differs "
+                                     f"from K10 on its state")
+        log(f"  K11 at {b} pairs, positions {list(slots)}: each pair's "
+            f"outputs and caches equal K10 on that pair's state bit for bit "
+            f"(max_abs_err 0): ok")
+        del kb, vb, got
+        if b != 8:
+            del kc, vc
+            continue
+        err, base = defaultdict(list), defaultdict(list)
+        errs = layer_errors(one_dia_layer(mega, ck, cv, vt), L, x, kc, vc, pos,
+                            dict(kw, n_tail=768),
+                            dia_step(dm.dia_megastep_batched_cuda),
+                            dia_step(dm.dia_megastep_batched_plain), "K11", err,
+                            base, layers=DIA_YARDSTICK,
+                            alt=dia_step(other_order_dia_batched_plain))
+        judge_layers(err, base, "K11", f"K11 layers {list(DIA_YARDSTICK)} x 16 "
+                     f"rows, layer by layer, yardstick the larger of plain on "
+                     f"the CPU and plain summed in another order vs plain on the card")
+        scratch = dm.step_scratch(mega, 2 * b, heads, DIA_CTX, 256, DEV)
+        ms = cuda_ms(lambda: dm.dia_megastep_batched_cuda(
+            mega, x, kc, vc, pos, ck, cv, vt, 768, scratch=scratch, **kw),
+            iters=20)
+        plain_ms = cuda_ms(lambda: dm.dia_megastep_batched_plain(
+            mega, x, kc, vc, pos, ck, cv, vt, 768, **kw), iters=2, warmup=1)
+        b_ms, b_by, wmb, kvmb = dia_bound(mega, 2 * b, 2 * sum(p + 1 for p in slots),
+                                          (ck, cv, vt), 256)
+        log(f"  K11 {L} layers, 8 pairs at {list(slots)}: kernels {ms:.4f} ms "
+            f"per batched step ({6 * L} gemv + {L} K4 + {L} cross launches), "
+            f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {wmb:.1f} "
+            f"MB weights + {kvmb:.1f} MB KV + "
+            f"{tensor_bytes((ck, cv, vt)) / 1e6:.1f} MB cross), library none")
+        device_trace(lambda: [dm.dia_megastep_batched_cuda(
+            mega, x, kc, vc, pos, ck, cv, vt, 768, scratch=scratch, **kw)
+            for _ in range(5)], "K11 step alone, 8 pairs", 5)
+        del kc, vc
+    torch.cuda.empty_cache()
+    return dict(name="dia_megastep_batched", route="cuda",
+                source="tts_tpu_torch/csrc/dia_megastep.cu",
+                replaces="tts_tpu/ops/dia_megastep.py:478",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# Dia GGUFs written with the port's writer
+# ---------------------------------------------------------------------------
+
+DIA_PROMPT = ("[S1] Dia is an open weights text to dialogue model. [S2] You "
+              "get full control over scripts and voices.")
+DIALOGUE = ("[S1] Oh fire! Oh my goodness! What's the procedure? What do we "
+            "do, people? The smoke could be coming through an air duct! [S2] "
+            "Oh my god! Okay, it's happening. Everybody stay calm! [S1] What's "
+            "the procedure? [S2] Everybody stay calm! [S1] Look, we have to go "
+            "now, right now, before it spreads.")
+
+
+def write_dia(path, rng, *, enc_layers, enc_hidden, enc_heads, enc_ffn,
+              n_layers, hidden, heads, kv_heads, ffn, n_out, vocab, tc,
+              max_gen, dac_chans):
+    """A Dia GGUF as `tts_tpu.apps.quantize -qt Q4_0 -qh` leaves one: Q4_0
+    encoder and decoder projections (cross K/V too) and heads, F32 norms
+    and embeddings, and a DAC decoder in F32. The heads' rows from EOS
+    (1024) on have zero scales: their logits are exactly 0, which random
+    weights at these widths (merged logits of std ~4) never sample, so
+    every request runs the whole window."""
+    d, ed = hidden // heads, enc_hidden // enc_heads
+    w = GGUFWriter(path, "dia")
+    for key, v in (("dia.attn_head_size", d), ("dia.eos_token_id", 1024),
+                   ("dia.bos_token_id", 1026), ("dia.pad_token_id", 1025),
+                   ("dia.max_delay", 15), ("dia.encoder.max_context_length", tc),
+                   ("dia.encoder.attn_heads", enc_heads),
+                   ("dia.encoder.layers", enc_layers),
+                   ("dia.encoder.hidden_size", enc_hidden),
+                   ("dia.decoder.hidden_size", hidden),
+                   ("dia.decoder.layers", n_layers),
+                   ("dia.decoder.output_heads", n_out),
+                   ("dia.decoder.attn_heads", heads),
+                   ("dia.decoder.query_heads", heads // kv_heads),
+                   ("dia.decoder.output_vocab_size", vocab),
+                   ("dia.decoder.audio_vocab_size", 1024),
+                   ("dia.decoder.max_generation_size", max_gen),
+                   ("dac.up_sampling_factor", 512)):
+        w.add_u32(key, v)
+    for i, (st, pad) in enumerate(zip((8, 8, 4, 2), (4, 4, 2, 1))):
+        w.add_u32(f"dac.dac_layer_stride_{i}", st)
+        w.add_u32(f"dac.dac_layer_padding_{i}", pad)
+    Q4 = quants.GGML_TYPE_Q4_0
+
+    def q4(name, n, k, zero_rows=0):
+        raw = np.frombuffer(rand_q4_raw(rng, n, k), np.uint8).reshape(n, -1).copy()
+        if zero_rows:   # the fp16 scale of every block of the last rows
+            raw[n - zero_rows:].reshape(zero_rows, -1, 18)[:, :, :2] = 0
+        w.add_raw_tensor(name, (n, k), Q4, raw.tobytes())
+
+    def f32(name, *shape, scale=0.02, one=False):
+        w.add_tensor(name, rng.standard_normal(shape, dtype=np.float32) * scale
+                     + (1.0 if one else 0.0))
+
+    e = "dia.encoder."
+    f32(e + "embedding", 256, enc_hidden, scale=1.0)
+    f32(e + "norm", enc_hidden, scale=0.1, one=True)
+    for l in range(enc_layers):
+        b = f"{e}layers.{l}."
+        f32(b + "pre_sa_norm", enc_hidden, scale=0.1, one=True)
+        f32(b + "post_sa_norm", enc_hidden, scale=0.1, one=True)
+        for n in ("q_proj", "k_proj", "v_proj"):
+            q4(b + n, enc_heads * ed, enc_hidden)
+        q4(b + "o_proj", enc_hidden, enc_heads * ed)
+        q4(b + "gate", enc_ffn, enc_hidden)
+        q4(b + "up", enc_ffn, enc_hidden)
+        q4(b + "wo", enc_hidden, enc_ffn)
+    dd = "dia.decoder."
+    f32(dd + "norm", hidden, scale=0.1, one=True)
+    for l in range(n_layers):
+        b = f"{dd}layers.{l}."
+        for n in ("pre_sa_norm", "pre_ca_norm", "pre_mlp_norm"):
+            f32(b + n, hidden, scale=0.1, one=True)
+        q4(b + "self_q_proj", heads * d, hidden)
+        q4(b + "self_k_proj", kv_heads * d, hidden)
+        q4(b + "self_v_proj", kv_heads * d, hidden)
+        q4(b + "self_o_proj", hidden, heads * d)
+        q4(b + "cross_q_proj", heads * d, hidden)
+        q4(b + "cross_k_proj", heads * d, enc_hidden)
+        q4(b + "cross_v_proj", heads * d, enc_hidden)
+        q4(b + "cross_o_proj", hidden, heads * d)
+        q4(b + "gate", ffn, hidden)
+        q4(b + "up", ffn, hidden)
+        q4(b + "wo", hidden, ffn)
+    for i in range(n_out):
+        f32(f"{dd}embeddings.{i}", vocab, hidden, scale=0.5)
+        q4(f"{dd}heads.{i}", vocab, hidden, zero_rows=vocab - 1024)
+    add_dac(w, rng, dac_chans, n_out)
+    w.write()
+
+
+def dia_small_runners(tmp):
+    """A small Q4_0 Dia (L=2, H=256, 4/2 heads of 64, F 1024; a 1-layer
+    encoder of H 128; 9 codebooks of 1028; a 1024-byte window; a small DAC)
+    loaded on the card, on the CPU, and on the CPU with every decoder
+    embedding moved by one ulp."""
+    from tts_tpu_torch.models.registry import runner_from_file
+    path = os.path.join(tmp, "dia-small.gguf")
+    write_dia(path, np.random.default_rng(SEED + 3), enc_layers=1,
+              enc_hidden=128, enc_heads=2, enc_ffn=256, n_layers=2, hidden=256,
+              heads=4, kv_heads=2, ffn=1024, n_out=9, vocab=1028, tc=1024,
+              max_gen=64, dac_chans=(64, 32, 16, 8, 4))
+    gen = torch.Generator().manual_seed(SEED)
+    runners = [runner_from_file(path, device=dev) for dev in
+               (DEV, torch.device("cpu"), torch.device("cpu"))]
+    e = runners[2].weights.dec_embds
+    e.mul_(1 + (torch.randint(0, 2, e.shape, generator=gen) * 2 - 1) * 2 ** -23)
+    if any(r.mega is None for r in runners):
+        raise AssertionError("small Dia must take the K10 route")
+    return runners
+
+
+def check_small_dia(tmp) -> None:
+    """A small Q4_0 Dia: its encoder on the card against the CPU's (f32,
+    1e-4 of the largest value); then greedy decoding on the CPU (plain
+    versions) while the card (kernels) follows the same token history
+    (teacher forcing) from the same cross K/V, float32 caches on both: the
+    CFG-merged logits must match at every step, within 4x the CPU's own
+    change when every decoder embedding moves by one ulp, or 1e-3 (the
+    Parler check's rule). Then the CPU's codes vocoded on both."""
+    from tts_tpu_torch.models.dia import model as dmodel
+    n_steps = 48
+    log(f"Reference: small Q4_0 Dia (decoder L=2, H=256, 4/2 heads; encoder "
+        f"L=1, H=128; 1024-byte window), f32 caches, {n_steps} steps, card "
+        f"kernels vs CPU plain versions:")
+    runners = dia_small_runners(tmp)
+    rg, rc, _ = runners
+    cfg = rc.cfg
+    ids = dmodel.tokenize_sentence(DIA_PROMPT, cfg)
+    enc = [dmodel.encode_request(r.cfg, r.weights, ids) for r in (rg, rc)]
+    enc_err = max(max_err(a.cpu(), b) / float(b.abs().max())
+                  for a, b in zip(*enc))
+    cross = dmodel.DiaCross(*dm.prep_dia_cross(*enc[1], len(ids)))
+    crosses = [dmodel.DiaCross(*(t.to(DEV) for t in cross[:3]), cross.n_tail),
+               cross, cross]
+    kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+              repetition_penalty=1.0)
+    states = []
+    for r in runners:
+        st = dmodel.init_state(cfg, n_steps + 1, r.device)
+        states.append(st._replace(kv_k=st.kv_k.float(), kv_v=st.kv_v.float()))
+    worst, sens, agree = 0.0, 0.0, 0
+    with torch.no_grad():
+        for _ in range(n_steps):
+            lgs = []
+            for r, st, cr in zip(runners, states, crosses):
+                t_in, _, _ = dmodel.wind_down(cfg, st.tokens_in[None],
+                                              st.delay_steps, st.pos, n_steps + 1)
+                lgs.append(dmodel.step_logits(cfg, r.weights, t_in[0], st.pos,
+                                              st.kv_k, st.kv_v, cr, r.mega))
+            lg, lc, lp = lgs[0].cpu(), lgs[1], lgs[2]
+            fin = torch.isfinite(lc)
+            if not torch.equal(fin, torch.isfinite(lg)):
+                raise AssertionError("card and CPU mask different tokens")
+            scale = float(lc[fin].abs().max())
+            worst = max(worst, max_err(lg[fin], lc[fin]) / scale)
+            sens = max(sens, max_err(lp[fin], lc[fin]) / scale)
+            agree += int((lg.argmax(-1) == lc.argmax(-1)).sum())
+            new = [dmodel.decode_step(cfg, r.weights, st, cr, None,
+                                      max_steps=n_steps + 1, mega=r.mega,
+                                      logits=lgt.to(r.device), **kw)
+                   for r, st, cr, lgt in zip(runners, states, crosses, lgs)]
+            # the card and the perturbed run follow the CPU's history
+            sc = new[1]
+            states = [s._replace(tokens_in=sc.tokens_in.to(s.pos.device),
+                                 delay_steps=sc.delay_steps.to(s.pos.device),
+                                 done=sc.done.to(s.pos.device)) for s in new]
+    tol = max(4 * sens, 1e-3)
+    log(f"  encoder cross K / V, max |card - cpu| / max: {enc_err:.3e} (tol "
+        f"1e-4: f32, TF32 off); teacher-forced logits (K10, Sb "
+        f"{cross.ck.shape[2]}, n_tail {cross.n_tail}): {worst:.3e}; the "
+        f"CPU's own change under 1-ulp embedding changes: {sens:.3e}; tol "
+        f"{tol:.3e}; argmax agreement {agree}/{n_steps * cfg.n_output_heads}")
+    if enc_err > 1e-4 or worst > tol:
+        raise AssertionError("small-model Dia differs between card and CPU")
+    n = int(states[1].pos)
+    codes = dmodel.adjust_output_tokens(states[1].out_tokens.cpu().numpy(), n, cfg)
+    wa, wb = (r.dac.decode(codes) for r in (rg, rc))
+    err = float(np.abs(wa - wb).max()) if codes.shape[0] else 0.0
+    log(f"  {codes.shape[0]} frames vocoded on both: waveform max_abs_err "
+        f"{err:.3e} (tol 1e-3: f32 convolutions, TF32 off, other sum order)")
+    if codes.shape[0] != n - cfg.max_delay or wa.shape != (codes.shape[0] * 512,) \
+            or wa.shape != wb.shape or err > 1e-3:
+        raise AssertionError("small-model Dia waveform differs between card "
+                             "and CPU")
+
+
+# ---------------------------------------------------------------------------
+# the Dia main path and Dia serving at Dia-1.6B width
+# ---------------------------------------------------------------------------
+
+DIA_PATH = ("quant_matmul", "decode_attention_batched", "dia_megastep",
+            "dia_cross_attention")
+DIA_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
+                    "dia_megastep_batched", "dia_cross_attention_batched")
+DIA_GREEDY_STEPS = 300   # the greedy parity check's generation window
+DIA_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=1.0,
+                  repetition_penalty=1.0)
+
+
+def run_dia_main_path(tmp) -> tuple[dict, str]:
+    """Dia-1.6B Q4_0 + DAC-44k text -> WAV through the port's CLI on the
+    card (sampled, top-k 50, fixed seed, the 1024-step window); counters set
+    to 0 just before, read just after: K1, K4, K10 and its cross-attention
+    must have risen. Then the same path timed stage by stage, and a device
+    trace of 32 decode steps."""
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.audio.wav import read_audio_file
+    from tts_tpu_torch.models.dia import model as dmodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    path = os.path.join(tmp, "dia-1.6b-q4.gguf")
+    t0 = time.perf_counter()
+    write_dia(path, np.random.default_rng(SEED), dac_chans=(1536, 768, 384, 192, 96),
+              **DIA)
+    log(f"Dia main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
+        f"{time.perf_counter() - t0:.1f} s; prompt {DIA_PROMPT!r}")
+    wav = os.path.join(tmp, "dia.wav")
+    for k in KERNELS.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["-mp", path, "-p", DIA_PROMPT, "-sp", wav, "--seed", str(SEED)])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in KERNELS.items()}
+    if rc != 0:
+        raise AssertionError(f"CLI returned {rc}")
+    audio, rate = read_audio_file(wav)
+    log(f"  CLI wrote {wav} in {cli_s:.1f} s (load included): {audio.size} "
+        f"samples at {rate} Hz; launches {launches}")
+    if rate != 44100 or audio.size == 0 or audio.size % 512 or \
+            not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
+        raise AssertionError("CLI output is not a valid waveform")
+    for n in DIA_PATH:
+        if launches[n] == 0:
+            raise AssertionError(f"kernel {n} was not launched on the Dia path")
+
+    # the same path, stage by stage, synchronized
+    t0 = time.perf_counter()
+    r = runner_from_file(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg, w = r.cfg, r.weights
+    ids = dmodel.tokenize_sentence(DIA_PROMPT, cfg)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    cross = r.encode(ids)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    before = {n: k.launches for n, k in KERNELS.items()}
+    out, steps = dmodel.dia_generate_tokens_chunked(
+        cfg, w, cross, gen, max_steps=cfg.max_generation_size, mega=r.mega,
+        **DIA_SAMPLE)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    per_step = {n: (k.launches - before[n]) / steps for n, k in KERNELS.items()}
+    codes = dmodel.adjust_output_tokens(out.cpu().numpy(), steps, cfg)
+    t3 = time.perf_counter()
+    wav_np = r.dac.decode(codes)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    audio_s = wav_np.size / 44100.0
+    stats = dict(prompt_bytes=len(ids), bucket=int(cross.ck.shape[2]),
+                 n_tail=cross.n_tail, load_s=load_s, encode_ms=(t1 - t0) * 1e3,
+                 decode_steps=steps, decode_ms_per_step=(t2 - t1) * 1e3 / steps,
+                 vocode_ms=(t4 - t3) * 1e3, frames=int(codes.shape[0]),
+                 audio_s=audio_s, audio_s_per_wall_s=audio_s / (t4 - t0),
+                 decode_audio_s_per_wall_s=steps * 512 / 44100.0 / (t2 - t1),
+                 launches_per_step=per_step)
+    log(f"  timed: {json.dumps(stats)}")
+    if steps != cfg.max_generation_size - 1 or \
+            codes.shape[0] != steps - cfg.max_delay or \
+            wav_np.size != codes.shape[0] * 512 or not np.all(np.isfinite(wav_np)):
+        raise AssertionError("timed run produced the wrong shape")
+    # a steady window of 32 decode steps from the start
+    st = dmodel.init_state(cfg, cfg.max_generation_size, DEV)
+    st = device_trace(lambda: dmodel.decode_chunk(
+        cfg, w, st, cross, 32, gen, max_steps=cfg.max_generation_size,
+        mega=r.mega, **DIA_SAMPLE), "Dia decode (K10)", 32)
+    if int(st.pos) != 32:
+        raise AssertionError("traced decode window produced the wrong count")
+    del r, st
+    torch.cuda.empty_cache()
+    return launches, path
+
+
+def dia_prompts(n=12, lo=20, hi=200) -> list[str]:
+    """n dialogue prompts with speaker tags whose byte counts (as the Dia
+    tokenizer counts them) spread over [lo, hi]."""
+    from tts_tpu_torch.models.dia.model import DiaConfig, tokenize_sentence
+    cfg = DiaConfig()
+    out = []
+    for t in np.linspace(lo, hi, n).round().astype(int):
+        k = next(k for k in range(5, len(DIALOGUE))
+                 if len(tokenize_sentence(DIALOGUE[:k], cfg)) >= t)
+        out.append(DIALOGUE[:k])
+    return out
+
+
+def run_dia_serving(path) -> dict:
+    """The Dia serving path (`serving_burst` on dialogue prompts of 20-200
+    bytes: K1, K4, K11 and its cross-attention must have been launched),
+    then the engine's greedy codes against the single-stream runner's (K10)
+    over DIA_GREEDY_STEPS steps, for prompts of 129-256 bytes (the runner's
+    bucket then is the engine's, 256). Returns the launch counts of the 12
+    requests."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.dia.model import tokenize_sentence
+    from tts_tpu_torch.runtime.batched_dia import BatchedDiaEngine
+    params = [dict(p, seed=i) for i, p in enumerate(serving_params())]
+    runner, prompts, _, launches = serving_burst(
+        path, BatchedDiaEngine, params, 44100, 512, DIA_SERVING_PATH, "Dia",
+        prompts=dia_prompts())
+    lens = [len(tokenize_sentence(p, runner.cfg)) for p in prompts]
+    log(f"  Dia prompt bytes {lens}")
+    cfg = dataclasses.replace(runner.cfg, max_generation_size=DIA_GREEDY_STEPS)
+    single = copy.copy(runner)
+    single.cfg = cfg
+    eng = BatchedDiaEngine(cfg, runner.weights, n_slots=8, chunk=32)
+    greedy = GenerationConfig(sample=False)
+    picks = [i for i in range(len(prompts)) if 128 < lens[i] <= 256][-2:]
+    rids = [eng.submit(prompts[i], greedy) for i in picks] + \
+        [eng.submit(prompts[i], GenerationConfig(**params[i])) for i in (0, 4, 2, 6)]
+    eng.run_until_done()
+    for rid, i in zip(rids, picks):
+        want = single.generate_codes(prompts[i], greedy)
+        got = eng.results[rid]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"greedy codes of the engine differ from the "
+                                 f"runner's for a {lens[i]}-byte prompt: "
+                                 f"{got.shape} vs {want.shape}")
+    log(f"  greedy parity: {len(picks)} greedy requests of "
+        f"{[lens[i] for i in picks]} bytes among 4 sampled ones in 8 slots "
+        f"give the single-stream runner's (K10's) codes exactly "
+        f"({DIA_GREEDY_STEPS} steps, "
+        f"{[eng.results[r].shape[0] for r in rids[:len(picks)]]} frames): ok")
+    return launches
+
+
 def kernel_name(mangled: str) -> str:
     """The unqualified name in a mangled kernel symbol: the last
     length-prefixed identifier before the template arguments."""
@@ -2023,6 +2689,11 @@ def main() -> int:
     rows += phase(check_llama_batched, gen, lmega, flat, lkw)
     del lmega, flat, lkw
     torch.cuda.empty_cache()
+    dmega, dkw = dia_kernel_weights(gen)
+    rows += [phase(check_dia, gen, dmega, dkw),
+             phase(check_dia_batched, gen, dmega, dkw)]
+    del dmega
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase(check_small_reference, tmp)
         launches, path = phase(run_main_path, tmp)
@@ -2035,14 +2706,21 @@ def main() -> int:
         torch.cuda.empty_cache()
         served_orpheus = phase(run_orpheus_serving,
                                os.path.join(tmp, "orpheus-3b-q4.gguf"))
+        os.remove(os.path.join(tmp, "orpheus-3b-q4.gguf"))
+        torch.cuda.empty_cache()
+        phase(check_small_dia, tmp)
+        dia, dia_path = phase(run_dia_main_path, tmp)
+        served_dia = phase(run_dia_serving, dia_path)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
     # CLI's single stream, K4 and K5 on the server's batched engine, K6 on
     # the Orpheus CLI's single stream, K8 on the Orpheus K8 route, K7 on
-    # the Orpheus server's batched engine, K9 on the Orpheus K9 route
+    # the Orpheus server's batched engine, K9 on the Orpheus K9 route, K10
+    # on the Dia CLI's single stream, K11 on the Dia server's batched engine
     paths = {"decode_attention_batched": served, "parler_megastep_batched": served,
              "llama_flat_megastep": orpheus, "llama_megastep": k8_route,
              "llama_flat_megastep_batched": served_orpheus,
-             "llama_megastep_batched": k9_route}
+             "llama_megastep_batched": k9_route, "dia_megastep": dia,
+             "dia_megastep_batched": served_dia}
     for row in rows:
         row["launches"] = paths.get(row["name"], launches)[row["name"]]
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Compare other versions of the Orpheus GEMV (`tts_tpu_torch/csrc/
-llama_megastep.cu`, which K6-K9 drive) with the committed one on one card,
-in turns.
+llama_megastep.cu` with the kernel of `csrc/gemv.cuh`, which K6-K9 drive)
+with the committed one on one card, in turns.
 
     python3 gemv_ab.py OTHER.cu [OTHER2.cu ...]
 
 Builds the committed source (through `ops/_build.py`) and each OTHER.cu
-(the same nvcc flags and the committed headers, all at once), then, at
+(the same nvcc flags and the committed headers, all at once; an OTHER.cu
+that includes "gemv.cuh" reads a gemv.cuh beside it first, so a changed
+kernel goes in a copy of the header there), then, at
 Orpheus-3B width with random weights from a seed and bf16 caches of 3584
 rows, times K8 and K6 at one slot and K9 and K7 at 8 and 16 slots (the
 chip_smoke positions) with CUDA events: OTHER first, then the committed

@@ -14,13 +14,17 @@ one-sequence kernel (K3, K2) on that slot's state, bit for bit. The Orpheus
 steps (K8, K6) are checked at positions on both sides of K3's 256-row
 pages, with bf16 caches; their batched forms (K9, K7) at 1, 5, 8 and 16
 slots at mixed positions (one at 0), each slot against K8 / K6 bit for
-bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge.
+bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge. The
+Dia steps: the cross-attention with and without its pad tail at every
+bucket; K10 at positions across the pages and at both tail cases; K11 at
+1, 3 and 8 pairs at mixed positions, each pair against K10 bit for bit.
 """
 import pytest
 import torch
 
 from tts_tpu_torch.gguf import quants
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
 from tts_tpu_torch.ops import parler_megastep as pm
@@ -434,3 +438,114 @@ def test_parler_gemv_at_the_48k_shared_memory_boundary(dev):
     ref = pm._qdot(pm.layer_norm(x, lw, lb), w.codes, w.scales, qt)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("sb,n_tail", [(128, 896), (128, 0), (256, 768),
+                                       (512, 512), (1024, 0)])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_dia_cross_attention_matches_plain(dev, sb, n_tail, cache_dtype):
+    """The cross-attention of K10 / K11 (every bucket row attended, scale
+    1.0, the tail merged after the pages) against its plain version: 1e-5
+    of the largest output."""
+    torch.manual_seed(0)
+    q = torch.randn((3, 4, 128), device=dev)
+    ck = torch.randn((3, 4, sb, 128), device=dev).to(cache_dtype)
+    cv = torch.randn((3, 4, sb, 128), device=dev).to(cache_dtype)
+    vt = torch.randn((3, 4, 128), device=dev) * 10
+    got = dm.cross_attention_cuda(q, ck, cv, vt, n_tail)
+    ref = dm.cross_attention_plain(q, ck, cv, vt, n_tail)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+def _tiny_dia(dev, qtype):
+    """Two random Dia decoder layers at H=256 (4 q / 2 kv heads of 64, F
+    512) as K10's weights (bf16 scales; Q8_0 scales divided by 16, as in
+    _tiny_mega)."""
+    from tts_tpu_torch.models.dia.model import DiaDecoderLayer
+    L, H, F = 2, 256, 512
+    div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
+
+    def stack(n, k):
+        ws = [_rand_quant(n, k, qtype, torch.float32, dev).pack()
+              for _ in range(L)]
+        return qm.QuantTensor(torch.stack([w.codes for w in ws]),
+                              torch.stack([w.scales for w in ws]) / div, qtype)
+
+    vec = lambda: torch.randn((L, H), device=dev) * 0.1 + 1  # noqa: E731
+    lw = DiaDecoderLayer(vec(), stack(H, H), stack(128, H), stack(128, H),
+                         stack(H, H), vec(), stack(H, H), None, None,
+                         stack(H, H), vec(), stack(F, H), stack(F, H),
+                         stack(H, F))
+    mega, qt = dm.prep_dia_mega(lw)
+    return mega, dict(qtype=qt, n_heads=4, n_kv=2)
+
+
+def _dia_cross(dev, lead, sb):
+    ck = torch.randn((2, *lead, 4, sb, 64), device=dev).to(torch.bfloat16)
+    cv = torch.randn((2, *lead, 4, sb, 64), device=dev).to(torch.bfloat16)
+    return ck, cv, torch.randn((2, *lead, 4, 64), device=dev) * 8
+
+
+@pytest.mark.parametrize("sb,n_tail", [(128, 896), (256, 0)])
+@pytest.mark.parametrize("pos", [0, 255, 256, 639])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k10_matches_plain(dev, qtype, pos, sb, n_tail):
+    """K10 against its plain version (LLAMA_TOL: the same roundings, f32
+    sums in another order); the step writes each row's k/v (in bf16) at
+    row pos of that row's cache and no other row."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, qtype)
+    kc = torch.randn((2, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    ck, cv, vt = (t.flatten(1, 2) for t in _dia_cross(dev, (2,), sb))
+    x = torch.randn((2, 256), device=dev)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = dm.dia_megastep_cuda(mega, x, k1, v1, p, ck, cv, vt, n_tail, **kw)
+    ref = dm.dia_megastep_plain(mega, x, k2, v2, p, ck, cv, vt, n_tail, **kw)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=LLAMA_TOL * b.abs().max().item())
+    rows = torch.arange(640, device=dev) != pos
+    assert torch.equal(k1[:, :, :, rows], kc[:, :, :, rows])
+    assert torch.equal(v1[:, :, :, rows], vc[:, :, :, rows])
+    assert torch.equal(k1[:, :, :, pos], got[1].reshape(2, 2, 2, 64).to(torch.bfloat16))
+    assert torch.equal(v1[:, :, :, pos], got[2].reshape(2, 2, 2, 64).to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k11_matches_k10_and_plain(dev, qtype, b):
+    """K11 at b pairs at mixed positions across the 256-row pages (one at
+    0), n_tail 768: each pair's outputs and caches equal K10 on that pair's
+    state bit for bit; the whole against the plain version (LLAMA_TOL);
+    the launch counters count K11's own launches."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, qtype)
+    slots = [0, 255, 256, 257, 300, 511, 512, 639][:b]
+    kc = torch.randn((2, b, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, b, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    ck, cv, vt = _dia_cross(dev, (b, 2), 256)
+    x = torch.randn((2 * b, 256), device=dev)
+    pos = torch.tensor(slots, dtype=torch.int32, device=dev)
+    before = (dm.KERNEL_BATCHED.launches, dm.CROSS_BATCHED.launches)
+    k1, v1 = kc.clone(), vc.clone()
+    got = dm.dia_megastep_batched_cuda(mega, x, k1, v1, pos, ck, cv, vt, 768,
+                                       **kw)
+    assert (dm.KERNEL_BATCHED.launches - before[0],
+            dm.CROSS_BATCHED.launches - before[1]) == (12, 2)
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        one = dm.dia_megastep_cuda(mega, x[2 * s:2 * s + 2], ks, vs,
+                                   pos[s:s + 1],
+                                   *(t[:, s].flatten(1, 2).contiguous()
+                                     for t in (ck, cv, vt)), 768, **kw)
+        r = slice(2 * s, 2 * s + 2)
+        assert torch.equal(got[0][r], one[0])
+        assert torch.equal(got[1][:, r], one[1]) and torch.equal(got[2][:, r], one[2])
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+    ref = dm.dia_megastep_batched_plain(mega, x, kc.clone(), vc.clone(), pos,
+                                        ck, cv, vt, 768, **kw)
+    for a, r_ in zip(got, ref):
+        torch.testing.assert_close(a, r_, rtol=0,
+                                   atol=LLAMA_TOL * r_.abs().max().item())

@@ -1,7 +1,8 @@
 """PyTorch port: import hygiene and the device rule, on the CPU.
 
-Every module of tts_tpu_torch, and chip_smoke.py, imports without JAX and
-without the JAX package; entry points never fall back to the CPU unasked.
+Every module of tts_tpu_torch, and the root scripts that drive the port
+(chip_smoke.py, gemv_ab.py), import without JAX and without the JAX
+package; entry points never fall back to the CPU unasked.
 """
 import os
 import subprocess
@@ -21,6 +22,7 @@ names = [m.name for m in pkgutil.walk_packages(tts_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import gemv_ab
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "tts_tpu"
              or k.startswith("tts_tpu."))
@@ -30,7 +32,10 @@ assert {"tts_tpu_torch.runtime.batched_parler",
         "tts_tpu_torch.ops.llama_flat", "tts_tpu_torch.models.codec.snac",
         "tts_tpu_torch.models.orpheus.model",
         "tts_tpu_torch.models.orpheus.loader",
-        "tts_tpu_torch.models.orpheus.convert"} <= set(names), names
+        "tts_tpu_torch.models.orpheus.convert",
+        "tts_tpu_torch.ops.dia_megastep", "tts_tpu_torch.models.dia.model",
+        "tts_tpu_torch.models.dia.loader", "tts_tpu_torch.models.dia.convert",
+        "tts_tpu_torch.runtime.batched_dia"} <= set(names), names
 print(len(names), bad)
 """
 
@@ -41,7 +46,7 @@ def test_port_imports_no_jax_and_no_tts_tpu():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     n, bad = res.stdout.strip().split(" ", 1)
-    assert int(n) >= 31          # every module was walked
+    assert int(n) >= 37          # every module was walked
     assert bad == "[]", bad
 
 
@@ -79,6 +84,21 @@ def test_no_hidden_cpu_fallback(tmp_path):
     from tts_tpu_torch.models.orpheus.loader import load_orpheus_runner
     from tts_tpu_torch.models.orpheus.model import (OrpheusConfig,
                                                     load_orpheus_weights)
+    from tts_tpu_torch.models.dia.convert import (dia_mega_from_numpy,
+                                                  dia_weights_from_numpy)
+    from tts_tpu_torch.models.dia.loader import load_dia_runner
+    from tts_tpu_torch.runtime.batched_dia import (BatchedDiaEngine,
+                                                   init_batched_dia_state)
+    from tts_tpu_torch.models.dia.model import (DiaConfig, DiaRunner,
+                                                init_state, load_dia_weights)
+    # a Dia runner (and the batched engine built from its weights) is built
+    # from weights that these make, on the card unless asked
+    dia = str(tmp_path / "dia.gguf")
+    GGUFWriter(dia, "dia").write()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        runner_from_file(dia)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        load_dia_runner(GGUFReader(dia), GenerationConfig())
     # an Orpheus runner and its SNAC runner are built from weights that
     # these make, on the card unless asked
     orpheus = str(tmp_path / "o.gguf")
@@ -93,6 +113,13 @@ def test_no_hidden_cpu_fallback(tmp_path):
                      lambda: load_snac_weights(r, SNACConfig()),
                      lambda: orpheus_weights_from_numpy({}),
                      lambda: llama_mega_from_numpy({}, 2),
+                     lambda: load_dia_weights(r, DiaConfig()),
+                     lambda: dia_weights_from_numpy({}),
+                     lambda: dia_mega_from_numpy({}, 2),
+                     lambda: init_state(DiaConfig(), 8),
+                     lambda: init_batched_dia_state(DiaConfig(), 2),
+                     lambda: DiaRunner(DiaConfig(), None),
+                     lambda: BatchedDiaEngine(DiaConfig(), None),
                      lambda: load_parler_weights(r, ParlerConfig()),
                      lambda: load_dac_weights(r, DACConfig()),
                      lambda: parler_weights_from_numpy({}),
@@ -188,3 +215,4 @@ def test_batched_llama_engine_names_no_device():
         src = f.read()
     for name in ('"cpu"', "'cpu'", "device=None", "default_device"):
         assert name not in src, name
+

@@ -24,7 +24,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tts-cli",
                                 description="TTS generation (PyTorch/CUDA port)")
     p.add_argument("--model-path", "-mp", required=True,
-                   help="Parler or Orpheus GGUF model file, or test:dummy")
+                   help="Parler, Orpheus or Dia GGUF model file, or test:dummy")
     p.add_argument("--prompt", "-p", required=True,
                    help="text prompt to synthesize")
     p.add_argument("--save-path", "-sp", default="TTS.cpp.wav",

@@ -26,6 +26,17 @@
 // rows, e.g. cross-attention) the first kernel writes the output itself.
 // The K/V batch stride may be 0: the Parler cross-attention K/V are shared
 // by every slot, so one kernel serves both attentions of the batched step.
+//
+// The Dia steps' cross-attention (K10 / K11, ops/dia_megastep.py) is the
+// same kernel through its own entry, tts_cross_attention: every row of the
+// bucketed cross K/V attended (no position; MHA, scale 1.0), and the
+// analytic pad tail of tts_tpu/ops/dia_megastep.py:_dia_kernel folded in as
+// one more partial state. The reference attends the whole padded encoder
+// window, whose rows past the bucket have K exactly 0 (logit 0) and V rows
+// that sum to vtail: n_tail such rows are the state (m 0, l n_tail, acc
+// vtail), merged after the pages, where `denom += n_tail e^{-m}` and
+// `numer += e^{-m} vtail` of the TPU kernel take place. With n_tail 0 the
+// fold is skipped (the TPU kernel then takes no max with 0 either).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,7 +85,9 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
 // Grid (B * Hq, n_pages). Writes out (B * Hq, D) directly when n_pages == 1,
 // else the page's partial state to part_ml (B * Hq, n_pages, 2) / part_acc
 // (B * Hq, n_pages, D). Slot s reads q at q + s * q_bstride, its cache at
-// kc/vc + s * kv_bstride and its position at pos[s * pos_stride].
+// kc/vc + s * kv_bstride and its position at pos[s * pos_stride] (every row
+// of the cache when pos_ptr is null). With a tail, the state (0, n_tail,
+// tail[(s * Hq + h) * D ..]) is merged last (see the header).
 template <typename T, int D>
 __global__ void __launch_bounds__(NWARPS * 32)
 attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
@@ -82,7 +95,7 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  float* __restrict__ out, float* __restrict__ part_ml,
                  float* __restrict__ part_acc, int hq, int n_rep, int ctx,
                  long long q_bstride, long long kv_bstride, int pos_stride,
-                 float scale) {
+                 float scale, const float* __restrict__ tail, float n_tail) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPR = D / VEC;         // lanes per cache row
   constexpr int RPW = 32 / LPR;        // rows per warp pass
@@ -90,7 +103,7 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
   const int bh = blockIdx.x, page = blockIdx.y, n_pages = gridDim.y;
   const int s = bh / hq, h = bh % hq;
   const int kvh = h / n_rep;
-  const int pos = min(pos_ptr[(size_t)s * pos_stride], ctx - 1);
+  const int pos = pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1;
   const int row0 = page * PAGE;
   if (row0 > pos) return;  // past this slot's position: the combine skips it
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -154,6 +167,7 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
     float mm = -INFINITY, ll = 0.f, aa = 0.f;
     for (int w = 0; w < NWARPS; ++w) merge<1>(mm, ll, &aa, sm_ml[w][0], sm_ml[w][1], &sm_acc[w][d]);
     if (n_pages == 1) {
+      if (tail) merge<1>(mm, ll, &aa, 0.f, n_tail, &tail[(size_t)bh * D + d]);
       out[(size_t)bh * D + d] = aa / ll;
     } else {
       const size_t pi = (size_t)bh * n_pages + page;
@@ -164,21 +178,23 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
 }
 
 // Grid (B * Hq), D threads: merge the pages [0, pos / 256] of each
-// (slot, head) in page order.
+// (slot, head) in page order, then the tail when there is one.
 __global__ void attn_combine_kernel(const float* __restrict__ part_ml,
                                     const float* __restrict__ part_acc,
                                     const int* __restrict__ pos_ptr,
                                     float* __restrict__ out, int hq,
                                     int n_pages, int ctx, int pos_stride,
-                                    int D) {
+                                    int D, const float* __restrict__ tail,
+                                    float n_tail) {
   const int bh = blockIdx.x, d = threadIdx.x;
   const int s = bh / hq;
-  const int last = min(pos_ptr[(size_t)s * pos_stride], ctx - 1) / PAGE;
+  const int last = (pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1) / PAGE;
   float m = -INFINITY, l = 0.f, a = 0.f;
   for (int p = 0; p <= last; ++p) {
     const size_t pi = (size_t)bh * n_pages + p;
     merge<1>(m, l, &a, part_ml[pi * 2], part_ml[pi * 2 + 1], &part_acc[pi * D + d]);
   }
+  if (tail) merge<1>(m, l, &a, 0.f, n_tail, &tail[(size_t)bh * D + d]);
   out[(size_t)bh * D + d] = a / l;
 }
 
@@ -186,16 +202,44 @@ template <typename T, int D>
 void launch(const float* q, const void* kc, const void* vc, const int* pos,
             float* out, float* part_ml, float* part_acc, int b, int hq,
             int n_rep, int ctx, long long q_bstride, long long kv_bstride,
-            int pos_stride, float scale, cudaStream_t s) {
+            int pos_stride, float scale, const float* tail, float n_tail,
+            cudaStream_t s) {
   const int n_pages = (ctx + PAGE - 1) / PAGE;
   attn_page_kernel<T, D><<<dim3(b * hq, n_pages), NWARPS * 32, 0, s>>>(
       q, reinterpret_cast<const T*>(kc), reinterpret_cast<const T*>(vc), pos,
       out, part_ml, part_acc, hq, n_rep, ctx, q_bstride, kv_bstride,
-      pos_stride, scale);
+      pos_stride, scale, tail, n_tail);
   if (n_pages > 1) {
     attn_combine_kernel<<<b * hq, D, 0, s>>>(part_ml, part_acc, pos, out, hq,
-                                             n_pages, ctx, pos_stride, D);
+                                             n_pages, ctx, pos_stride, D, tail,
+                                             n_tail);
   }
+}
+
+int dispatch(const float* q, const void* kc, const void* vc, const int* pos,
+             float* out, float* part_ml, float* part_acc, int b, int hq,
+             int n_rep, int ctx, int d, int cache_bf16, long long q_bstride,
+             long long kv_bstride, int pos_stride, float scale,
+             const float* tail, float n_tail, cudaStream_t s) {
+  if (b <= 0 || hq <= 0 || n_rep <= 0 || hq % n_rep || ctx <= 0 ||
+      (ctx + PAGE - 1) / PAGE > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+#define TTS_ATTN_ARGS q, kc, vc, pos, out, part_ml, part_acc, b, hq, n_rep, ctx, \
+                      q_bstride, kv_bstride, pos_stride, scale, tail, n_tail, s
+  if (cache_bf16 && d == 64) {
+    launch<__nv_bfloat16, 64>(TTS_ATTN_ARGS);
+  } else if (cache_bf16 && d == 128) {
+    launch<__nv_bfloat16, 128>(TTS_ATTN_ARGS);
+  } else if (!cache_bf16 && d == 64) {
+    launch<float, 64>(TTS_ATTN_ARGS);
+  } else if (!cache_bf16 && d == 128) {
+    launch<float, 128>(TTS_ATTN_ARGS);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef TTS_ATTN_ARGS
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -212,24 +256,25 @@ extern "C" int tts_decode_attention(
     float* out, float* part_ml, float* part_acc, int b, int hq, int n_rep,
     int ctx, int d, int cache_bf16, long long q_bstride, long long kv_bstride,
     int pos_stride, float scale, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  if (b <= 0 || hq <= 0 || n_rep <= 0 || hq % n_rep || ctx <= 0 ||
-      (ctx + PAGE - 1) / PAGE > 65535) {
+  return dispatch(q, kc, vc, pos, out, part_ml, part_acc, b, hq, n_rep, ctx,
+                  d, cache_bf16, q_bstride, kv_bstride, pos_stride, scale,
+                  nullptr, 0.f, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The Dia cross-attention: q (b, hq, d) f32 as above; kc/vc (b, hq, sb, d)
+// bf16 or f32, slot s at + s * kv_bstride elements, every one of the sb rows
+// attended (MHA); tail (b * hq, d) f32, the V sum of the n_tail pad rows of
+// logit 0 past the bucket, or null when n_tail is 0; out and scratch as
+// above with ctx = sb.
+extern "C" int tts_cross_attention(
+    const float* q, const void* kc, const void* vc, const float* tail,
+    float n_tail, float* out, float* part_ml, float* part_acc, int b, int hq,
+    int sb, int d, int cache_bf16, long long q_bstride, long long kv_bstride,
+    float scale, void* stream) {
+  if ((tail == nullptr) != (n_tail == 0.f) || n_tail < 0.f) {
     return (int)cudaErrorInvalidValue;
   }
-#define TTS_ATTN_ARGS q, kc, vc, pos, out, part_ml, part_acc, b, hq, n_rep, ctx, \
-                      q_bstride, kv_bstride, pos_stride, scale, s
-  if (cache_bf16 && d == 64) {
-    launch<__nv_bfloat16, 64>(TTS_ATTN_ARGS);
-  } else if (cache_bf16 && d == 128) {
-    launch<__nv_bfloat16, 128>(TTS_ATTN_ARGS);
-  } else if (!cache_bf16 && d == 64) {
-    launch<float, 64>(TTS_ATTN_ARGS);
-  } else if (!cache_bf16 && d == 128) {
-    launch<float, 128>(TTS_ATTN_ARGS);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef TTS_ATTN_ARGS
-  return (int)cudaGetLastError();
+  return dispatch(q, kc, vc, nullptr, out, part_ml, part_acc, b, hq, 1, sb, d,
+                  cache_bf16, q_bstride, kv_bstride, 0, scale, tail, n_tail,
+                  reinterpret_cast<cudaStream_t>(stream));
 }

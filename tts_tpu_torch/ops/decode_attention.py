@@ -13,7 +13,9 @@ softmax the JAX package's `_xla_fallback` computes (vmapped for K4).
 
 `pos` is an int32 tensor on the device (or a Python int on the CPU path):
 the kernel reads it from device memory, so the decode loop never syncs the
-host on it.
+host on it. The same kernel serves the Dia steps' cross-attention (every
+row of the bucketed encoder K/V, and the padded tail folded in) through
+its own entry, launched from ops/dia_megastep.py.
 """
 from __future__ import annotations
 

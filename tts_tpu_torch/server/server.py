@@ -9,12 +9,13 @@ task queue.
 
 Workers share one loaded model per model id, so N workers cost one copy of
 the weights and the pool size sets request-level concurrency (their work
-serializes on the card's stream). With `--batch-slots N` (N > 1), Parler
-and Orpheus requests go to a continuous-batching engine instead
-(runtime/batched_parler.py, runtime/batched_llama.py): concurrent requests
-decode together, one read of the weights serving every slot. A request the
-engine does not take (a prompt longer than it takes) goes to the worker
-pool.
+serializes on the card's stream). With `--batch-slots N` (N > 1), Parler,
+Orpheus and Dia requests go to a continuous-batching engine instead
+(runtime/batched_parler.py, runtime/batched_llama.py,
+runtime/batched_dia.py): concurrent requests decode together, one read of
+the weights serving every slot. A request the engine does not take (a
+prompt longer than it takes: for Dia, more than 256 bytes) goes to the
+worker pool.
 
 Not in the port yet, each answered with a clear error: `"stream": true`
 (501, PCM streaming is a later slice) and conditional prompts (the route
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import queue
@@ -113,12 +115,11 @@ class ServerTask:
         self.sample_rate = 0
 
 
-# Dia joins when the port has its engine.
-BATCHABLE_ARCHS = ("parler-tts", "orpheus")
+BATCHABLE_ARCHS = ("parler-tts", "orpheus", "dia")
 
 
 class BatchedModelWorker:
-    """Continuous-batching dispatcher for one Parler or Orpheus model.
+    """Continuous-batching dispatcher for one Parler, Orpheus or Dia model.
 
     HTTP threads hand over ServerTasks through a queue; one worker thread
     owns the engine and its tensors, refills slots between chunks, vocodes
@@ -130,6 +131,9 @@ class BatchedModelWorker:
         self.arch = getattr(runner, "arch", "")
         if self.arch == "orpheus":
             from ..runtime.batched_llama import BatchedLlamaEngine as Engine
+        elif self.arch == "dia":
+            from ..runtime.batched_dia import BatchedDiaEngine
+            Engine = functools.partial(BatchedDiaEngine, device=runner.device)
         else:
             from ..runtime.batched_parler import BatchedParlerEngine as Engine
         self.engine = Engine(runner.cfg, runner.weights, runner.tokenizer,
@@ -524,9 +528,9 @@ def main(argv=None) -> int:
     p.add_argument("--text-encoder-path", "-tep", default="")
     p.add_argument("--n-parallelism", "-np", type=int, default=1)
     p.add_argument("--batch-slots", "-bs", type=int, default=0,
-                   help="continuous-batching slots for Parler and Orpheus "
-                        "models (0 = off; at most 16 on the card); "
-                        "requests decode together on the card")
+                   help="continuous-batching slots for Parler, Orpheus "
+                        "and Dia models (0 = off; at most 16 on the card, 8 "
+                        "for Dia); requests decode together on the card")
     p.add_argument("--timeout", type=int, default=300)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
