@@ -23,8 +23,11 @@ Phases, in order; any failure exits non-zero without the final line:
    seed) written with the port's GGUF writer, turned into a WAV by the
    port's CLI (sampled, fixed seed, 256 decode steps). Every kernel's
    launch counter is set to 0 just before and read just after; K1-K3 must
-   have risen. Then the same path timed stage by stage, and a device trace
-   of 32 decode steps (the card's busy share, device time by kernel).
+   have risen. The same CLI again on the K12 route (the runner's mega from
+   maybe_prep_parler_flat): K12 must have risen, K2 and K3 not. Then both
+   routes timed stage by stage in turns (K2, K12, K12, K2), a device trace
+   of 32 decode steps on each (the card's busy share, device time by
+   kernel), and their greedy codes over the 256 steps (equal).
 5. Serving path: the port's HTTP server in this process (batch_slots 8,
    the same GGUF) answers 12 concurrent requests with mixed sampling
    parameters; counters set to 0 just before, read just after; K1, K4 and
@@ -67,8 +70,17 @@ Phases, in order; any failure exits non-zero without the final line:
    must have risen. Then the batched step timed and traced, one request
    through batch slots 0, and the engine's greedy codes against the
    runner's (K10's) over 300 steps.
+12. Slot groups, on small models (run before phases 10-11): engines past
+   one launch's rows, a Parler one with 20 slots, an Orpheus one with 20
+   (heads of 128: K7) and a Dia one with 12, every slot busy with a greedy
+   request: each request's codes equal the single-stream runner's. Then
+   the server with batch_slots 12 on the small Dia GGUF reaches READY and
+   answers a request.
 
-Phase 2 also holds K8 and K6 at Orpheus-3B width against their plain
+Phase 2 also holds K12 (the one-launch Parler step) at Parler-Mini width
+at positions 0-4095 with and without the cross block: bit for bit against
+K2 on the same state, layer by layer against its plain version, and timed
+beside K2 in turns. It holds K8 and K6 at Orpheus-3B width against their plain
 versions, layer by layer at positions around K3's pages, and times them;
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
@@ -113,6 +125,7 @@ from tts_tpu_torch.ops import decode_attention as da
 from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
+from tts_tpu_torch.ops import parler_flat as pf
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
 
@@ -698,6 +711,107 @@ def check_k5(gen, mega, qtype) -> dict:
     return dict(name="parler_megastep_batched", route="cuda",
                 source="tts_tpu_torch/csrc/parler_megastep.cu",
                 replaces="tts_tpu/ops/parler_megastep.py:406",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+K12_POS = (0, 1, 255, 256, 1000, 4095)   # around K3's 256-row pages
+K12_LAYERS = (0, 8, 16, 23)              # compared with the CPU yardstick
+
+
+def k12_step(m, x, kc, vc, pos, *, qtype, use_cross, n_heads):
+    """K12 on one stack of MegaLayers, in the layer check's calling form."""
+    flat = pf.ParlerFlat(m, qtype, use_cross, n_heads, kc.shape[2])
+    return pf.parler_flat_megastep_cuda(flat, x, kc, vc, pos, qtype=qtype,
+                                        n_heads=n_heads)
+
+
+def k12_plain(m, x, kc, vc, pos, *, qtype, use_cross, n_heads):
+    flat = pf.ParlerFlat(m, qtype, use_cross, n_heads, kc.shape[2])
+    return pf.parler_flat_megastep_plain(flat, x, kc, vc, pos, qtype=qtype,
+                                         n_heads=n_heads)
+
+
+def check_k12(gen, mega, qtype) -> dict:
+    """K12 at Parler-Mini width: at each of K12_POS, with and without the
+    cross block, equal to K2 on the same state bit for bit (x_out, k_new,
+    v_new and both caches), and layer by layer against its plain version
+    (K2's yardstick; K12_LAYERS of the 24 with the CPU yardstick, judged
+    over the positions of each cross setting). Then timed beside K2 at
+    pos 1000, with the plain version and the bound, and traced."""
+    log("K12 parler_flat_megastep (csrc/parler_flat.cu, one cooperative "
+        "launch) vs K2 and parler_flat_megastep_plain:")
+    L, H, heads, ctx = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["ctx"]
+    d = H // heads
+    kc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((1, H), generator=gen, device=DEV)
+    errs = []
+    for use_cross in (True, False):
+        kw = dict(qtype=qtype, use_cross=use_cross, n_heads=heads)
+        flat = pf.prep_parler_flat(mega, qtype, ctx, use_cross=use_cross)
+        err, base = defaultdict(list), defaultdict(list)
+        for p in K12_POS:
+            pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+            k12, v12, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = pf.parler_flat_megastep_cuda(flat, x, k12, v12, pos,
+                                               qtype=qtype, n_heads=heads)
+            two = pm.parler_megastep_cuda(mega, x, k2, v2, pos, **kw)
+            if not (all(torch.equal(a, b) for a, b in zip(got, two))
+                    and torch.equal(k12, k2) and torch.equal(v12, v2)):
+                raise AssertionError(f"K12 differs from K2 at pos {p}, "
+                                     f"use_cross {use_cross}")
+            del k12, v12, k2, v2
+            errs += layer_errors(
+                lambda l: pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]),
+                                        mega.cross_pos),
+                L, x, kc, vc, pos, kw, k12_step, k12_plain, "K12", err, base,
+                layers=K12_LAYERS)
+        log(f"  use_cross {use_cross}: x_out, k_new, v_new and both caches "
+            f"equal K2's bit for bit at pos {list(K12_POS)} (max_abs_err 0): ok")
+        judge_layers(err, base, "K12", f"use_cross {use_cross}, pos "
+                     f"{list(K12_POS)}, layers {list(K12_LAYERS)} layer by "
+                     f"layer, yardstick plain on the CPU vs plain on the card")
+    p = 1000
+    pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+    kw = dict(qtype=qtype, use_cross=True, n_heads=heads)
+    flat = pf.prep_parler_flat(mega, qtype, ctx)
+
+    def k12():
+        pf.parler_flat_megastep_cuda(flat, x, kc, vc, pos, qtype=qtype,
+                                     n_heads=heads)
+
+    def k2():
+        pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw)
+
+    # in turns: K2, K12, K12, K2
+    times = [cuda_ms(fn, iters=20) for fn in (k2, k12, k12, k2)]
+    ms, k2_ms = min(times[1:3]), min(times[0], times[3])
+    plain_ms = cuda_ms(lambda: pf.parler_flat_megastep_plain(
+        flat, x, kc, vc, pos, qtype=qtype, n_heads=heads), iters=5, warmup=1)
+    # K2's bytes: weights, norms and cross K/V read once; K/V rows up to
+    # pos read once; this token's k/v written; x in and out
+    wbytes = tensor_bytes(mega[:11])
+    kv_bytes = 2 * L * heads * (p + 1) * d * 2
+    flops = 2 * L * (6 * H * H + 2 * H * MINI["ffn"])
+    b_ms, b_by = bound(wbytes + kv_bytes + 2 * L * H * 2 + 2 * H * 4, flops, "bf16")
+    log(f"  {L} layers, pos {p}: K12 {times[1]:.4f} / {times[2]:.4f} ms/step "
+        f"(1 launch of {pf.launched_blocks} blocks of 256 threads; "
+        f"{9 * L - 1} grid barriers), K2 {times[0]:.4f} / {times[3]:.4f} ms/step "
+        f"({8 * L} launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; {wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
+
+    def steps(fn):
+        def run():
+            for _ in range(5):
+                fn()
+        return run
+
+    device_trace(steps(k12), f"K12 step alone, pos {p}", 5)
+    device_trace(steps(k2), f"K2 step alone, pos {p}", 5)
+    return dict(name="parler_flat_megastep", route="cuda",
+                source="tts_tpu_torch/csrc/parler_flat.cu",
+                replaces="tts_tpu/ops/parler_flat.py:170",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
 
@@ -1289,32 +1403,41 @@ KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
            "llama_megastep_batched": lm.KERNEL_BATCHED,
            "dia_megastep": dm.KERNEL, "dia_cross_attention": dm.CROSS,
            "dia_megastep_batched": dm.KERNEL_BATCHED,
-           "dia_cross_attention_batched": dm.CROSS_BATCHED}
+           "dia_cross_attention_batched": dm.CROSS_BATCHED,
+           "parler_flat_megastep": pf.KERNEL}
 SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
 SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                 "parler_megastep_batched")
 
 
-def run_main_path(tmp) -> tuple[dict, str]:
+@contextlib.contextmanager
+def k12_route():
+    """Every ParlerRunner built inside takes the K12 route: right after its
+    own __init__ its `mega` becomes `maybe_prep_parler_flat` of its weights,
+    the port of what tests/test_parler_flat.py does to the JAX runner (the
+    CLI has no flag for the route, as the JAX CLI has none)."""
+    from tts_tpu_torch.models.parler import model as pmodel
+    init = pmodel.ParlerRunner.__init__
+
+    def take_k12(self, *a, **k):
+        init(self, *a, **k)
+        self.mega = pmodel.maybe_prep_parler_flat(self.cfg, self.weights)
+        if not isinstance(self.mega, pf.ParlerFlat):
+            raise AssertionError("the model does not take the K12 route")
+
+    pmodel.ParlerRunner.__init__ = take_k12
+    try:
+        yield
+    finally:
+        pmodel.ParlerRunner.__init__ = init
+
+
+def cli_wav(path, wav) -> tuple[dict, np.ndarray]:
+    """The port's CLI on `path` (sampled, top-k 50, seed SEED), every
+    kernel's counter set to 0 just before and read just after; the WAV must
+    be a valid waveform. Returns (launches, audio)."""
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
-    from tts_tpu_torch.common import kv_cache_dtype
-    from tts_tpu_torch.models.parler import model as pmodel
-    from tts_tpu_torch.models.registry import runner_from_file
-
-    n_prompt = prompt_len()
-    path = os.path.join(tmp, "parler-mini-q4.gguf")
-    t0 = time.perf_counter()
-    write_parler(path, np.random.default_rng(SEED), n_layers=MINI["n_layers"],
-                 hidden=MINI["hidden"], heads=MINI["heads"], ffn=MINI["ffn"],
-                 n_out=MINI["n_out"], vocab=MINI["vocab"], ctx=MINI["ctx"],
-                 enc_len=MINI["enc_len"],
-                 max_generation=n_prompt + DECODE_STEPS,
-                 dac_chans=(1536, 768, 384, 192, 96))
-    log(f"Main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
-        f"{time.perf_counter() - t0:.1f} s; prompt {n_prompt} tokens, "
-        f"{DECODE_STEPS} decode steps")
-    wav = os.path.join(tmp, "out.wav")
     for k in KERNELS.values():
         k.launches = 0
     rc = cli.main(["-mp", path, "-p", PROMPT, "-sp", wav, "--seed", str(SEED)])
@@ -1327,12 +1450,16 @@ def run_main_path(tmp) -> tuple[dict, str]:
     if rate != 44100 or audio.size == 0 or audio.size % 512 or \
             not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0:
         raise AssertionError("CLI output is not a valid waveform")
-    for n in SINGLE_PATH:
-        if launches[n] == 0:
-            raise AssertionError(f"kernel {n} was not launched on the main path")
+    return launches, audio
 
-    # the same path, stage by stage, synchronized
-    r = runner_from_file(path)
+
+def timed_route(r, mega, label) -> dict:
+    """The Parler path stage by stage, synchronized, with `mega` as the
+    runner's decode route: prefill, DECODE_STEPS sampled decode steps (top-k
+    50, seed SEED), delay undo, vocode. Returns the stage times, launches
+    per decode step and audio-s per wall-s."""
+    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.models.parler import model as pmodel
     cfg = r.cfg
     ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
     tokens = torch.tensor(ids, device=DEV)
@@ -1350,38 +1477,122 @@ def run_main_path(tmp) -> tuple[dict, str]:
     out, steps = pmodel.generate_tokens_chunked(
         cfg, r.weights, len(ids), kk, vv, gen, use_cross=True, do_sample=True,
         temperature=1.0, top_k=50, top_p=1.0, repetition_penalty=1.0,
-        mega=r.mega)
+        mega=mega)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    per_step = {n: (k.launches - before[n]) / steps for n, k in KERNELS.items()}
+    per_step = {n: (k.launches - before[n]) / steps for n, k in KERNELS.items()
+                if k.launches != before[n]}
     codes = pmodel.adjust_output_tokens(out.cpu().numpy(), steps, cfg)
     t3 = time.perf_counter()
     wav_np = r.dac.decode(codes)
     torch.cuda.synchronize()
     t4 = time.perf_counter()
     audio_s = wav_np.size / 44100.0
-    stats = dict(prefill_ms=(t1 - t0) * 1e3, decode_steps=steps,
+    stats = dict(route=label, prefill_ms=(t1 - t0) * 1e3, decode_steps=steps,
                  decode_ms_per_step=(t2 - t1) * 1e3 / steps,
                  vocode_ms=(t4 - t3) * 1e3, frames=int(codes.shape[0]),
                  audio_s=audio_s,
                  audio_s_per_wall_s=audio_s / (t4 - t0),
                  decode_audio_s_per_wall_s=steps * 512 / 44100.0 / (t2 - t1),
                  launches_per_step=per_step)
-    log(f"  timed: {json.dumps(stats)}")
+    log(f"  timed, {label}: {json.dumps(stats)}")
     if steps != DECODE_STEPS or wav_np.size != codes.shape[0] * 512 or \
             not np.all(np.isfinite(wav_np)):
         raise AssertionError("timed run produced the wrong shape")
-    # a steady window of 32 decode steps, from the prompt's end again
+    return stats
+
+
+def trace_route(r, mega, label) -> None:
+    """A steady window of 32 sampled decode steps on the route `mega`, from
+    the prompt's end, under the device trace."""
+    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.models.parler import model as pmodel
+    cfg = r.cfg
+    ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
+    shape = (cfg.n_layers, cfg.n_attn_heads, cfg.max_ctx_length, cfg.head_size)
+    kk = torch.zeros(shape, dtype=kv_cache_dtype(DEV), device=DEV)
+    vv = torch.zeros_like(kk)
+    pmodel.parler_prefill(cfg, r.weights, torch.tensor(ids, device=DEV), kk, vv)
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED)
     st = pmodel.init_state(cfg, len(ids), kk, vv)
     st = device_trace(lambda: pmodel.decode_chunk(
         cfg, r.weights, st, 32, gen, use_cross=True, do_sample=True,
         temperature=1.0, top_k=50, top_p=1.0, repetition_penalty=1.0,
-        mega=r.mega), "main-path decode", 32)
-    toks = st.out_tokens[:min(32, steps)]
+        mega=mega), f"main-path decode, {label}", 32)
+    toks = st.out_tokens[:min(32, DECODE_STEPS)]
     if int(st.step) != toks.shape[0] or bool((toks < 0).any()) or \
             bool((toks >= cfg.output_vocab_size).any()):
         raise AssertionError("traced decode window produced wrong tokens")
-    return launches, path
+
+
+def greedy_out(r, mega) -> tuple[np.ndarray, int]:
+    """DECODE_STEPS greedy decode steps on the route `mega` from the
+    prompt: the raw (max_gen, 9) tokens and the step count."""
+    from tts_tpu_torch.common import kv_cache_dtype
+    from tts_tpu_torch.models.parler import model as pmodel
+    cfg = r.cfg
+    ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
+    shape = (cfg.n_layers, cfg.n_attn_heads, cfg.max_ctx_length, cfg.head_size)
+    kk = torch.zeros(shape, dtype=kv_cache_dtype(DEV), device=DEV)
+    vv = torch.zeros_like(kk)
+    pmodel.parler_prefill(cfg, r.weights, torch.tensor(ids, device=DEV), kk, vv)
+    out, steps = pmodel.generate_tokens_chunked(
+        cfg, r.weights, len(ids), kk, vv, None, use_cross=True,
+        do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
+        repetition_penalty=1.0, mega=mega)
+    return out.cpu().numpy(), steps
+
+
+def run_main_path(tmp) -> tuple[dict, dict, str]:
+    """The Parler CLI main path on K2's route (K1-K3 must have been
+    launched), then on the K12 route (K12 must have been launched, K2 and
+    K3 not); both routes timed stage by stage in turns (K2, K12, K12, K2)
+    and traced; their greedy codes equal. Returns (the K2 route's launches,
+    the K12 route's launches, the GGUF's path)."""
+    from tts_tpu_torch.models.parler import model as pmodel
+    from tts_tpu_torch.models.registry import runner_from_file
+
+    n_prompt = prompt_len()
+    path = os.path.join(tmp, "parler-mini-q4.gguf")
+    t0 = time.perf_counter()
+    write_parler(path, np.random.default_rng(SEED), n_layers=MINI["n_layers"],
+                 hidden=MINI["hidden"], heads=MINI["heads"], ffn=MINI["ffn"],
+                 n_out=MINI["n_out"], vocab=MINI["vocab"], ctx=MINI["ctx"],
+                 enc_len=MINI["enc_len"],
+                 max_generation=n_prompt + DECODE_STEPS,
+                 dac_chans=(1536, 768, 384, 192, 96))
+    log(f"Main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
+        f"{time.perf_counter() - t0:.1f} s; prompt {n_prompt} tokens, "
+        f"{DECODE_STEPS} decode steps")
+    launches, audio = cli_wav(path, os.path.join(tmp, "out.wav"))
+    for n in SINGLE_PATH:
+        if launches[n] == 0:
+            raise AssertionError(f"kernel {n} was not launched on the main path")
+    log("Main path, K12 route (the runner's mega from maybe_prep_parler_flat):")
+    with k12_route():
+        k12_launches, audio12 = cli_wav(path, os.path.join(tmp, "out-k12.wav"))
+    if k12_launches["parler_flat_megastep"] == 0 or \
+            k12_launches["parler_megastep"] or k12_launches["decode_attention"]:
+        raise AssertionError("the K12 route did not run on K12 alone")
+    log(f"  K12 launched {k12_launches['parler_flat_megastep']} times, K2 and "
+        f"K3 not; the sampled WAV equals the K2 route's: "
+        f"{bool(np.array_equal(audio, audio12))}")
+
+    r = runner_from_file(path)
+    k2 = r.mega
+    flat = pmodel.maybe_prep_parler_flat(r.cfg, r.weights)
+    for mega, label in ((k2, "K2 route"), (flat, "K12 route"),
+                        (flat, "K12 route"), (k2, "K2 route")):
+        timed_route(r, mega, label)
+    trace_route(r, k2, "K2 route")
+    trace_route(r, flat, "K12 route")
+    (o2, n2), (o12, n12) = greedy_out(r, k2), greedy_out(r, flat)
+    if n2 != n12 or not np.array_equal(o2, o12):
+        raise AssertionError("greedy codes of the K12 route differ from the "
+                             "K2 route's")
+    log(f"  greedy codes of the two routes equal over {n2} steps: ok")
+    return launches, k12_launches, path
 
 
 # ---------------------------------------------------------------------------
@@ -2611,6 +2822,126 @@ def run_dia_serving(path) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slot groups: engines past the rows one batched launch takes
+# ---------------------------------------------------------------------------
+
+GROUP_STEPS = 48   # greedy steps (tokens for Orpheus) the parity checks run
+
+
+@contextlib.contextmanager
+def small_orpheus_prompt_ids():
+    """The Orpheus prompt format's special ids (128000-128261) lie past a
+    small model's 1000-token vocab: within the block they are in-vocab ids,
+    as the port's CPU tests patch them."""
+    from tts_tpu_torch.models.orpheus import model as omodel
+    saved = omodel.PREPENDED_TOKENS, omodel.APPENDED_TOKENS
+    omodel.PREPENDED_TOKENS, omodel.APPENDED_TOKENS = (1, 2), (3, 4, 5, 6)
+    try:
+        yield
+    finally:
+        omodel.PREPENDED_TOKENS, omodel.APPENDED_TOKENS = saved
+
+
+def check_slot_groups(tmp) -> None:
+    """The batched engines past one launch's rows, on small models: a Parler
+    engine with 20 slots and an Orpheus engine with 20 (K5 and K7 in two
+    groups of 10), a Dia engine with 12 (K11 in two groups of 6 pairs),
+    every slot busy with a greedy request; each request's codes equal the
+    single-stream runner's (K2, K6, K10). Then the server with batch_slots
+    12 on the small Dia GGUF reaches READY and answers a request."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.dia.model import tokenize_sentence
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.batched_dia import BatchedDiaEngine
+    from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
+    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
+    greedy = GenerationConfig(sample=False)
+
+    def parity(label, eng, prompts, want, same):
+        rids = [eng.submit(p, greedy) for p in prompts]
+        if any(r is None for r in eng.slot_req):
+            raise AssertionError(f"{label}: a slot is idle")
+        before = {n: k.launches for n, k in KERNELS.items()}
+        eng.run_until_done()
+        torch.cuda.synchronize()
+        launched = {n: k.launches - before[n] for n, k in KERNELS.items()
+                    if k.launches != before[n]}
+        for rid, p in zip(rids, prompts):
+            if not same(eng.results[rid], want(p)):
+                raise AssertionError(f"{label}: greedy codes of the engine "
+                                     f"differ from the runner's for {p!r}")
+        log(f"  {label}: {len(prompts)} greedy requests in {eng.n_slots} slots "
+            f"give the single-stream runner's codes exactly; launches "
+            f"{launched}: ok")
+
+    # Parler, 20 slots (K5 in groups of 10)
+    runner = runner_from_file(os.path.join(tmp, "parler-small.gguf"))
+    prompts = serving_prompts(runner.tokenizer, n=20, lo=3, hi=40)
+    lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
+    single = copy.copy(runner)
+    single.cfg = dataclasses.replace(runner.cfg,
+                                     max_generation_size=max(lens) + GROUP_STEPS)
+    eng = BatchedParlerEngine(single.cfg, runner.weights, runner.tokenizer,
+                              n_slots=20, chunk=32)
+    parity("Parler small, K5", eng, prompts,
+           lambda p: single.generate_codes(p, greedy),
+           lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+
+    # Orpheus, 20 slots (K7 in groups of 10; heads of 128 so that the
+    # engine takes K7 and the runner K6)
+    path = os.path.join(tmp, "orpheus-small-d128.gguf")
+    write_orpheus(path, np.random.default_rng(SEED + 4), n_layers=2,
+                  hidden=256, heads=2, kv_heads=1, ffn=1024, vocab=1000,
+                  q4_head=True, snac_dims=(64, 32, 16, 8, 4), snac_latent=32)
+    with small_orpheus_prompt_ids():
+        runner = runner_from_file(path)
+        single = copy.copy(runner)
+        single.cfg = dataclasses.replace(runner.cfg,
+                                         max_generation_size=GROUP_STEPS)
+        single._mega, single._mega_ready = runner.mega, True
+        eng = BatchedLlamaEngine(single.cfg, runner.weights, runner.tokenizer,
+                                 n_slots=20, chunk=32)
+        if not isinstance(eng.mega.step, lf.LlamaFlat):
+            raise AssertionError("the small Orpheus engine did not take K7")
+        words = PROMPT.split()
+        prompts = [" ".join(words[:1 + i % len(words)]) + "?" * (i // 6)
+                   for i in range(20)]
+
+        def want(p):
+            out, n_out, _ = single.generate_tokens(p, greedy)
+            return omodel.prepare_output_tokens(out, n_out)
+
+        parity("Orpheus small, K7", eng, prompts, want, lambda a, b: a == b)
+
+    # Dia, 12 slots (K11 in groups of 6 pairs), prompts of 129-256 bytes
+    # (the runner's bucket is then the engine's, 256)
+    runner = runner_from_file(os.path.join(tmp, "dia-small.gguf"))
+    prompts = dia_prompts(n=12, lo=130, hi=250)
+    if not all(128 < len(tokenize_sentence(p, runner.cfg)) <= 256
+               for p in prompts):
+        raise AssertionError("Dia prompts outside 129-256 bytes")
+    eng = BatchedDiaEngine(runner.cfg, runner.weights, n_slots=12, chunk=32)
+    parity("Dia small, K11", eng, prompts,
+           lambda p: runner.generate_codes(p, greedy),
+           lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+
+    # the server with 12 batch slots on a Dia GGUF
+    srv, httpd, base = start_server(os.path.join(tmp, "dia-small.gguf"),
+                                    GenerationConfig(top_k=50), 12)
+    try:
+        code, body, _ = _post(base, dict(input=prompts[0]))
+    finally:
+        httpd.shutdown()
+    if code != 200:
+        raise AssertionError(f"the server with 12 batch slots answered {code}: "
+                             f"{body[:300]!r}")
+    secs = check_wav(body)
+    log(f"  server with batch_slots 12 on the small Dia GGUF: READY, one "
+        f"request answered with {secs:.3f} s of audio: ok")
+
+
 def kernel_name(mangled: str) -> str:
     """The unqualified name in a mangled kernel symbol: the last
     length-prefixed identifier before the template arguments."""
@@ -2681,7 +3012,8 @@ def main() -> int:
     mega, qtype = mini_mega(gen)
     rows = [phase(check_k1, gen), phase(check_k2, gen, mega, qtype),
             phase(check_k3, gen), phase(check_k4, gen),
-            phase(check_k5, gen, mega, qtype)]
+            phase(check_k5, gen, mega, qtype),
+            phase(check_k12, gen, mega, qtype)]
     del mega
     torch.cuda.empty_cache()
     lmega, flat, lkw = orpheus_kernel_weights(gen)
@@ -2696,7 +3028,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         phase(check_small_reference, tmp)
-        launches, path = phase(run_main_path, tmp)
+        launches, k12_launches, path = phase(run_main_path, tmp)
         torch.cuda.empty_cache()
         served = phase(run_serving, path)
         os.remove(path)
@@ -2709,14 +3041,17 @@ def main() -> int:
         os.remove(os.path.join(tmp, "orpheus-3b-q4.gguf"))
         torch.cuda.empty_cache()
         phase(check_small_dia, tmp)
+        phase(check_slot_groups, tmp)
         dia, dia_path = phase(run_dia_main_path, tmp)
         served_dia = phase(run_dia_serving, dia_path)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
-    # CLI's single stream, K4 and K5 on the server's batched engine, K6 on
+    # CLI's single stream, K12 on its K12 route, K4 and K5 on the server's
+    # batched engine, K6 on
     # the Orpheus CLI's single stream, K8 on the Orpheus K8 route, K7 on
     # the Orpheus server's batched engine, K9 on the Orpheus K9 route, K10
     # on the Dia CLI's single stream, K11 on the Dia server's batched engine
-    paths = {"decode_attention_batched": served, "parler_megastep_batched": served,
+    paths = {"parler_flat_megastep": k12_launches,
+             "decode_attention_batched": served, "parler_megastep_batched": served,
              "llama_flat_megastep": orpheus, "llama_megastep": k8_route,
              "llama_flat_megastep_batched": served_orpheus,
              "llama_megastep_batched": k9_route, "dia_megastep": dia,

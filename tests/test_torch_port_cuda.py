@@ -18,6 +18,12 @@ bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge. The
 Dia steps: the cross-attention with and without its pad tail at every
 bucket; K10 at positions across the pages and at both tail cases; K11 at
 1, 3 and 8 pairs at mixed positions, each pair against K10 bit for bit.
+The batched steps past one launch's rows run in slot groups: K5, K9 and K7
+at 20 slots and K11 at 12 pairs, slots at positions across the pages, each
+slot against its one-sequence kernel bit for bit. K12, the one-launch
+Parler step, against its plain version and K2 bit for bit, at positions
+across the pages, with and without the cross-attention, and one launch
+on its own counter per step.
 """
 import pytest
 import torch
@@ -27,6 +33,7 @@ from tts_tpu_torch.ops import decode_attention as da
 from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
+from tts_tpu_torch.ops import parler_flat as pf
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
 
@@ -156,11 +163,12 @@ def test_k4_shared_kv_and_strided_q(dev):
                                rtol=0, atol=1e-5)
 
 
-def _tiny_mega(dev, qtype):
-    """Two random layers at H=256. Q8_0 scales are divided by 16 (exact in
-    bf16) so that its weights have Q4_0's magnitude (std ~0.02): with codes
-    up to +-128 at Q4's scales the activations grow to ~1e2 and one flipped
-    bf16 rounding moves a whole slot past any fixed tolerance."""
+def _tiny_mega(dev, qtype, tc=16):
+    """Two random layers at H=256 with Tc cross rows. Q8_0 scales are
+    divided by 16 (exact in bf16) so that its weights have Q4_0's magnitude
+    (std ~0.02): with codes up to +-128 at Q4's scales the activations grow
+    to ~1e2 and one flipped bf16 rounding moves a whole slot past any fixed
+    tolerance."""
     from tts_tpu_torch.models.parler.model import ParlerLayerWeights
     L, H, F, heads = 2, 256, 512, 4
     div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
@@ -174,8 +182,8 @@ def _tiny_mega(dev, qtype):
     lw = ParlerLayerWeights(
         vec(1), vec(), stack(H, H), stack(H, H), stack(H, H), stack(H, H),
         vec(1), vec(), stack(H, H), stack(H, H),
-        torch.randn((L, heads, 16, 64), device=dev),
-        torch.randn((L, heads, 16, 64), device=dev), vec(1), vec(),
+        torch.randn((L, heads, tc, 64), device=dev),
+        torch.randn((L, heads, tc, 64), device=dev), vec(1), vec(),
         stack(F, H), stack(H, F))
     return pm.prep_mega_layers(lw)
 
@@ -549,3 +557,156 @@ def test_k11_matches_k10_and_plain(dev, qtype, b):
     for a, r_ in zip(got, ref):
         torch.testing.assert_close(a, r_, rtol=0,
                                    atol=LLAMA_TOL * r_.abs().max().item())
+
+
+# ---------------------------------------------------------------------------
+# slot groups: batched steps past the rows one launch takes
+# ---------------------------------------------------------------------------
+
+# 20 slots at positions on both sides of the 256-row pages, in no order
+GROUP_POS = (0, 255, 256, 257, 639, 511, 1, 300, 128, 383, 384, 500, 512,
+             600, 2, 638, 254, 513, 100, 767)
+
+
+def test_grouped_k5_equals_k2(dev):
+    """K5 at 20 slots runs as two groups of 10: each slot's x_out, k_new,
+    v_new and cache equal a K2 step on that slot's state bit for bit, and
+    the groups launch 2 x 8 per layer on K5's counter."""
+    torch.manual_seed(0)
+    mega, qt = _tiny_mega(dev, quants.GGML_TYPE_Q4_0)
+    b, L, heads, ctx = 20, 2, 4, 768
+    pos = torch.tensor(GROUP_POS, dtype=torch.int32, device=dev)
+    kc = torch.randn((L, b, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, b, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((b, 256), device=dev)
+    kw = dict(qtype=qt, use_cross=True, n_heads=heads)
+    k1, v1 = kc.clone(), vc.clone()
+    before = pm.KERNEL_BATCHED.launches
+    scratch = pm.step_scratch(mega, b, heads, ctx, dev)
+    got = pm.parler_megastep_batched(mega, x, k1, v1, pos, scratch=scratch, **kw)
+    assert pm.KERNEL_BATCHED.launches - before == 2 * 6 * L
+    assert got[0].shape == (b, 256) and got[1].shape == (L, b, 256)
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        xs, kn, vn = pm.parler_megastep_cuda(mega, x[s:s + 1], ks, vs,
+                                             pos[s:s + 1], **kw)
+        assert torch.equal(got[0][s:s + 1], xs), s
+        assert torch.equal(got[1][:, s], kn) and torch.equal(got[2][:, s], vn)
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+
+
+@pytest.mark.parametrize("route", ["k9", "k7"])
+def test_grouped_llama_steps_equal_one_sequence(dev, route):
+    """K9 / K7 at 20 slots (two groups of 10, the head GEMV per group):
+    each slot equals a K8 / K6 step on that slot's state bit for bit."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    b = 20
+    kc = torch.randn((2, b, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, b, 2, 640, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((b, 256), device=dev)
+    pos = torch.tensor([min(p, 639) for p in GROUP_POS], dtype=torch.int32,
+                       device=dev)
+    batched, one, w = ((lm.llama_megastep_batched_cuda, lm.llama_megastep_cuda,
+                        mega) if route == "k9" else
+                       (lf.llama_flat_megastep_batched_cuda,
+                        lf.llama_flat_megastep_cuda, flat))
+    k1, v1 = kc.clone(), vc.clone()
+    scratch = lm.step_scratch(mega, b, 4, 640, dev)
+    got = batched(w, x, k1, v1, pos, scratch=scratch, **kw)
+    assert got[0].shape[0] == b and got[1].shape == (2, b, 128)
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        o, kn, vn = one(w, x[s:s + 1], ks, vs, pos[s:s + 1], **kw)
+        assert torch.equal(got[0][s:s + 1], o), s
+        assert torch.equal(got[1][:, s], kn) and torch.equal(got[2][:, s], vn)
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+
+
+def test_grouped_k11_equals_k10(dev):
+    """K11 at 12 pairs runs as two groups of 6 pairs (12 rows): each pair's
+    outputs and caches equal K10 on that pair's state bit for bit."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, quants.GGML_TYPE_Q4_0)
+    b = 12
+    kc = torch.randn((2, b, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, b, 2, 2, 640, 64), device=dev).to(torch.bfloat16)
+    ck, cv, vt = _dia_cross(dev, (b, 2), 256)
+    x = torch.randn((2 * b, 256), device=dev)
+    pos = torch.tensor([min(p, 639) for p in GROUP_POS[:b]], dtype=torch.int32,
+                       device=dev)
+    k1, v1 = kc.clone(), vc.clone()
+    scratch = dm.step_scratch(mega, 2 * b, 4, 640, 256, dev)
+    before = dm.KERNEL_BATCHED.launches
+    got = dm.dia_megastep_batched_cuda(mega, x, k1, v1, pos, ck, cv, vt, 768,
+                                       scratch=scratch, **kw)
+    assert dm.KERNEL_BATCHED.launches - before == 2 * 6 * 2
+    for s in range(b):
+        ks, vs = kc[:, s].clone(), vc[:, s].clone()
+        one = dm.dia_megastep_cuda(mega, x[2 * s:2 * s + 2], ks, vs,
+                                   pos[s:s + 1],
+                                   *(t[:, s].flatten(1, 2).contiguous()
+                                     for t in (ck, cv, vt)), 768, **kw)
+        r = slice(2 * s, 2 * s + 2)
+        assert torch.equal(got[0][r], one[0]), s
+        assert torch.equal(got[1][:, r], one[1]) and torch.equal(got[2][:, r], one[2])
+        assert torch.equal(k1[:, s], ks) and torch.equal(v1[:, s], vs)
+
+
+# ---------------------------------------------------------------------------
+# K12: the one-launch Parler step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("use_cross", [True, False])
+@pytest.mark.parametrize("pos", [0, 255, 256, 639])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
+def test_k12_matches_plain_and_k2(dev, qtype, pos, use_cross, cache_dtype):
+    """K12 equals K2 on the same state bit for bit (x_out, k_new, v_new and
+    the cache); against its plain version, 5e-4 of the largest value (see
+    test_k2_matches_plain); it writes row pos and no other row. The cross
+    K/V have 300 rows, so the cross-attention takes two pages and their
+    combine."""
+    torch.manual_seed(0)
+    mega, qt = _tiny_mega(dev, qtype, tc=300)
+    L, heads, ctx = 2, 4, 640
+    flat = pf.prep_parler_flat(mega, qt, ctx, use_cross=use_cross)
+    x = torch.randn((1, 256), device=dev)
+    kc = torch.randn((L, heads, ctx, 64), device=dev).to(cache_dtype)
+    vc = torch.randn((L, heads, ctx, 64), device=dev).to(cache_dtype)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    k12, v12, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = pf.parler_flat_megastep(flat, x, k12, v12, p, qtype=qt, n_heads=heads)
+    two = pm.parler_megastep_cuda(mega, x, k2, v2, p, qtype=qt,
+                                  use_cross=use_cross, n_heads=heads)
+    for a, b in zip(got, two):
+        assert torch.equal(a, b)
+    assert torch.equal(k12, k2) and torch.equal(v12, v2)
+    ref = pf.parler_flat_megastep_plain(flat, x, kc.clone(), vc.clone(), p,
+                                        qtype=qt, n_heads=heads)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=5e-4 * b.abs().max().item())
+    rows = torch.arange(ctx, device=dev) != pos
+    assert torch.equal(k12[:, :, rows], kc[:, :, rows])
+    assert torch.equal(v12[:, :, rows], vc[:, :, rows])
+    assert torch.equal(k12[:, :, pos], got[1].reshape(L, heads, 64).to(cache_dtype))
+
+
+def test_k12_launch_counter(dev):
+    """One K12 launch per step on K12's own counter, over a grid of whole
+    SMs; K2's GEMV and K3 are not launched."""
+    torch.manual_seed(0)
+    mega, qt = _tiny_mega(dev, quants.GGML_TYPE_Q4_0)
+    flat = pf.prep_parler_flat(mega, qt, 640)
+    kc = torch.zeros((2, 4, 640, 64), device=dev, dtype=torch.bfloat16)
+    counters = (pf.KERNEL, pm.KERNEL, da.KERNEL)
+    before = [k.launches for k in counters]
+    for i in range(3):
+        pf.parler_flat_megastep(flat, torch.randn((1, 256), device=dev), kc,
+                                kc.clone(), torch.tensor([i], dtype=torch.int32,
+                                                         device=dev),
+                                qtype=qt, n_heads=4)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 0, 0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert pf.launched_blocks % sms == 0 and pf.launched_blocks >= sms

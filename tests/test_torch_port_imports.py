@@ -35,7 +35,8 @@ assert {"tts_tpu_torch.runtime.batched_parler",
         "tts_tpu_torch.models.orpheus.convert",
         "tts_tpu_torch.ops.dia_megastep", "tts_tpu_torch.models.dia.model",
         "tts_tpu_torch.models.dia.loader", "tts_tpu_torch.models.dia.convert",
-        "tts_tpu_torch.runtime.batched_dia"} <= set(names), names
+        "tts_tpu_torch.runtime.batched_dia",
+        "tts_tpu_torch.ops.parler_flat"} <= set(names), names
 print(len(names), bad)
 """
 
@@ -159,11 +160,12 @@ def test_cpu_tensors_take_the_plain_versions():
     from tts_tpu_torch.ops import decode_attention as da
     from tts_tpu_torch.ops import llama_flat as lf
     from tts_tpu_torch.ops import llama_megastep as lm
+    from tts_tpu_torch.ops import parler_flat as pf
     from tts_tpu_torch.ops import parler_megastep as pm
     from tts_tpu_torch.ops import quant_matmul as qm
     kernels = (qm.KERNEL, da.KERNEL, pm.KERNEL, da.KERNEL_BATCHED,
                pm.KERNEL_BATCHED, lf.KERNEL, lm.KERNEL, lf.KERNEL_BATCHED,
-               lm.KERNEL_BATCHED)
+               lm.KERNEL_BATCHED, pf.KERNEL)
     before = [k.launches for k in kernels]
     q = torch.randn(4, 64)
     kv = torch.randn(4, 300, 64)
@@ -201,6 +203,17 @@ def test_cpu_tensors_take_the_plain_versions():
     lg, _, _ = lf.llama_flat_megastep_batched(flat, torch.randn(2, 64), kv2,
                                               kv2.clone(), pos2, **step)
     assert lg.shape == (2, 256) and not lg[:, 70:].any()
+    # one Parler layer at H 64 (one head of 64) through K12
+    pmega = pm.MegaLayers(c(192, 64), s(192, 64), c(192, 64), s(192, 64),
+                          c(128, 64), s(128, 64), c(64, 128), s(64, 128),
+                          torch.ones(1, 6, 64), torch.randn(1, 1, 8, 64),
+                          torch.randn(1, 1, 8, 64),
+                          torch.tensor([7], dtype=torch.int32))
+    pflat = pf.prep_parler_flat(pmega, 2, 40)
+    pkv = torch.zeros(1, 1, 40, 64)
+    xo, kn, _ = pf.parler_flat_megastep(pflat, torch.randn(1, 64), pkv,
+                                        pkv.clone(), pos, qtype=2, n_heads=1)
+    assert xo.shape == (1, 64) and torch.equal(pkv[0, 0, 5], kn[0])
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
 

@@ -24,6 +24,7 @@
 // kernel merges each (slot, head)'s pages' partial (max, sum, weighted V)
 // into the output, in page order; with one page (a context of at most 256
 // rows, e.g. cross-attention) the first kernel writes the output itself.
+// The page and combine bodies live in attention.cuh, shared with K12.
 // The K/V batch stride may be 0: the Parler cross-attention K/V are shared
 // by every slot, so one kernel serves both attentions of the batched step.
 //
@@ -37,57 +38,21 @@
 // vtail), merged after the pages, where `denom += n_tail e^{-m}` and
 // `numer += e^{-m} vtail` of the TPU kernel take place. With n_tail 0 the
 // fold is skipped (the TPU kernel then takes no max with 0 either).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+
+#include "attention.cuh"
 
 namespace {
 
-constexpr int PAGE = 256;
-constexpr int NWARPS = 4;
-
-template <typename T>
-__device__ __forceinline__ void load_vec(const T* p, float* out);
-
-template <>
-__device__ __forceinline__ void load_vec<float>(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-template <>
-__device__ __forceinline__ void load_vec<__nv_bfloat16>(const __nv_bfloat16* p,
-                                                        float* out) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(u[i] << 16);
-    out[2 * i + 1] = __uint_as_float(u[i] & 0xFFFF0000u);
-  }
-}
-
-// Merge online-softmax state (m2, l2, a2) into (m, l, a).
-template <int VEC>
-__device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
-                                      float l2, const float* a2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) return;  // both empty
-  const float c1 = (m == -INFINITY) ? 0.f : expf(m - mn);
-  const float c2 = (m2 == -INFINITY) ? 0.f : expf(m2 - mn);
-  l = l * c1 + l2 * c2;
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) a[i] = a[i] * c1 + a2[i] * c2;
-  m = mn;
-}
+using namespace tts::attn;
 
 // Grid (B * Hq, n_pages). Writes out (B * Hq, D) directly when n_pages == 1,
 // else the page's partial state to part_ml (B * Hq, n_pages, 2) / part_acc
 // (B * Hq, n_pages, D). Slot s reads q at q + s * q_bstride, its cache at
 // kc/vc + s * kv_bstride and its position at pos[s * pos_stride] (every row
 // of the cache when pos_ptr is null). With a tail, the state (0, n_tail,
-// tail[(s * Hq + h) * D ..]) is merged last (see the header).
+// tail[(s * Hq + h) * D ..]) is merged last (see the header). The body is
+// attention.cuh's, which K12 runs inside its persistent loop.
 template <typename T, int D>
 __global__ void __launch_bounds__(NWARPS * 32)
 attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
@@ -96,85 +61,11 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  float* __restrict__ part_acc, int hq, int n_rep, int ctx,
                  long long q_bstride, long long kv_bstride, int pos_stride,
                  float scale, const float* __restrict__ tail, float n_tail) {
-  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LPR = D / VEC;         // lanes per cache row
-  constexpr int RPW = 32 / LPR;        // rows per warp pass
-  static_assert(LPR <= 32 && 32 % LPR == 0, "unsupported head size");
-  const int bh = blockIdx.x, page = blockIdx.y, n_pages = gridDim.y;
-  const int s = bh / hq, h = bh % hq;
-  const int kvh = h / n_rep;
+  const int bh = blockIdx.x, s = bh / hq;
   const int pos = pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1;
-  const int row0 = page * PAGE;
-  if (row0 > pos) return;  // past this slot's position: the combine skips it
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane % LPR, r = lane / LPR;
-  const int row_end = min(row0 + PAGE - 1, pos);  // inclusive
-
-  const float* qs = q + (size_t)s * q_bstride + (size_t)h * D;
-  float qv[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) qv[i] = qs[sub * VEC + i] * scale;
-
-  float m = -INFINITY, l = 0.f, acc[VEC];
-#pragma unroll
-  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
-
-  const size_t head_off = (size_t)s * kv_bstride + (size_t)kvh * ctx * D + sub * VEC;
-  // warp-uniform bound so every lane joins the shuffles
-  for (int base = row0 + warp * RPW; base <= row_end; base += NWARPS * RPW) {
-    const int t = base + r;
-    const bool valid = t <= row_end;
-    float kv[VEC];
-    float sc = 0.f;
-    if (valid) {
-      load_vec<T>(kc + head_off + (size_t)t * D, kv);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) sc += qv[i] * kv[i];
-    }
-#pragma unroll
-    for (int o = LPR / 2; o > 0; o >>= 1) sc += __shfl_xor_sync(0xffffffffu, sc, o);
-    if (valid) {
-      load_vec<T>(vc + head_off + (size_t)t * D, kv);
-      const float mn = fmaxf(m, sc);
-      const float c = expf(m - mn);  // m = -inf -> 0
-      const float p = expf(sc - mn);
-      l = l * c + p;
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) acc[i] = acc[i] * c + p * kv[i];
-      m = mn;
-    }
-  }
-  // merge the RPW row groups of the warp (lanes with the same `sub`)
-#pragma unroll
-  for (int o = LPR; o < 32; o <<= 1) {
-    const float m2 = __shfl_xor_sync(0xffffffffu, m, o);
-    const float l2 = __shfl_xor_sync(0xffffffffu, l, o);
-    float a2[VEC];
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) a2[i] = __shfl_xor_sync(0xffffffffu, acc[i], o);
-    merge<VEC>(m, l, acc, m2, l2, a2);
-  }
-  // merge across warps through shared memory
-  __shared__ float sm_ml[NWARPS][2];
-  __shared__ float sm_acc[NWARPS][D];
-  if (r == 0) {
-    if (sub == 0) { sm_ml[warp][0] = m; sm_ml[warp][1] = l; }
-#pragma unroll
-    for (int i = 0; i < VEC; ++i) sm_acc[warp][sub * VEC + i] = acc[i];
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += NWARPS * 32) {
-    float mm = -INFINITY, ll = 0.f, aa = 0.f;
-    for (int w = 0; w < NWARPS; ++w) merge<1>(mm, ll, &aa, sm_ml[w][0], sm_ml[w][1], &sm_acc[w][d]);
-    if (n_pages == 1) {
-      if (tail) merge<1>(mm, ll, &aa, 0.f, n_tail, &tail[(size_t)bh * D + d]);
-      out[(size_t)bh * D + d] = aa / ll;
-    } else {
-      const size_t pi = (size_t)bh * n_pages + page;
-      part_acc[pi * D + d] = aa;
-      if (d == 0) { part_ml[pi * 2] = mm; part_ml[pi * 2 + 1] = ll; }
-    }
-  }
+  attn_page<T, D, true>(q, kc, vc, pos, out, part_ml, part_acc, bh,
+                        blockIdx.y, gridDim.y, hq, n_rep, ctx, q_bstride,
+                        kv_bstride, scale, tail, n_tail);
 }
 
 // Grid (B * Hq), D threads: merge the pages [0, pos / 256] of each
@@ -186,16 +77,11 @@ __global__ void attn_combine_kernel(const float* __restrict__ part_ml,
                                     int n_pages, int ctx, int pos_stride,
                                     int D, const float* __restrict__ tail,
                                     float n_tail) {
-  const int bh = blockIdx.x, d = threadIdx.x;
+  const int bh = blockIdx.x;
   const int s = bh / hq;
   const int last = (pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1) / PAGE;
-  float m = -INFINITY, l = 0.f, a = 0.f;
-  for (int p = 0; p <= last; ++p) {
-    const size_t pi = (size_t)bh * n_pages + p;
-    merge<1>(m, l, &a, part_ml[pi * 2], part_ml[pi * 2 + 1], &part_acc[pi * D + d]);
-  }
-  if (tail) merge<1>(m, l, &a, 0.f, n_tail, &tail[(size_t)bh * D + d]);
-  out[(size_t)bh * D + d] = a / l;
+  attn_combine(part_ml, part_acc, last, out, bh, n_pages, D, tail, n_tail,
+               threadIdx.x);
 }
 
 template <typename T, int D>

@@ -1,7 +1,7 @@
 // Shared device helpers for the block-dequant kernels (quant_matmul.cu,
-// parler_megastep.cu): ggml Q4_0 / Q5_0 / Q8_0 weights held row-major, one
-// weight row (output feature n) = K/32 blocks of 32 codes plus one scale
-// per block.
+// parler_gemv.cuh, gemv.cuh): ggml Q4_0 / Q5_0 / Q8_0 weights held
+// row-major, one weight row (output feature n) = K/32 blocks of 32 codes
+// plus one scale per block.
 //
 // Code layout per row (ops/quant_matmul.py builds it):
 //   Q4_0 packed   : K/2 bytes; block b = bytes [16b, 16b+16): byte i holds
@@ -75,9 +75,11 @@ __device__ __forceinline__ void dequant_block(const uint8_t* __restrict__ row,
 }
 
 // sum_i w[i] * x[i] over one 32-element block; x is 16-byte aligned (global
-// or shared memory). In BF16 mode each x is rounded to bf16 first.
+// or shared memory). In BF16 mode each x is rounded to bf16 first. x is not
+// __restrict__: the persistent K12 reads activations that other blocks of
+// the same launch wrote, which must not go through the read-only cache.
 template <bool BF16>
-__device__ __forceinline__ float block_dot(const float* __restrict__ x,
+__device__ __forceinline__ float block_dot(const float* x,
                                            const float w[QK]) {
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float sum = 0.f;

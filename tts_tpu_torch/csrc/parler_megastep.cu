@@ -37,52 +37,26 @@
 // 32-weight block once into registers and dots it with all B rows, keeping
 // one accumulator per row, so one weight read serves every slot. Each row
 // sums in the same order whatever B is, so slot s of a batched step equals
-// a one-row step on slot s's state bit for bit. The current token's k/v are
-// written into the cache before the attention reads rows [0, pos]: exact in
+// a one-row step on slot s's state bit for bit. The GEMV body lives in
+// parler_gemv.cuh, shared with the one-launch K12 (parler_flat.cu). The
+// current token's k/v are written into the cache before the attention
+// reads rows [0, pos]: exact in
 // f32; on a bf16 cache the current row is rounded to bf16 too (the TPU
 // kernels fold the f32 row in analytically). The plain version does the
 // same. Inactive slots still compute and write their row at a frozen pos,
-// which nothing reads. A single persistent launch per step is later work.
+// which nothing reads. K12 (parler_flat.cu) runs the same step as a
+// single persistent launch.
 #include <cuda_runtime.h>
 
-#include "dequant.cuh"
+#include "parler_gemv.cuh"
 
 namespace {
 
 using namespace tts;
+using namespace tts::parler;
 
-constexpr int WARPS = 8;
-constexpr float LN_EPS = 1e-5f;
-
-enum Epi { EPI_STORE = 0, EPI_RESIDUAL = 1, EPI_GELU = 2, EPI_QKV = 3 };
-
-// Where the qkv epilogue writes the current token's k and v: slot r's
-// cache of this layer, (heads, ctx, d) at kc/vc + r * bstride elements, row
-// min(pos[r], ctx - 1).
-struct CacheArgs {
-  void* kc;
-  void* vc;
-  const int* pos;
-  int hidden, d, ctx, bf16;
-  long long bstride;
-};
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) t += red[w];
-  __syncthreads();
-  return t;
-}
-
-__device__ __forceinline__ float gelu_tanh(float v) {
-  return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-}
-
-// Grid N / WARPS blocks; B <= ROWS input rows x (B, K), outputs (B, N).
+// Grid N / WARPS blocks; B <= ROWS input rows x (B, K), outputs (B, N). The
+// body is parler_gemv.cuh's, which K12 runs inside its persistent loop.
 template <int QT, bool PACKED, bool LN, int EPI, int ROWS>
 __global__ void __launch_bounds__(WARPS * 32)
 gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
@@ -92,72 +66,15 @@ gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
   extern __shared__ float4 xs4[];  // B x K floats: the normalized input rows
   const float* xin = x;
   if constexpr (LN) {
-    __shared__ float red[WARPS];
     float* xs = reinterpret_cast<float*>(xs4);
-    for (int r = 0; r < B; ++r) {
-      const float* xr = x + (size_t)r * K;
-      float* xo = xs + (size_t)r * K;
-      float s = 0.f;
-      for (int i = threadIdx.x; i < K; i += WARPS * 32) s += xr[i];
-      const float mu = block_sum(s, red) / K;
-      float v = 0.f;
-      for (int i = threadIdx.x; i < K; i += WARPS * 32) {
-        const float dv = xr[i] - mu;
-        v += dv * dv;
-      }
-      const float rstd = 1.f / sqrtf(block_sum(v, red) / K + LN_EPS);
-      for (int i = threadIdx.x; i < K; i += WARPS * 32) {
-        xo[i] = bf16_round((xr[i] - mu) * rstd * ln_w[i] + ln_b[i]);
-      }
-    }
-    __syncthreads();
+    ln_rows(x, ln_w, ln_b, B, K, xs);
     xin = xs;
   }
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n = blockIdx.x * WARPS + warp;
   if (n >= N) return;
-  const int nb = K / QK;
-  const uint8_t* row = codes + (size_t)n * (PACKED ? K / 2 : K);
-  float acc[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) acc[r] = 0.f;
-  for (int b = lane; b < nb; b += 32) {
-    float w[QK];
-    dequant_block<QT, PACKED, true>(row, b, load_scale<true>(scales, (size_t)n * nb + b), w);
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      if (r < B) acc[r] += block_dot<true>(xin + (size_t)r * K + b * QK, w);
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r >= B) break;
-    const float v = warp_sum(acc[r]);
-    if (lane != 0) continue;
-    const size_t o = (size_t)r * N + n;
-    if constexpr (EPI == EPI_RESIDUAL) {
-      out[o] = res[o] + v;
-    } else if constexpr (EPI == EPI_GELU) {
-      out[o] = gelu_tanh(v);
-    } else {
-      out[o] = v;
-    }
-    if constexpr (EPI == EPI_QKV) {
-      if (n >= c.hidden) {
-        const int which = (n - c.hidden) / c.hidden;  // 0: k, 1: v
-        const int j = (n - c.hidden) % c.hidden;
-        const int p = min(c.pos[r], c.ctx - 1);
-        const size_t idx = (size_t)r * c.bstride +
-                           ((size_t)(j / c.d) * c.ctx + p) * c.d + j % c.d;
-        void* dst = which ? c.vc : c.kc;
-        if (c.bf16) {
-          reinterpret_cast<__nv_bfloat16*>(dst)[idx] = __float2bfloat16_rn(v);
-        } else {
-          reinterpret_cast<float*>(dst)[idx] = v;
-        }
-      }
-    }
-  }
+  gemv_feature<QT, PACKED, EPI, ROWS>(xin, codes, scales, B, N, K, res, out,
+                                      c, n, lane);
 }
 
 constexpr size_t OPT_IN_FROM = 47 * 1024;
@@ -241,7 +158,8 @@ extern "C" int tts_parler_gemv(
       (ln && (size_t)B * K * sizeof(float) > MAX_SMEM)) {
     return (int)cudaErrorInvalidValue;
   }
-  const CacheArgs c{kc, vc, pos, hidden, d, ctx, cache_bf16, kv_bstride};
+  const tts::parler::CacheArgs c{kc, vc, pos, hidden, d, ctx, cache_bf16,
+                                 kv_bstride};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define TTS_GEMV_ARGS ln, epi, x, ln_w, ln_b, codes, scales, qtype, packed, B, N, K, res, out, c, s
   if (B == 1) return dispatch<1>(TTS_GEMV_ARGS);

@@ -22,7 +22,10 @@ Decode step paths, chosen by the weights and not by the device: when all 8
 projections are block-quantized with one qtype and the dims qualify, the
 transformer stack runs as the megastep (ops/parler_megastep, kernel K2,
 which uses K3 for attention); otherwise per matmul (K1 for quantized
-weights, K3 for the self-attention). On CPU tensors every kernel runs its
+weights, K3 for the self-attention). A second megastep route, K12 (one
+persistent launch per step, ops/parler_flat), is taken when the runner's
+`mega` is a `ParlerFlat` (`maybe_prep_parler_flat`); the runner keeps K2
+by default, as the JAX runner does. On CPU tensors every kernel runs its
 plain PyTorch version.
 """
 from __future__ import annotations
@@ -42,6 +45,8 @@ from ...ops.attention import sdpa
 from ...ops.decode_attention import decode_attention
 from ...ops.linear import (Weight, dense, from_gguf_tensor, matmul,
                            stack_weights, take_rows)
+from ...ops.parler_flat import (ParlerFlat, parler_flat_megastep,
+                                prep_parler_flat)
 from ...ops.parler_megastep import (LN_EPS, layer_norm, parler_megastep,
                                     prep_mega_layers)
 from ...ops.quant_matmul import QuantTensor
@@ -248,12 +253,20 @@ def not_done(cfg: ParlerConfig, st: DecodeState) -> torch.Tensor:
 
 
 def step_logits(cfg: ParlerConfig, w: ParlerWeights, st: DecodeState, *,
-                use_cross: bool, mega: Mega | None = None) -> torch.Tensor:
+                use_cross: bool,
+                mega: Mega | ParlerFlat | None = None) -> torch.Tensor:
     """The forward half of a decode step: embeddings sum, transformer
-    (megastep or per matmul), final LN, LM heads -> (n_heads, vocab)
-    logits. Writes this step's K/V into the cache in place."""
+    (K12 for a `ParlerFlat` prepared for this `use_cross`, K2 for a `Mega`,
+    else per matmul, as the JAX decode body chooses), final LN, LM heads ->
+    (n_heads, vocab) logits. Writes this step's K/V into the cache in
+    place."""
     x = embed_step(cfg, w, st.tokens_in[None, :], st.pos)
-    if mega is not None:
+    if isinstance(mega, ParlerFlat) and mega.use_cross == use_cross:
+        xo, _, _ = parler_flat_megastep(mega, x, st.kv_k, st.kv_v, st.pos,
+                                        qtype=mega.qtype,
+                                        n_heads=cfg.n_attn_heads)
+        x = final_norm(w, xo)
+    elif isinstance(mega, Mega):
         xo, _, _ = parler_megastep(mega.layers, x, st.kv_k, st.kv_v, st.pos,
                                    qtype=mega.qtype, use_cross=use_cross,
                                    n_heads=cfg.n_attn_heads)
@@ -287,7 +300,8 @@ def advance(cfg: ParlerConfig, st: DecodeState, logits: torch.Tensor,
 
 
 def decode_step(cfg: ParlerConfig, w: ParlerWeights, st: DecodeState,
-                generator, *, use_cross: bool, mega: Mega | None = None,
+                generator, *, use_cross: bool,
+                mega: Mega | ParlerFlat | None = None,
                 **sample_kw) -> DecodeState:
     """One decode step: `step_logits`, then `advance` with `sample_kw`
     (do_sample, temperature, top_k, top_p, repetition_penalty). Writes this
@@ -353,6 +367,24 @@ def maybe_prep_mega(cfg: ParlerConfig, w: ParlerWeights) -> Mega | None:
         return Mega(*prep_mega_layers(w.layers))
     except ValueError:
         return None
+
+
+def maybe_prep_parler_flat(cfg: ParlerConfig,
+                           w: ParlerWeights) -> ParlerFlat | Mega | None:
+    """K12's weights (ops/parler_flat) when the megastep applies and the
+    shapes suit K12, else K2's `Mega` (as the JAX function falls back when
+    `prep_parler_flat` raises), else None (per matmul). Chosen by the
+    weights, never by the device. The runner preps K2 (`maybe_prep_mega`);
+    assign `runner.mega = maybe_prep_parler_flat(cfg, runner.weights)` to
+    take the K12 route."""
+    mega = maybe_prep_mega(cfg, w)
+    if mega is None:
+        return None
+    try:
+        return prep_parler_flat(mega.layers, mega.qtype, cfg.max_ctx_length,
+                                use_cross=cfg.use_cross_attn)
+    except ValueError:
+        return mega
 
 
 def adjust_output_tokens(out: np.ndarray, n_steps: int, cfg: ParlerConfig) -> np.ndarray:

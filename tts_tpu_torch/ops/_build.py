@@ -29,7 +29,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "decode_attention", "parler_megastep",
-           "llama_megastep", "dia_megastep")  # K1; K3/K4; K2/K5; K6-K9; K10/K11
+           "llama_megastep", "dia_megastep",
+           "parler_flat")  # K1; K3/K4; K2/K5; K6-K9; K10/K11; K12
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()
@@ -147,6 +148,26 @@ class Kernel:
             self.launches += 1
 
 
+def slot_groups(n: int, cap: int) -> list:
+    """n slots cut into consecutive groups of at most `cap`, as even as can
+    be (20 slots at a cap of 16 are two groups of 10): the batched steps run
+    one group after another, each within the rows one launch takes."""
+    k = -(-n // cap)
+    size = -(-n // k)
+    return [slice(i, min(i + size, n)) for i in range(0, n, size)]
+
+
+def cat_groups(outs):
+    """The batched steps' per-group (x_out (G, H), k_new (L, G, KV), v_new
+    (L, G, KV)) joined along the slot axis."""
+    import torch
+    if len(outs) == 1:
+        return outs[0]
+    return (torch.cat([o[0] for o in outs]),
+            torch.cat([o[1] for o in outs], 1),
+            torch.cat([o[2] for o in outs], 1))
+
+
 def check(err: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if err != 0:
@@ -171,16 +192,24 @@ def addr(t, *idx) -> int:
 
 
 def require(t, name: str, *, device, dtypes, ndim: int | None = None,
-            align: int = 16) -> None:
+            align: int = 16, outer: int = 0) -> None:
     """Validate a tensor handed to a kernel: device, dtype, rank,
-    contiguity and base alignment (16 bytes for the vector loads)."""
+    contiguity and base alignment (16 bytes for the vector loads). With
+    `outer` > 0 the first `outer` dims may have any stride and only the
+    rest must be dense: a group of slots of a (L, B, ...) cache,
+    `kv[:, g]`, is such a view, and the kernels address each layer
+    through its stride."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise ValueError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if ndim is not None and t.dim() != ndim:
         raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    dense = 1
+    for size, stride in reversed(list(zip(t.shape, t.stride()))[outer:]):
+        if size != 1 and stride != dense:
+            raise ValueError(f"{name} must be contiguous"
+                             + (f" past its first {outer} dims" if outer else ""))
+        dense *= size
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")

@@ -71,7 +71,8 @@ CROSS = _build.Kernel("decode_attention", "tts_cross_attention", _CROSS_ARGS)   
 CROSS_BATCHED = _build.Kernel("decode_attention", "tts_cross_attention", _CROSS_ARGS)  # K11
 CROSS_BUCKETS = (128, 256, 512, 1024)
 ROPE_THETA = 10000.0
-MAX_PAIRS = 8    # 2 rows per pair; the GEMV takes 16 (csrc/dia_megastep.cu)
+MAX_PAIRS = 8    # pairs one launch takes (2 rows each; the GEMV takes 16,
+                 # csrc/dia_megastep.cu); larger batches run in groups
 
 
 class DiaMegaLayers(NamedTuple):
@@ -278,7 +279,9 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     """The L layers on the card for R <= 16 rows: x (R, H) f32; kv_k / kv_v
     (L, R, n_kv, CTX, D); pos int32, one element shared by every row or (R,);
     ck / cv (L, R, heads, Sb, D); vtail (L, R, heads, D) f32, read only when
-    n_tail > 0; all on the card. Per layer 6 GEMV launches through
+    n_tail > 0; all on the card. Each row's part of the caches, cross K/V and
+    tail is dense and the layer axis may have any stride (a group of a larger
+    batch's rows). Per layer 6 GEMV launches through
     `gemv_kernel` (K10's or K11's counter), 1 K4 launch for the
     self-attention and 1 cross-attention launch through `cross_kernel`, on
     the current stream. Returns (x_out (R, H), k_new (L, R, KV), v_new
@@ -292,12 +295,14 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     kvh = n_kv * d
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32), ndim=5)
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5)
+                   dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5,
+                   outer=1)
     _build.require(ck, "ck", device=dev, dtypes=(torch.bfloat16, torch.float32),
-                   ndim=5)
-    _build.require(cv, "cv", device=dev, dtypes=(ck.dtype,), ndim=5)
-    _build.require(vtail, "vtail", device=dev, dtypes=(torch.float32,), ndim=4)
+                   ndim=5, outer=1)
+    _build.require(cv, "cv", device=dev, dtypes=(ck.dtype,), ndim=5, outer=1)
+    _build.require(vtail, "vtail", device=dev, dtypes=(torch.float32,), ndim=4,
+                   outer=1)
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
@@ -404,17 +409,30 @@ def dia_megastep(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
 def dia_megastep_batched_cuda(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv,
                               vtail, n_tail: int, *, qtype: int, n_heads: int,
                               n_kv: int, scratch: DiaScratch | None = None):
-    """K11 on the card: K10's launch sequence on 2B <= 16 rows. Same
+    """K11 on the card: K10's launch sequence on the 2B rows of each group
+    of at most 8 pairs (16 rows; `_build.slot_groups`), one group after
+    another; every pair still equals K10 on its state bit for bit. Same
     contract as `dia_megastep_batched_plain`, with pos a (B,) int32 CUDA
-    tensor."""
+    tensor; `scratch` (step_scratch for 2B rows) is allocated when not
+    given."""
     if kv_k.dim() != 6 or kv_k.shape[2:4] != (2, n_kv) or ck.dim() != 6:
         raise ValueError(f"dia_megastep_batched: kv {tuple(kv_k.shape)}, n_kv "
                          f"{n_kv}, cross {tuple(ck.shape)}")
-    return layers_cuda(KERNEL_BATCHED, CROSS_BATCHED, mega,
-                       x.float().contiguous(), kv_k.flatten(1, 2),
-                       kv_v.flatten(1, 2), pos.repeat_interleave(2),
-                       ck.flatten(1, 2), cv.flatten(1, 2), vtail.flatten(1, 2),
-                       n_tail, qtype=qtype, n_heads=n_heads, scratch=scratch)
+    # one row per sequence: pair s on rows 2s, 2s + 1 (views, no copies)
+    x = x.float().contiguous()
+    kk, vv = kv_k.flatten(1, 2), kv_v.flatten(1, 2)
+    ck, cv, vt = ck.flatten(1, 2), cv.flatten(1, 2), vtail.flatten(1, 2)
+    p2 = pos.repeat_interleave(2)
+    outs = []
+    for g in _build.slot_groups(kv_k.shape[1], MAX_PAIRS):
+        r = slice(2 * g.start, 2 * g.stop)
+        sc = None if scratch is None else scratch._replace(
+            attn=scratch.attn[r], cq=scratch.cq[r], act=scratch.act[r])
+        outs.append(layers_cuda(
+            KERNEL_BATCHED, CROSS_BATCHED, mega, x[r], kk[:, r], vv[:, r],
+            p2[r], ck[:, r], cv[:, r], vt[:, r], n_tail, qtype=qtype,
+            n_heads=n_heads, scratch=sc))
+    return _build.cat_groups(outs)
 
 
 def dia_megastep_batched(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv,

@@ -34,8 +34,9 @@ import torch
 
 from . import _build
 from . import decode_attention as da
-from .llama_megastep import (ARGS, EPI_STORE, LlamaMegaLayers, StepScratch,
-                             dqdot, layers_cuda, llama_megastep_batched_plain,
+from .llama_megastep import (ARGS, EPI_STORE, MAX_BATCH, LlamaMegaLayers,
+                             StepScratch, dqdot, group_scratch, layers_cuda,
+                             llama_megastep_batched_plain,
                              llama_megastep_plain, rms_norm)
 from .quant_matmul import QuantTensor
 
@@ -152,20 +153,27 @@ def llama_flat_megastep_batched_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
 def llama_flat_megastep_batched_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
                                      qtype: int, n_heads: int, n_kv: int,
                                      inv_freq, scratch: StepScratch | None = None):
-    """K7 on the card: 4 batched GEMV launches and 1 K4 launch per layer for
-    B <= 16 slots, then one B-row head GEMV, on the current stream. Same
-    contract as `llama_flat_megastep_batched_plain`, with pos a (B,) int32
-    CUDA tensor; `scratch` (llama_megastep.step_scratch) is allocated when
+    """K7 on the card: 4 batched GEMV launches and 1 K4 launch per layer,
+    then one head GEMV, for each group of at most 16 slots
+    (`_build.slot_groups`), one group after another, on the current stream;
+    every slot still equals K6 on its state bit for bit. Same contract as
+    `llama_flat_megastep_batched_plain`, with pos a (B,) int32 CUDA tensor;
+    `scratch` (llama_megastep.step_scratch for B slots) is allocated when
     not given."""
     if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
         raise ValueError(f"llama_flat_megastep_batched: kv "
                          f"{tuple(kv_k.shape)}, n_kv {n_kv}")
     _require_head(flat, x.device)
-    xo, kn, vn = layers_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, flat.layers,
-                             x.float().contiguous(), kv_k, kv_v, pos,
-                             qtype=qtype, n_heads=n_heads, inv_freq=inv_freq,
-                             scratch=scratch)
-    return _head_cuda(KERNEL_BATCHED, flat, xo, qtype), kn, vn
+    x = x.float().contiguous()
+    outs = []
+    for g in _build.slot_groups(x.shape[0], MAX_BATCH):
+        xo, kn, vn = layers_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, flat.layers,
+                                 x[g], kv_k[:, g], kv_v[:, g], pos[g],
+                                 qtype=qtype, n_heads=n_heads,
+                                 inv_freq=inv_freq,
+                                 scratch=group_scratch(scratch, g))
+        outs.append((_head_cuda(KERNEL_BATCHED, flat, xo, qtype), kn, vn))
+    return _build.cat_groups(outs)
 
 
 def llama_flat_megastep_batched(flat: LlamaFlat, x, kv_k, kv_v, pos, *,

@@ -57,7 +57,8 @@ KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)           # K8
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K9
 EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
 RMS_EPS = 1e-5
-MAX_BATCH = 16   # rows the GEMV takes (csrc/llama_megastep.cu MAX_ROWS)
+MAX_BATCH = 16   # rows one GEMV launch takes (csrc/llama_megastep.cu MAX_ROWS);
+                 # larger batches run in groups
 
 
 class LlamaMegaLayers(NamedTuple):
@@ -211,12 +212,21 @@ def step_scratch(mega: LlamaMegaLayers, b: int, n_heads: int, ctx: int,
                        part=da.attention_scratch(b, n_heads, ctx, d, device))
 
 
+def group_scratch(scratch: StepScratch | None, g: slice):
+    """The rows of `scratch` (step_scratch for a whole batch) that slot
+    group g uses; the attention partials are shared, as the groups run one
+    after another on one stream."""
+    return None if scratch is None else scratch._replace(
+        attn=scratch.attn[g], act=scratch.act[g])
+
+
 def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
                 kv_v, pos, *, qtype: int, n_heads: int, inv_freq,
                 scratch: StepScratch | None = None):
     """The L layers on the card for B <= 16 rows: x (B, H), kv_k/kv_v
-    (L, B, n_kv, CTX, D), pos (B,) int32, inv_freq (D/2,) float32, all on
-    the card. Per layer 4 GEMV launches through `gemv_kernel` (K8's, K6's,
+    (L, B, n_kv, CTX, D) (each slot's cache dense, the layer axis at any
+    stride: a group of a larger batch's slots), pos (B,) int32, inv_freq
+    (D/2,) float32, all on the card. Per layer 4 GEMV launches through `gemv_kernel` (K8's, K6's,
     K9's or K7's counter) and 1 attention launch through `attn_kernel` (K3's
     or K4's), on the current stream. `scratch` (step_scratch) is allocated
     when not given. Returns (x_out (B, H), k_new (L, B, KV), v_new
@@ -229,8 +239,9 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     kvh = n_kv * d
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32), ndim=5)
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5)
+                   dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5,
+                   outer=1)
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
@@ -321,14 +332,19 @@ def llama_megastep_batched_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
                                 qtype: int, n_heads: int, n_kv: int, inv_freq,
                                 scratch: StepScratch | None = None):
     """K9 on the card: 4 batched GEMV launches and 1 K4 launch per layer for
-    B <= 16 slots, on the current stream. Same contract as
-    `llama_megastep_batched_plain`, with pos a (B,) int32 CUDA tensor."""
+    each group of at most 16 slots (`_build.slot_groups`), one group after
+    another, on the current stream; every slot still equals K8 on its state
+    bit for bit. Same contract as `llama_megastep_batched_plain`, with pos
+    a (B,) int32 CUDA tensor."""
     if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
         raise ValueError(f"llama_megastep_batched: kv {tuple(kv_k.shape)}, "
                          f"n_kv {n_kv}")
-    return layers_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, mega,
-                       x.float().contiguous(), kv_k, kv_v, pos, qtype=qtype,
-                       n_heads=n_heads, inv_freq=inv_freq, scratch=scratch)
+    x = x.float().contiguous()
+    return _build.cat_groups([
+        layers_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, mega, x[g], kv_k[:, g],
+                    kv_v[:, g], pos[g], qtype=qtype, n_heads=n_heads,
+                    inv_freq=inv_freq, scratch=group_scratch(scratch, g))
+        for g in _build.slot_groups(x.shape[0], MAX_BATCH)])
 
 
 def llama_megastep_batched(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,

@@ -49,7 +49,7 @@ KERNEL = _build.Kernel("parler_megastep", "tts_parler_gemv", _ARGS)          # K
 KERNEL_BATCHED = _build.Kernel("parler_megastep", "tts_parler_gemv", _ARGS)  # K5
 EPI_STORE, EPI_RESIDUAL, EPI_GELU, EPI_QKV = 0, 1, 2, 3
 LN_EPS = 1e-5
-MAX_BATCH = 16  # rows one batched GEMV launch takes (its register array)
+MAX_BATCH = 16  # rows one batched GEMV launch takes; larger batches run in groups
 
 
 class MegaLayers(NamedTuple):
@@ -208,18 +208,20 @@ def step_scratch(mega: MegaLayers, b: int, n_heads: int, ctx: int,
 def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
                    pos, *, qtype: int, use_cross: bool, n_heads: int,
                    scratch: StepScratch | None):
-    """The step on the card for B rows: x (B, H), kv_k/kv_v
-    (L, B, heads, CTX, D), pos (B,) int32. Per layer 6 GEMV launches through
-    `gemv_kernel` and 2 attention launches through `attn_kernel`, on the
-    current stream."""
+    """The step on the card for B <= 16 rows: x (B, H), kv_k/kv_v
+    (L, B, heads, CTX, D) (each slot's cache dense, the layer axis at any
+    stride: a group of a larger batch's slots), pos (B,) int32. Per layer 6
+    GEMV launches through `gemv_kernel` and 2 attention launches through
+    `attn_kernel`, on the current stream."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.fc1_codes.shape[1]
     d = hidden // n_heads
     b, ctx = x.shape[0], kv_k.shape[3]
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32), ndim=5)
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5)
+                   dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5,
+                   outer=1)
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
@@ -313,12 +315,21 @@ def parler_megastep_batched_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
                                  qtype: int, use_cross: bool, n_heads: int,
                                  scratch: StepScratch | None = None):
     """K5 on the card: 6 batched GEMV launches and 2 K4 launches per layer
-    for B <= 16 slots. Same contract as `parler_megastep_batched_plain`,
-    with pos a (B,) int32 CUDA tensor; `scratch` (step_scratch) is allocated
+    for each group of at most 16 slots (`_build.slot_groups`), one group
+    after another, so any slot count is served; each slot's rows sum as a
+    one-row step does, so every slot still equals K2 on its state bit for
+    bit. Same contract as `parler_megastep_batched_plain`, with pos a (B,)
+    int32 CUDA tensor; `scratch` (step_scratch for B slots) is allocated
     when not given."""
-    return _megastep_cuda(KERNEL_BATCHED, da.KERNEL_BATCHED, mega, x, kv_k,
-                          kv_v, pos, qtype=qtype, use_cross=use_cross,
-                          n_heads=n_heads, scratch=scratch)
+    outs = []
+    for g in _build.slot_groups(x.shape[0], MAX_BATCH):
+        sc = None if scratch is None else scratch._replace(
+            attn=scratch.attn[g], cq=scratch.cq[g], up=scratch.up[g])
+        outs.append(_megastep_cuda(
+            KERNEL_BATCHED, da.KERNEL_BATCHED, mega, x[g], kv_k[:, g],
+            kv_v[:, g], pos[g], qtype=qtype, use_cross=use_cross,
+            n_heads=n_heads, scratch=sc))
+    return _build.cat_groups(outs)
 
 
 def parler_megastep_batched(mega: MegaLayers, x, kv_k, kv_v, pos, *,

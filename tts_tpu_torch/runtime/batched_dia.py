@@ -41,8 +41,8 @@ from ..models.dia.model import (DiaConfig, DiaCross, DiaWeights,
                                 final_norm, maybe_prep_dia_mega, next_tokens,
                                 tokenize_sentence, wind_down)
 from ..ops import sampling
-from ..ops.dia_megastep import (MAX_PAIRS, dia_megastep_batched,
-                                prep_dia_cross, step_scratch)
+from ..ops.dia_megastep import (dia_megastep_batched, prep_dia_cross,
+                                step_scratch)
 
 
 class BatchedDiaState(NamedTuple):
@@ -191,8 +191,9 @@ class BatchedDiaEngine:
     delay-undone (frames, n_heads) code arrays (adjust_output_tokens).
 
     The state is sized to exactly `n_slots` (the JAX engine pads it to a
-    multiple of 4 slots for its TPU kernel's 8 sublanes; K11 takes 1 to 8
-    pairs: two GEMV rows each, 16 in all). The caches have
+    multiple of 4 slots for its TPU kernel's 8 sublanes; K11 takes any
+    count, running it in groups of at most 8 pairs: two GEMV rows each, 16
+    in all). The caches have
     `max_generation_size` rows. The route's weights are prepared once,
     here. Decode sampling draws (n_slots, n_heads) uniforms per step from
     one torch.Generator seeded from `seed`. The engine runs on `device`
@@ -213,9 +214,6 @@ class BatchedDiaEngine:
         self.mega = maybe_prep_dia_mega(cfg, weights)
         self.scratch = None
         if self.mega is not None and self.device.type == "cuda":
-            if n_slots > MAX_PAIRS:
-                raise ValueError(f"the batched Dia step takes at most "
-                                 f"{MAX_PAIRS} slots, got {n_slots}")
             self.scratch = step_scratch(
                 self.mega.layers, 2 * n_slots, cfg.decoder_attn_heads,
                 cfg.max_generation_size, self.cross_bucket, self.device)

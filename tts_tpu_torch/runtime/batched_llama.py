@@ -42,8 +42,8 @@ from ..ops import sampling
 from ..ops.attention import rope_freqs
 from ..ops.linear import matmul, take_rows
 from ..ops.llama_flat import LlamaFlat, llama_flat_megastep_batched
-from ..ops.llama_megastep import (MAX_BATCH, llama_megastep_batched,
-                                  rms_norm, step_scratch)
+from ..ops.llama_megastep import (llama_megastep_batched, rms_norm,
+                                  step_scratch)
 
 
 class BatchedLlamaState(NamedTuple):
@@ -178,10 +178,10 @@ class BatchedLlamaEngine:
     the 3 SNAC codebook head lists per request (`prepare_output_tokens`).
 
     The state is sized to exactly `n_slots` (the JAX engine pads it to a
-    multiple of 8 for its TPU kernels' sublanes; K7 and K9 take any count
-    from 1 to 16). The caches have `cache_ctx(cfg)` rows, the runner's, and
-    the kernels read that count from the cache tensor. The route's weights
-    are prepared once, here.
+    multiple of 8 for its TPU kernels' sublanes; K7 and K9 take any count,
+    running it in groups of at most 16 slots). The caches have
+    `cache_ctx(cfg)` rows, the runner's, and the kernels read that count
+    from the cache tensor. The route's weights are prepared once, here.
 
     As in the JAX engine, a request's `seed` seeds only the sampling of its
     first token (from the prefill logits); decode sampling draws (n_slots,
@@ -208,9 +208,6 @@ class BatchedLlamaEngine:
             self.mega = maybe_prep_llama_mega(cfg, weights)
         self.scratch = None
         if self.mega is not None and self.device.type == "cuda":
-            if n_slots > MAX_BATCH:
-                raise ValueError(f"the batched decode step takes at most "
-                                 f"{MAX_BATCH} slots, got {n_slots}")
             layers = self.mega.step.layers if isinstance(
                 self.mega.step, LlamaFlat) else self.mega.step
             self.scratch = step_scratch(layers, n_slots, cfg.n_attn_heads,

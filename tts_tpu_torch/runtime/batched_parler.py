@@ -34,8 +34,8 @@ from ..ops import sampling
 from ..ops.attention import sdpa
 from ..ops.decode_attention import decode_attention_batched
 from ..ops.linear import matmul
-from ..ops.parler_megastep import (MAX_BATCH, layer_norm,
-                                   parler_megastep_batched, step_scratch)
+from ..ops.parler_megastep import (layer_norm, parler_megastep_batched,
+                                   step_scratch)
 
 MAX_PROMPT = 512   # the JAX engine's last prompt bucket
 
@@ -195,8 +195,9 @@ class BatchedParlerEngine:
 
     The state is sized to exactly `n_slots`. (The JAX engine rounds the slot
     count up to a multiple of 8 for its TPU kernel, which puts slots on the
-    8 f32 sublanes; the H100 kernel K5 takes any count from 1 to 16, so
-    there is nothing to pad. Padding never changed a request's result.)
+    8 f32 sublanes; the H100 kernel K5 takes any count, running it in groups
+    of at most 16 slots, so there is nothing to pad. Padding never changed
+    a request's result.)
 
     Sampling draws (n_slots, 9) uniforms per step from one torch.Generator
     seeded from `seed`; as in the JAX engine, a request's own `seed` does not
@@ -218,9 +219,6 @@ class BatchedParlerEngine:
         self.mega = maybe_prep_mega(cfg, weights)
         self.scratch = None
         if self.mega is not None and self.device.type == "cuda":
-            if n_slots > MAX_BATCH:
-                raise ValueError(f"the batched decode step takes at most "
-                                 f"{MAX_BATCH} slots, got {n_slots}")
             self.scratch = step_scratch(self.mega.layers, n_slots,
                                         cfg.n_attn_heads, cfg.max_ctx_length,
                                         self.device)

@@ -529,8 +529,8 @@ def main(argv=None) -> int:
     p.add_argument("--n-parallelism", "-np", type=int, default=1)
     p.add_argument("--batch-slots", "-bs", type=int, default=0,
                    help="continuous-batching slots for Parler, Orpheus "
-                        "and Dia models (0 = off; at most 16 on the card, 8 "
-                        "for Dia); requests decode together on the card")
+                        "and Dia models (0 = off); requests decode together "
+                        "on the card")
     p.add_argument("--timeout", type=int, default=300)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
