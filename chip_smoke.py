@@ -8,13 +8,18 @@ Phases, in order; any failure exits non-zero without the final line:
 1. Device: the card's name and power limit (nvidia-smi); build every kernel
    from tts_tpu_torch/csrc with nvcc, all sources at once.
 2. Kernels: each kernel against its plain PyTorch version on the card, at
-   the main path's shapes, with the tolerance printed, and timed with CUDA
-   events beside the plain version, a one-call PyTorch yardstick where one
-   exists, and its bound (bytes over 3.35 TB/s, operations over the peak
-   rate for their type, the larger). The decode steps (K2, K5) are held
-   layer by layer, against the plain version on the CPU as a yardstick;
-   K4 and K5 at 8 slots at mixed positions across page boundaries, and
-   each of their slots against K3 / K2 on that slot's state, bit for bit.
+   the main path's shapes, with the tolerance printed, and timed by device
+   time (torch.profiler; the time with the host's launch path logged
+   beside) with the plain version, a one-call PyTorch yardstick where one
+   exists (SDPA for K3 / K4), and its bound (bytes over 3.35 TB/s,
+   operations over the peak rate for their type, the larger). The decode
+   steps (K2, K5) are held layer by layer, against the plain version on
+   the CPU as a yardstick; K3 / K4 also at heads of 128 with 3 and 4 q
+   heads a kv head (one launch a K3 call); K4 and K5 at 8 slots at mixed
+   positions across page boundaries, and each of their slots against K3 /
+   K2 on that slot's state, bit for bit. K7's check prints the L2 bytes
+   its GEMVs read to stage their input rows beside its weight bytes (and
+   fails unless they are fewer).
 3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
    (plain versions), float32 caches on both; the card follows the CPU's
    greedy token history and its logits must match at every step.
@@ -115,6 +120,7 @@ import traceback
 import urllib.error
 import urllib.request
 from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -165,6 +171,58 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_key(name: str) -> str:
+    """A device event's kernel name without namespace, return type and
+    template arguments (at most 48 characters)."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    return re.split(r"[<(]", name)[0][:48]
+
+
+class DeviceTime(NamedTuple):
+    ms: float        # device time of one call
+    by_name: dict    # its split by kernel name, ms
+    events: float    # device events (kernels, memsets, copies) of one call
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> DeviceTime:
+    """Device time of one fn() call in ms, its split by kernel name and its
+    device events: the kernels (and memsets / copies) the calls ran, summed
+    from a torch.profiler trace of `iters` calls, over `iters`. Host time
+    between launches is not counted, so a host-bound call reads as its
+    kernels' work. Raises where the profiler shows no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    n = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = kernel_key(e.name)
+            by_name[key] = by_name.get(key, 0.0) + \
+                e.time_range.elapsed_us() / 1e3 / iters
+            n += 1
+    if not by_name:
+        raise RuntimeError("torch.profiler recorded no device activity")
+    return DeviceTime(sum(by_name.values()), by_name, n / iters)
+
+
+def step_ms(fn, label: str, iters: int = 20) -> float:
+    """The device time of one fn() call (device_ms: the kernels' work),
+    which the kernels line reports, logged beside the time CUDA events give
+    over the same calls, the host's launch path included (host-bound steps
+    are slower end to end than their kernels)."""
+    dt = device_ms(fn, iters=iters)
+    log(f"  {label}: {dt.ms:.4f} ms of device time per call ({dt.events:.1f} "
+        f"device events), {cuda_ms(fn, iters=iters):.4f} ms with the host's "
+        f"launch path")
+    return dt.ms
+
+
 def device_trace(fn, label: str, per: int):
     """Run fn() once under torch.profiler (device activity only) and print
     the card's busy share over the span from the first kernel's start to
@@ -205,8 +263,7 @@ def device_trace(fn, label: str, per: int):
             min(e.time_range.start for e in kernels)) / 1e3
     by_name: dict = {}
     for e in kernels:
-        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ")
-        key = re.split(r"[<(]", name)[0][:48]
+        key = kernel_key(e.name)
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"  device trace, {label}: {len(kernels) / per:.1f} kernels, "
@@ -311,18 +368,38 @@ def check_k1(gen) -> dict:
     def nxt():
         return ws[next(it) % len(ws)]
 
-    ms = cuda_ms(lambda: qm.quant_matmul_cuda(x, nxt()))
-    plain_ms = cuda_ms(lambda: qm.quant_matmul_plain(x, nxt()))
-    lib_ms = cuda_ms(lambda: x @ nxt().dense().T)
+    ms = device_ms(lambda: qm.quant_matmul_cuda(x, nxt()), iters=50).ms
+    plain_ms = device_ms(lambda: qm.quant_matmul_plain(x, nxt())).ms
+    lib_ms = device_ms(lambda: x @ nxt().dense().T).ms
     b_ms, b_by = bound(tensor_bytes((ws[0].codes, ws[0].scales)) +
                        x.numel() * 4 + N * 4, 2 * N * H, "bf16")
-    log(f"  heads 1x{N}x{H}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    log(f"  heads 1x{N}x{H}, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"dequant+matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="quant_matmul", route="cuda",
                 source="tts_tpu_torch/csrc/quant_matmul.cu",
                 replaces="tts_tpu/ops/quant_matmul.py:134",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+K3_POS = (0, 1, 255, 256, 257, 1000)   # and ctx - 1: around the pages
+GQA = ((24, 8), (16, 4))   # q / kv heads of 128: Orpheus-3B (n_rep 3), Dia (4)
+
+
+def gqa_gen():
+    """The GQA checks' own generator, so that they leave the inputs the
+    later checks draw from the run's generator as they were."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 3)
+    return gen
+
+
+def sdpa(q, k, v, mask=None) -> torch.Tensor:
+    """PyTorch's scaled_dot_product_attention on q (B, Hq, 1, D) and k/v
+    (B, Hkv, T, D), GQA through enable_gqa: the attention's one-call
+    yardstick, which the port never calls."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=q.shape[1] != k.shape[1])
 
 
 def check_k3(gen) -> dict:
@@ -333,12 +410,25 @@ def check_k3(gen) -> dict:
     q = torch.randn((heads, d), generator=gen, device=DEV)
     why = "f32 softmax over the same values, sums in another order"
     errs = []
-    for p in (0, 1, 255, 256, 257, 1000, ctx - 1):
+    for p in K3_POS + (ctx - 1,):
         pos = torch.tensor([p], dtype=torch.int32, device=DEV)
         errs.append(check_close(f"bf16 cache pos {p}",
                                 da.decode_attention_cuda(q, kc[0], vc[0], pos),
                                 da.decode_attention_plain(q, kc[0], vc[0], pos),
                                 1e-5, why))
+    # GQA at head size 128: one block reads a kv head's page for all its q
+    # heads
+    ggen = gqa_gen()
+    for hq, hkv in GQA:
+        kg, vg = (torch.randn((hkv, ctx, 128), generator=ggen, device=DEV)
+                  .to(torch.bfloat16) for _ in range(2))
+        qg = torch.randn((hq, 128), generator=ggen, device=DEV)
+        for p in K3_POS + (ctx - 1,):
+            pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+            errs.append(check_close(
+                f"GQA {hq}/{hkv} heads of 128 (n_rep {hq // hkv}), bf16, pos {p}",
+                da.decode_attention_cuda(qg, kg, vg, pos),
+                da.decode_attention_plain(qg, kg, vg, pos), 1e-5, why))
     pos = torch.tensor([777], dtype=torch.int32, device=DEV)
     k32, v32 = kc[1, :4].float(), vc[1, :4].float()
     errs.append(check_close("f32 cache, GQA n_rep 4 pos 777",
@@ -350,7 +440,8 @@ def check_k3(gen) -> dict:
     errs.append(check_close("cross-attention f32 Tc 64",
                             da.decode_attention_cuda(q, ck, cv, tc),
                             da.decode_attention_plain(q, ck, cv, tc), 1e-5, why))
-    # timed at pos 1000, layers rotating (each layer's rows once per step)
+    # timed at pos 1000 by device time, layers taken in turn (each layer's
+    # rows once per step, from device memory)
     p = 1000
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
     it = iter(range(1 << 30))
@@ -370,14 +461,38 @@ def check_k3(gen) -> dict:
 
     def lib():
         l = layer()
-        return torch.nn.functional.scaled_dot_product_attention(
-            qb, kc[l, None, :, :p + 1], vc[l, None, :, :p + 1])
+        return sdpa(qb, kc[l, None, :, :p + 1], vc[l, None, :, :p + 1])
 
-    ms, plain_ms, lib_ms = cuda_ms(kern), cuda_ms(plain), cuda_ms(lib)
+    k3 = device_ms(kern)
+    ms, plain_ms, lib_ms = k3.ms, device_ms(plain).ms, device_ms(lib).ms
+    # one launch a call (the profiler may miss an event of the window, so
+    # "one" is anything that rounds to it; two launches would read ~2)
+    if not 0.5 < k3.events < 1.5:
+        raise AssertionError(f"K3 at pos {p} ran {k3.events} device events a "
+                             f"call, not one launch")
     nbytes = 2 * heads * (p + 1) * d * 2 + 2 * heads * d * 4
     b_ms, b_by = bound(nbytes, 4 * heads * (p + 1) * d, "f32")
-    log(f"  16 heads, pos {p}, bf16: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"  16 heads, pos {p}, bf16, device time: kernel {ms:.4f} ms (one "
+        f"launch, {cuda_ms(kern):.4f} ms with the host's launch path), plain "
+        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for hq, hkv in GQA:
+        kg, vg = (torch.randn((8, hkv, ctx, 128), generator=ggen, device=DEV)
+                  .to(torch.bfloat16) for _ in range(2))
+        qg = torch.randn((hq, 128), generator=ggen, device=DEV)
+        qgb = qg.to(torch.bfloat16)[None, :, None, :]
+
+        def g_kern(l):
+            return da.decode_attention_cuda(qg, kg[l], vg[l], pos)
+
+        def g_sdpa(l):
+            return sdpa(qgb, kg[l, None, :, :p + 1], vg[l, None, :, :p + 1])
+
+        g_ms = device_ms(lambda: g_kern(layer() % 8)).ms
+        g_lib = device_ms(lambda: g_sdpa(layer() % 8)).ms
+        g_bound = bound(2 * hkv * (p + 1) * 128 * 2 + 2 * hq * 128 * 4,
+                        4 * hq * (p + 1) * 128, "f32")[0]
+        log(f"  GQA {hq}/{hkv} heads of 128, pos {p}, bf16, device time: "
+            f"kernel {g_ms:.4f} ms, sdpa {g_lib:.4f} ms, bound {g_bound:.4f} ms")
     return dict(name="decode_attention", route="cuda",
                 source="tts_tpu_torch/csrc/decode_attention.cu",
                 replaces="tts_tpu/ops/decode_attention.py:27",
@@ -573,10 +688,10 @@ def check_k2(gen, mega, qtype) -> dict:
                                 0.0, "the written row is k_new in bf16"))
     p = 1000
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
-    ms = cuda_ms(lambda: pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw),
-                 iters=20)
-    plain_ms = cuda_ms(lambda: pm.parler_megastep_plain(mega, x, kc, vc, pos, **kw),
-                       iters=5, warmup=1)
+    ms = step_ms(lambda: pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw),
+                 f"K2 step at pos {p}")
+    plain_ms = device_ms(lambda: pm.parler_megastep_plain(
+        mega, x, kc, vc, pos, **kw), iters=5, warmup=1).ms
     # weights, norms and cross K/V read once; self-attention K/V rows up to
     # pos read once; this token's k/v written; x in and out
     wbytes = tensor_bytes(mega[:11])
@@ -584,7 +699,7 @@ def check_k2(gen, mega, qtype) -> dict:
     flops = 2 * L * (6 * H * H + 2 * H * MINI["ffn"])
     b_ms, b_by = bound(wbytes + kv_bytes + 2 * L * H * 2 + 2 * H * 4, flops, "bf16")
     launches = 8 * L
-    log(f"  24 layers, pos {p}: kernels {ms:.4f} ms/step ({launches} launches: "
+    log(f"  24 layers, pos {p}: kernels (device time) {ms:.4f} ms/step ({launches} launches: "
         f"{6 * L} gemv + {2 * L} attention), plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
         f"{kv_bytes / 1e6:.1f} MB KV)")
@@ -628,6 +743,23 @@ def check_k4(gen) -> dict:
             raise AssertionError(f"K4 slot {s} (pos {MIXED_POS[s]}) is not "
                                  f"K3 bit for bit")
     log(f"  every slot, and a B = 1 call on it, equals K3 bit for bit: ok")
+    ggen = gqa_gen()
+    for hq, hkv in GQA:   # slots at the same mixed positions, heads of 128
+        kg, vg = (torch.randn((b, hkv, ctx, 128), generator=ggen, device=DEV)
+                  .to(torch.bfloat16) for _ in range(2))
+        qg = torch.randn((b, hq, 128), generator=ggen, device=DEV)
+        got = da.decode_attention_batched_cuda(qg, kg, vg, pos)
+        errs.append(check_close(
+            f"B {b}, GQA {hq}/{hkv} heads of 128, bf16 cache, pos "
+            f"{list(MIXED_POS)}", got,
+            da.decode_attention_batched_plain(qg, kg, vg, pos), 1e-5, why))
+        for s in range(b):
+            if not torch.equal(got[s], da.decode_attention_cuda(
+                    qg[s], kg[s], vg[s], pos[s:s + 1])):
+                raise AssertionError(f"K4 GQA {hq}/{hkv} slot {s} (pos "
+                                     f"{MIXED_POS[s]}) is not K3 bit for bit")
+        log(f"  GQA {hq}/{hkv}: every slot equals K3 bit for bit: ok")
+        del kg, vg
     ck = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
     cv = torch.randn((heads, MINI["enc_len"], d), generator=gen, device=DEV)
     tc = torch.tensor([MINI["enc_len"] - 1], dtype=torch.int32, device=DEV)
@@ -638,18 +770,17 @@ def check_k4(gen) -> dict:
     # timed at the mixed positions, with the engine's reused scratch
     out = torch.empty_like(q)
     scratch = da.attention_scratch(b, heads, ctx, d, DEV)
-    ms = cuda_ms(lambda: da.decode_attention_batched_cuda(
-        q, kc, vc, pos, out=out, scratch=scratch))
-    plain_ms = cuda_ms(lambda: da.decode_attention_batched_plain(q, kc, vc, pos),
-                       iters=10, warmup=2)
+    ms = device_ms(lambda: da.decode_attention_batched_cuda(
+        q, kc, vc, pos, out=out, scratch=scratch)).ms
+    plain_ms = device_ms(lambda: da.decode_attention_batched_plain(
+        q, kc, vc, pos), iters=10, warmup=2).ms
     qb = q.to(torch.bfloat16)[:, :, None, :]
     mask = (torch.arange(ctx, device=DEV)[None, :] <= pos[:, None])[:, None, None, :]
-    lib_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qb, kc, vc, attn_mask=mask))
+    lib_ms = device_ms(lambda: sdpa(qb, kc, vc, mask)).ms
     rows = sum(p + 1 for p in MIXED_POS)
     nbytes = 2 * heads * rows * d * 2 + 2 * b * heads * d * 4 + b * 4
     b_ms, b_by = bound(nbytes, 4 * heads * rows * d, "f32")
-    log(f"  B {b}, 16 heads, mixed pos, bf16: kernel {ms:.4f} ms, plain "
+    log(f"  B {b}, 16 heads, mixed pos, bf16, device time: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, masked sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by})")
     return dict(name="decode_attention_batched", route="cuda",
@@ -693,10 +824,10 @@ def check_k5(gen, mega, qtype) -> dict:
                            plain=pm.parler_megastep_batched_plain, label="K5",
                            layers=K5_LAYERS)
     scratch = pm.step_scratch(mega, b, heads, ctx, DEV)
-    ms = cuda_ms(lambda: pm.parler_megastep_batched_cuda(
-        mega, x, kc, vc, pos, scratch=scratch, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: pm.parler_megastep_batched_plain(
-        mega, x, kc, vc, pos, **kw), iters=3, warmup=1)
+    ms = step_ms(lambda: pm.parler_megastep_batched_cuda(
+        mega, x, kc, vc, pos, scratch=scratch, **kw), f"K5 step at {b} slots")
+    plain_ms = device_ms(lambda: pm.parler_megastep_batched_plain(
+        mega, x, kc, vc, pos, **kw), iters=3, warmup=1).ms
     # weights, norms and cross K/V read once for all slots; each slot's
     # self-attention K/V rows up to its pos; this token's k/v written; x in
     # and out
@@ -705,7 +836,7 @@ def check_k5(gen, mega, qtype) -> dict:
     flops = 2 * b * L * (6 * H * H + 2 * H * MINI["ffn"])
     b_ms, b_by = bound(wbytes + kv_bytes + 2 * b * L * H * 2 + 2 * b * H * 4,
                        flops, "bf16")
-    log(f"  B {b}, 24 layers, mixed pos: kernels {ms:.4f} ms/step "
+    log(f"  B {b}, 24 layers, mixed pos: kernels (device time) {ms:.4f} ms/step "
         f"({8 * L} launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
     return dict(name="parler_megastep_batched", route="cuda",
@@ -784,11 +915,12 @@ def check_k12(gen, mega, qtype) -> dict:
     def k2():
         pm.parler_megastep_cuda(mega, x, kc, vc, pos, **kw)
 
-    # in turns: K2, K12, K12, K2
+    # in turns: K2, K12, K12, K2, host-inclusive and by device time
     times = [cuda_ms(fn, iters=20) for fn in (k2, k12, k12, k2)]
-    ms, k2_ms = min(times[1:3]), min(times[0], times[3])
-    plain_ms = cuda_ms(lambda: pf.parler_flat_megastep_plain(
-        flat, x, kc, vc, pos, qtype=qtype, n_heads=heads), iters=5, warmup=1)
+    dtimes = [device_ms(fn).ms for fn in (k2, k12, k12, k2)]
+    ms = min(dtimes[1:3])
+    plain_ms = device_ms(lambda: pf.parler_flat_megastep_plain(
+        flat, x, kc, vc, pos, qtype=qtype, n_heads=heads), iters=5, warmup=1).ms
     # K2's bytes: weights, norms and cross K/V read once; K/V rows up to
     # pos read once; this token's k/v written; x in and out
     wbytes = tensor_bytes(mega[:11])
@@ -798,7 +930,9 @@ def check_k12(gen, mega, qtype) -> dict:
     log(f"  {L} layers, pos {p}: K12 {times[1]:.4f} / {times[2]:.4f} ms/step "
         f"(1 launch of {pf.launched_blocks} blocks of 256 threads; "
         f"{9 * L - 1} grid barriers), K2 {times[0]:.4f} / {times[3]:.4f} ms/step "
-        f"({8 * L} launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({8 * L} launches), with the host's launch path; device time K12 "
+        f"{dtimes[1]:.4f} / {dtimes[2]:.4f}, K2 {dtimes[0]:.4f} / "
+        f"{dtimes[3]:.4f} ms/step, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
         f"({b_by}; {wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
 
     def steps(fn):
@@ -982,9 +1116,10 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
     kv_bytes = 2 * L * nkv * (p + 1) * d * 2   # rows 0..pos, bf16
     for label, (w, kern, plain, _, _) in steps.items():
-        ms = cuda_ms(lambda: kern(w, x, kc, vc, pos, **kw), iters=20)
-        plain_ms = cuda_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=3,
-                           warmup=1)
+        ms = step_ms(lambda: kern(w, x, kc, vc, pos, **kw),
+                     f"{label} step at pos {p}")
+        plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=3,
+                             warmup=1).ms
         if label == "K8":
             wts = list(w)
         else:
@@ -997,7 +1132,7 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
                            2 * n_weights, "bf16")
         gemv = 4 * L + (label == "K6")
         log(f"  {label} 28 layers{' + head' if label == 'K6' else ''}, pos "
-            f"{p}: kernels {ms:.4f} ms/step ({gemv} gemv + {L} attention "
+            f"{p}: kernels (device time) {ms:.4f} ms/step ({gemv} gemv + {L} attention "
             f"launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
             f"{wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
         if label == "K6":
@@ -1062,6 +1197,25 @@ def other_order_batched_plain(*a, **k):
         return lm.llama_megastep_batched_plain(*a, **k)
 
 
+def k7_staging(flat, b: int, sms: int) -> tuple[int, int, int]:
+    """(staging bytes, the parent design's, weight bytes) of one K7 step at
+    b rows: the bytes the step's GEMV launches read from L2 to stage their
+    f32 input rows (lm.gemv_staging_bytes; before, every block of 8 warps
+    read every row, twice under an RMS prologue), beside the weights they
+    stream once."""
+    layers = flat.layers
+    L, H = layers.norms.shape[0], layers.norms.shape[2]
+    F, kvn = layers.gate_codes.shape[1], layers.qkv_codes.shape[1]
+    gemvs = [(kvn, H, True, False), (H, H, False, False), (F, H, True, True),
+             (H, F, False, False)] * L + [(flat.head.shape[0], H, True, False)]
+    new = sum(lm.gemv_staging_bytes(b, n, k, rms=rms, silu=silu, sms=sms)
+              for n, k, rms, silu in gemvs)
+    old = sum(-(-(n if silu else n // 2) // 8) * b * k * 4 * (2 if rms else 1)
+              for n, k, rms, silu in gemvs)
+    weights = tensor_bytes(list(layers) + [flat.head.codes, flat.head.scales])
+    return new, old, weights
+
+
 def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     """K9 and K7 at Orpheus-3B width, 8 slots at LLAMA_SLOTS: each slot bit
     for bit against K8 / K6 on its state (and at 16 slots on the
@@ -1076,6 +1230,15 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
     b = len(LLAMA_SLOTS)
     pos = torch.tensor(LLAMA_SLOTS, dtype=torch.int32, device=DEV)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    staged, staged_before, wbytes = k7_staging(flat, b, sms)
+    ok = staged < wbytes
+    log(f"  K7 at {b} slots, reckoned L2 reads to stage the GEMVs' input rows: "
+        f"{staged / 1e9:.3f} GB per batched step ({staged_before / 1e9:.3f} GB "
+        f"with a block of 8 warps staging every row) against "
+        f"{wbytes / 1e9:.3f} GB of weights: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K7 stages more bytes than its weights")
     llama_slots_equal_single(mega, flat, kw, pos, "28 layers")
     sub = list(LLAMA_LAYERS)
     mega4 = lm.LlamaMegaLayers(*(t[sub] for t in mega))
@@ -1156,10 +1319,10 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     kv_bytes = 2 * L * nkv * sum(p + 1 for p in LLAMA_SLOTS) * d * 2
     scratch = lm.step_scratch(mega, b, ORPHEUS["heads"], ctx, DEV)
     for label, (w, kern, plain, _) in steps.items():
-        ms = cuda_ms(lambda: kern(w, x, kc, vc, pos, scratch=scratch, **kw),
-                     iters=20)
-        plain_ms = cuda_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=2,
-                           warmup=1)
+        ms = step_ms(lambda: kern(w, x, kc, vc, pos, scratch=scratch, **kw),
+                     f"{label} step at {b} slots")
+        plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=2,
+                             warmup=1).ms
         if label == "K9":
             wts = list(w)
         else:
@@ -1172,7 +1335,7 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
                            2 * b * n_weights, "bf16")
         gemv = 4 * L + (label == "K7")
         log(f"  {label} 28 layers{' + head' if label == 'K7' else ''}, 8 slots "
-            f"at {list(LLAMA_SLOTS)}: kernels {ms:.4f} ms per batched step "
+            f"at {list(LLAMA_SLOTS)}: kernels (device time) {ms:.4f} ms per batched step "
             f"({gemv} gemv + {L} K4 launches), plain {plain_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
             f"{kv_bytes / 1e6:.1f} MB KV), library none")
@@ -2385,13 +2548,12 @@ def check_dia(gen, mega, kw) -> dict:
                             got[1].reshape(L, 2, nkv, d).to(torch.bfloat16).float(),
                             0.0, "the written row is k_new in bf16"))
     del k1, v1
-    ms = cuda_ms(lambda: dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
-                                              768, **kw), iters=20)
-    plain_ms = cuda_ms(lambda: dm.dia_megastep_plain(mega, x, kc, vc, pos, ck,
-                                                     cv, vt, 768, **kw),
-                       iters=3, warmup=1)
+    ms = step_ms(lambda: dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
+                                              768, **kw), f"K10 step at pos {p}")
+    plain_ms = device_ms(lambda: dm.dia_megastep_plain(
+        mega, x, kc, vc, pos, ck, cv, vt, 768, **kw), iters=3, warmup=1).ms
     b_ms, b_by, wmb, kvmb = dia_bound(mega, 2, 2 * (p + 1), (ck, cv, vt), 256)
-    log(f"  {L} layers, pos {p}, Sb 256: kernels {ms:.4f} ms/step ({6 * L} "
+    log(f"  {L} layers, pos {p}, Sb 256: kernels (device time) {ms:.4f} ms/step ({6 * L} "
         f"gemv + {L} K4 + {L} cross launches), plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({b_by}; {wmb:.1f} MB weights + {kvmb:.1f} MB KV + "
         f"{tensor_bytes((ck, cv, vt)) / 1e6:.1f} MB cross), library none")
@@ -2458,14 +2620,14 @@ def check_dia_batched(gen, mega, kw) -> dict:
                      f"rows, layer by layer, yardstick the larger of plain on "
                      f"the CPU and plain summed in another order vs plain on the card")
         scratch = dm.step_scratch(mega, 2 * b, heads, DIA_CTX, 256, DEV)
-        ms = cuda_ms(lambda: dm.dia_megastep_batched_cuda(
+        ms = step_ms(lambda: dm.dia_megastep_batched_cuda(
             mega, x, kc, vc, pos, ck, cv, vt, 768, scratch=scratch, **kw),
-            iters=20)
-        plain_ms = cuda_ms(lambda: dm.dia_megastep_batched_plain(
-            mega, x, kc, vc, pos, ck, cv, vt, 768, **kw), iters=2, warmup=1)
+            f"K11 step at {b} pairs")
+        plain_ms = device_ms(lambda: dm.dia_megastep_batched_plain(
+            mega, x, kc, vc, pos, ck, cv, vt, 768, **kw), iters=2, warmup=1).ms
         b_ms, b_by, wmb, kvmb = dia_bound(mega, 2 * b, 2 * sum(p + 1 for p in slots),
                                           (ck, cv, vt), 256)
-        log(f"  K11 {L} layers, 8 pairs at {list(slots)}: kernels {ms:.4f} ms "
+        log(f"  K11 {L} layers, 8 pairs at {list(slots)}: kernels (device time) {ms:.4f} ms "
             f"per batched step ({6 * L} gemv + {L} K4 + {L} cross launches), "
             f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {wmb:.1f} "
             f"MB weights + {kvmb:.1f} MB KV + "

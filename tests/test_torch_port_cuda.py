@@ -23,7 +23,10 @@ at 20 slots and K11 at 12 pairs, slots at positions across the pages, each
 slot against its one-sequence kernel bit for bit. K12, the one-launch
 Parler step, against its plain version and K2 bit for bit, at positions
 across the pages, with and without the cross-attention, and one launch
-on its own counter per step.
+on its own counter per step. K3 / K4 at heads of 128 with 3 and 4 q heads
+a kv head; K3's pages merged by its last block in one launch at 1, 2 and
+16 pages, the arrival counters left at 0; the llama GEMV's rows each equal
+a one-row launch at 1, 8, 9 and 16 rows over K 3072 and 8192.
 """
 import pytest
 import torch
@@ -161,6 +164,88 @@ def test_k4_shared_kv_and_strided_q(dev):
     torch.testing.assert_close(da.decode_attention_batched_cuda(q, k, v, p),
                                da.decode_attention_batched_plain(q, k, v, p),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [3, 4])
+def test_k3_k4_gqa_d128_match_plain(dev, cache_dtype, n_rep):
+    """Heads of 128 with 3 and 4 q heads a kv head (Orpheus-3B, Dia), which
+    one block serves from one read of the kv head's page: K3 at positions
+    across the pages and K4 with slots at those positions, 1e-5 absolute
+    against the plain versions; each K4 slot equals K3 bit for bit."""
+    torch.manual_seed(0)
+    b = len(MIXED)
+    q = torch.randn((b, 2 * n_rep, 128), device=dev)
+    k = torch.randn((b, 2, 640, 128), device=dev).to(cache_dtype)
+    v = torch.randn((b, 2, 640, 128), device=dev).to(cache_dtype)
+    p = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    got = da.decode_attention_batched_cuda(q, k, v, p)
+    torch.testing.assert_close(got, da.decode_attention_batched_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+    for s in range(b):
+        one = da.decode_attention_cuda(q[s], k[s], v[s], p[s:s + 1])
+        torch.testing.assert_close(one, da.decode_attention_plain(
+            q[s], k[s], v[s], p[s:s + 1]), rtol=0, atol=1e-5)
+        assert torch.equal(got[s], one)
+
+
+def _device_events(fn, calls: int = 10) -> int:
+    """Kernels (and memsets / copies) the card ran for one fn() call, over
+    `calls` calls and rounded (the profiler may miss an event of its
+    window; two launches a call would read 2)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return round(sum(e.device_type == torch.autograd.DeviceType.CUDA
+                     for e in prof.events()) / calls)
+
+
+@pytest.mark.parametrize("n_rep", [1, 4])
+@pytest.mark.parametrize("pos,pages", [(100, 1), (300, 2), (4095, 16)])
+def test_k3_merges_its_pages_in_one_launch(dev, n_rep, pos, pages):
+    """1, 2 and 16 live pages of a 4096-row cache: the last page block to
+    finish merges them (no combine launch, no memset), 1e-5 absolute
+    against the plain version; the arrival counters are left at 0, so a
+    second call gives the same output bit for bit."""
+    torch.manual_seed(0)
+    q = torch.randn((4 * n_rep, 64), device=dev)
+    k = torch.randn((4, 4096, 64), device=dev).to(torch.bfloat16)
+    v = torch.randn((4, 4096, 64), device=dev).to(torch.bfloat16)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    assert pos // da.PAGE + 1 == pages
+    got = da.decode_attention_cuda(q, k, v, p)
+    torch.testing.assert_close(got, da.decode_attention_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+    assert torch.equal(da.decode_attention_cuda(q, k, v, p), got)
+    assert not da.arrivals(dev, 4 * n_rep).any()
+    before = da.KERNEL.launches
+    assert _device_events(lambda: da.decode_attention_cuda(q, k, v, p)) == 1
+    assert da.KERNEL.launches - before == 11
+
+
+def test_cross_attention_and_k4_leave_the_counters_zero(dev):
+    """The Dia cross-attention over 4 pages with its tail and K4 over
+    mixed positions share one stream's counters: each call is one launch
+    and leaves them at 0."""
+    torch.manual_seed(0)
+    q = torch.randn((3, 4, 128), device=dev)
+    ck = torch.randn((3, 4, 1024, 128), device=dev).to(torch.bfloat16)
+    cv = torch.randn((3, 4, 1024, 128), device=dev).to(torch.bfloat16)
+    vt = torch.randn((3, 4, 128), device=dev)
+    assert _device_events(lambda: dm.cross_attention_cuda(q, ck, cv, vt, 100)) == 1
+    torch.testing.assert_close(dm.cross_attention_cuda(q, ck, cv, vt, 100),
+                               dm.cross_attention_plain(q, ck, cv, vt, 100),
+                               rtol=0, atol=1e-5)
+    kb = torch.randn((len(MIXED), 2, 640, 64), device=dev).to(torch.bfloat16)
+    qb = torch.randn((len(MIXED), 8, 64), device=dev)
+    p = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    assert _device_events(lambda: da.decode_attention_batched_cuda(qb, kb, kb, p)) == 1
+    torch.cuda.synchronize()
+    assert not da.arrivals(dev, len(MIXED) * 8).any()
 
 
 def _tiny_mega(dev, qtype, tc=16):
@@ -402,27 +487,65 @@ def test_batched_llama_launch_counters(dev):
 BOUNDARY_TOL = 5e-3
 
 
-@pytest.mark.parametrize("b,k", [(8, 3072), (16, 1536)])
-def test_llama_gemv_at_the_48k_shared_memory_boundary(dev, b, k):
-    """b rows of K bf16 stage exactly 48 KB, the shared memory a block gets
-    without opting in, which the kernel's static shared memory then
-    exceeds: the launch opts in (8 rows at Orpheus-3B's K 3072 are K7/K9's
-    qkv, gate/up and head GEMVs). The RMS-prologue GEMV against its plain
-    version, within BOUNDARY_TOL."""
+def _llama_gemv(dev, x, w, qt, out, *, rms_w=None, res=None):
+    """One launch of the llama GEMV on K7's counter: RMS(x; rms_w) @ W^T
+    stored (EPI_STORE), or res + x @ W^T (EPI_RESIDUAL) without a norm."""
     import ctypes
     from tts_tpu_torch.ops import _build
+    vp, null = _build.ptr, ctypes.c_void_p(0)
+    b, k = x.shape
+    rms = rms_w is not None
+    lm.KERNEL_BATCHED(vp(x), vp(rms_w) if rms else null, int(rms), vp(w.codes),
+                      vp(w.scales), vp(w.codes), vp(w.scales), qt, 1, 1, b,
+                      w.shape[0], k, null if rms else vp(res), vp(out),
+                      lm.EPI_STORE if rms else lm.EPI_RESIDUAL, null, null, 0,
+                      null, null, 0, 0, 0, 0, 0, 0, _build.stream_ptr(dev))
+
+
+@pytest.mark.parametrize("b,k", [(8, 3072), (16, 1536), (16, 3072), (8, 8192),
+                                 (14, 8192), (16, 8192)])
+def test_llama_gemv_at_the_48k_shared_memory_boundary(dev, b, k):
+    """The shared memory a launch stages its rows in: b x K bf16 of exactly
+    48 KB (8 rows at Orpheus-3B's K 3072, 16 at 1536), the most a block gets
+    without opting in; 96 KB (16 x 3072) and 128 KB (8 x 8192: K7's down
+    GEMV); 224 KB, the most one pass takes (14 x 8192); and 16 x 8192,
+    staged in two passes of 8 rows. Every launch opts in to the most it
+    may ask. The RMS-prologue GEMV against its plain version, within
+    BOUNDARY_TOL."""
     torch.manual_seed(0)
     qt, n = quants.GGML_TYPE_Q4_0, 64
     w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
     x = torch.randn((b, k), device=dev)
     nw = torch.rand(k, device=dev) + 0.5
     out = torch.empty((b, n), device=dev)
-    vp, null = _build.ptr, ctypes.c_void_p(0)
-    lm.KERNEL_BATCHED(vp(x), vp(nw), 1, vp(w.codes), vp(w.scales),
-                      vp(w.codes), vp(w.scales), qt, 1, 1, b, n, k, null,
-                      vp(out), lm.EPI_STORE, null, null, 0, null, null, 0, 0,
-                      0, 0, 0, 0, _build.stream_ptr(dev))
+    _llama_gemv(dev, x, w, qt, out, rms_w=nw)
     ref = lm.dqdot(lm.rms_norm(x, nw), w.codes, w.scales, qt)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("rms", [True, False])
+@pytest.mark.parametrize("k", [3072, 8192])
+@pytest.mark.parametrize("b", [1, 8, 9, 16])
+def test_llama_gemv_rows_equal_one_row(dev, b, k, rms):
+    """Every row of a b-row launch equals a 1-row launch on that row bit for
+    bit, with the RMS prologue (over K 8192 it reads the row twice rather
+    than hold it) and without (a residual add), across rows staged in one
+    pass or two (16 x 8192)."""
+    torch.manual_seed(0)
+    qt, n = quants.GGML_TYPE_Q4_0, 1000
+    w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
+    x = torch.randn((b, k), device=dev)
+    nw = torch.rand(k, device=dev) + 0.5 if rms else None
+    res = torch.randn((b, n), device=dev)
+    out = torch.empty((b, n), device=dev)
+    _llama_gemv(dev, x, w, qt, out, rms_w=nw, res=res)
+    for r in range(b):
+        one = torch.empty((1, n), device=dev)
+        _llama_gemv(dev, x[r:r + 1], w, qt, one, rms_w=nw, res=res[r:r + 1])
+        assert torch.equal(out[r:r + 1], one), f"row {r} of {b}"
+    ref = (lm.dqdot(lm.rms_norm(x, nw), w.codes, w.scales, qt) if rms else
+           res + lm.dqdot(x, w.codes, w.scales, qt))
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=BOUNDARY_TOL * ref.abs().max().item())
 

@@ -39,39 +39,77 @@ __device__ __forceinline__ float load_scale(const void* scales, size_t i) {
   }
 }
 
+// The codes of block b of one weight row: 16 bytes (Q4_0 packed) in q[0],
+// or 32 in q[0], q[1]. The row pointer must be 16-byte aligned.
+template <bool PACKED>
+__device__ __forceinline__ void load_codes(const uint8_t* __restrict__ row,
+                                           int b, uint4 q[2]) {
+  if constexpr (PACKED) {
+    q[0] = __ldg(reinterpret_cast<const uint4*>(row + b * 16));
+  } else {
+    q[0] = __ldg(reinterpret_cast<const uint4*>(row + b * 32));
+    q[1] = __ldg(reinterpret_cast<const uint4*>(row + b * 32 + 16));
+  }
+}
+
+// code - bias as a float, exactly (a code byte, a Q4_0 nibble, or a Q8_0
+// byte whose bits are an int8): 2^23 + code has the code in its low
+// mantissa bits, and (2^23 + code) - (2^23 + bias) is exact. Q8_0's signed
+// code is biased by 128 first (its sign bit flipped). Integer and add
+// instructions in place of an int -> float conversion, which the SMs run
+// at a quarter of their add rate.
+template <int QT>
+__device__ __forceinline__ float code_value(uint32_t code) {
+  if constexpr (QT == Q8_0) {
+    return __uint_as_float(0x4B000000u | (code ^ 0x80u)) - 8388736.f;
+  } else if constexpr (QT == Q5_0) {
+    return __uint_as_float(0x4B000000u | code) - 8388624.f;
+  } else {
+    return __uint_as_float(0x4B000000u | code) - 8388616.f;
+  }
+}
+
+// One block's codes (load_codes) -> w[32] = (code - bias) * s, rounded to
+// bf16 in BF16 mode (two at a time, one conversion instruction per pair).
+template <int QT, bool PACKED, bool BF16>
+__device__ __forceinline__ void dequant_codes(const uint4 q[2], float s,
+                                              float w[QK]) {
+  if constexpr (PACKED) {
+    const uint32_t u[4] = {q[0].x, q[0].y, q[0].z, q[0].w};
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const uint32_t byte = (u[i / 4] >> (8 * (i % 4))) & 0xFFu;
+      w[i] = code_value<Q4_0>(byte & 15u);
+      w[i + 16] = code_value<Q4_0>(byte >> 4);
+    }
+  } else {
+    const uint32_t u[8] = {q[0].x, q[0].y, q[0].z, q[0].w,
+                           q[1].x, q[1].y, q[1].z, q[1].w};
+#pragma unroll
+    for (int i = 0; i < QK; ++i) {
+      w[i] = code_value<QT>((u[i / 4] >> (8 * (i % 4))) & 0xFFu);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < QK; ++i) w[i] = w[i] * s;
+  if constexpr (BF16) {
+#pragma unroll
+    for (int i = 0; i < QK; i += 2) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(w[i], w[i + 1]);
+      w[i] = __low2float(h);
+      w[i + 1] = __high2float(h);
+    }
+  }
+}
+
 // Block b of one weight row -> w[32] = (code - bias) * s (bf16-rounded in
 // BF16 mode). The row pointer must be 16-byte aligned.
 template <int QT, bool PACKED, bool BF16>
 __device__ __forceinline__ void dequant_block(const uint8_t* __restrict__ row,
                                               int b, float s, float w[QK]) {
-  if constexpr (PACKED) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(row + b * 16));
-    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const uint32_t byte = (u[i / 4] >> (8 * (i % 4))) & 0xFFu;
-      w[i] = (float)(int)(byte & 15u) - 8.f;
-      w[i + 16] = (float)(int)(byte >> 4) - 8.f;
-    }
-  } else {
-    const uint4 q0 = __ldg(reinterpret_cast<const uint4*>(row + b * 32));
-    const uint4 q1 = __ldg(reinterpret_cast<const uint4*>(row + b * 32 + 16));
-    const uint32_t u[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-    for (int i = 0; i < QK; ++i) {
-      const uint32_t byte = (u[i / 4] >> (8 * (i % 4))) & 0xFFu;
-      if constexpr (QT == Q8_0) {
-        w[i] = (float)(int8_t)byte;
-      } else {
-        w[i] = (float)(int)byte - (QT == Q4_0 ? 8.f : 16.f);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < QK; ++i) {
-    w[i] = w[i] * s;
-    if constexpr (BF16) w[i] = bf16_round(w[i]);
-  }
+  uint4 q[2];
+  load_codes<PACKED>(row, b, q);
+  dequant_codes<QT, PACKED, BF16>(q, s, w);
 }
 
 // sum_i w[i] * x[i] over one 32-element block; x is 16-byte aligned (global

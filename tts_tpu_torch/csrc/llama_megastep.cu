@@ -43,17 +43,40 @@
 //   5. gemv  down;           epilogue x += .
 // and for K6, after the last layer:
 //   6. gemv  RMS(out_norm) prologue, head;  epilogue store the logits.
-// Each warp computes two output features, so that the epilogues that pair
-// features need no exchange between warps: RoPE rotates features i and
-// i + d/2 of one head, and SiLU(gate) * up pairs gate row n with up row n.
-// The other epilogues take rows 2p and 2p + 1. A warp streams each of its
-// weight rows as K1 and K2 do (dequant.cuh): each lane dequantizes a
-// 32-weight block once into registers and dots it with each input row. The
-// RMS prologue normalizes each input row into shared memory in every block
-// (recomputing it per block costs L2 reads, not device-memory traffic).
-// The kernel (gemv.cuh, shared with the Dia steps' source) is templated on
-// the input rows (ROWS 1, 8 or 16 here), as K2/K5 are; the batched steps (K9, K7) are K8's and K6's launch
+// Each warp computes feature pairs, two output features at a time, so that
+// the epilogues that pair features need no exchange between warps: RoPE
+// rotates features i and i + d/2 of one head, and SiLU(gate) * up pairs
+// gate row n with up row n. The other epilogues take rows 2p and 2p + 1.
+// Lane l of a warp takes the 32-weight blocks l, l + 32, ... of both rows
+// of a pair, dequantizes each block once into registers (dequant.cuh) and
+// dots it with every input row. The kernel (gemv.cuh, shared with the Dia
+// steps' source) is templated on the input rows (ROWS 1, 8 or 16 here), as
+// K2/K5 are; the batched steps (K9, K7) are K8's and K6's launch
 // sequences with B rows, the attention launch being K4, the batched K3.
+//
+// The GEMV's shape on the card: a grid of at most one block of 12 warps
+// per SM, in clusters of 2 (at Orpheus-3B width every launch but o and
+// down, 128 blocks, fills the 132 SMs), each warp walking many feature
+// pairs (pair p = block + G * (warp + 12 k) over G blocks, so that pairs
+// spread over the blocks first). A block first stages its B input rows
+// whole in dynamic shared memory as bf16 (the rounding the dot applies
+// anyway; B x K bf16 is 48 KB at 8 x 3072, 128 KB at 8 x 8192, staged in
+// two passes of rows where it would exceed 224 KB: 16 x 8192), the RMS norm
+// applied on the way (its sum of squares over the first 8 warps, the shape
+// it always had). The two blocks of a cluster each normalize and round
+// half of the rows and copy them into the other's shared memory
+// (distributed shared memory), so a cluster reads each row from L2 once:
+// about 1.0 GB of staging reads for a K7 step at 8 slots against its 1.86
+// GB of weights, where blocks of 16 features that each staged every row
+// (twice under the RMS norm) read about 11 GB. While the rows stage, each
+// warp already has the codes and scales of its first (pair, block) units in
+// flight, and it keeps the next PF = 2 units' loads (1 at 16 rows) ahead
+// of the arithmetic of the current one, so weight bytes stream while the block
+// stages and computes. What bounds it then: at 8-16 rows the SMs' issue
+// rate (each weight is dequantized once and multiplied into every row: 2
+// flops per weight and row, plus the bf16 unpacking of the staged rows),
+// at one row the bytes. 12 warps of up to 168 registers fill an SM's
+// register file; more warps would spill, fewer hide less latency (PERF.md).
 //
 // Where the batched steps can go wrong, and what this design does:
 //  * Per-slot bit-identity: each K9 slot equals K8 on that slot's state,
@@ -71,21 +94,21 @@
 //    writes its cache at r * kv_bstride; the checks put slots at different
 //    positions that straddle K4's 256-row pages, one of them at 0.
 //  * Activation reads: each lane reads its 32-element block of every row
-//    once per weight block, and the lanes of a warp read 32 consecutive
-//    blocks: at a 128-byte lane stride, float4 loads of f32 rows conflict
-//    in the shared-memory banks and scatter over L1 lines, B times over
-//    (K5's bottleneck, PERF.md).
-//    So each block stages the input rows as bf16 (the rounding the dot
-//    applies anyway), K in chunks of KC elements, with the four 16-byte
-//    chunks of each 32-element block rotated by (block / 2): a quarter
-//    warp's 8 loads hit 8 bank groups, and a row takes half the bytes. KC
-//    is a multiple of a warp's pass over 32 blocks, so every lane visits
-//    its blocks in the same order as without chunks: the products and
-//    their order are unchanged, and each row sums as before.
-//  * Shared memory: B x KC bf16 fit in 46 KB (KC = K at one row, 2048 at 8
-//    rows, 1024 at 16), static, under the 48 KB a block gets without
-//    opting in: no launch asks for more, and registers, not shared memory,
-//    bound the blocks per SM.
+//    once per weight block and pair (both rows of the pair dot the same
+//    staged values), and the lanes of a warp read 32 consecutive blocks:
+//    at a 128-byte lane stride, float4 loads of f32 rows would conflict in
+//    the shared-memory banks and scatter over L1 lines, B times over (K5's
+//    bottleneck, PERF.md). So the rows are staged as bf16 with the four
+//    16-byte chunks of each 32-element block rotated by (block / 2): a
+//    quarter warp's 8 loads hit 8 bank groups, and a row takes half the
+//    bytes. Every lane visits its blocks in increasing order and each
+//    block's products are summed as dequant.cuh's block_dot sums them, so
+//    each (feature, row) sum is the same whatever the grid, the row count
+//    or the staging.
+//  * Shared memory: past the 48 KB a block gets without opting in, a
+//    launch needs the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize:
+//    each instantiation opts in once, to the 224 KB any launch of it may
+//    ask for, before its first launch.
 //
 // The current token's k/v: the TPU kernels fold the unrounded f32 k/v of
 // the current token into the softmax, and the caller writes the cache row

@@ -25,7 +25,7 @@
 //      grid take the 3H qkv features in turn (feature n on warp n mod the
 //      grid's warps); the epilogue writes k, v into cache row pos
 //   2. self-attention: the (head, 256-row page) items up to pos over the
-//      blocks, then (with more than one page) the per-head combine
+//      blocks, then (with more than one live page) the per-head combine
 //   3. o, x += .     4. LNc, cross-q     5. cross-attention pages (+combine)
 //   6. co, x += .    7. LN2, fc1, GELU   8. fc2, x += .
 // Phases 4-6 drop when use_cross is off. Each GEMV feature and each
@@ -56,6 +56,10 @@ using tts::attn::PAGE;
 
 constexpr int HEAD_D = 64;  // Parler's head size (hidden / heads)
 constexpr long long SPIN_LIMIT = 20000000000LL;  // clock cycles, ~10 s
+// passes whose K / V loads a page's warp keeps in flight: fewer than K3's,
+// so that the page code does not raise the step's registers per thread,
+// which set how many blocks of the one launch fit on an SM
+constexpr int PAGE_PF = 2;
 
 // Barrier across the whole (co-resident) grid; bar[0] counts arrivals,
 // bar[1] is the generation.
@@ -123,7 +127,8 @@ __device__ __forceinline__ void gemv_phase(const float* xin,
 }
 
 // One attention over heads x ceil(rows / 256) pages of (heads, rows, D)
-// K/V up to row `last`, then the combine; out (heads, D).
+// K/V up to row `last`, then the combine (where more than the first page
+// is live: with one, the page writes the output); out (heads, D).
 template <typename T, bool NC>
 __device__ __forceinline__ void attention_phase(const FlatArgs& a,
                                                 const float* q, const T* kc,
@@ -131,13 +136,13 @@ __device__ __forceinline__ void attention_phase(const FlatArgs& a,
                                                 int last) {
   const int n_pages = (rows + PAGE - 1) / PAGE, live = last / PAGE + 1;
   for (int it = blockIdx.x; it < a.heads * live; it += gridDim.x) {
-    tts::attn::attn_page<T, HEAD_D, NC>(
+    tts::attn::attn_page<T, HEAD_D, 1, NC, PAGE_PF>(
         q, kc, vc, last, a.attn, a.part_ml, a.part_acc, it / live, it % live,
         n_pages, a.heads, 1, rows, 0, 0, a.scale, nullptr, 0.f);
     __syncthreads();  // the next item reuses the page's shared memory
   }
   grid_sync(a.bar);
-  if (n_pages > 1) {
+  if (live > 1) {  // with one live page, the page wrote the output
     for (int bh = blockIdx.x; bh < a.heads; bh += gridDim.x) {
       if (threadIdx.x < HEAD_D) {
         tts::attn::attn_combine(a.part_ml, a.part_acc, last / PAGE, a.attn,

@@ -16,21 +16,28 @@ the kernel reads it from device memory, so the decode loop never syncs the
 host on it. The same kernel serves the Dia steps' cross-attention (every
 row of the bucketed encoder K/V, and the padded tail folded in) through
 its own entry, launched from ops/dia_megastep.py.
+
+A call is one launch: the block that finishes a (slot, kv head)'s pages
+last merges them, counted on an arrival counter that it resets to 0
+(`arrivals`: one zeroed buffer per stream, made once, so no call adds a
+memset launch).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import _build
 
 PAGE = 256  # rows per block in the kernel; scratch is sized by it
+MIN_ARRIVALS = 4096  # counters made at least, so that buffers rarely grow
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
-_ARGS = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
-         ctypes.c_longlong, ctypes.c_longlong, _i32, ctypes.c_float, _vp]
+_ARGS = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
+         _i32, ctypes.c_longlong, ctypes.c_longlong, _i32, ctypes.c_float, _vp]
 # One C entry serves both; each path counts its own launches.
 KERNEL = _build.Kernel("decode_attention", "tts_decode_attention", _ARGS)          # K3
 KERNEL_BATCHED = _build.Kernel("decode_attention", "tts_decode_attention", _ARGS)  # K4
@@ -67,6 +74,31 @@ def decode_attention_batched_plain(q: torch.Tensor, kv_k: torch.Tensor,
             q[s], kv_k if shared_kv else kv_k[s], kv_v if shared_kv else kv_v[s],
             p[s if p.numel() > 1 else 0], scale)
         for s in range(q.shape[0])])
+
+
+_ARRIVALS: dict = {}
+_ARRIVALS_LOCK = threading.Lock()
+
+
+def arrivals(device, n: int) -> torch.Tensor:
+    """At least n zeroed int32 arrival counters for the kernels launched on
+    `device`'s current stream (n = B * Hq covers any call). Every launch
+    leaves them zero and launches on one stream run in order, so one buffer
+    per (device, stream) serves every call; it is zeroed once, when made or
+    grown."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        key = ("cuda", index, torch.cuda.current_stream(index).cuda_stream)
+    else:
+        key = (dev.type, dev.index, 0)
+    with _ARRIVALS_LOCK:
+        buf = _ARRIVALS.get(key)
+        if buf is None or buf.numel() < n:
+            size = max(n, MIN_ARRIVALS, 0 if buf is None else 2 * buf.numel())
+            buf = _ARRIVALS[key] = torch.zeros(size, dtype=torch.int32,
+                                               device=dev)
+        return buf
 
 
 def attention_scratch(b: int, hq: int, ctx: int, d: int, device):
@@ -110,7 +142,8 @@ def _launch(kernel, q, kv_k, kv_v, pos, scale, out, scratch):
             part_acc.numel() < b * hq * n_pages * d:
         raise ValueError("decode_attention: scratch too small")
     kernel(_build.ptr(q), _build.ptr(kv_k), _build.ptr(kv_v), _build.ptr(pos),
-           _build.ptr(out), _build.ptr(part_ml), _build.ptr(part_acc), b, hq,
+           _build.ptr(out), _build.ptr(part_ml), _build.ptr(part_acc),
+           _build.ptr(arrivals(dev, b * hq)), b, hq,
            hq // hkv, ctx, d, int(kv_k.dtype == torch.bfloat16), q.stride(0),
            0 if shared_kv else hkv * ctx * d, int(pos.numel() > 1),
            float(_scale(q, scale)), _build.stream_ptr(dev))

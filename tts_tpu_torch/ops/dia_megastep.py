@@ -60,8 +60,8 @@ from .quant_matmul import BIAS, QuantTensor
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
-_CROSS_ARGS = [_vp, _vp, _vp, _vp, ctypes.c_float, _vp, _vp, _vp, _i32, _i32,
-               _i32, _i32, _i32, ctypes.c_longlong, ctypes.c_longlong,
+_CROSS_ARGS = [_vp, _vp, _vp, _vp, ctypes.c_float, _vp, _vp, _vp, _vp, _i32,
+               _i32, _i32, _i32, _i32, ctypes.c_longlong, ctypes.c_longlong,
                ctypes.c_float, _vp]
 # One GEMV entry and one cross-attention entry serve K10 and K11; each path
 # counts its own launches (the self-attention launches count on K4's).
@@ -343,6 +343,7 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     x_p, attn_p, cq_p, act_p = (vp(t.data_ptr()) for t in
                                 (xw, sc.attn, sc.cq, sc.act))
     part_ml, part_acc = (vp(t.data_ptr()) for t in sc.part)
+    arrivals = vp(da.arrivals(dev, rows * n_heads).data_ptr())
     tail = n_tail > 0
 
     def gemv(xin, norm, name, l, row0, n, k, res, out, epi, *, pair=None,
@@ -369,7 +370,7 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
              null, cq_p, EPI_ROPE_QKV)
         cross_kernel(cq_p, vp(addr(ck, l)), vp(addr(cv, l)),
                      vp(addr(vtail, l)) if tail else null, float(n_tail),
-                     attn_p, part_ml, part_acc, rows, n_heads, sb, d,
+                     attn_p, part_ml, part_acc, arrivals, rows, n_heads, sb, d,
                      int(ck.dtype == torch.bfloat16), hidden, n_heads * sb * d,
                      1.0, stream)
         gemv(attn_p, null, "occ", l, 2 * hidden, hidden, hidden, x_p, x_p,
@@ -469,6 +470,7 @@ def cross_attention_cuda(q, ck, cv, vtail, n_tail: int):
     CROSS(_build.ptr(q), _build.ptr(ck), _build.ptr(cv),
            _build.ptr(vtail) if n_tail > 0 else ctypes.c_void_p(0),
            float(n_tail), _build.ptr(out), _build.ptr(part_ml),
-           _build.ptr(part_acc), rows, h, sb, d, int(ck.dtype == torch.bfloat16),
+           _build.ptr(part_acc), _build.ptr(da.arrivals(dev, rows * h)), rows,
+           h, sb, d, int(ck.dtype == torch.bfloat16),
            h * d, h * sb * d, 1.0, _build.stream_ptr(dev))
     return out

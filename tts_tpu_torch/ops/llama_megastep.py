@@ -59,6 +59,42 @@ EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
 RMS_EPS = 1e-5
 MAX_BATCH = 16   # rows one GEMV launch takes (csrc/llama_megastep.cu MAX_ROWS);
                  # larger batches run in groups
+# csrc/gemv.cuh's launch shape: blocks of GEMV_WARPS warps in clusters of
+# GEMV_CLUSTER, at most one block per SM, staging B x K bf16 rows in at most
+# GEMV_STAGE_LIMIT bytes of shared memory a pass; an RMS prologue holds a
+# row in registers up to GEMV_RMS_HELD elements
+GEMV_WARPS, GEMV_CLUSTER = 12, 2
+GEMV_STAGE_LIMIT = 224 * 1024
+GEMV_RMS_HELD = 16 * 256
+
+
+def gemv_rows_per_pass(b: int, k: int) -> int:
+    """The rows a GEMV launch stages at a time (csrc/gemv.cuh
+    rows_per_pass): all b when b x k bf16 fit in GEMV_STAGE_LIMIT, else b
+    split evenly over the fewest passes that fit; 0 when one row does not."""
+    fit = GEMV_STAGE_LIMIT // (2 * k)
+    if fit < 1:
+        return 0
+    passes = -(-b // fit)
+    return -(-b // passes)
+
+
+def gemv_blocks(pairs: int, sms: int) -> int:
+    """The blocks of a GEMV launch over `pairs` feature pairs on a card of
+    `sms` SMs (csrc/gemv.cuh grid_blocks)."""
+    blocks = min(-(-pairs // GEMV_WARPS), sms)
+    return -(-blocks // GEMV_CLUSTER) * GEMV_CLUSTER
+
+
+def gemv_staging_bytes(b: int, n: int, k: int, *, rms: bool, silu: bool,
+                       sms: int) -> int:
+    """Bytes a GEMV launch reads from L2 to stage its b f32 input rows of k:
+    each cluster reads each row once (twice with an RMS prologue over rows
+    longer than GEMV_RMS_HELD). n output features; SiLU(gate) * up pairs
+    gate row j with up row j (n pairs), the other epilogues rows 2p, 2p+1."""
+    clusters = gemv_blocks(n if silu else n // 2, sms) // GEMV_CLUSTER
+    reads = 2 if rms and k > GEMV_RMS_HELD else 1
+    return clusters * b * k * 4 * reads
 
 
 class LlamaMegaLayers(NamedTuple):
