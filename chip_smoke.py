@@ -184,12 +184,32 @@ class DeviceTime(NamedTuple):
     events: float    # device events (kernels, memsets, copies) of one call
 
 
+def busy_ms(spans) -> float:
+    """The time in ms that at least one of the (start, end) spans (µs)
+    covers: kernels launched with programmatic dependent launch start while
+    the kernel before them still runs and wait for it, so their spans
+    overlap, and a sum of durations would count the overlap twice."""
+    total, cur_s, cur_e = 0.0, None, None
+    for st, en in sorted(spans):
+        if cur_e is None or st > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = st, en
+        else:
+            cur_e = max(cur_e, en)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
 def device_ms(fn, iters: int = 20, warmup: int = 3) -> DeviceTime:
     """Device time of one fn() call in ms, its split by kernel name and its
-    device events: the kernels (and memsets / copies) the calls ran, summed
-    from a torch.profiler trace of `iters` calls, over `iters`. Host time
-    between launches is not counted, so a host-bound call reads as its
-    kernels' work. Raises where the profiler shows no device activity."""
+    device events: the time the device was busy with the kernels (and
+    memsets / copies) the calls ran, from a torch.profiler trace of `iters`
+    calls (busy_ms: overlapping spans counted once), over `iters`; by name
+    likewise, each name's spans merged. Host time between launches is not
+    counted, so a host-bound call reads as its kernels' work. Raises where
+    the profiler shows no device activity."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -198,17 +218,15 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> DeviceTime:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    by_name: dict = {}
-    n = 0
+    spans: dict = defaultdict(list)
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = kernel_key(e.name)
-            by_name[key] = by_name.get(key, 0.0) + \
-                e.time_range.elapsed_us() / 1e3 / iters
-            n += 1
-    if not by_name:
+            spans[kernel_key(e.name)].append((e.time_range.start, e.time_range.end))
+    if not spans:
         raise RuntimeError("torch.profiler recorded no device activity")
-    return DeviceTime(sum(by_name.values()), by_name, n / iters)
+    by_name = {k: busy_ms(v) / iters for k, v in spans.items()}
+    every = [sp for v in spans.values() for sp in v]
+    return DeviceTime(busy_ms(every) / iters, by_name, len(every) / iters)
 
 
 def step_ms(fn, label: str, iters: int = 20) -> float:
@@ -226,7 +244,7 @@ def step_ms(fn, label: str, iters: int = 20) -> float:
 def device_trace(fn, label: str, per: int):
     """Run fn() once under torch.profiler (device activity only) and print
     the card's busy share over the span from the first kernel's start to
-    the last one's end, and device time by kernel name, per `per` units
+    the last one's end (busy_ms), and device time by kernel name, per `per` units
     (steps); returns fn()'s result. Only the profiler is a diagnostic:
     where it fails to start or to report device activity the trace says
     "not measured", but an error from fn() itself ends the run."""
@@ -258,13 +276,13 @@ def device_trace(fn, label: str, per: int):
     if not kernels:
         log(f"  device trace, {label}: not measured (no device events)")
         return out
-    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy = busy_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     span = (max(e.time_range.end for e in kernels) -
             min(e.time_range.start for e in kernels)) / 1e3
-    by_name: dict = {}
+    spans: dict = defaultdict(list)
     for e in kernels:
-        key = kernel_key(e.name)
-        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us() / 1e3
+        spans[kernel_key(e.name)].append((e.time_range.start, e.time_range.end))
+    by_name = {k: busy_ms(v) for k, v in spans.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     log(f"  device trace, {label}: {len(kernels) / per:.1f} kernels, "
         f"busy {busy / per:.4f} ms of a {span / per:.4f} ms span per step "
@@ -584,11 +602,13 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
 
 @contextlib.contextmanager
 def dequant_once():
-    """Within the block the plain llama and Dia steps dequantize each weight
-    once: their batched plain versions loop over the slots, which all read
-    the same layer's weights, and that dequantization is most of the CPU
-    yardstick's time. The values are the same."""
+    """Within the block the plain llama and Dia steps untile and dequantize
+    each weight once: their batched plain versions loop over the slots,
+    which all read the same layer's weights, and that work is most of the
+    CPU yardstick's time. The values are the same."""
     real, memo = lm.dequant, {}
+    real_rows, rows_memo = lm.weight_rows, {}
+    mods = (lm, lf, dm)
 
     def dequant(codes, scales, qtype, dtype=torch.float32):
         key = (codes.data_ptr(), scales.data_ptr(), tuple(codes.shape), qtype,
@@ -597,11 +617,22 @@ def dequant_once():
             memo[key] = codes, real(codes, scales, qtype, dtype)
         return memo[key][1]
 
+    def weight_rows(codes_t, scales_t, kind, n, d=0):
+        key = (codes_t.data_ptr(), scales_t.data_ptr(), tuple(codes_t.shape),
+               kind, n, d)
+        if key not in rows_memo:   # kept likewise
+            rows_memo[key] = codes_t, real_rows(codes_t, scales_t, kind, n, d)
+        return rows_memo[key][1]
+
     lm.dequant = dequant
+    for m in mods:
+        m.weight_rows = weight_rows
     try:
         yield
     finally:
         lm.dequant = real
+        for m in mods:
+            m.weight_rows = real_rows
 
 
 def judge_layers(err, base, label, where) -> None:
@@ -976,11 +1007,11 @@ def llama3_rope_factors(d: int, theta: float) -> np.ndarray:
     return f.astype(np.float32)
 
 
-def orpheus_kernel_weights(gen):
-    """Random Orpheus-3B weights on the card as the two steps take them: K8's
-    layers (Q4_0 packed, qkv scales f32, the others bf16), K6's (every scale
-    bf16, the head padded from 156,940 to 157,184 rows), and the step's
-    keyword arguments (RoPE inverse frequencies with the llama3 factors)."""
+def orpheus_source_weights(gen):
+    """Random Orpheus-3B weights on the card before the steps' prep: the
+    stacked OrpheusLayer (Q4_0 packed, f32 scales), the head (156,940 rows),
+    the final norm's weight, the head size and the step's keyword arguments
+    (RoPE inverse frequencies with the llama3 factors)."""
     from tts_tpu_torch.models.orpheus.model import OrpheusLayer
     from tts_tpu_torch.ops.attention import rope_freqs
     L, H, F = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["ffn"]
@@ -996,15 +1027,24 @@ def orpheus_kernel_weights(gen):
                       stack_quant(gen, L, H, H, f32), vec(),
                       stack_quant(gen, L, F, H, f32), stack_quant(gen, L, F, H, f32),
                       stack_quant(gen, L, H, F, f32))
-    mega, qtype = lm.prep_llama_mega(lw)
-    del lw
     head = rand_quant(gen, ORPHEUS["vocab"], H, quants.GGML_TYPE_Q4_0, f32)
-    flat = lf.prep_llama_flat(mega, head, vec()[0], qtype, ORPHEUS["heads"],
-                              ORPHEUS["kv_heads"])
     inv = rope_freqs(d, ORPHEUS["theta"], torch.from_numpy(
         llama3_rope_factors(d, ORPHEUS["theta"])).to(DEV))
-    return mega, flat, dict(qtype=qtype, n_heads=ORPHEUS["heads"],
-                            n_kv=ORPHEUS["kv_heads"], inv_freq=inv)
+    return lw, head, vec()[0], d, dict(n_heads=ORPHEUS["heads"],
+                                       n_kv=ORPHEUS["kv_heads"], inv_freq=inv)
+
+
+def orpheus_kernel_weights(gen):
+    """Random Orpheus-3B weights on the card as the two steps take them: K8's
+    layers (Q4_0 packed, qkv scales f32, the others bf16), K6's (every scale
+    bf16, the head padded from 156,940 to 157,184 rows), both tiled for the
+    GEMV, and the step's keyword arguments."""
+    lw, head, out_norm, d, kw = orpheus_source_weights(gen)
+    mega, qtype = lm.prep_llama_mega(lw, d)
+    del lw
+    flat = lf.prep_llama_flat(mega, head, out_norm, qtype, kw["n_heads"],
+                              kw["n_kv"])
+    return mega, flat, dict(qtype=qtype, **kw)
 
 
 def k6_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
@@ -1197,23 +1237,21 @@ def other_order_batched_plain(*a, **k):
         return lm.llama_megastep_batched_plain(*a, **k)
 
 
-def k7_staging(flat, b: int, sms: int) -> tuple[int, int, int]:
-    """(staging bytes, the parent design's, weight bytes) of one K7 step at
-    b rows: the bytes the step's GEMV launches read from L2 to stage their
-    f32 input rows (lm.gemv_staging_bytes; before, every block of 8 warps
-    read every row, twice under an RMS prologue), beside the weights they
-    stream once."""
+def k7_staging(flat, b: int, sms: int) -> tuple[int, int]:
+    """(staging bytes, weight bytes) of one K7 step at b rows: the bytes the
+    step's GEMV launches read from L2 to stage their f32 input rows
+    (lm.gemv_staging_bytes: each cluster reads its rows once, twice under
+    an RMS prologue), beside the weights they stream once."""
     layers = flat.layers
     L, H = layers.norms.shape[0], layers.norms.shape[2]
-    F, kvn = layers.gate_codes.shape[1], layers.qkv_codes.shape[1]
+    F = layers.gate_up_codes.shape[1] * lm.GEMV_TILE_PAIRS
+    kvn = layers.qkv_codes.shape[1] * 2 * lm.GEMV_TILE_PAIRS
     gemvs = [(kvn, H, True, False), (H, H, False, False), (F, H, True, True),
              (H, F, False, False)] * L + [(flat.head.shape[0], H, True, False)]
-    new = sum(lm.gemv_staging_bytes(b, n, k, rms=rms, silu=silu, sms=sms)
-              for n, k, rms, silu in gemvs)
-    old = sum(-(-(n if silu else n // 2) // 8) * b * k * 4 * (2 if rms else 1)
-              for n, k, rms, silu in gemvs)
+    staged = sum(lm.gemv_staging_bytes(b, n, k, rms=rms, silu=silu, sms=sms)
+                 for n, k, rms, silu in gemvs)
     weights = tensor_bytes(list(layers) + [flat.head.codes, flat.head.scales])
-    return new, old, weights
+    return staged, weights
 
 
 def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
@@ -1231,11 +1269,10 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     b = len(LLAMA_SLOTS)
     pos = torch.tensor(LLAMA_SLOTS, dtype=torch.int32, device=DEV)
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    staged, staged_before, wbytes = k7_staging(flat, b, sms)
+    staged, wbytes = k7_staging(flat, b, sms)
     ok = staged < wbytes
     log(f"  K7 at {b} slots, reckoned L2 reads to stage the GEMVs' input rows: "
-        f"{staged / 1e9:.3f} GB per batched step ({staged_before / 1e9:.3f} GB "
-        f"with a block of 8 warps staging every row) against "
+        f"{staged / 1e9:.3f} GB per batched step against "
         f"{wbytes / 1e9:.3f} GB of weights: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K7 stages more bytes than its weights")
@@ -2418,9 +2455,10 @@ DiaStepLayer = collections.namedtuple(
     "DiaStepLayer", dm.DiaMegaLayers._fields + ("ck", "cv", "vtail"))
 
 
-def dia_kernel_weights(gen):
-    """Random Dia-1.6B decoder weights on the card in K10's layout (Q4_0
-    packed, bf16 scales) and the step's keyword arguments."""
+def dia_source_weights(gen):
+    """Random Dia-1.6B decoder weights on the card before the step's prep
+    (a stacked DiaDecoderLayer, Q4_0 packed, f32 scales) and the head
+    size."""
     from tts_tpu_torch.models.dia.model import DiaDecoderLayer
     L, H, F = DIA["n_layers"], DIA["hidden"], DIA["ffn"]
     kvn = DIA["kv_heads"] * H // DIA["heads"]
@@ -2434,7 +2472,15 @@ def dia_kernel_weights(gen):
         stack_quant(gen, L, H, H), None, None, stack_quant(gen, L, H, H),
         vec(), stack_quant(gen, L, F, H), stack_quant(gen, L, F, H),
         stack_quant(gen, L, H, F))
-    mega, qtype = dm.prep_dia_mega(lw)
+    return lw, H // DIA["heads"]
+
+
+def dia_kernel_weights(gen):
+    """Random Dia-1.6B decoder weights on the card in K10's layout (Q4_0
+    packed, bf16 scales, tiled for the GEMV) and the step's keyword
+    arguments."""
+    lw, d = dia_source_weights(gen)
+    mega, qtype = dm.prep_dia_mega(lw, d)
     return mega, dict(qtype=qtype, n_heads=DIA["heads"], n_kv=DIA["kv_heads"])
 
 
@@ -2454,8 +2500,8 @@ def dia_step(fn):
     """A Dia step in `layer_errors`' form: the weights of one layer come
     with that layer's cross K/V (DiaStepLayer)."""
     def run(w, x, kc, vc, pos, **kw):
-        return fn(dm.DiaMegaLayers(*w[:11]), x, kc, vc, pos, w.ck, w.cv,
-                  w.vtail, **kw)
+        return fn(dm.DiaMegaLayers(*w[:len(dm.DiaMegaLayers._fields)]), x, kc,
+                  vc, pos, w.ck, w.cv, w.vtail, **kw)
     return run
 
 
@@ -3116,9 +3162,9 @@ def kernel_name(mangled: str) -> str:
 
 
 def ptxas_summary(src: str) -> list[str]:
-    """nvcc's register and spill report for one source, by the kernels'
-    row count (the last int of their template arguments: ROWS for the
-    GEMVs) where their names carry one."""
+    """nvcc's register and spill report for one source, by the last int of
+    the kernels' template arguments where their names carry one (the
+    n-tiles of the llama GEMV, the rows of K2's)."""
     groups, name, spill = defaultdict(list), None, 0
     for line in _build.ptxas_report(src).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3137,6 +3183,19 @@ def ptxas_summary(src: str) -> list[str]:
             f"{max(r for r, _ in v)} registers, spill stores up to "
             f"{max(sp for _, sp in v)} bytes ({sum(sp > 0 for _, sp in v)} "
             f"spill)" for key, v in sorted(groups.items())]
+
+
+GEMV_SOURCES = ("llama_megastep", "dia_megastep")   # the GEMV of K6-K11
+
+
+def hmma_count(src: str) -> int:
+    """Tensor-core (HMMA) instructions in the SASS of csrc/<src>.cu's
+    library, read with the CUDA toolkit's cuobjdump (beside nvcc)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(_build._lib_path(src))],
+                         capture_output=True, text=True, timeout=300,
+                         check=True)
+    return sum("HMMA" in line for line in res.stdout.splitlines())
 
 
 def nvidia_smi() -> str:
@@ -3160,6 +3219,12 @@ def main() -> int:
     for src in _build.SOURCES:
         for line in ptxas_summary(src):
             log(f"  ptxas {src}: {line}")
+    for src in GEMV_SOURCES:
+        n = hmma_count(src)
+        log(f"  SASS {src}: {n} HMMA instructions (the GEMV's tensor-core "
+            f"products){'' if n else ': FAIL'}")
+        if not n:
+            raise AssertionError(f"{src}: no tensor-core instruction in its SASS")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device=DEV)

@@ -91,7 +91,7 @@ def test_k7_plain_vs_pallas_interpret():
     jflat = jax_prep_flat(jmega, jw.head, jw.out_norm, qtype, cfg.vocab_size,
                           2, 1, CTX, mode="fullk", page=128)
     pw = orpheus_weights_from_numpy(jax_fields(jw), device="cpu")
-    pmega, pq = prep_llama_mega(pw.layers)
+    pmega, pq = prep_llama_mega(pw.layers, 128)
     pflat = prep_llama_flat(pmega, pw.head, pw.out_norm, pq, 2, 1)
     inv = rope_freqs(128, cfg.rope_theta, pw.rope_freqs)
     b, vocab = len(MIXED), cfg.vocab_size

@@ -26,7 +26,11 @@ across the pages, with and without the cross-attention, and one launch
 on its own counter per step. K3 / K4 at heads of 128 with 3 and 4 q heads
 a kv head; K3's pages merged by its last block in one launch at 1, 2 and
 16 pages, the arrival counters left at 0; the llama GEMV's rows each equal
-a one-row launch at 1, 8, 9 and 16 rows over K 3072 and 8192.
+a one-row launch at 1, 8, 9 and 16 rows over K 3072 and 8192, and a row in
+each of a launch's 16 positions equals the one-row launch for every
+epilogue, quant type and scale type; 100 iterations of dependent GEMV
+launches with K3 between them, enqueued without a sync, each held to the
+plain version (the programmatic dependent launch's wait).
 """
 import pytest
 import torch
@@ -323,7 +327,7 @@ def _tiny_llama(dev, qtype):
     vec = lambda: torch.randn((L, H), device=dev) * 0.1 + 1  # noqa: E731
     lw = OrpheusLayer(vec(), stack(H, H), stack(128, H), stack(128, H),
                       stack(H, H), vec(), stack(F, H), stack(F, H), stack(H, F))
-    mega, qt = lm.prep_llama_mega(lw)
+    mega, qt = lm.prep_llama_mega(lw, 64)
     flat = lf.prep_llama_flat(mega, quant(1000, H), vec()[0], qt, heads, kv)
     inv = rope_freqs(64, 500000.0, torch.full((32,), 1.25, device=dev))
     return mega, flat, qt, dict(qtype=qt, n_heads=heads, n_kv=kv, inv_freq=inv)
@@ -487,6 +491,15 @@ def test_batched_llama_launch_counters(dev):
 BOUNDARY_TOL = 5e-3
 
 
+def _tiles(w, kind, up=None, d=0):
+    """w (and SiLU's up) tiled for the GEMV, its pairs `kind`'s."""
+    n = w.shape[0]
+    rows = lm.gemv_pair_rows(kind, n if kind == "silu" else n // 2, d)
+    return lm.gemv_tile(w.codes, w.scales, *rows,
+                        codes_b=None if up is None else up.codes,
+                        scales_b=None if up is None else up.scales)
+
+
 def _llama_gemv(dev, x, w, qt, out, *, rms_w=None, res=None):
     """One launch of the llama GEMV on K7's counter: RMS(x; rms_w) @ W^T
     stored (EPI_STORE), or res + x @ W^T (EPI_RESIDUAL) without a norm."""
@@ -495,8 +508,9 @@ def _llama_gemv(dev, x, w, qt, out, *, rms_w=None, res=None):
     vp, null = _build.ptr, ctypes.c_void_p(0)
     b, k = x.shape
     rms = rms_w is not None
-    lm.KERNEL_BATCHED(vp(x), vp(rms_w) if rms else null, int(rms), vp(w.codes),
-                      vp(w.scales), vp(w.codes), vp(w.scales), qt, 1, 1, b,
+    codes, scales = _tiles(w, "pairs")
+    lm.KERNEL_BATCHED(vp(x), vp(rms_w) if rms else null, int(rms), vp(codes),
+                      vp(scales), vp(codes), vp(scales), qt, 1, 1, b,
                       w.shape[0], k, null if rms else vp(res), vp(out),
                       lm.EPI_STORE if rms else lm.EPI_RESIDUAL, null, null, 0,
                       null, null, 0, 0, 0, 0, 0, 0, _build.stream_ptr(dev))
@@ -505,13 +519,13 @@ def _llama_gemv(dev, x, w, qt, out, *, rms_w=None, res=None):
 @pytest.mark.parametrize("b,k", [(8, 3072), (16, 1536), (16, 3072), (8, 8192),
                                  (14, 8192), (16, 8192)])
 def test_llama_gemv_at_the_48k_shared_memory_boundary(dev, b, k):
-    """The shared memory a launch stages its rows in: b x K bf16 of exactly
-    48 KB (8 rows at Orpheus-3B's K 3072, 16 at 1536), the most a block gets
-    without opting in; 96 KB (16 x 3072) and 128 KB (8 x 8192: K7's down
-    GEMV); 224 KB, the most one pass takes (14 x 8192); and 16 x 8192,
-    staged in two passes of 8 rows. Every launch opts in to the most it
-    may ask. The RMS-prologue GEMV against its plain version, within
-    BOUNDARY_TOL."""
+    """Launches whose dynamic shared memory (the warps' weight rings, rank
+    0's slots for the other blocks' sums, and the block's K range of the b
+    rows as bf16, lm.gemv_smem_bytes) spans 64-149 KB: past the 48 KB a
+    block gets without opting in, and at 16 x 8192 (Orpheus's down at 16
+    rows: K split over clusters of 4, 64 KB of rows a block) the most any
+    launch asks. Every launch opts in to the most it may ask. The
+    RMS-prologue GEMV against its plain version, within BOUNDARY_TOL."""
     torch.manual_seed(0)
     qt, n = quants.GGML_TYPE_Q4_0, 64
     w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
@@ -529,9 +543,9 @@ def test_llama_gemv_at_the_48k_shared_memory_boundary(dev, b, k):
 @pytest.mark.parametrize("b", [1, 8, 9, 16])
 def test_llama_gemv_rows_equal_one_row(dev, b, k, rms):
     """Every row of a b-row launch equals a 1-row launch on that row bit for
-    bit, with the RMS prologue (over K 8192 it reads the row twice rather
-    than hold it) and without (a residual add), across rows staged in one
-    pass or two (16 x 8192)."""
+    bit, with the RMS prologue and without (a residual add), at one n-tile
+    (1-8 rows) and two (9-16), with K split over clusters of 2 (3072) and
+    of 4 (8192)."""
     torch.manual_seed(0)
     qt, n = quants.GGML_TYPE_Q4_0, 1000
     w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
@@ -548,6 +562,125 @@ def test_llama_gemv_rows_equal_one_row(dev, b, k, rms):
            res + lm.dqdot(x, w.codes, w.scales, qt))
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+def _gemv(dev, x, w, out, epi, *, rms_w=None, res=None, up=None, rope=None):
+    """One launch of tts_llama_gemv on K7's counter: x (b, K) against the
+    QuantTensor w (its qtype, packing and scale dtype; tiled for the launch
+    by _tiles), with an RMS prologue when rms_w is given; `up` is SiLU(gate)
+    * up's second weight;
+    `rope` (pos, inv, hidden, kvh, d, kc, vc) feeds the RoPE epilogue, row
+    r's cache at kc / vc[r] (bf16, (n_kv, ctx, d) each)."""
+    import ctypes
+    from tts_tpu_torch.ops import _build
+    vp, null = _build.ptr, ctypes.c_void_p(0)
+    b, k = x.shape
+    pos, inv, hidden, kvh, d, kc, vc = rope if rope is not None else \
+        (None, None, 0, 0, 0, None, None)
+    ctx = kc.shape[2] if kc is not None else 0
+    kind = "rope" if rope is not None else "silu" if up is not None else "pairs"
+    codes, scales = _tiles(w, kind, up, d)
+    lm.KERNEL_BATCHED(
+        vp(x), vp(rms_w) if rms_w is not None else null, int(rms_w is not None),
+        vp(codes), vp(scales), vp(codes), vp(scales), w.qtype,
+        int(w.is_packed), int(w.scales.dtype == torch.bfloat16), b, w.shape[0],
+        k, vp(res) if res is not None else null, vp(out), epi,
+        vp(inv) if inv is not None else null, vp(pos) if pos is not None else null,
+        1, vp(kc) if kc is not None else null, vp(vc) if vc is not None else null,
+        hidden, kvh, d, ctx, 1, kc[0].numel() if kc is not None else 0,
+        _build.stream_ptr(dev))
+
+
+GEMV_EPIS = ("store", "residual", "silu", "rope_qkv", "rope_q")
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
+                                   quants.GGML_TYPE_Q8_0])
+@pytest.mark.parametrize("epi", GEMV_EPIS)
+def test_gemv_row_in_each_position_equals_one_row(dev, epi, qtype, scale_dtype):
+    """The tensor-core GEMV gives a row the same bits in each of the 16
+    positions of a launch (two n-tiles of 8 columns) as a one-row launch
+    gives it: each epilogue (store and SiLU(gate) * up with the RMS
+    prologue, the residual add without, RoPE with the k / v cache write and
+    with q alone), Q4_0 packed, Q5_0 and Q8_0, f32 and bf16 scales. Rows at
+    their own positions write their own caches, compared too."""
+    from tts_tpu_torch.ops.attention import rope_freqs
+    torch.manual_seed(0)
+    b, k, heads, kv, d, ctx = 16, 512, 4, 2, 64, 64
+    hidden, kvh = heads * d, kv * d
+    n = {"rope_qkv": hidden + 2 * kvh, "rope_q": hidden}.get(epi, 384)
+    w = _rand_quant(n, k, qtype, scale_dtype, dev).pack()
+    up = _rand_quant(n, k, qtype, scale_dtype, dev).pack() if epi == "silu" else None
+    x = torch.randn((b, k), device=dev)
+    rms_w = None if epi == "residual" else torch.rand(k, device=dev) + 0.5
+    res = torch.randn((b, n), device=dev) if epi == "residual" else None
+    code = {"store": lm.EPI_STORE, "residual": lm.EPI_RESIDUAL,
+            "silu": lm.EPI_SILU_MUL}.get(epi, lm.EPI_ROPE_QKV)
+    pos = torch.randint(0, ctx, (b,), dtype=torch.int32, device=dev)
+    inv = rope_freqs(d, 10000.0, device=dev)
+    kc0 = torch.randn((b, kv, ctx, d), device=dev).to(torch.bfloat16)
+    vc0 = torch.randn((b, kv, ctx, d), device=dev).to(torch.bfloat16)
+
+    def launch(rows, kc, vc):
+        out = torch.empty((len(range(*rows.indices(b))), n), device=dev)
+        rope = None
+        if epi.startswith("rope"):
+            cache = (kc, vc) if epi == "rope_qkv" else (None, None)
+            rope = (pos[rows], inv, hidden, kvh if epi == "rope_qkv" else 0, d,
+                    *cache)
+        _gemv(dev, x[rows], w, out, code, rms_w=rms_w, up=up,
+              res=res[rows] if res is not None else None, rope=rope)
+        return out
+
+    kc, vc = kc0.clone(), vc0.clone()
+    out = launch(slice(0, b), kc, vc)
+    for r in range(b):
+        k1, v1 = kc0[r:r + 1].clone(), vc0[r:r + 1].clone()
+        one = launch(slice(r, r + 1), k1, v1)
+        assert torch.equal(out[r:r + 1], one), f"row {r}"
+        assert torch.equal(kc[r:r + 1], k1) and torch.equal(vc[r:r + 1], v1), r
+    if epi in ("store", "residual"):
+        ref = lm.dqdot(lm.rms_norm(x, rms_w), w.codes, w.scales, qtype) \
+            if rms_w is not None else res + lm.dqdot(x, w.codes, w.scales, qtype)
+        torch.testing.assert_close(out, ref, rtol=0,
+                                   atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+def test_gemv_chain_with_k3_between_equals_plain(dev):
+    """100 iterations of a layer's dependent launches, enqueued with no host
+    sync: q = RMS(x) @ Wq into one reused buffer, K3 with q's heads over a
+    fixed cache into one reused buffer, x' = x + attn @ Wo into the next row
+    of a history. Each iteration is then held to the plain version computed
+    from the kernels' own x before it: a launch that read its input before
+    the kernel before it had finished (before griddepcontrol.wait), or
+    wrote a buffer that kernel still read, shows as an iteration that
+    disagrees."""
+    torch.manual_seed(0)
+    qt, H, heads, d, ctx, steps = quants.GGML_TYPE_Q4_0, 256, 4, 64, 320, 100
+    wq = _rand_quant(H, H, qt, torch.bfloat16, dev).pack()
+    wo = _rand_quant(H, H, qt, torch.bfloat16, dev).pack()
+    nw = torch.rand(H, device=dev) + 0.5
+    kc = torch.randn((1, heads, ctx, d), device=dev).to(torch.bfloat16)
+    vc = torch.randn((1, heads, ctx, d), device=dev).to(torch.bfloat16)
+    pos = torch.tensor([300], dtype=torch.int32, device=dev)
+    hist = torch.empty((steps + 1, 1, H), device=dev)
+    hist[0] = torch.randn((1, H), device=dev)
+    q = torch.empty((1, H), device=dev)
+    attn = torch.empty((1, heads, d), device=dev)
+    part = da.attention_scratch(1, heads, ctx, d, dev)
+    for i in range(steps):
+        _gemv(dev, hist[i], wq, q, lm.EPI_STORE, rms_w=nw)
+        da._launch(da.KERNEL, q.view(1, heads, d), kc, vc, pos, None, attn, part)
+        _gemv(dev, attn.view(1, H), wo, hist[i + 1], lm.EPI_RESIDUAL, res=hist[i])
+    torch.cuda.synchronize()
+    for i in range(steps):
+        q_ref = lm.dqdot(lm.rms_norm(hist[i], nw), wq.codes, wq.scales, qt)
+        a_ref = da.decode_attention_plain(q_ref.view(heads, d), kc[0], vc[0], pos)
+        upd = lm.dqdot(a_ref.reshape(1, H), wo.codes, wo.scales, qt)
+        torch.testing.assert_close(hist[i + 1] - hist[i], upd, rtol=0,
+                                   atol=BOUNDARY_TOL * upd.abs().max().item(),
+                                   msg=lambda m, i=i: f"iteration {i}: {m}")
 
 
 def test_parler_gemv_at_the_48k_shared_memory_boundary(dev):
@@ -607,7 +740,7 @@ def _tiny_dia(dev, qtype):
                          stack(H, H), vec(), stack(H, H), None, None,
                          stack(H, H), vec(), stack(F, H), stack(F, H),
                          stack(H, F))
-    mega, qt = dm.prep_dia_mega(lw)
+    mega, qt = dm.prep_dia_mega(lw, 64)
     return mega, dict(qtype=qt, n_heads=4, n_kv=2)
 
 

@@ -85,7 +85,7 @@ def mega_pair(cfg, qtype):
     """(JAX DiaMegaLayers, the port's copy of it, qtype)."""
     mega, qt = jdm.prep_dia_mega(jax_decoder(cfg, qtype))
     fields = {f: np.asarray(getattr(mega, f)) for f in mega._fields}
-    return mega, dia_mega_from_numpy(fields, qt, device="cpu"), qt
+    return mega, dia_mega_from_numpy(fields, qt, cfg.head_size, device="cpu"), qt
 
 
 def fake_cross(cfg, sentence_len, seed=1, batch=()):
@@ -142,7 +142,7 @@ def test_prep_dia_mega_matches_jax():
     dec = jax_decoder(cfg, Q4)
     mega, qt = jdm.prep_dia_mega(dec)
     fields = {f: np.asarray(getattr(mega, f)) for f in mega._fields}
-    carried = dia_mega_from_numpy(fields, qt, device="cpu")
+    carried = dia_mega_from_numpy(fields, qt, cfg.head_size, device="cpu")
 
     def leaf(v):
         return (np.asarray(v.codes_t), np.asarray(v.scales_t), v.qtype) \
@@ -154,7 +154,7 @@ def test_prep_dia_mega_matches_jax():
         heads=zeros, enc_layers={f: zeros for f in DiaEncoderLayer._fields},
         dec_layers={f: leaf(getattr(dec, f)) for f in DiaDecoderLayer._fields}),
         device="cpu")
-    own, qt2 = pdm.prep_dia_mega(w.dec_layers)
+    own, qt2 = pdm.prep_dia_mega(w.dec_layers, cfg.head_size)
     assert qt2 == qt
     for f in own._fields:
         assert getattr(own, f).dtype == getattr(carried, f).dtype, f

@@ -113,10 +113,10 @@ def test_no_hidden_cpu_fallback(tmp_path):
         for make in (lambda: load_orpheus_weights(r, OrpheusConfig()),
                      lambda: load_snac_weights(r, SNACConfig()),
                      lambda: orpheus_weights_from_numpy({}),
-                     lambda: llama_mega_from_numpy({}, 2),
+                     lambda: llama_mega_from_numpy({}, 2, 128),
                      lambda: load_dia_weights(r, DiaConfig()),
                      lambda: dia_weights_from_numpy({}),
-                     lambda: dia_mega_from_numpy({}, 2),
+                     lambda: dia_mega_from_numpy({}, 2, 128),
                      lambda: init_state(DiaConfig(), 8),
                      lambda: init_batched_dia_state(DiaConfig(), 2),
                      lambda: DiaRunner(DiaConfig(), None),
@@ -176,31 +176,38 @@ def test_cpu_tensors_take_the_plain_versions():
     w = qm.QuantTensor(torch.randint(0, 16, (8, 64), dtype=torch.uint8),
                        torch.rand(8, 2), 2)
     qm.quant_matmul(torch.randn(1, 64), w)
-    # one llama layer at H 64 (2 q / 1 kv heads of 32) through K8 and K6
     def c(n, k):
         return torch.randint(0, 16, (1, n, k // 2), dtype=torch.uint8)
 
     def s(n, k):
         return torch.rand(1, n, k // 32).to(torch.bfloat16)
 
-    mega = lm.LlamaMegaLayers(c(128, 64), s(128, 64), c(64, 64), s(64, 64),
-                              c(128, 64), s(128, 64), c(128, 64), s(128, 64),
-                              c(64, 128), s(64, 128), torch.ones(1, 2, 64))
-    head = qm.QuantTensor(c(70, 64)[0], torch.rand(70, 2), 2)
-    flat = lf.prep_llama_flat(mega, head, torch.ones(64), 2, 2, 1)
-    step = dict(qtype=2, n_heads=2, n_kv=1, inv_freq=torch.rand(16))
-    kv = torch.zeros(1, 1, 40, 32)
+    # one llama layer at H 256 (2 q / 1 kv heads of 128, F 512), tiled for
+    # the GEMV by its prep, through K8 and K6
+    from tts_tpu_torch.models.orpheus.model import OrpheusLayer
+
+    def q4(n, k):
+        return qm.QuantTensor(c(n, k), s(n, k), 2)
+
+    one = torch.ones(1, 256)
+    mega, _ = lm.prep_llama_mega(OrpheusLayer(
+        one, q4(256, 256), q4(128, 256), q4(128, 256), q4(256, 256), one,
+        q4(512, 256), q4(512, 256), q4(256, 512)), 128)
+    head = qm.QuantTensor(c(70, 256)[0], torch.rand(70, 8), 2)
+    flat = lf.prep_llama_flat(mega, head, torch.ones(256), 2, 2, 1)
+    step = dict(qtype=2, n_heads=2, n_kv=1, inv_freq=torch.rand(64))
+    kv = torch.zeros(1, 1, 40, 128)
     pos = torch.tensor([5], dtype=torch.int32)
-    lm.llama_megastep(mega, torch.randn(1, 64), kv, kv.clone(), pos, **step)
-    lg, _, _ = lf.llama_flat_megastep(flat, torch.randn(1, 64), kv, kv.clone(),
+    lm.llama_megastep(mega, torch.randn(1, 256), kv, kv.clone(), pos, **step)
+    lg, _, _ = lf.llama_flat_megastep(flat, torch.randn(1, 256), kv, kv.clone(),
                                       pos, **step)
     assert lg.shape == (1, 256) and not lg[:, 70:].any()
     # and through K9 and K7 for two slots at different positions
-    kv2 = torch.zeros(1, 2, 1, 40, 32)
+    kv2 = torch.zeros(1, 2, 1, 40, 128)
     pos2 = torch.tensor([0, 39], dtype=torch.int32)
-    lm.llama_megastep_batched(mega, torch.randn(2, 64), kv2, kv2.clone(), pos2,
+    lm.llama_megastep_batched(mega, torch.randn(2, 256), kv2, kv2.clone(), pos2,
                               **step)
-    lg, _, _ = lf.llama_flat_megastep_batched(flat, torch.randn(2, 64), kv2,
+    lg, _, _ = lf.llama_flat_megastep_batched(flat, torch.randn(2, 256), kv2,
                                               kv2.clone(), pos2, **step)
     assert lg.shape == (2, 256) and not lg[:, 70:].any()
     # one Parler layer at H 64 (one head of 64) through K12

@@ -72,11 +72,11 @@ def tiny(request):
     jmega, jq = jax_prep_mega(jw.layers)
     assert jq == qtype
     pw = orpheus_weights_from_numpy(jax_fields(jw), device="cpu")
-    pmega, pq = prep_llama_mega(pw.layers)
+    pmega, pq = prep_llama_mega(pw.layers, D)
     assert pq == qtype
     # the JAX prep's layout carried across equals the port's own prep
     conv = llama_mega_from_numpy(
-        {f: np.asarray(getattr(jmega, f)) for f in jmega._fields}, qtype,
+        {f: np.asarray(getattr(jmega, f)) for f in jmega._fields}, qtype, D,
         device="cpu")
     for f in pmega._fields:
         a, b = getattr(pmega, f), getattr(conv, f)

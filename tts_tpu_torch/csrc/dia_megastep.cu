@@ -37,17 +37,16 @@
 //   6. gemv  cross o;            epilogue x += .
 //   7. gemv  RMS prologue, gate and up;  epilogue SiLU(gate) * up
 //   8. gemv  down;               epilogue x += .
-// The GEMV is the llama steps' (gemv.cuh), instantiated here for the rows
-// the Dia steps take: 2 (K10's pair), 8 and 16 (K11 at up to 4 and 8
-// pairs), bf16 scales only (prep_dia_mega keeps every scale in bf16, as the
-// TPU prep does) and the qtypes prep_dia_mega admits. A source of its own
-// builds in parallel with llama_megastep.cu, whose 1/8/16-row set is the
-// slowest of the sources to compile; a 2-row instantiation keeps K10 from
-// carrying 8 accumulators per row through the 8-row kernel.
+// The GEMV is the llama steps' (gemv.cuh: tensor cores, a cp.async weight
+// ring per warp, K split over a cluster, programmatic dependent launch),
+// instantiated here for one n-tile (K10's pair, K11 up to 4 pairs) and two
+// (K11 at 5-8 pairs), bf16 scales only (prep_dia_mega keeps every scale in
+// bf16, as the TPU prep does) and the qtypes prep_dia_mega admits. A
+// source of its own builds in parallel with llama_megastep.cu.
 //
 // Where it can go wrong, and what this design does:
 //  * Per-pair bit-identity: each K11 pair equals K10 on that pair's state
-//    bit for bit. A row sums in the same order whatever ROWS is (gemv.cuh),
+//    bit for bit. A row sums in the same order whatever B is (gemv.cuh),
 //    K4 and the cross-attention treat each row alone, so the engine's
 //    greedy codes equal the single-stream runner's.
 //  * Attention roundings: the TPU batched kernel rounds q, K/V and the
@@ -71,35 +70,18 @@
 
 namespace {
 
-template <int QT, bool PACKED, int ROWS>
-int launch(int rms, int epi, const float* x, const float* norm_w,
-           const uint8_t* ca, const void* sa, const uint8_t* cb, const void* sb,
-           int B, int P, int N, int K, const float* res, float* out,
-           RopeArgs ra, cudaStream_t s) {
-#define TTS_GEMV_ARGS x, norm_w, ca, sa, cb, sb, B, P, N, K, res, out, ra, s
-  if (rms && epi == EPI_ROPE_QKV) {
-    return launch_one<QT, PACKED, true, true, EPI_ROPE_QKV, ROWS>(TTS_GEMV_ARGS);
-  } else if (rms && epi == EPI_SILU_MUL) {
-    return launch_one<QT, PACKED, true, true, EPI_SILU_MUL, ROWS>(TTS_GEMV_ARGS);
-  } else if (!rms && epi == EPI_RESIDUAL) {
-    return launch_one<QT, PACKED, true, false, EPI_RESIDUAL, ROWS>(TTS_GEMV_ARGS);
-  }
-#undef TTS_GEMV_ARGS
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int ROWS>
-int dispatch(int qtype, int packed, int rms, int epi, const float* x,
-             const float* norm_w, const uint8_t* ca, const void* sa,
-             const uint8_t* cb, const void* sb, int B, int P, int N, int K,
-             const float* res, float* out, RopeArgs ra, cudaStream_t s) {
-#define TTS_GEMV_ARGS rms, epi, x, norm_w, ca, sa, cb, sb, B, P, N, K, res, out, ra, s
+template <int NT>
+int dispatch(int qtype, int packed, const float* x, const float* norm_w,
+             const uint8_t* ca, const void* sa, int B, int P, int N, int K,
+             int epi, const float* res, float* out, RopeArgs ra,
+             cudaStream_t s) {
+#define TTS_GEMV_ARGS x, norm_w, ca, sa, B, P, N, K, epi, res, out, ra, s
   if (qtype == Q4_0 && packed) {
-    return launch<Q4_0, true, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<Q4_0, true, true, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q5_0 && !packed) {
-    return launch<Q5_0, false, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<Q5_0, false, true, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q8_0 && !packed) {
-    return launch<Q8_0, false, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<Q8_0, false, true, NT>(TTS_GEMV_ARGS);
   }
 #undef TTS_GEMV_ARGS
   return (int)cudaErrorInvalidValue;
@@ -107,9 +89,8 @@ int dispatch(int qtype, int packed, int rms, int epi, const float* x,
 
 }  // namespace
 
-constexpr int MAX_ROWS = 16;
-
-// tts_llama_gemv's contract (llama_megastep.cu) for the Dia steps: bf16
+// tts_llama_gemv's contract (llama_megastep.cu, tiled weights) for the Dia
+// steps: bf16
 // scales only (scale_bf16 must be 1), Q4_0 packed, Q5_0 or Q8_0, 1 <= B <=
 // 16, and (rms, epi) one of (1, ROPE_QKV), (1, SILU_MUL), (0, RESIDUAL).
 // ROPE_QKV with kvh = 0 rotates q alone and writes no cache (the cross q).
@@ -128,13 +109,15 @@ extern "C" int tts_dia_gemv(
       (d <= 0 || d % 2 || hidden % d || kvh % d || N != hidden + 2 * kvh)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool ok = (rms && (epi == EPI_ROPE_QKV || epi == EPI_SILU_MUL)) ||
+                  (!rms && epi == EPI_RESIDUAL);
+  if (!ok || (rms && norm_w == nullptr)) return (int)cudaErrorInvalidValue;
   const int P = epi == EPI_SILU_MUL ? N : N / 2;
   const RopeArgs ra{inv, pos, pos_stride, kc, vc, hidden, kvh, d, ctx,
                     cache_bf16, kv_bstride};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define TTS_GEMV_ARGS qtype, packed, rms, epi, x, norm_w, codes_a, scales_a, codes_b, scales_b, B, P, N, K, res, out, ra, s
-  if (B <= 2) return dispatch<2>(TTS_GEMV_ARGS);
-  if (B <= 8) return dispatch<8>(TTS_GEMV_ARGS);
-  return dispatch<MAX_ROWS>(TTS_GEMV_ARGS);
+#define TTS_GEMV_ARGS qtype, packed, x, rms ? norm_w : nullptr, codes_a, scales_a, B, P, N, K, epi, res, out, ra, s
+  if (B <= 8) return dispatch<1>(TTS_GEMV_ARGS);
+  return dispatch<2>(TTS_GEMV_ARGS);
 #undef TTS_GEMV_ARGS
 }

@@ -1,13 +1,30 @@
 // The block-dequant GEMV of the llama-family decode steps (K6-K9, and the
-// Dia steps K10/K11): x (B, K) @ dequant(W)^T for B <= ROWS input rows, with
-// the RMS norm fused as a prologue and the step's epilogues fused after it
-// (RoPE + KV-row write, SiLU(gate) * up, residual add, store). Each source
-// that launches it (llama_megastep.cu, dia_megastep.cu) instantiates the
-// row counts and types it needs, so the sources build in parallel. The
-// design notes are in llama_megastep.cu's header.
+// Dia steps K10/K11): x (B, K) @ dequant(W)^T for 1 <= B <= 16 input rows,
+// with the RMS norm fused as a prologue and the step's epilogues fused
+// after it (RoPE + KV-row write, SiLU(gate) * up, residual add, store).
+// Each source that launches it (llama_megastep.cu, dia_megastep.cu)
+// instantiates the types and n-tile counts it needs, so the sources build
+// in parallel. The design notes are in llama_megastep.cu's header.
+//
+// In short: the products run on the tensor cores (mma.sync m16n8k16, bf16
+// in, f32 out). A warp's M tile is 16 weight rows, the two rows of 8
+// feature pairs (rows 0-7 the pairs' "a" rows, 8-15 their "b" rows), so the
+// D fragment hands each thread both features of pair lane / 4 for input
+// rows 2 (lane % 4) and + 1, and every epilogue stays in registers. The
+// input rows are the B operand (one n-tile of 8 rows, two for 9-16 rows),
+// staged once per block as bf16 in shared memory. The weights, tiled at
+// prep so that a warp's stages are contiguous runs, stream through a ring
+// of shared-memory stages per warp, fed by 16-byte cp.async copies, and
+// are dequantized straight into A fragments. K is split over
+// the blocks of a cluster (2, or 4 past K 4096), each staging only its
+// part of the rows; the blocks' partial sums meet in rank 0's shared
+// memory. The launch uses programmatic dependent launch: a block issues
+// its first weight copies, then waits for the kernel before it.
 #pragma once
 
-#include <atomic>
+#include <map>
+#include <mutex>
+#include <utility>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -19,16 +36,23 @@ namespace {
 using namespace tts;
 namespace cg = cooperative_groups;
 
-constexpr int WARPS = 12;
-// The RMS norm's sum of squares is taken by the first RMS_WARPS warps,
-// thread t summing elements t, t + RMS_WARPS * 32, ...
-constexpr int RMS_WARPS = 8;
-constexpr int CLUSTER = 2;   // blocks that share one staging of the rows
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int TILE_PAIRS = 8;        // feature pairs of a warp's M tile (16 rows)
+constexpr int UNIT_BLOCKS = 4;       // 32-weight blocks of a row in one ring stage
+constexpr int UNIT_K = UNIT_BLOCKS * QK;
+constexpr int NBUF = 2;              // partial-sum slots a warp has in rank 0
+constexpr int MAX_KS = 4;
+constexpr int MAX_ROWS = 16;
 constexpr float RMS_EPS = 1e-5f;
-constexpr int RMS_REGS = 16;  // x elements a thread holds for the RMS norm
-// Dynamic shared memory a block may stage in: the H100's 227 KB a block
-// can have, less room for the static shared memory.
-constexpr int STAGE_LIMIT = 224 * 1024;
+// Blocks of one launch an SM may hold at most. A launch takes the second
+// only where its (tile, K range) items are at least twice the warps of one
+// block an SM (the LM head): there 16 warps an SM hide each other's
+// latency; a smaller launch runs faster on one (gemv_ab, PERF.md).
+constexpr int MAX_BLOCKS_PER_SM = 2;
+// Dynamic shared memory a block may have: the H100's 227 KB, less the
+// static shared memory below (under 1 KB).
+constexpr int SMEM_LIMIT = 226 * 1024;
 
 enum Epi { EPI_STORE = 0, EPI_RESIDUAL = 1, EPI_SILU_MUL = 2, EPI_ROPE_QKV = 3 };
 
@@ -46,18 +70,251 @@ struct RopeArgs {
   long long bstride;
 };
 
-// The sum of v over the first RMS_WARPS warps (every thread of the block
-// calls it): each warp's lanes, then the warps in order.
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0 && threadIdx.x / 32 < RMS_WARPS) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float t = 0.f;
-#pragma unroll
-  for (int w = 0; w < RMS_WARPS; ++w) t += red[w];
-  __syncthreads();
-  return t;
+// Blocks of a cluster, each taking K / k_split(K) of every row: fixed by K
+// alone, so a row's sum has one order whatever B is.
+__host__ __device__ constexpr int k_split(int K) { return K > 4096 ? 4 : 2; }
+
+// One ring stage of a warp: UNIT_BLOCKS consecutive 32-weight blocks of its
+// tile's 16 rows. Codes block-major, [block][row][CB bytes]; scales
+// row-major, [row][block].
+template <bool PACKED, bool SBF16>
+struct Stage {
+  static constexpr int CB = PACKED ? 16 : 32;
+  static constexpr int CODES = UNIT_BLOCKS * 16 * CB;
+  static constexpr int SB = SBF16 ? 2 : 4;
+  static constexpr int BYTES = CODES + 16 * UNIT_BLOCKS * SB;
+};
+
+// Ring stages a warp keeps: about 7 KB in flight a warp at one n-tile,
+// 4.5 KB at two (whose input rows take twice the room).
+template <bool PACKED, bool SBF16, int NT>
+__host__ __device__ constexpr int ring_stages() {
+  const int s = (NT == 1 ? 7168 : 4608) / Stage<PACKED, SBF16>::BYTES;
+  return s < 2 ? 2 : s;
 }
+
+// Bytes between two staged input rows: K / ks bf16, padded so that rows g
+// and g + 1 start 32 bytes apart in the banks (a quarter warp's B-fragment
+// loads of 4 rows then fill the 32 banks once).
+__host__ __device__ inline int xs_stride(int kr) {
+  return (kr * 2 + 127) / 128 * 128 + 32;
+}
+
+template <bool PACKED, bool SBF16, int NT>
+inline int smem_bytes(int ks, int B, int K) {
+  return WARPS * ring_stages<PACKED, SBF16, NT>() * Stage<PACKED, SBF16>::BYTES +
+         (ks - 1) * WARPS * NBUF * NT * 32 * 16 + B * xs_stride(K / ks);
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Arrive on `bar` of cluster block `rank` (this block's own too), with
+// release at cluster scope: this thread's earlier stores and loads are
+// ordered before the arrival.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, int rank) {
+  asm volatile(
+      "{\n\t.reg .b32 ra;\n\t"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n\t"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [ra];\n\t}\n" ::"r"(
+          smem_addr(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// Wait for the phase of parity `parity` of this block's `bar` to complete,
+// with acquire at cluster scope.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// D += A B on the tensor cores: m16n8k16, bf16 operands, f32 sums.
+__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---------------------------------------------------------------------------
+// Dequantization into A fragments
+// ---------------------------------------------------------------------------
+//
+// The k order inside a block. Thread t of a quad supplies, for k16 step s
+// of a 32-weight block, the weights e, e + 2 (its k 2t, 2t + 1) and e + 1,
+// e + 3 (its k 2t + 8, 2t + 9), e = 16 s + 4 t: for Q4_0 the low (s = 0) or
+// high (s = 1) nibbles of bytes 4t..4t+3 of the block (ggml's byte j holds
+// weights j and j + 16), one 32-bit word. The staged input rows hold each
+// group of 4 elements in the order 0, 2, 1, 3, so that the thread's B
+// fragment for the same k is one 8-byte load. A sum over k does not depend
+// on which k a weight takes, only on the pairing, which this keeps.
+
+// Two bf16 (a in the low half) as one register.
+__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Q4_0 nibbles at bits 0-3 and 16-19 of v, scale s2 (bf16 in both halves):
+// bf16x2 of (q - 8) * s, each rounded once. 0x4300 | q is the bf16 of 128 +
+// q; less 136 it is q - 8 exactly, and the product of that with a bf16
+// scale, rounded to bf16, is the f32 product rounded to bf16 (the f32
+// product is exact).
+__device__ __forceinline__ uint32_t dq_q4_bf16(uint32_t v, __nv_bfloat162 s2) {
+  const uint32_t m = (v & 0x000F000Fu) | 0x43004300u;
+  const __nv_bfloat162 bias = __halves2bfloat162(__ushort_as_bfloat16(0x4308),
+                                                 __ushort_as_bfloat16(0x4308));
+  const __nv_bfloat162 w =
+      __hmul2(__hsub2(*reinterpret_cast<const __nv_bfloat162*>(&m), bias), s2);
+  return *reinterpret_cast<const uint32_t*>(&w);
+}
+
+// The generic path: codes c0 (low half) and c1 as float, times s in f32,
+// rounded to bf16 (for f32 scales the rounding of the reference, which
+// rounds the f32 product).
+template <int QT>
+__device__ __forceinline__ uint32_t dq_pair(uint32_t c0, uint32_t c1, float s) {
+  return pack_bf16x2(code_value<QT>(c0) * s, code_value<QT>(c1) * s);
+}
+
+// The A fragments of block jb of a stage for thread (g, t), both k16 steps:
+// a[s] = {row g (e, e + 2), row g + 8 (e, e + 2), row g (e + 1, e + 3), row
+// g + 8 (e + 1, e + 3)}.
+template <int QT, bool PACKED, bool SBF16>
+__device__ __forceinline__ void a_frags(const uint8_t* st, int jb, int g, int t,
+                                        uint32_t a[2][4]) {
+  using S = Stage<PACKED, SBF16>;
+  const uint8_t* sc = st + S::CODES;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {   // h 0: row g ("a"), 1: row g + 8 ("b")
+    const int row = g + 8 * h;
+    const uint8_t* cb = st + (jb * 16 + row) * S::CB + 4 * t;
+    if constexpr (PACKED) {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(cb);
+      if constexpr (SBF16) {
+        const __nv_bfloat16 s = reinterpret_cast<const __nv_bfloat16*>(sc)[row * UNIT_BLOCKS + jb];
+        const __nv_bfloat162 s2 = __bfloat162bfloat162(s);
+        a[0][h] = dq_q4_bf16(w, s2);
+        a[0][2 + h] = dq_q4_bf16(w >> 8, s2);
+        a[1][h] = dq_q4_bf16(w >> 4, s2);
+        a[1][2 + h] = dq_q4_bf16(w >> 12, s2);
+      } else {
+        const float s = reinterpret_cast<const float*>(sc)[row * UNIT_BLOCKS + jb];
+        a[0][h] = dq_pair<QT>(w & 15u, (w >> 16) & 15u, s);
+        a[0][2 + h] = dq_pair<QT>((w >> 8) & 15u, (w >> 24) & 15u, s);
+        a[1][h] = dq_pair<QT>((w >> 4) & 15u, (w >> 20) & 15u, s);
+        a[1][2 + h] = dq_pair<QT>((w >> 12) & 15u, w >> 28, s);
+      }
+    } else {
+      const float s = SBF16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                                  sc)[row * UNIT_BLOCKS + jb])
+                            : reinterpret_cast<const float*>(sc)[row * UNIT_BLOCKS + jb];
+#pragma unroll
+      for (int st2 = 0; st2 < 2; ++st2) {
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(cb + 16 * st2);
+        a[st2][h] = dq_pair<QT>(w & 0xFFu, (w >> 16) & 0xFFu, s);
+        a[st2][2 + h] = dq_pair<QT>((w >> 8) & 0xFFu, w >> 24, s);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The weight stream
+// ---------------------------------------------------------------------------
+
+// A warp's copies of its tile's stages. The weights are tiled at prep
+// (ops/llama_megastep.py gemv_tile): tile t of a projection is `stages` =
+// K / 128 stages in a row, each the codes of one stage in the ring's own
+// layout (S::CODES bytes) in one tensor and its scales (S::BYTES -
+// S::CODES bytes) in another. So a stage is two contiguous runs, and a
+// warp streams its tile's K range as one run of codes and one of scales.
+template <bool PACKED, bool SBF16>
+struct Copier {
+  using S = Stage<PACKED, SBF16>;
+  static constexpr int SCALES = S::BYTES - S::CODES;
+  const uint8_t* codes;    // the tile's first stage of this block's K range
+  const uint8_t* scales;
+
+  __device__ __forceinline__ void set_tile(int tile, const uint8_t* codes_t,
+                                           const void* scales_t, int stages,
+                                           int first_stage) {
+    const size_t at = (size_t)tile * stages + first_stage;
+    codes = codes_t + at * S::CODES;
+    scales = reinterpret_cast<const uint8_t*>(scales_t) + at * SCALES;
+  }
+
+  // Issue the copies of stage c of the range into st: 16 bytes a lane at a
+  // time, neighbouring lanes on neighbouring bytes.
+  __device__ __forceinline__ void issue(uint8_t* st, int c, int lane) const {
+    const uint8_t* cs = codes + (size_t)c * S::CODES;
+#pragma unroll
+    for (int i = 0; i < S::CODES / 512; ++i) {
+      cp_async16(st + 16 * (lane + 32 * i), cs + 16 * (lane + 32 * i));
+    }
+    if (lane < SCALES / 16) {
+      cp_async16(st + S::CODES + 16 * lane, scales + (size_t)c * SCALES + 16 * lane);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// Epilogue
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void store_cache(void* cache, size_t idx, float v,
                                             int bf16) {
@@ -68,62 +325,15 @@ __device__ __forceinline__ void store_cache(void* cache, size_t idx, float v,
   }
 }
 
-// Element i of a staged activation row: block i / 32 keeps its four 16-byte
-// chunks of 8 bf16 rotated by (block / 2), so that the 8 lanes of a quarter
-// warp, which read chunk c of 8 consecutive blocks, hit 8 different 16-byte
-// bank groups. stage_block undoes the rotation.
-__device__ __forceinline__ int staged_index(int i) {
-  const int b = i >> 5, c = (i >> 3) & 3;
-  return (b << 5) | (((c + (b >> 1)) & 3) << 3) | (i & 7);
-}
-
-// Two floats rounded to bf16 and packed, a in the low half (the lower
-// address).
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t u) {
-  return __uint_as_float(u << 16);
-}
-
-__device__ __forceinline__ float bf16_hi(uint32_t u) {
-  return __uint_as_float(u & 0xFFFF0000u);
-}
-
-// Block b of a staged row xr (bf16, rotated chunks), in element order.
-__device__ __forceinline__ void stage_block(const __nv_bfloat16* xr, int b,
-                                            uint4 q[4]) {
-  const uint4* blk = reinterpret_cast<const uint4*>(xr + b * QK);
-#pragma unroll
-  for (int c = 0; c < 4; ++c) q[c] = blk[(c + (b >> 1)) & 3];
-}
-
-// dequant.cuh's block_dot<true> over a staged block (stage_block): the same
-// products of the same bf16 values summed in the same order.
-__device__ __forceinline__ float block_dot_staged(const uint4 q[4],
-                                                  const float w[QK]) {
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < QK / 4; ++j) {
-    const uint4& h = q[j / 2];
-    const uint32_t u0 = j % 2 ? h.z : h.x, u1 = j % 2 ? h.w : h.y;
-    sum += w[4 * j] * bf16_lo(u0) + w[4 * j + 1] * bf16_hi(u0) +
-           w[4 * j + 2] * bf16_lo(u1) + w[4 * j + 3] * bf16_hi(u1);
-  }
-  return sum;
-}
-
-// The two weight rows of feature pair p (see llama_megastep.cu's header).
-template <int EPI>
-__device__ __forceinline__ void pair_rows(int p, const RopeArgs& ra,
+// The two output features of pair p, the rows its tile holds (gemv_tile's
+// pairing: see llama_megastep.cu's header).
+__device__ __forceinline__ void pair_rows(int p, int epi, const RopeArgs& ra,
                                           int& row_a, int& row_b) {
-  if constexpr (EPI == EPI_ROPE_QKV) {
+  if (epi == EPI_ROPE_QKV) {
     const int h2 = ra.d / 2;
     row_a = (p / h2) * ra.d + p % h2;
     row_b = row_a + h2;
-  } else if constexpr (EPI == EPI_SILU_MUL) {
+  } else if (epi == EPI_SILU_MUL) {
     row_a = p;
     row_b = p;
   } else {
@@ -132,288 +342,372 @@ __device__ __forceinline__ void pair_rows(int p, const RopeArgs& ra,
   }
 }
 
-// One lane's share of one (feature pair, 32-weight block): both rows'
-// codes and scales.
-struct Unit {
-  uint4 qa[2], qb[2];
-  float sa, sb;
-};
-
-// Load the unit of pair p at block b (a lane past the row's blocks loads
-// nothing).
-template <int QT, bool PACKED, bool SBF16, int EPI>
-__device__ __forceinline__ void load_unit(
-    Unit& u, int p, int b, int nb, size_t row_bytes, const uint8_t* codes_a,
-    const void* scales_a, const uint8_t* codes_b, const void* scales_b,
-    const RopeArgs& ra) {
-  if (b >= nb) return;
+// Input row `row`'s outputs of pair p: va of its "a" weight row, vb of "b".
+__device__ __forceinline__ void epilogue(int epi, int p, int row, float va,
+                                         float vb, int N, const float* res,
+                                         float* out, const RopeArgs& ra) {
   int row_a, row_b;
-  pair_rows<EPI>(p, ra, row_a, row_b);
-  load_codes<PACKED>(codes_a + (size_t)row_a * row_bytes, b, u.qa);
-  load_codes<PACKED>(codes_b + (size_t)row_b * row_bytes, b, u.qb);
-  u.sa = load_scale<SBF16>(scales_a, (size_t)row_a * nb + b);
-  u.sb = load_scale<SBF16>(scales_b, (size_t)row_b * nb + b);
-}
-
-// Stage rows [r0, r0 + nr) of x into xs (nr x K bf16, rotated), after the
-// RMS norm when RMS: block rank c of the cluster normalizes and rounds the
-// rows r0 + c, r0 + c + CLUSTER, ... into its own shared memory, then copies
-// them into the other blocks' (distributed shared memory), so that the
-// cluster reads each row from L2 once. The RMS sum of squares has the
-// shape it has always had: thread t sums elements t, t + 256, ... in order,
-// then the warps' sums are added in warp order.
-template <bool RMS>
-__device__ __forceinline__ void stage_rows(cg::cluster_group& cluster,
-                                           const float* x,
-                                           const float* norm_w, int r0,
-                                           int nr, int K, __nv_bfloat16* xs,
-                                           float* red) {
-  constexpr int T = WARPS * 32, TR = RMS_WARPS * 32;
-  const bool rms_thread = threadIdx.x < TR;
-  const unsigned int rank = cluster.block_rank();
-  cluster.sync();  // every block has started, and is done with the last pass
-  for (int rr = rank; rr < nr; rr += CLUSTER) {
-    const float* xr = x + (size_t)(r0 + rr) * K;
-    __nv_bfloat16* dst = xs + (size_t)rr * K;
-    if constexpr (RMS) {
-      float v[RMS_REGS];
-      float s = 0.f;
-      const bool held = K <= RMS_REGS * TR;
-      if (held) {
-#pragma unroll
-        for (int j = 0; j < RMS_REGS; ++j) {
-          const int i = threadIdx.x + j * TR;
-          v[j] = rms_thread && i < K ? xr[i] : 0.f;
-          if (rms_thread && i < K) s += v[j] * v[j];
-        }
-      } else if (rms_thread) {
-        for (int i = threadIdx.x; i < K; i += TR) s += xr[i] * xr[i];
-      }
-      const float rstd = 1.f / sqrtf(block_sum(s, red) / K + RMS_EPS);
-      if (held) {
-#pragma unroll
-        for (int j = 0; j < RMS_REGS; ++j) {
-          const int i = threadIdx.x + j * TR;
-          if (rms_thread && i < K) {
-            dst[staged_index(i)] = __float2bfloat16_rn(v[j] * rstd * norm_w[i]);
-          }
-        }
-      } else {
-        for (int i = threadIdx.x; i < K; i += T) {
-          dst[staged_index(i)] = __float2bfloat16_rn(xr[i] * rstd * norm_w[i]);
-        }
-      }
-    } else {
-      // 8 consecutive elements a thread: one 16-byte chunk of the layout
-      for (int c = threadIdx.x; c < K / 8; c += T) {
-        const float4 lo = reinterpret_cast<const float4*>(xr)[2 * c];
-        const float4 hi = reinterpret_cast<const float4*>(xr)[2 * c + 1];
-        *reinterpret_cast<uint4*>(dst + staged_index(8 * c)) =
-            make_uint4(pack_bf16x2(lo.x, lo.y), pack_bf16x2(lo.z, lo.w),
-                       pack_bf16x2(hi.x, hi.y), pack_bf16x2(hi.z, hi.w));
-      }
+  pair_rows(p, epi, ra, row_a, row_b);
+  float* o = out + (size_t)row * N;
+  if (epi == EPI_SILU_MUL) {
+    o[p] = va / (1.f + expf(-va)) * vb;
+  } else if (epi == EPI_RESIDUAL) {
+    const float* rs = res + (size_t)row * N;
+    o[row_a] = rs[row_a] + va;
+    o[row_b] = rs[row_b] + vb;
+  } else if (epi == EPI_STORE) {
+    o[row_a] = va;
+    o[row_b] = vb;
+  } else {  // EPI_ROPE_QKV
+    const int h2 = ra.d / 2;
+    const int pr = ra.pos[row * ra.pos_stride];
+    float ya = va, yb = vb;
+    if (row_a < ra.hidden + ra.kvh) {  // q and k rotate, v does not
+      const float ang = (float)pr * ra.inv[p % h2];
+      const float c = cosf(ang), s = sinf(ang);
+      ya = va * c - vb * s;
+      yb = vb * c + va * s;
     }
-  }
-  __syncthreads();  // this block's rows are complete
-  for (int rr = rank; rr < nr; rr += CLUSTER) {
-    const uint4* src = reinterpret_cast<const uint4*>(xs + (size_t)rr * K);
-    for (unsigned int peer = 0; peer < CLUSTER; ++peer) {
-      if (peer == rank) continue;
-      uint4* dst = cluster.map_shared_rank(
-          reinterpret_cast<uint4*>(xs + (size_t)rr * K), peer);
-      for (int c = threadIdx.x; c < K / 8; c += T) dst[c] = src[c];
-    }
-  }
-  cluster.sync();  // every row is in every block of the cluster
-}
-
-// After a pair's last block: sum each row's lanes, reset the accumulators,
-// and (lane 0) apply the epilogue to rows [r0, r0 + nr) of pair p.
-template <int EPI, int ROWS>
-__device__ __forceinline__ void epilogue(float* acc_a, float* acc_b, int nr,
-                                         int r0, int p, int lane, int N,
-                                         const float* res, float* out,
-                                         const RopeArgs& ra) {
-  int row_a, row_b;
-  pair_rows<EPI>(p, ra, row_a, row_b);
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r >= nr) break;
-    const float va = warp_sum(acc_a[r]);
-    const float vb = warp_sum(acc_b[r]);
-    acc_a[r] = acc_b[r] = 0.f;
-    if (lane != 0) continue;
-    const int row = r0 + r;
-    float* o = out + (size_t)row * N;
-    if constexpr (EPI == EPI_SILU_MUL) {
-      o[p] = va / (1.f + expf(-va)) * vb;
-    } else if constexpr (EPI == EPI_RESIDUAL) {
-      const float* rs = res + (size_t)row * N;
-      o[row_a] = rs[row_a] + va;
-      o[row_b] = rs[row_b] + vb;
-    } else if constexpr (EPI == EPI_STORE) {
-      o[row_a] = va;
-      o[row_b] = vb;
-    } else {  // EPI_ROPE_QKV
-      const int h2 = ra.d / 2;
-      const int pr = ra.pos[row * ra.pos_stride];
-      float ya = va, yb = vb;
-      if (row_a < ra.hidden + ra.kvh) {  // q and k rotate, v does not
-        const float ang = (float)pr * ra.inv[p % h2];
-        const float c = cosf(ang), s = sinf(ang);
-        ya = va * c - vb * s;
-        yb = vb * c + va * s;
-      }
-      o[row_a] = ya;
-      o[row_b] = yb;
-      if (row_a >= ra.hidden) {
-        const bool is_v = row_a >= ra.hidden + ra.kvh;
-        const int j = row_a - ra.hidden - (is_v ? ra.kvh : 0);
-        const int crow = min(pr, ra.ctx - 1);
-        const size_t idx = (size_t)row * ra.bstride +
-                           ((size_t)(j / ra.d) * ra.ctx + crow) * ra.d + j % ra.d;
-        void* cache = is_v ? ra.vc : ra.kc;
-        store_cache(cache, idx, ya, ra.bf16);
-        store_cache(cache, idx + h2, yb, ra.bf16);
-      }
+    o[row_a] = ya;
+    o[row_b] = yb;
+    if (row_a >= ra.hidden) {
+      const bool is_v = row_a >= ra.hidden + ra.kvh;
+      const int j = row_a - ra.hidden - (is_v ? ra.kvh : 0);
+      const int crow = min(pr, ra.ctx - 1);
+      const size_t idx = (size_t)row * ra.bstride +
+                         ((size_t)(j / ra.d) * ra.ctx + crow) * ra.d + j % ra.d;
+      void* cache = is_v ? ra.vc : ra.kc;
+      store_cache(cache, idx, ya, ra.bf16);
+      store_cache(cache, idx + h2, yb, ra.bf16);
     }
   }
 }
 
-// A grid of clusters of CLUSTER blocks, at most one block per SM; warp w
-// of block g computes the feature pairs p = g + G * (w + WARPS * k) (G
-// blocks), so that the pairs spread over the blocks first. For the rows
-// [r0, r0 + rp) of each pass (more than one pass only where B x K bf16
-// exceed STAGE_LIMIT), the cluster stages the rows (stage_rows), then each
-// warp walks its pairs' 32-weight blocks, lane l taking blocks l, l + 32,
-// ... of both rows of the pair: it keeps the codes and scales of the next
-// PF (pair, block) units in flight in registers (issued before the staging
-// for the first ones), dequantizes each unit once and dots it with every
-// staged row, and after a pair's last block sums the lanes and applies the
-// epilogue. out (B, N).
-template <int QT, bool PACKED, bool SBF16, bool RMS, int EPI, int ROWS>
-__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(WARPS * 32, 1)
-llama_gemv_kernel(const float* __restrict__ x, const float* __restrict__ norm_w,
-                  const uint8_t* __restrict__ codes_a, const void* __restrict__ scales_a,
-                  const uint8_t* __restrict__ codes_b, const void* __restrict__ scales_b,
-                  int B, int P, int N, int K, int rp, const float* res,
+// ---------------------------------------------------------------------------
+// The kernel
+// ---------------------------------------------------------------------------
+
+// A grid of clusters of ks = k_split(K) blocks of 8 warps, one block an SM
+// (two for the LM head's launch). Block rank r of a cluster takes K range
+// [r K / ks, (r + 1) K / ks) of every row. Warp w of cluster c walks tiles c + C (w + 8 j) (C
+// clusters): tiles spread over the clusters first. For each tile, the warp
+// streams its range through its ring (stage u + STAGES is copied while
+// stage u is computed; the first copies are issued before the wait for the
+// kernel before), sums each 32-weight block's two mma products apart and
+// adds them into its f32 accumulators in block order, then ships them to
+// warp w of rank 0 (remote stores into rank 0's slot, an mbarrier arrive
+// with release at cluster scope), which adds the ranks' sums in rank order
+// and applies the epilogue. out (B, N). norm_w null: no RMS prologue. x is
+// not __restrict__: the kernel before may have written it, so it is read
+// through the coherent path, after griddepcontrol.wait.
+template <int QT, bool PACKED, bool SBF16, int NT>
+__global__ void __launch_bounds__(THREADS, 2)
+llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
+                  const uint8_t* __restrict__ codes, const void* __restrict__ scales,
+                  int B, int P, int N, int K, int epi, const float* res,
                   float* out, RopeArgs ra) {
-  // units in flight per lane past the one computed (1 at 16 rows, whose
-  // accumulators would otherwise spill)
-  constexpr int PF = ROWS <= 8 ? 2 : 1;
-  extern __shared__ uint4 smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __shared__ float red[RMS_WARPS];
+  using S = Stage<PACKED, SBF16>;
+  constexpr int STAGES = ring_stages<PACKED, SBF16, NT>();
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ double rms_part[MAX_KS][MAX_ROWS];
+  __shared__ float rstd[MAX_ROWS];
+  __shared__ __align__(8) uint64_t full[WARPS][NBUF];
+  __shared__ __align__(8) uint64_t empty[WARPS][NBUF];
+
   cg::cluster_group cluster = cg::this_cluster();
+  const int ks = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int cid = blockIdx.x / ks, ncl = gridDim.x / ks;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nb = K / QK, J = (nb + 31) / 32;  // blocks of a lane per pair
-  const size_t row_bytes = PACKED ? K / 2 : K;
-  const int p0 = blockIdx.x + gridDim.x * warp, pstep = gridDim.x * WARPS;
-  const int n_pairs = p0 < P ? (P - 1 - p0) / pstep + 1 : 0;
-  const int n_units = n_pairs * J;
-  for (int r0 = 0; r0 < B; r0 += rp) {
-    const int nr = min(rp, B - r0);
-    // ring[0] is the unit computed next; ring[f] is f units ahead
-    Unit ring[PF];
-    int lk = 0, lj = 0;  // the next unit to load: pair p0 + lk * pstep, lane block lj
+  const int g = lane / 4, t = lane % 4;
+  const int nb = K / QK, kr = K / ks;
+  const int per_item = kr / UNIT_K;   // stages of one tile
+  const int tiles = (P + TILE_PAIRS - 1) / TILE_PAIRS;
+  const int first = cid + ncl * warp, stride = ncl * WARPS;
+  const int n_items = first < tiles ? (tiles - 1 - first) / stride + 1 : 0;
+  const int n_units = n_items * per_item;
+  uint8_t* ring = smem + warp * STAGES * S::BYTES;
+  float4* slots = reinterpret_cast<float4*>(smem + WARPS * STAGES * S::BYTES);
+  const int xstride = xs_stride(kr);
+  uint8_t* xs = smem + WARPS * STAGES * S::BYTES + (ks - 1) * WARPS * NBUF * NT * 512;
+
+  if (threadIdx.x < WARPS * NBUF) {
+    mbar_init(&full[0][0] + threadIdx.x, 32 * (ks - 1));
+    mbar_init(&empty[0][0] + threadIdx.x, 32);
+  }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  cluster_arrive();   // waited on before the first access to another block
+
+  // the first stages' weight copies: weights are never written by a kernel
+  Copier<PACKED, SBF16> cp;
+  const int stages = nb / UNIT_BLOCKS, first_stage = rank * per_item;
+  int c_item = 0, c_stage = 0;   // the next stage to copy
+  if (n_items > 0) cp.set_tile(first, codes, scales, stages, first_stage);
 #pragma unroll
-    for (int f = 0; f < PF; ++f) {
-      if (lk < n_pairs) {
-        load_unit<QT, PACKED, SBF16, EPI>(ring[f], p0 + lk * pstep, lane + 32 * lj,
-                                          nb, row_bytes, codes_a, scales_a,
-                                          codes_b, scales_b, ra);
+  for (int f = 0; f < STAGES; ++f) {
+    if (c_item < n_items) {
+      cp.issue(ring + f * S::BYTES, c_stage, lane);
+      if (++c_stage == per_item) {
+        c_stage = 0;
+        if (++c_item < n_items) {
+          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
+        }
       }
-      if (++lj == J) { lj = 0; ++lk; }
     }
-    stage_rows<RMS>(cluster, x, norm_w, r0, nr, K, xs, red);
-    float acc_a[ROWS], acc_b[ROWS];
+    cp_async_commit();
+  }
+
+  // Nothing before this point reads what a kernel before writes, or writes
+  // anything in device memory.
+  launch_dependents();
+  grid_dependency_wait();
+
+  // The input rows, this rank's K range, as bf16 (RMS-normalized first).
+  // The norm follows the plain version's operations, so that its rstd
+  // agrees with the plain version's (each disagreement may flip the bf16
+  // rounding of an input): the squares rounded to f32, their sum (in f64,
+  // one warp a row, lane l taking float4s l, l + 32, ... in order, then the
+  // lanes, then the ranks in rank order) rounded once to f32, times 1 / K,
+  // plus eps, rsqrtf, then x * rstd * w. Each group of 4 elements is
+  // stored in the order 0, 2, 1, 3.
+  const float* xk = x + (size_t)rank * kr;
+  if (norm_w != nullptr) {
+    double ss[MAX_ROWS / WARPS];
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc_a[r] = acc_b[r] = 0.f;
-    int ck = 0, cj = 0;  // the unit being computed
-#pragma unroll 1
-    for (int u = 0; u < n_units; ++u) {
-      const Unit cur = ring[0];
-#pragma unroll
-      for (int f = 0; f + 1 < PF; ++f) ring[f] = ring[f + 1];
-      if (lk < n_pairs) {
-        load_unit<QT, PACKED, SBF16, EPI>(ring[PF - 1], p0 + lk * pstep,
-                                          lane + 32 * lj, nb, row_bytes,
-                                          codes_a, scales_a, codes_b,
-                                          scales_b, ra);
+    for (int i = 0; i < MAX_ROWS / WARPS; ++i) {
+      const int r = warp + WARPS * i;
+      ss[i] = 0.0;
+      if (r >= B) continue;
+      const float4* xr = reinterpret_cast<const float4*>(xk + (size_t)r * K);
+#pragma unroll 4
+      for (int j = lane; j < kr / 4; j += 32) {
+        const float4 v = xr[j];
+        ss[i] += (double)__fmul_rn(v.x, v.x) + (double)__fmul_rn(v.y, v.y) +
+                 (double)__fmul_rn(v.z, v.z) + (double)__fmul_rn(v.w, v.w);
       }
-      if (++lj == J) { lj = 0; ++lk; }
-      const int b = lane + 32 * cj;
-      if (b < nb) {
-        float wa[QK], wb[QK];
-        dequant_codes<QT, PACKED, true>(cur.qa, cur.sa, wa);
-        dequant_codes<QT, PACKED, true>(cur.qb, cur.sb, wb);
 #pragma unroll
-        for (int r = 0; r < ROWS; ++r) {
-          if (r < nr) {
-            uint4 xq[4];
-            stage_block(xs + (size_t)r * K, b, xq);
-            acc_a[r] += block_dot_staged(xq, wa);
-            acc_b[r] += block_dot_staged(xq, wb);
+      for (int o = 16; o > 0; o >>= 1) ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
+    }
+    cluster_wait();     // every block has started: its shared memory is ours to write
+#pragma unroll
+    for (int i = 0; i < MAX_ROWS / WARPS; ++i) {
+      const int r = warp + WARPS * i;
+      if (r < B && lane < ks) *cluster.map_shared_rank(&rms_part[rank][r], lane) = ss[i];
+    }
+    cluster_arrive();
+    cluster_wait();     // every block's sums have landed
+    if (threadIdx.x < B) {
+      double s = 0.0;
+      for (int q = 0; q < ks; ++q) s += rms_part[q][threadIdx.x];
+      const float mean = __fmul_rn((float)s, 1.f / (float)K);
+      rstd[threadIdx.x] = rsqrtf(__fadd_rn(mean, RMS_EPS));
+    }
+    __syncthreads();
+  } else {
+    cluster_wait();
+  }
+  // the B rows' float4s over the block's threads, 8 loads in flight a thread
+  const float* nw = norm_w != nullptr ? norm_w + (size_t)rank * kr : nullptr;
+  const int per_row = kr / 4;
+#pragma unroll 8
+  for (int idx = threadIdx.x; idx < B * per_row; idx += THREADS) {
+    const int r = idx / per_row, i = idx - r * per_row;
+    float4 v = reinterpret_cast<const float4*>(xk + (size_t)r * K)[i];
+    if (nw != nullptr) {
+      const float4 w = reinterpret_cast<const float4*>(nw)[i];
+      const float rs = rstd[r];
+      v = make_float4(__fmul_rn(__fmul_rn(v.x, rs), w.x), __fmul_rn(__fmul_rn(v.y, rs), w.y),
+                      __fmul_rn(__fmul_rn(v.z, rs), w.z), __fmul_rn(__fmul_rn(v.w, rs), w.w));
+    }
+    reinterpret_cast<uint2*>(xs + (size_t)r * xstride)[i] =
+        make_uint2(pack_bf16x2(v.x, v.z), pack_bf16x2(v.y, v.w));
+  }
+  __syncthreads();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  int item = 0, stage = 0;   // the stage being computed
+#pragma unroll 1
+  for (int u = 0; u < n_units; ++u) {
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    const uint8_t* st = ring + (u % STAGES) * S::BYTES;
+    const int kl = stage * UNIT_K;
+#pragma unroll
+    for (int jb = 0; jb < UNIT_BLOCKS; ++jb) {
+      uint32_t a[2][4];
+      a_frags<QT, PACKED, SBF16>(st, jb, g, t, a);
+      float d[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int col = n * 8 + g;
+          uint2 b = make_uint2(0u, 0u);
+          if (col < B) {
+            b = *reinterpret_cast<const uint2*>(
+                xs + (size_t)col * xstride + (kl + jb * QK + 16 * s + 4 * t) * 2);
+          }
+          mma_bf16(d[n], a[s], b.x, b.y);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
+      }
+    }
+    __syncwarp();   // every lane is done with the stage before it is refilled
+    if (c_item < n_items) {
+      cp.issue(ring + (u % STAGES) * S::BYTES, c_stage, lane);
+      if (++c_stage == per_item) {
+        c_stage = 0;
+        if (++c_item < n_items) {
+          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
+        }
+      }
+    }
+    cp_async_commit();
+    if (++stage < per_item) continue;
+
+    // the tile's last stage: the ranks' sums meet in rank 0
+    const int buf = item % NBUF, use = item / NBUF;
+    float4* slot = slots + ((warp * NBUF + buf) * (ks - 1)) * NT * 32;
+    if (rank != 0) {
+      if (item >= NBUF) mbar_wait_cluster(&empty[warp][buf], (use - 1) & 1);
+      float4* dst = cluster.map_shared_rank(slot + (rank - 1) * NT * 32, 0);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        dst[n * 32 + lane] = make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+      }
+      mbar_arrive_cluster(&full[warp][buf], 0);
+    } else {
+      mbar_wait_cluster(&full[warp][buf], use & 1);
+      for (int q = 1; q < ks; ++q) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const float4 v = slot[((q - 1) * NT + n) * 32 + lane];
+          acc[n][0] += v.x;
+          acc[n][1] += v.y;
+          acc[n][2] += v.z;
+          acc[n][3] += v.w;
+        }
+      }
+      if (item + NBUF < n_items) {
+        for (int q = 1; q < ks; ++q) mbar_arrive_cluster(&empty[warp][buf], q);
+      }
+      const int p = (first + stride * item) * TILE_PAIRS + g;
+      if (p < P) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int row = n * 8 + 2 * t + h;
+            if (row < B) epilogue(epi, p, row, acc[n][h], acc[n][2 + h], N, res, out, ra);
           }
         }
       }
-      if (++cj == J) {
-        epilogue<EPI, ROWS>(acc_a, acc_b, nr, r0, p0 + ck * pstep, lane, N, res,
-                            out, ra);
-        cj = 0;
-        ++ck;
-      }
     }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    stage = 0;
+    ++item;
   }
+  cp_async_wait<0>();
 }
 
-// Rows staged per pass: all B when B x K bf16 fit in STAGE_LIMIT, else
-// split evenly over the fewest passes that fit (0: K too long for one row).
-inline int rows_per_pass(int B, int K) {
-  const int fit = STAGE_LIMIT / (K * (int)sizeof(__nv_bfloat16));
-  if (fit < 1) return 0;
-  const int passes = (B + fit - 1) / fit;
-  return (B + passes - 1) / passes;
+// The card's SMs, asked once.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 1;
+  }();
+  return n;
 }
 
-// Blocks of the grid: one per SM at most, a whole number of clusters, no
-// more than the pairs need (WARPS pairs a block).
-inline int grid_blocks(int P) {
-  static std::atomic<int> sms{0};
-  int n = sms.load();
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
-      n = CLUSTER;
-    }
-    sms.store(n);
+// Clusters of ks blocks that can be resident at once with `smem` bytes a
+// block, at most `per_sm` blocks an SM, asked of the driver once per
+// (kernel, ks, smem, per_sm).
+inline int max_clusters(const void* kern, int ks, int smem, int per_sm) {
+  static std::mutex mu;
+  static std::map<std::pair<const void*, long long>, int> known;
+  const auto key = std::make_pair(kern, (long long)(ks * 4 + per_sm) << 32 | smem);
+  std::lock_guard<std::mutex> lock(mu);
+  auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  const int sms = sm_count();
+  int n = 0;
+  cudaLaunchConfig_t cfg = {};
+  const int cap = per_sm * sms / ks > 0 ? per_sm * sms / ks : 1;
+  cfg.gridDim = dim3(ks * cap);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = ks;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (cudaOccupancyMaxActiveClusters(&n, kern, &cfg) != cudaSuccess || n < 1) {
+    cudaGetLastError();
+    n = 1;
   }
-  const int need = (P + WARPS - 1) / WARPS;
-  const int blocks = need < n ? need : n;
-  return ((blocks + CLUSTER - 1) / CLUSTER) * CLUSTER;
+  if (n > cap) n = cap;
+  known[key] = n;
+  return n;
 }
 
-template <int QT, bool PACKED, bool SBF16, bool RMS, int EPI, int ROWS>
-int launch_one(const float* x, const float* norm_w, const uint8_t* ca,
-               const void* sa, const uint8_t* cb, const void* sb, int B, int P,
-               int N, int K, const float* res, float* out, RopeArgs ra,
-               cudaStream_t s) {
-  auto kern = llama_gemv_kernel<QT, PACKED, SBF16, RMS, EPI, ROWS>;
-  const int rp = rows_per_pass(B, K);
-  if (rp < 1) return (int)cudaErrorInvalidValue;
-  const int smem = rp * K * (int)sizeof(__nv_bfloat16);
+template <int QT, bool PACKED, bool SBF16, int NT>
+int launch_one(const float* x, const float* norm_w, const uint8_t* codes,
+               const void* scales, int B, int P, int N, int K, int epi,
+               const float* res, float* out, RopeArgs ra, cudaStream_t s) {
+  auto kern = llama_gemv_kernel<QT, PACKED, SBF16, NT>;
+  const int ks = k_split(K);
+  if (K % (ks * UNIT_K)) return (int)cudaErrorInvalidValue;
+  // 16-byte copies and loads
+  if ((size_t)codes % 16 || (size_t)scales % 16 || (size_t)x % 16 ||
+      (norm_w && (size_t)norm_w % 16)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int smem = smem_bytes<PACKED, SBF16, NT>(ks, B, K);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   // past 48 KB a launch needs the kernel's opt-in: each instantiation opts
   // in once, to every size a launch may ask for
-  static std::atomic<bool> opted{false};
-  if (!opted.load()) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, STAGE_LIMIT);
-    if (e != cudaSuccess) return (int)e;
-    opted.store(true);
-  }
-  kern<<<grid_blocks(P), WARPS * 32, smem, s>>>(x, norm_w, ca, sa, cb, sb, B, P,
-                                               N, K, rp, res, out, ra);
+  static std::once_flag opted;
+  static cudaError_t opt_err = cudaSuccess;
+  std::call_once(opted, [&] {
+    opt_err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SMEM_LIMIT);
+  });
+  if (opt_err != cudaSuccess) return (int)opt_err;
+  const int tiles = (P + TILE_PAIRS - 1) / TILE_PAIRS;
+  const int per_sm = (long long)tiles * ks >= 2LL * WARPS * sm_count()
+                         ? MAX_BLOCKS_PER_SM : 1;
+  const int mc = max_clusters(reinterpret_cast<const void*>(kern), ks, smem, per_sm);
+  const int clusters = tiles < mc ? tiles : mc;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(clusters * ks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = ks;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, x, norm_w, codes, scales,
+                                           B, P, N, K, epi, res, out, ra);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 

@@ -44,47 +44,65 @@
 // and for K6, after the last layer:
 //   6. gemv  RMS(out_norm) prologue, head;  epilogue store the logits.
 // Each warp computes feature pairs, two output features at a time, so that
-// the epilogues that pair features need no exchange between warps: RoPE
+// the epilogues that pair features need no exchange between threads: RoPE
 // rotates features i and i + d/2 of one head, and SiLU(gate) * up pairs
 // gate row n with up row n. The other epilogues take rows 2p and 2p + 1.
-// Lane l of a warp takes the 32-weight blocks l, l + 32, ... of both rows
-// of a pair, dequantizes each block once into registers (dequant.cuh) and
-// dots it with every input row. The kernel (gemv.cuh, shared with the Dia
-// steps' source) is templated on the input rows (ROWS 1, 8 or 16 here), as
-// K2/K5 are; the batched steps (K9, K7) are K8's and K6's launch
-// sequences with B rows, the attention launch being K4, the batched K3.
+// The kernel (gemv.cuh, shared with the Dia steps' source) is templated on
+// the n-tiles of input rows (1 for up to 8 rows, 2 for 9-16); the batched
+// steps (K9, K7) are K8's and K6's launch sequences with B rows, the
+// attention launch being K4, the batched K3.
 //
-// The GEMV's shape on the card: a grid of at most one block of 12 warps
-// per SM, in clusters of 2 (at Orpheus-3B width every launch but o and
-// down, 128 blocks, fills the 132 SMs), each warp walking many feature
-// pairs (pair p = block + G * (warp + 12 k) over G blocks, so that pairs
-// spread over the blocks first). A block first stages its B input rows
-// whole in dynamic shared memory as bf16 (the rounding the dot applies
-// anyway; B x K bf16 is 48 KB at 8 x 3072, 128 KB at 8 x 8192, staged in
-// two passes of rows where it would exceed 224 KB: 16 x 8192), the RMS norm
-// applied on the way (its sum of squares over the first 8 warps, the shape
-// it always had). The two blocks of a cluster each normalize and round
-// half of the rows and copy them into the other's shared memory
-// (distributed shared memory), so a cluster reads each row from L2 once:
-// about 1.0 GB of staging reads for a K7 step at 8 slots against its 1.86
-// GB of weights, where blocks of 16 features that each staged every row
-// (twice under the RMS norm) read about 11 GB. While the rows stage, each
-// warp already has the codes and scales of its first (pair, block) units in
-// flight, and it keeps the next PF = 2 units' loads (1 at 16 rows) ahead
-// of the arithmetic of the current one, so weight bytes stream while the block
-// stages and computes. What bounds it then: at 8-16 rows the SMs' issue
-// rate (each weight is dequantized once and multiplied into every row: 2
-// flops per weight and row, plus the bf16 unpacking of the staged rows),
-// at one row the bytes. 12 warps of up to 168 registers fill an SM's
-// register file; more warps would spill, fewer hide less latency (PERF.md).
+// The GEMV on the card (gemv.cuh):
+//  * Tensor cores. A warp's tile is 8 feature pairs = 16 weight rows, the
+//    A operand of mma.sync m16n8k16 (bf16 in, f32 out): rows 0-7 the
+//    pairs' "a" rows, 8-15 their "b" rows, so that the D fragment gives
+//    each thread both features of one pair for two input rows and the
+//    epilogues run in registers. The input rows are the B operand, staged
+//    once per block as bf16 (the rounding the `_dqdot` product applies);
+//    1-8 rows fill one n-tile, 9-16 two. Weights are dequantized straight
+//    into A fragments with the `_dqdot` rounding (bf16 of the f32 product
+//    of the code value and the scale; for Q4_0 with bf16 scales in bf16x2
+//    arithmetic, which rounds the same exact product once). Each
+//    32-weight block's two mma products are summed apart and added into
+//    the f32 accumulators in block order, as the CUDA-core dot summed each
+//    block before: the tensor core's own sums then span 32 products.
+//  * The weight stream. Each warp keeps a ring of stages in shared memory
+//    (4 blocks of K of its 16 rows a stage: 1152 bytes for Q4_0 with bf16
+//    scales; 6 stages at one n-tile, 4 at two), fed by 16-byte cp.async
+//    copies, the copies of stage u + depth issued while stage u is
+//    computed, across tiles. The prep tiles each projection in that order
+//    (ops/llama_megastep.py gemv_tile), so a stage is one contiguous run of
+//    codes and one of scales (row-major weights, read as 64-byte pieces of
+//    16 rows, streamed slower: PERF.md).
+//  * K split over a cluster. k_split(K) blocks (2, or 4 past K 4096) each
+//    take a K range of every tile and stage only that range of the input
+//    rows, so 16 x 8192 (Orpheus's down at 16 rows) stages 64 KB a block
+//    and the weights are read once. Warp w of each rank walks the same
+//    tiles; ranks past 0 write their sums into rank 0's shared memory and
+//    arrive on its mbarrier (release at cluster scope), rank 0 adds them in
+//    rank order and applies the epilogue, and frees the slot by arriving on
+//    the sender's barrier. The RMS norm's sums of squares are taken per
+//    rank and exchanged the same way, through the cluster barrier.
+//  * The grid: one block per SM at most (clusters that fit at once, no
+//    more than the tiles), tiles spread over the clusters first (tile c +
+//    C (w + 8 j) for warp w of cluster c), 8 warps a block. A block's
+//    shared memory stays under half an SM's where it can (1-8 rows, and 16
+//    rows up to K 4096), so that the next launch's blocks fit beside it.
+//  * Programmatic dependent launch. Each launch carries the programmatic
+//    stream serialization attribute; a block issues its first weight copies
+//    (weights are never written), lets the next launch start, and waits
+//    (griddepcontrol.wait) for the kernel before it before it reads x, res,
+//    pos or a cache, or writes anything: a scratch buffer that the previous
+//    launch still reads is never written early.
 //
 // Where the batched steps can go wrong, and what this design does:
 //  * Per-slot bit-identity: each K9 slot equals K8 on that slot's state,
-//    and each K7 slot K6, bit for bit. A row sums in the same order
-//    whatever ROWS is (the per-row accumulators are independent, the RMS
-//    block sum and the warp sums are per row), and K4 on one slot equals
-//    K3. The engine's greedy tokens equal the single-stream runner's
-//    because of it.
+//    and each K7 slot K6, bit for bit. A row's sum has one order whatever B
+//    and whatever column of the n-tile it takes: the k16 steps in block
+//    order, the K split fixed by K, the ranks added in rank order, and each
+//    column of an mma summed apart from the others; the RMS sums per row;
+//    and K4 on one slot equals K3. The engine's greedy tokens equal the
+//    single-stream runner's because of it.
 //  * Attention roundings: the TPU batched kernels round q, K/V and the
 //    softmax probabilities to bf16 for their page dots; the single-stream
 //    ones do not. K4 keeps K3's f32 softmax instead, so that slots equal
@@ -93,22 +111,8 @@
 //  * Mixed positions: row r reads its position at pos[r * pos_stride] and
 //    writes its cache at r * kv_bstride; the checks put slots at different
 //    positions that straddle K4's 256-row pages, one of them at 0.
-//  * Activation reads: each lane reads its 32-element block of every row
-//    once per weight block and pair (both rows of the pair dot the same
-//    staged values), and the lanes of a warp read 32 consecutive blocks:
-//    at a 128-byte lane stride, float4 loads of f32 rows would conflict in
-//    the shared-memory banks and scatter over L1 lines, B times over (K5's
-//    bottleneck, PERF.md). So the rows are staged as bf16 with the four
-//    16-byte chunks of each 32-element block rotated by (block / 2): a
-//    quarter warp's 8 loads hit 8 bank groups, and a row takes half the
-//    bytes. Every lane visits its blocks in increasing order and each
-//    block's products are summed as dequant.cuh's block_dot sums them, so
-//    each (feature, row) sum is the same whatever the grid, the row count
-//    or the staging.
-//  * Shared memory: past the 48 KB a block gets without opting in, a
-//    launch needs the kernel's cudaFuncAttributeMaxDynamicSharedMemorySize:
-//    each instantiation opts in once, to the 224 KB any launch of it may
-//    ask for, before its first launch.
+//  * Shared memory: each instantiation opts in once to the 226 KB of
+//    dynamic shared memory any launch of it may ask for.
 //
 // The current token's k/v: the TPU kernels fold the unrounded f32 k/v of
 // the current token into the softmax, and the caller writes the cache row
@@ -123,51 +127,21 @@
 
 namespace {
 
-template <int QT, bool PACKED, bool SBF16, int ROWS>
-int launch(int rms, int epi, const float* x, const float* norm_w,
-           const uint8_t* ca, const void* sa, const uint8_t* cb, const void* sb,
-           int B, int P, int N, int K, const float* res, float* out,
-           RopeArgs ra, cudaStream_t s) {
-#define TTS_GEMV_ARGS x, norm_w, ca, sa, cb, sb, B, P, N, K, res, out, ra, s
-  if (rms && epi == EPI_ROPE_QKV) {
-    return launch_one<QT, PACKED, SBF16, true, EPI_ROPE_QKV, ROWS>(TTS_GEMV_ARGS);
-  } else if (rms && epi == EPI_SILU_MUL) {
-    return launch_one<QT, PACKED, SBF16, true, EPI_SILU_MUL, ROWS>(TTS_GEMV_ARGS);
-  } else if (rms && epi == EPI_STORE) {
-    return launch_one<QT, PACKED, SBF16, true, EPI_STORE, ROWS>(TTS_GEMV_ARGS);
-  } else if (!rms && epi == EPI_RESIDUAL) {
-    return launch_one<QT, PACKED, SBF16, false, EPI_RESIDUAL, ROWS>(TTS_GEMV_ARGS);
-  }
-#undef TTS_GEMV_ARGS
-  return (int)cudaErrorInvalidValue;
-}
-
-template <int QT, bool PACKED, int ROWS>
-int with_scales(int scale_bf16, int rms, int epi, const float* x,
-                const float* norm_w, const uint8_t* ca, const void* sa,
-                const uint8_t* cb, const void* sb, int B, int P, int N, int K,
-                const float* res, float* out, RopeArgs ra, cudaStream_t s) {
-#define TTS_GEMV_ARGS rms, epi, x, norm_w, ca, sa, cb, sb, B, P, N, K, res, out, ra, s
-  if (scale_bf16) return launch<QT, PACKED, true, ROWS>(TTS_GEMV_ARGS);
-  return launch<QT, PACKED, false, ROWS>(TTS_GEMV_ARGS);
-#undef TTS_GEMV_ARGS
-}
-
-template <int ROWS>
-int dispatch(int qtype, int packed, int scale_bf16, int rms, int epi,
-             const float* x, const float* norm_w, const uint8_t* ca,
-             const void* sa, const uint8_t* cb, const void* sb, int B, int P,
-             int N, int K, const float* res, float* out, RopeArgs ra,
-             cudaStream_t s) {
-#define TTS_GEMV_ARGS scale_bf16, rms, epi, x, norm_w, ca, sa, cb, sb, B, P, N, K, res, out, ra, s
+template <int NT>
+int dispatch(int qtype, int packed, int scale_bf16, const float* x,
+             const float* norm_w, const uint8_t* ca, const void* sa, int B,
+             int P, int N, int K, int epi, const float* res, float* out,
+             RopeArgs ra, cudaStream_t s) {
+#define TTS_GEMV_ARGS x, norm_w, ca, sa, B, P, N, K, epi, res, out, ra, s
   if (qtype == Q4_0 && packed) {
-    return with_scales<Q4_0, true, ROWS>(TTS_GEMV_ARGS);
-  } else if (qtype == Q4_0) {
-    return with_scales<Q4_0, false, ROWS>(TTS_GEMV_ARGS);
+    return scale_bf16 ? launch_one<Q4_0, true, true, NT>(TTS_GEMV_ARGS)
+                      : launch_one<Q4_0, true, false, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q5_0 && !packed) {
-    return with_scales<Q5_0, false, ROWS>(TTS_GEMV_ARGS);
+    return scale_bf16 ? launch_one<Q5_0, false, true, NT>(TTS_GEMV_ARGS)
+                      : launch_one<Q5_0, false, false, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q8_0 && !packed) {
-    return with_scales<Q8_0, false, ROWS>(TTS_GEMV_ARGS);
+    return scale_bf16 ? launch_one<Q8_0, false, true, NT>(TTS_GEMV_ARGS)
+                      : launch_one<Q8_0, false, false, NT>(TTS_GEMV_ARGS);
   }
 #undef TTS_GEMV_ARGS
   return (int)cudaErrorInvalidValue;
@@ -175,20 +149,21 @@ int dispatch(int qtype, int packed, int scale_bf16, int rms, int epi,
 
 }  // namespace
 
-constexpr int MAX_ROWS = 16;
-
-// out = epilogue(RMS?(x) @ dequant(W)^T) for x (B, K), weights row-major
-// (N, K) as ops/quant_matmul.py lays them out, with f32 (scale_bf16 = 0) or
-// bf16 scales and the `_dqdot` rounding either way; 1 <= B <= 16 (K6/K8
-// are the calls with B = 1, K7/K9 with one row per slot). (rms, epi) is one of
+// out = epilogue(RMS?(x) @ dequant(W)^T) for x (B, K), the weights tiled
+// (ops/llama_megastep.py gemv_tile, the pairs of `epi`: codes_a the tiles'
+// codes, scales_a their scales; Q4_0 nibble-packed, Q5_0 or Q8_0), with
+// f32 (scale_bf16 = 0) or bf16 scales and the `_dqdot` rounding either way;
+// 1 <= B <= 16 (K6/K8 are the calls with B = 1, K7/K9 with one row per
+// slot); K a multiple of 256 (512 past 4096). (rms, epi) is one of
 //   (1, ROPE_QKV): W = qkv (hidden + 2 kvh rows); out (B, hidden + 2 kvh)
 //                  with q and k of row r rotated at pos[r * pos_stride];
 //                  row r's k and v also written into its cache (kc / vc +
 //                  r * kv_bstride elements) at row min(pos, ctx - 1);
-//   (1, SILU_MUL): A = gate, B = up, both (N, K); out (B, N);
+//   (1, SILU_MUL): W tiles gate and up, both (N, K); out (B, N);
 //   (1, STORE)   : out (B, N), N even;
 //   (0, RESIDUAL): out = res + ., N even (res may be out).
-// codes_b / scales_b are read only by SILU_MUL; pass A's for the others.
+// codes_b / scales_b are not read (the tiles hold both rows of every pair).
+// Launched with programmatic dependent launch on `stream`.
 extern "C" int tts_llama_gemv(
     const float* x, const float* norm_w, int rms, const uint8_t* codes_a,
     const void* scales_a, const uint8_t* codes_b, const void* scales_b,
@@ -203,13 +178,16 @@ extern "C" int tts_llama_gemv(
       (d <= 0 || d % 2 || hidden % d || kvh % d || N != hidden + 2 * kvh)) {
     return (int)cudaErrorInvalidValue;
   }
+  const bool ok = (rms && (epi == EPI_ROPE_QKV || epi == EPI_SILU_MUL ||
+                           epi == EPI_STORE)) ||
+                  (!rms && epi == EPI_RESIDUAL);
+  if (!ok || (rms && norm_w == nullptr)) return (int)cudaErrorInvalidValue;
   const int P = epi == EPI_SILU_MUL ? N : N / 2;
   const RopeArgs ra{inv, pos, pos_stride, kc, vc, hidden, kvh, d, ctx,
                     cache_bf16, kv_bstride};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-#define TTS_GEMV_ARGS qtype, packed, scale_bf16, rms, epi, x, norm_w, codes_a, scales_a, codes_b, scales_b, B, P, N, K, res, out, ra, s
-  if (B == 1) return dispatch<1>(TTS_GEMV_ARGS);
-  if (B <= 8) return dispatch<8>(TTS_GEMV_ARGS);
-  return dispatch<MAX_ROWS>(TTS_GEMV_ARGS);
+#define TTS_GEMV_ARGS qtype, packed, scale_bf16, x, rms ? norm_w : nullptr, codes_a, scales_a, B, P, N, K, epi, res, out, ra, s
+  if (B <= 8) return dispatch<1>(TTS_GEMV_ARGS);
+  return dispatch<2>(TTS_GEMV_ARGS);
 #undef TTS_GEMV_ARGS
 }

@@ -227,11 +227,12 @@ def maybe_prep_dia_mega(cfg: DiaConfig, w: DiaWeights) -> Mega | None:
     """K10's weights when its route applies: uniformly quantized decode
     projections and kernel-friendly dims (the JAX package's gate,
     model.py:377-383, without its platform test: the weights choose the
-    route, not the device). None -> the per-matmul route."""
-    if cfg.decoder_hidden_size % 128 or cfg.head_size % 64:
+    route, not the device; the widths the GEMV takes are `prep_dia_mega`'s
+    to refuse). None -> the per-matmul route."""
+    if cfg.head_size % 64:
         return None
     try:
-        return Mega(*prep_dia_mega(w.dec_layers))
+        return Mega(*prep_dia_mega(w.dec_layers, cfg.head_size))
     except ValueError:
         return None
 

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ...common import default_device
-from ...ops.llama_megastep import LlamaMegaLayers
+from ...ops.llama_megastep import LlamaMegaLayers, gemv_pair_rows, gemv_tile
 from ...ops.quant_matmul import QuantTensor
 from ..parler.convert import _leaf
 from .model import OrpheusLayer, OrpheusWeights
@@ -37,18 +37,26 @@ def orpheus_weights_from_numpy(fields: Mapping[str, Any],
 
 
 def llama_mega_from_numpy(fields: Mapping[str, np.ndarray], qtype: int,
-                          device=None) -> LlamaMegaLayers:
+                          head_dim: int, device=None) -> LlamaMegaLayers:
     """fields: every field of the JAX package's LlamaMegaLayers as numpy:
     `<m>_codes` (L, K or K/2 packed, N) and `<m>_scales` (L, K/32, N) for
-    m in qkv, o, gate, up, down, and norms (L, 2, H). Scale dtypes are kept
-    (qkv float32, the others bfloat16, as the JAX prep makes them)."""
+    m in qkv, o, gate, up, down, and norms (L, 2, H), heads of `head_dim`.
+    Scale dtypes are kept (qkv float32, the others bfloat16, as the JAX prep
+    makes them); each projection is tiled for the GEMV (gemv_tile)."""
     device = default_device(device)
-    out = {}
-    for m in ("qkv", "o", "gate", "up", "down"):
-        qt = QuantTensor.from_transposed(fields[m + "_codes"],
+    qt = {m: QuantTensor.from_transposed(fields[m + "_codes"],
                                          fields[m + "_scales"], qtype, device)
-        out[m + "_codes"] = qt.codes.contiguous()
-        out[m + "_scales"] = qt.scales.contiguous()
-    out["norms"] = torch.tensor(np.asarray(fields["norms"], np.float32),
-                                device=device)
-    return LlamaMegaLayers(**out)
+          for m in ("qkv", "o", "gate", "up", "down")}
+    hidden, ffn = qt["o"].shape[0], qt["gate"].shape[0]
+
+    def tile(m, kind, n, **kw):
+        rows = gemv_pair_rows(kind, n if kind == "silu" else n // 2, head_dim)
+        return gemv_tile(qt[m].codes, qt[m].scales, *rows, **kw)
+
+    return LlamaMegaLayers(
+        *tile("qkv", "rope", qt["qkv"].shape[0]), *tile("o", "pairs", hidden),
+        *tile("gate", "silu", ffn, codes_b=qt["up"].codes,
+              scales_b=qt["up"].scales),
+        *tile("down", "pairs", hidden),
+        norms=torch.tensor(np.asarray(fields["norms"], np.float32),
+                           device=device))

@@ -214,13 +214,13 @@ class Mega(NamedTuple):
 
 def maybe_prep_llama_mega(cfg: OrpheusConfig, w: OrpheusWeights) -> Mega | None:
     """K8's weights when its route applies: uniformly quantized projections
-    and kernel-friendly dims (the JAX package's gate, model.py:222-228).
-    Depends on the weights, not on the device. None -> the per-matmul
-    route."""
-    if cfg.hidden_size % 128 or cfg.head_size % 64:
+    and kernel-friendly dims (the JAX package's gate, model.py:222-228; the
+    widths the GEMV takes are `prep_llama_mega`'s to refuse). Depends on
+    the weights, not on the device. None -> the per-matmul route."""
+    if cfg.head_size % 64:
         return None
     try:
-        return Mega(*prep_llama_mega(w.layers))
+        return Mega(*prep_llama_mega(w.layers, cfg.head_size))
     except ValueError:
         return None
 

@@ -55,7 +55,10 @@ from ._build import addr
 from .attention import rope_freqs
 from .decode_attention import decode_attention_plain
 from .llama_megastep import (ARGS, EPI_RESIDUAL, EPI_ROPE_QKV, EPI_SILU_MUL,
-                             _rope, _write_row, dqdot, rms_norm)
+                             GEMV_TILE_PAIRS, _rope, _write_row, dqdot,
+                             gemv_k_ok, gemv_pair_rows, gemv_tile,
+                             require_tiles, rms_norm, tiles_packed,
+                             weight_rows)
 from .quant_matmul import BIAS, QuantTensor
 
 _vp = ctypes.c_void_p
@@ -78,30 +81,32 @@ MAX_PAIRS = 8    # pairs one launch takes (2 rows each; the GEMV takes 16,
 class DiaMegaLayers(NamedTuple):
     """Per-layer decoder weights in the megastep layout (stacked on L).
 
-    Codes row-major (see ops/quant_matmul.py), Q4 nibble-packed; every scale
+    Each projection tiled for the GEMV (`llama_megastep.gemv_tile`: (L,
+    tiles, K/128, ...) codes and scales), Q4 nibble-packed, every scale
     bfloat16, as the TPU kernel's prep keeps them. qkv = concat(self q, k,
-    v) on N; occ = concat(self o, cross q, cross o) on N (which needs
-    n_heads * head_size == hidden); norms packs (sa, ca, mlp) RMS weights.
+    v) on N, its pairs RoPE's; occ = the tiles of self o, cross q (RoPE's
+    pairs) and cross o, H/16 each (which needs n_heads * head_size ==
+    hidden); gate_up pairs gate row p with up row p; o, cross o and down
+    pair rows 2p, 2p + 1. norms packs (sa, ca, mlp) RMS weights.
     """
 
-    qkv_codes: torch.Tensor    # (L, QH + 2 KV, Kc(H))
-    qkv_scales: torch.Tensor   # (L, QH + 2 KV, H/32)
-    occ_codes: torch.Tensor    # (L, 3 H, Kc(H))
+    qkv_codes: torch.Tensor       # (L, (QH + 2 KV) / 16, H / 128, 64 Cb)
+    qkv_scales: torch.Tensor      # (L, (QH + 2 KV) / 16, H / 128, 64)
+    occ_codes: torch.Tensor       # (L, 3 H / 16, H / 128, 64 Cb)
     occ_scales: torch.Tensor
-    gate_codes: torch.Tensor   # (L, F, Kc(H))
-    gate_scales: torch.Tensor
-    up_codes: torch.Tensor     # (L, F, Kc(H))
-    up_scales: torch.Tensor
-    down_codes: torch.Tensor   # (L, H, Kc(F))
-    down_scales: torch.Tensor  # (L, H, F/32)
-    norms: torch.Tensor        # (L, 3, H) f32
+    gate_up_codes: torch.Tensor   # (L, F / 8, H / 128, 64 Cb)
+    gate_up_scales: torch.Tensor
+    down_codes: torch.Tensor      # (L, H / 16, F / 128, 64 Cb)
+    down_scales: torch.Tensor     # (L, H / 16, F / 128, 64)
+    norms: torch.Tensor           # (L, 3, H) f32
 
 
-def prep_dia_mega(layers) -> tuple[DiaMegaLayers, int]:
+def prep_dia_mega(layers, head_dim: int) -> tuple[DiaMegaLayers, int]:
     """DiaMegaLayers from a stacked DiaDecoderLayer whose 9 decode
     projections are QuantTensors of one block qtype (cross_k / cross_v run
-    only at encode time). Raises ValueError otherwise (the caller then
-    takes the per-matmul path)."""
+    only at encode time), heads of `head_dim`. Raises ValueError otherwise,
+    or where a width is not one the GEMV takes (the caller then takes the
+    per-matmul path)."""
     mats = [layers.self_q, layers.self_k, layers.self_v, layers.self_o,
             layers.cross_q, layers.cross_o, layers.gate, layers.up, layers.wo]
     if not all(isinstance(m, QuantTensor) for m in mats):
@@ -112,19 +117,32 @@ def prep_dia_mega(layers) -> tuple[DiaMegaLayers, int]:
     q, k, v, o, cq, co, gate, up, down = [m.pack() for m in mats]
     if o.shape[1] != cq.shape[1]:
         raise ValueError("dia megastep needs n_heads * head_size == hidden")
+    hidden, ffn = o.shape[0], gate.shape[0]
+    if not (gemv_k_ok(hidden) and gemv_k_ok(ffn) and head_dim % 2 == 0
+            and hidden % head_dim == 0):
+        raise ValueError(f"dia megastep: H {hidden}, F {ffn}, heads of "
+                         f"{head_dim} are not widths the GEMV takes")
 
-    def cat(ms):
-        return (torch.cat([m.codes for m in ms], dim=-2).contiguous(),
-                torch.cat([m.scales.to(torch.bfloat16) for m in ms],
-                          dim=-2).contiguous())
+    def tile(m, kind, rows_of=None, other=None):
+        n = m.shape[0] if rows_of is None else rows_of
+        rows = gemv_pair_rows(kind, n if kind == "silu" else n // 2, head_dim)
+        sb = None if other is None else other.scales.to(torch.bfloat16)
+        return gemv_tile(m.codes, m.scales.to(torch.bfloat16), *rows,
+                         codes_b=None if other is None else other.codes,
+                         scales_b=sb)
 
-    qkv_c, qkv_s = cat([q, k, v])
-    occ_c, occ_s = cat([o, cq, co])
-    (g_c, g_s), (u_c, u_s), (d_c, d_s) = cat([gate]), cat([up]), cat([down])
+    qkv = QuantTensor(torch.cat([q.codes, k.codes, v.codes], dim=-2),
+                      torch.cat([q.scales, k.scales, v.scales], dim=-2),
+                      q.qtype)
+    qkv_c, qkv_s = tile(qkv, "rope")
+    occ = [tile(o, "pairs"), tile(cq, "rope"), tile(co, "pairs")]
+    gu_c, gu_s = tile(gate, "silu", other=up)
+    d_c, d_s = tile(down, "pairs")
     return DiaMegaLayers(
-        qkv_codes=qkv_c, qkv_scales=qkv_s, occ_codes=occ_c, occ_scales=occ_s,
-        gate_codes=g_c, gate_scales=g_s, up_codes=u_c, up_scales=u_s,
-        down_codes=d_c, down_scales=d_s,
+        qkv_codes=qkv_c, qkv_scales=qkv_s,
+        occ_codes=torch.cat([c for c, _ in occ], dim=-3).contiguous(),
+        occ_scales=torch.cat([sc for _, sc in occ], dim=-3).contiguous(),
+        gate_up_codes=gu_c, gate_up_scales=gu_s, down_codes=d_c, down_scales=d_s,
         norms=torch.stack([layers.sa_norm, layers.ca_norm, layers.mlp_norm],
                           dim=1).float().contiguous()), next(iter(qtypes))
 
@@ -186,6 +204,8 @@ def dia_megastep_plain(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv,
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     d = hidden // n_heads
     kvh = n_kv * d
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
+    t1 = hidden // (2 * GEMV_TILE_PAIRS)   # occ's tiles of each of its three
     ctx, sb = kv_k.shape[3], ck.shape[2]
     p = torch.as_tensor(pos, device=x.device).reshape(1).long()
     ang = p.float() * inv_freq(d, x.device)
@@ -195,8 +215,9 @@ def dia_megastep_plain(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv,
     k_new, v_new = [], []
     for l in range(n_layers):
         nm = mega.norms[l]
-        qkv = dqdot(rms_norm(x, nm[0]), mega.qkv_codes[l], mega.qkv_scales[l],
-                    qtype)
+        qkv = dqdot(rms_norm(x, nm[0]), *weight_rows(
+            mega.qkv_codes[l], mega.qkv_scales[l], "rope", hidden + 2 * kvh, d),
+            qtype)
         attn, ks, vs = [], [], []
         for r in range(2):
             q = _rope(qkv[r, :hidden].reshape(n_heads, d), cos, sin)
@@ -210,22 +231,25 @@ def dia_megastep_plain(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv,
             ks.append(k)
             vs.append(v)
         occ_c, occ_s = mega.occ_codes[l], mega.occ_scales[l]
-        x = x + dqdot(torch.stack(attn).reshape(2, hidden), occ_c[:hidden],
-                      occ_s[:hidden], qtype)
-        cq = dqdot(rms_norm(x, nm[1]), occ_c[hidden:2 * hidden],
-                   occ_s[hidden:2 * hidden], qtype)
+        o_w, cq_w, co_w = (weight_rows(occ_c[i * t1:(i + 1) * t1],
+                                       occ_s[i * t1:(i + 1) * t1], kind,
+                                       hidden, d)
+                           for i, kind in enumerate(("pairs", "rope", "pairs")))
+        x = x + dqdot(torch.stack(attn).reshape(2, hidden), *o_w, qtype)
+        cq = dqdot(rms_norm(x, nm[1]), *cq_w, qtype)
         cq = torch.stack([_rope(cq[r].reshape(n_heads, d), cos, sin)
                           for r in range(2)])
         ca = cross_attention_plain(cq, ck[l].reshape(2, n_heads, sb, d),
                                    cv[l].reshape(2, n_heads, sb, d),
                                    vtail[l].reshape(2, n_heads, d), n_tail)
-        x = x + dqdot(ca.reshape(2, hidden), occ_c[2 * hidden:],
-                      occ_s[2 * hidden:], qtype)
+        x = x + dqdot(ca.reshape(2, hidden), *co_w, qtype)
         h = rms_norm(x, nm[2])
-        act = torch.nn.functional.silu(
-            dqdot(h, mega.gate_codes[l], mega.gate_scales[l], qtype)) * \
-            dqdot(h, mega.up_codes[l], mega.up_scales[l], qtype)
-        x = x + dqdot(act, mega.down_codes[l], mega.down_scales[l], qtype)
+        gate, up = weight_rows(mega.gate_up_codes[l], mega.gate_up_scales[l],
+                               "silu", ffn)
+        act = torch.nn.functional.silu(dqdot(h, *gate, qtype)) * \
+            dqdot(h, *up, qtype)
+        x = x + dqdot(act, *weight_rows(mega.down_codes[l], mega.down_scales[l],
+                                        "pairs", hidden), qtype)
         k_new.append(torch.stack(ks))
         v_new.append(torch.stack(vs))
     return x, torch.stack(k_new), torch.stack(v_new)
@@ -263,7 +287,8 @@ class DiaScratch(NamedTuple):
 
 def step_scratch(mega: DiaMegaLayers, rows: int, n_heads: int, ctx: int,
                  sb: int, device) -> DiaScratch:
-    hidden, ffn = mega.norms.shape[2], mega.gate_codes.shape[1]
+    hidden = mega.norms.shape[2]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     d = hidden // n_heads
     f32 = dict(dtype=torch.float32, device=device)
     return DiaScratch(attn=torch.empty((rows, n_heads, d), **f32),
@@ -288,11 +313,12 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     (L, R, KV))."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
-    ffn = mega.gate_codes.shape[1]
-    kvn = mega.qkv_codes.shape[1]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     rows, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
     sb = ck.shape[3]
     kvh = n_kv * d
+    kvn = hidden + 2 * kvh
+    t1 = hidden // (2 * GEMV_TILE_PAIRS)   # occ's tiles of each of its three
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
@@ -306,15 +332,15 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
                    ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
-    for name in ("qkv", "occ", "gate", "up", "down"):
-        _build.require(getattr(mega, name + "_codes"), name + "_codes",
-                       device=dev, dtypes=(torch.uint8, torch.int8), ndim=3)
-        _build.require(getattr(mega, name + "_scales"), name + "_scales",
-                       device=dev, dtypes=(torch.bfloat16,), ndim=3, align=2)
+    for name, pairs, k in (("qkv", kvn // 2, hidden), ("occ", 3 * hidden // 2, hidden),
+                           ("gate_up", ffn, hidden), ("down", hidden // 2, ffn)):
+        require_tiles(getattr(mega, name + "_codes"),
+                      getattr(mega, name + "_scales"), name, dev, pairs, k)
+        if getattr(mega, name + "_scales").dtype != torch.bfloat16:
+            raise ValueError(f"dia_megastep: {name} scales must be bfloat16")
     if (x.shape != (rows, hidden) or hidden != n_heads * d
             or kv_k.shape != (n_layers, rows, n_kv, ctx, d)
-            or kv_v.shape != kv_k.shape or kvn != hidden + 2 * kvh
-            or mega.occ_codes.shape[1] != 3 * hidden
+            or kv_v.shape != kv_k.shape or hidden % (2 * GEMV_TILE_PAIRS)
             or ck.shape != (n_layers, rows, n_heads, sb, d)
             or cv.shape != ck.shape or vtail.shape != (n_layers, rows, n_heads, d)
             or pos.numel() not in (1, rows) or not 0 < rows <= 2 * MAX_PAIRS
@@ -330,7 +356,7 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
             or sc.part[1].numel() < rows * n_heads * n_pages * d):
         raise ValueError(f"dia_megastep: scratch for {tuple(sc.act.shape)} "
                          f"does not fit {rows} rows over {max(ctx, sb)}")
-    packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
+    packed = int(tiles_packed(mega.qkv_codes))
     cache_bf16 = int(kv_k.dtype == torch.bfloat16)
     stream = _build.stream_ptr(dev)
     vp = ctypes.c_void_p
@@ -346,14 +372,11 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
     arrivals = vp(da.arrivals(dev, rows * n_heads).data_ptr())
     tail = n_tail > 0
 
-    def gemv(xin, norm, name, l, row0, n, k, res, out, epi, *, pair=None,
+    def gemv(xin, norm, name, l, tile0, n, k, res, out, epi, *,
              q_feats=hidden, kv_feats=0, kc=null, vc=null):
         codes, scales = getattr(mega, name + "_codes"), getattr(mega, name + "_scales")
-        ca, sa = vp(addr(codes, l, row0)), vp(addr(scales, l, row0))
-        cb, sb_ = (ca, sa) if pair is None else (
-            vp(addr(getattr(mega, pair + "_codes"), l)),
-            vp(addr(getattr(mega, pair + "_scales"), l)))
-        gemv_kernel(xin, norm, int(norm is not null), ca, sa, cb, sb_, qtype,
+        ca, sa = vp(addr(codes, l, tile0)), vp(addr(scales, l, tile0))
+        gemv_kernel(xin, norm, int(norm is not null), ca, sa, ca, sa, qtype,
                     packed, 1, rows, n, k, res, out, epi, inv_p, pos_p,
                     pos_stride, kc, vc, q_feats, kv_feats, d, ctx, cache_bf16,
                     n_kv * ctx * d, stream)
@@ -366,17 +389,17 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
         da._launch(da.KERNEL_BATCHED, q_out[:, :hidden].unflatten(1, (n_heads, d)),
                    kv_k[l], kv_v[l], pos, 1.0, sc.attn, sc.part)
         gemv(attn_p, null, "occ", l, 0, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
-        gemv(x_p, vp(addr(mega.norms, l, 1)), "occ", l, hidden, hidden, hidden,
+        gemv(x_p, vp(addr(mega.norms, l, 1)), "occ", l, t1, hidden, hidden,
              null, cq_p, EPI_ROPE_QKV)
         cross_kernel(cq_p, vp(addr(ck, l)), vp(addr(cv, l)),
                      vp(addr(vtail, l)) if tail else null, float(n_tail),
                      attn_p, part_ml, part_acc, arrivals, rows, n_heads, sb, d,
                      int(ck.dtype == torch.bfloat16), hidden, n_heads * sb * d,
                      1.0, stream)
-        gemv(attn_p, null, "occ", l, 2 * hidden, hidden, hidden, x_p, x_p,
+        gemv(attn_p, null, "occ", l, 2 * t1, hidden, hidden, x_p, x_p,
              EPI_RESIDUAL)
-        gemv(x_p, vp(addr(mega.norms, l, 2)), "gate", l, 0, ffn, hidden, null,
-             act_p, EPI_SILU_MUL, pair="up")
+        gemv(x_p, vp(addr(mega.norms, l, 2)), "gate_up", l, 0, ffn, hidden, null,
+             act_p, EPI_SILU_MUL)
         gemv(act_p, null, "down", l, 0, hidden, ffn, x_p, x_p, EPI_RESIDUAL)
     return xw, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]
 

@@ -34,22 +34,39 @@ import torch
 
 from . import _build
 from . import decode_attention as da
-from .llama_megastep import (ARGS, EPI_STORE, MAX_BATCH, LlamaMegaLayers,
-                             StepScratch, dqdot, group_scratch, layers_cuda,
-                             llama_megastep_batched_plain,
-                             llama_megastep_plain, rms_norm)
+from .llama_megastep import (ARGS, EPI_STORE, GEMV_TILE_PAIRS, GEMV_UNIT_K,
+                             MAX_BATCH, LlamaMegaLayers, StepScratch, dqdot,
+                             gemv_pair_rows, gemv_tile, group_scratch,
+                             layers_cuda, llama_megastep_batched_plain,
+                             llama_megastep_plain, require_tiles, rms_norm,
+                             tiles_packed, weight_rows)
 from .quant_matmul import QuantTensor
 
 KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)           # K6
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K7
 
 
+class Tiles(NamedTuple):
+    """One projection tiled for the GEMV (llama_megastep.gemv_tile), rows
+    2p and 2p + 1 paired: codes (T, K/128, ...) and scales (T, K/128, 64)."""
+
+    codes: torch.Tensor
+    scales: torch.Tensor
+
+    @property
+    def shape(self) -> tuple:
+        """(N, K): 16 rows a tile, 128 weights a stage."""
+        return (self.codes.shape[-3] * 2 * GEMV_TILE_PAIRS,
+                self.codes.shape[-2] * GEMV_UNIT_K)
+
+
 class LlamaFlat(NamedTuple):
     """K6's weights: the layers with bf16 scales everywhere, the padded
-    bf16-scale LM head (N = vocab_pad rows) and the final norm's weight."""
+    bf16-scale LM head (N = vocab_pad rows), tiled, and the final norm's
+    weight."""
 
     layers: LlamaMegaLayers
-    head: QuantTensor
+    head: Tiles
     out_norm: torch.Tensor   # (H,) f32
 
 
@@ -65,7 +82,17 @@ def prep_llama_flat(mega: LlamaMegaLayers, head, out_norm, qtype: int,
     if n_heads // n_kv > 8 or n_heads % n_kv:
         raise ValueError("flat megastep assumes GQA group size <= 8")
     layers = mega._replace(qkv_scales=mega.qkv_scales.to(torch.bfloat16))
-    return LlamaFlat(layers, head.fast_lm_head(), out_norm.float().contiguous())
+    h = head.fast_lm_head()
+    tiled = Tiles(*gemv_tile(h.codes, h.scales,
+                             *gemv_pair_rows("pairs", h.shape[0] // 2)))
+    return LlamaFlat(layers, tiled, out_norm.float().contiguous())
+
+
+def head_logits(flat: LlamaFlat, xo, qtype: int):
+    """The head's `_dqdot` product on RMS(out_norm) of xo (plain)."""
+    h = rms_norm(xo, flat.out_norm)
+    return dqdot(h, *weight_rows(flat.head.codes, flat.head.scales, "pairs",
+                                 flat.head.shape[0]), qtype)
 
 
 def llama_flat_megastep_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
@@ -76,22 +103,19 @@ def llama_flat_megastep_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
     xo, kn, vn = llama_megastep_plain(flat.layers, x, kv_k, kv_v, pos,
                                       qtype=qtype, n_heads=n_heads, n_kv=n_kv,
                                       inv_freq=inv_freq)
-    h = rms_norm(xo, flat.out_norm)
-    return dqdot(h, flat.head.codes, flat.head.scales, qtype), kn, vn
+    return head_logits(flat, xo, qtype), kn, vn
 
 
 def _require_head(flat: LlamaFlat, dev) -> None:
     head, hidden = flat.head, flat.layers.norms.shape[2]
-    _build.require(head.codes, "head codes", device=dev,
-                   dtypes=(torch.uint8, torch.int8), ndim=2)
-    _build.require(head.scales, "head scales", device=dev,
-                   dtypes=(torch.bfloat16,), ndim=2, align=2)
+    require_tiles(head.codes, head.scales, "head", dev, head.shape[0] // 2,
+                  hidden, lead=0)
     _build.require(flat.out_norm, "out_norm", device=dev,
                    dtypes=(torch.float32,), ndim=1)
-    if head.shape[1] != hidden or head.shape[0] % 2 or \
-            flat.out_norm.numel() != hidden:
-        raise ValueError(f"llama_flat_megastep: head {head.shape}, "
-                         f"out_norm {tuple(flat.out_norm.shape)}, H={hidden}")
+    if head.scales.dtype != torch.bfloat16 or flat.out_norm.numel() != hidden:
+        raise ValueError(f"llama_flat_megastep: head {head.shape} "
+                         f"({head.scales.dtype} scales), out_norm "
+                         f"{tuple(flat.out_norm.shape)}, H={hidden}")
 
 
 def _head_cuda(kernel, flat: LlamaFlat, xo, qtype: int):
@@ -102,10 +126,10 @@ def _head_cuda(kernel, flat: LlamaFlat, xo, qtype: int):
                          device=xo.device)
     vp, null = _build.ptr, ctypes.c_void_p(0)
     kernel(vp(xo), vp(flat.out_norm), 1, vp(head.codes), vp(head.scales),
-           vp(head.codes), vp(head.scales), qtype, int(head.is_packed), 1,
-           xo.shape[0], head.shape[0], hidden, null, vp(logits), EPI_STORE,
-           null, null, 0, null, null, 0, 0, 0, 0, 0, 0,
-           _build.stream_ptr(xo.device))
+           vp(head.codes), vp(head.scales), qtype,
+           int(tiles_packed(head.codes)), 1, xo.shape[0], head.shape[0],
+           hidden, null, vp(logits), EPI_STORE, null, null, 0, null, null, 0,
+           0, 0, 0, 0, 0, _build.stream_ptr(xo.device))
     return logits
 
 
@@ -146,8 +170,7 @@ def llama_flat_megastep_batched_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
     xo, kn, vn = llama_megastep_batched_plain(
         flat.layers, x, kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
         n_kv=n_kv, inv_freq=inv_freq)
-    h = rms_norm(xo, flat.out_norm)
-    return dqdot(h, flat.head.codes, flat.head.scales, qtype), kn, vn
+    return head_logits(flat, xo, qtype), kn, vn
 
 
 def llama_flat_megastep_batched_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,

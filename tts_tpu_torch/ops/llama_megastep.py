@@ -23,6 +23,12 @@ slots equals K8 on that slot's state bit for bit. K6 and K7
 LM head. On CPU tensors `llama_megastep_plain` and
 `llama_megastep_batched_plain` compute the same in plain PyTorch.
 
+The prep (`prep_llama_mega`) lays each projection out in the order the
+GEMV streams it (`gemv_tile`: tiles of 8 feature pairs, each a run of
+stages of 128 weights of its 16 rows), so that each warp reads contiguous
+runs; the plain versions read the same tiles back in row order
+(`weight_rows`).
+
 K9 departs from the TPU batched kernel in one rounding: that kernel rounds
 q, K/V and the softmax probabilities to bf16 for its attention dots, which
 the single-stream kernel does not; here K4 keeps K3's f32 softmax, so that
@@ -59,69 +65,221 @@ EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
 RMS_EPS = 1e-5
 MAX_BATCH = 16   # rows one GEMV launch takes (csrc/llama_megastep.cu MAX_ROWS);
                  # larger batches run in groups
-# csrc/gemv.cuh's launch shape: blocks of GEMV_WARPS warps in clusters of
-# GEMV_CLUSTER, at most one block per SM, staging B x K bf16 rows in at most
-# GEMV_STAGE_LIMIT bytes of shared memory a pass; an RMS prologue holds a
-# row in registers up to GEMV_RMS_HELD elements
-GEMV_WARPS, GEMV_CLUSTER = 12, 2
-GEMV_STAGE_LIMIT = 224 * 1024
-GEMV_RMS_HELD = 16 * 256
+# csrc/gemv.cuh's launch shape: clusters of gemv_k_split(K) blocks of
+# GEMV_WARPS warps, one block per SM (two for the head), each block taking a K range of
+# every row; a warp's tile is GEMV_TILE_PAIRS feature pairs (16 weight rows)
+# streamed through a ring of stages of GEMV_UNIT_K weights a row; the
+# input rows' bf16 copy, the ring and the slots where rank 0 gathers the
+# other ranks' sums share the block's dynamic shared memory, at most
+# GEMV_SMEM_LIMIT bytes. An SM has GEMV_SM_SMEM, and each resident block
+# takes 1 KB more than it asks for.
+GEMV_WARPS, GEMV_TILE_PAIRS, GEMV_UNIT_K, GEMV_NBUF = 8, 8, 128, 2
+GEMV_STAGE_BLOCKS = GEMV_UNIT_K // 32
+GEMV_SMEM_LIMIT = 226 * 1024
+GEMV_SM_SMEM = 228 * 1024
 
 
-def gemv_rows_per_pass(b: int, k: int) -> int:
-    """The rows a GEMV launch stages at a time (csrc/gemv.cuh
-    rows_per_pass): all b when b x k bf16 fit in GEMV_STAGE_LIMIT, else b
-    split evenly over the fewest passes that fit; 0 when one row does not."""
-    fit = GEMV_STAGE_LIMIT // (2 * k)
-    if fit < 1:
-        return 0
-    passes = -(-b // fit)
-    return -(-b // passes)
+def gemv_k_split(k: int) -> int:
+    """Blocks of a cluster, each taking k / gemv_k_split(k) of every row:
+    fixed by k alone (csrc/gemv.cuh k_split)."""
+    return 2 if k <= 4096 else 4
 
 
-def gemv_blocks(pairs: int, sms: int) -> int:
-    """The blocks of a GEMV launch over `pairs` feature pairs on a card of
-    `sms` SMs (csrc/gemv.cuh grid_blocks)."""
-    blocks = min(-(-pairs // GEMV_WARPS), sms)
-    return -(-blocks // GEMV_CLUSTER) * GEMV_CLUSTER
+def gemv_n_tiles(b: int) -> int:
+    """n-tiles of 8 input rows a launch of b rows computes (1 or 2)."""
+    return 1 if b <= 8 else 2
+
+
+def gemv_stage_bytes(packed: bool = True, scale_bf16: bool = True) -> int:
+    """One ring stage: 4 blocks of 32 weights of 16 rows, codes and scales."""
+    return 4 * 16 * (16 if packed else 32) + 16 * 4 * (2 if scale_bf16 else 4)
+
+
+def gemv_ring_stages(b: int, packed: bool = True, scale_bf16: bool = True) -> int:
+    """Stages a warp keeps in flight (csrc/gemv.cuh ring_stages): about 7 KB
+    at one n-tile, 4.5 KB at two."""
+    budget = 7168 if gemv_n_tiles(b) == 1 else 4608
+    return max(2, budget // gemv_stage_bytes(packed, scale_bf16))
+
+
+def gemv_smem_bytes(b: int, k: int, packed: bool = True,
+                    scale_bf16: bool = True) -> int:
+    """A block's dynamic shared memory (csrc/gemv.cuh smem_bytes): the
+    warps' rings, rank 0's slots for the other ranks' sums, and b input
+    rows of its K range as bf16, each padded to 32 bytes past a multiple of
+    128."""
+    ks, nt = gemv_k_split(k), gemv_n_tiles(b)
+    ring = GEMV_WARPS * gemv_ring_stages(b, packed, scale_bf16) * \
+        gemv_stage_bytes(packed, scale_bf16)
+    slots = (ks - 1) * GEMV_WARPS * GEMV_NBUF * nt * 32 * 16
+    return ring + slots + b * (-(-(k // ks) * 2 // 128) * 128 + 32)
+
+
+def gemv_blocks_per_sm(pairs: int, k: int, sms: int) -> int:
+    """Blocks of one launch an SM takes (csrc/gemv.cuh launch_one): two
+    where the launch's (tile, K range) items are at least twice the warps
+    of one block an SM (the LM head), else one."""
+    items = -(-pairs // GEMV_TILE_PAIRS) * gemv_k_split(k)
+    return 2 if items >= 2 * GEMV_WARPS * sms else 1
+
+
+def gemv_clusters(pairs: int, k: int, sms: int) -> int:
+    """Clusters of a launch over `pairs` feature pairs on `sms` SMs:
+    gemv_blocks_per_sm blocks an SM at most, no more clusters than tiles
+    (the driver's count of clusters that fit at once can only lower it)."""
+    return min(-(-pairs // GEMV_TILE_PAIRS),
+               gemv_blocks_per_sm(pairs, k, sms) * sms // gemv_k_split(k))
+
+
+def gemv_schedule(pairs: int, k: int, sms: int):
+    """How many times the launch copies each (tile, 32-weight block) of its
+    weights, as an int array (tiles, k / 32), by csrc/gemv.cuh's loops:
+    warp w of block rank r of cluster c takes tiles c + C (w + 8 j) and,
+    of each, blocks r k / (32 ks) onward, one stage of 4 at a time."""
+    import numpy as np
+    ks, n_cl = gemv_k_split(k), gemv_clusters(pairs, k, sms)
+    tiles, nb = -(-pairs // GEMV_TILE_PAIRS), k // 32
+    kr_blocks = nb // ks
+    count = np.zeros((tiles, nb), dtype=np.int64)
+    for c in range(n_cl):
+        for w in range(GEMV_WARPS):
+            for tile in range(c + n_cl * w, tiles, n_cl * GEMV_WARPS):
+                for r in range(ks):
+                    for st in range(kr_blocks * 32 // GEMV_UNIT_K):
+                        b0 = r * kr_blocks + st * GEMV_UNIT_K // 32
+                        count[tile, b0:b0 + GEMV_UNIT_K // 32] += 1
+    return count
 
 
 def gemv_staging_bytes(b: int, n: int, k: int, *, rms: bool, silu: bool,
                        sms: int) -> int:
     """Bytes a GEMV launch reads from L2 to stage its b f32 input rows of k:
-    each cluster reads each row once (twice with an RMS prologue over rows
-    longer than GEMV_RMS_HELD). n output features; SiLU(gate) * up pairs
-    gate row j with up row j (n pairs), the other epilogues rows 2p, 2p+1."""
-    clusters = gemv_blocks(n if silu else n // 2, sms) // GEMV_CLUSTER
-    reads = 2 if rms and k > GEMV_RMS_HELD else 1
-    return clusters * b * k * 4 * reads
+    each block reads its K range of each row once (twice with an RMS
+    prologue: its sum of squares, then the staging), so each cluster reads
+    each row once or twice. n output features; SiLU(gate) * up pairs gate
+    row j with up row j (n pairs), the other epilogues rows 2p, 2p+1."""
+    clusters = gemv_clusters(n if silu else n // 2, k, sms)
+    return clusters * b * k * 4 * (2 if rms else 1)
+
+
+def gemv_pair_rows(kind: str, pairs: int, d: int = 0, device=None):
+    """The two weight rows of each feature pair, as the GEMV's epilogues
+    pair them (csrc/gemv.cuh pair_rows): "rope", features i and i + d/2 of
+    each head of d; "silu", row p of gate and row p of up; "pairs", rows 2p
+    and 2p + 1. Returns (rows_a, rows_b), int64 (pairs,)."""
+    p = torch.arange(pairs, device=device)
+    if kind == "rope":
+        a = (p // (d // 2)) * d + p % (d // 2)
+        return a, a + d // 2
+    if kind == "silu":
+        return p, p
+    return 2 * p, 2 * p + 1
+
+
+def gemv_tile(codes_a, scales_a, rows_a, rows_b, codes_b=None, scales_b=None):
+    """One projection's weights in the order the GEMV reads them: tile t is
+    pairs 8t..8t+7, its 16 rows the pairs' "a" rows (rows_a, of codes_a)
+    then their "b" rows (rows_b, of codes_b, default codes_a); each tile is
+    K / 128 stages of 4 blocks of 32 weights, stage s holding the codes of
+    blocks 4s..4s+3 of the 16 rows, block-major ([block][row][bytes]), and
+    their scales row-major ([row][block]). So a warp's stage is one
+    contiguous run of codes and one of scales, and a tile's stages follow
+    each other. codes (..., N, Kc) row-major as ops/quant_matmul.py keeps
+    them, scales (..., N, K/32); a last tile short of 8 pairs is padded with
+    zero rows. Returns (codes (..., T, K/128, 64 x bytes a block), scales
+    (..., T, K/128, 64)), contiguous, in the input dtypes."""
+    codes_b = codes_a if codes_b is None else codes_b
+    scales_b = scales_a if scales_b is None else scales_b
+    pairs, nb = rows_a.numel(), scales_a.shape[-1]
+    if nb % GEMV_STAGE_BLOCKS or codes_a.shape[-1] % nb:
+        raise ValueError(f"gemv_tile: K {nb * 32} is not a multiple of "
+                         f"{GEMV_UNIT_K}")
+    tiles, cb = -(-pairs // GEMV_TILE_PAIRS), codes_a.shape[-1] // nb
+
+    def gather(t, rows):
+        g = t.index_select(t.dim() - 2, rows.to(t.device))
+        pad = tiles * GEMV_TILE_PAIRS - pairs
+        if pad:
+            g = torch.cat([g, g.new_zeros((*g.shape[:-2], pad, g.shape[-1]))], -2)
+        return g.reshape(*g.shape[:-2], tiles, GEMV_TILE_PAIRS, g.shape[-1])
+
+    c = torch.cat([gather(codes_a, rows_a), gather(codes_b, rows_b)], -2)
+    c = c.reshape(*c.shape[:-1], nb // GEMV_STAGE_BLOCKS, GEMV_STAGE_BLOCKS, cb)
+    c = c.movedim(-4, -2).reshape(*c.shape[:-4], nb // GEMV_STAGE_BLOCKS, -1)
+    sc = torch.cat([gather(scales_a, rows_a), gather(scales_b, rows_b)], -2)
+    sc = sc.reshape(*sc.shape[:-1], nb // GEMV_STAGE_BLOCKS, GEMV_STAGE_BLOCKS)
+    sc = sc.movedim(-3, -2).reshape(*sc.shape[:-3], nb // GEMV_STAGE_BLOCKS, -1)
+    return c.contiguous(), sc.contiguous()
+
+
+def gemv_untile(codes_t, scales_t, rows_a, rows_b, n: int, apart: bool = False):
+    """gemv_tile's inverse: the codes (..., n, Kc) and scales (..., n, K/32)
+    of a tiled projection in row order; with `apart`, the "a" rows' tensor
+    and the "b" rows' tensor as two such pairs (SiLU(gate) * up's gate and
+    up)."""
+    tiles, pairs = codes_t.shape[-3], rows_a.numel()
+    c = codes_t.reshape(*codes_t.shape[:-1], GEMV_STAGE_BLOCKS, 16, -1)
+    c = c.movedim(-2, -4).reshape(*codes_t.shape[:-2], 16, -1)
+    sc = scales_t.reshape(*scales_t.shape[:-1], 16, GEMV_STAGE_BLOCKS)
+    sc = sc.movedim(-2, -3).reshape(*scales_t.shape[:-2], 16, -1)
+
+    def half(t, h):
+        t = t[..., GEMV_TILE_PAIRS * h:GEMV_TILE_PAIRS * (h + 1), :]
+        return t.reshape(*t.shape[:-3], tiles * GEMV_TILE_PAIRS, -1)[..., :pairs, :]
+
+    def place(t, parts):
+        out = t.new_zeros((*t.shape[:-3], n, t.shape[-1]))
+        for rows, h in parts:
+            out.index_copy_(out.dim() - 2, rows.to(t.device), half(t, h))
+        return out
+
+    if apart:
+        return ((place(c, [(rows_a, 0)]), place(sc, [(rows_a, 0)])),
+                (place(c, [(rows_b, 1)]), place(sc, [(rows_b, 1)])))
+    parts = [(rows_a, 0), (rows_b, 1)]
+    return place(c, parts), place(sc, parts)
+
+
+def weight_rows(codes_t, scales_t, kind: str, n: int, d: int = 0):
+    """A tiled projection (gemv_tile) in row order, for the plain versions:
+    (codes, scales) of its n rows; for "silu" (n pairs of gate and up) the
+    pair ((gate codes, scales), (up codes, scales))."""
+    rows = gemv_pair_rows(kind, n if kind == "silu" else n // 2, d)
+    return gemv_untile(codes_t, scales_t, *rows, n, apart=kind == "silu")
 
 
 class LlamaMegaLayers(NamedTuple):
     """Per-layer weights in the megastep layout (all stacked on L).
 
-    Codes row-major (see ops/quant_matmul.py), Q4 nibble-packed. Scales as
-    the TPU kernel's prep keeps them: qkv float32, the others bfloat16 (K6's
-    copy, `ops/llama_flat.prep_llama_flat`, has every scale in bfloat16).
-    qkv = concat(q, k, v) on N; norms packs (in_norm, post_norm).
+    Each projection tiled for the GEMV (gemv_tile: (L, tiles, K/128, ...)
+    codes and scales), Q4 nibble-packed: qkv = concat(q, k, v) on N, its
+    pairs RoPE's (features i and i + d/2 of a head); o and down pair rows
+    2p, 2p + 1; gate_up pairs gate row p with up row p. Scales as the TPU
+    kernel's prep keeps them: qkv float32, the others bfloat16 (K6's copy,
+    `ops/llama_flat.prep_llama_flat`, has every scale in bfloat16). norms
+    packs (in_norm, post_norm).
     """
 
-    qkv_codes: torch.Tensor    # (L, H + 2 KV, Kc(H))
-    qkv_scales: torch.Tensor   # (L, H + 2 KV, H/32)
-    o_codes: torch.Tensor      # (L, H, Kc(H))
+    qkv_codes: torch.Tensor       # (L, (H + 2 KV) / 16, H / 128, 64 Cb)
+    qkv_scales: torch.Tensor      # (L, (H + 2 KV) / 16, H / 128, 64)
+    o_codes: torch.Tensor         # (L, H / 16, H / 128, 64 Cb)
     o_scales: torch.Tensor
-    gate_codes: torch.Tensor   # (L, F, Kc(H))
-    gate_scales: torch.Tensor
-    up_codes: torch.Tensor     # (L, F, Kc(H))
-    up_scales: torch.Tensor
-    down_codes: torch.Tensor   # (L, H, Kc(F))
-    down_scales: torch.Tensor  # (L, H, F/32)
-    norms: torch.Tensor        # (L, 2, H) f32
+    gate_up_codes: torch.Tensor   # (L, F / 8, H / 128, 64 Cb)
+    gate_up_scales: torch.Tensor
+    down_codes: torch.Tensor      # (L, H / 16, F / 128, 64 Cb)
+    down_scales: torch.Tensor     # (L, H / 16, F / 128, 64)
+    norms: torch.Tensor           # (L, 2, H) f32
 
 
-def prep_llama_mega(layers) -> tuple[LlamaMegaLayers, int]:
+def gemv_k_ok(k: int) -> bool:
+    """K the GEMV takes: whole stages on each block of its cluster."""
+    return k > 0 and k % (GEMV_UNIT_K * gemv_k_split(k)) == 0
+
+
+def prep_llama_mega(layers, head_dim: int) -> tuple[LlamaMegaLayers, int]:
     """LlamaMegaLayers from stacked OrpheusLayer weights whose 7 projections
-    are QuantTensors of one block qtype. Raises ValueError otherwise (the
+    are QuantTensors of one block qtype, heads of `head_dim`. Raises
+    ValueError otherwise, or where a width is not one the GEMV takes (the
     caller then takes the per-matmul path)."""
     mats = [layers.q, layers.k, layers.v, layers.o, layers.gate, layers.up,
             layers.down]
@@ -132,18 +290,25 @@ def prep_llama_mega(layers) -> tuple[LlamaMegaLayers, int]:
         raise ValueError(f"llama megastep needs one uniform qtype, got {qtypes}")
     qtype = next(iter(qtypes))
     q, k, v, o, gate, up, down = [m.pack() for m in mats]
+    hidden, ffn = o.shape[0], gate.shape[0]
+    if not (gemv_k_ok(hidden) and gemv_k_ok(ffn) and head_dim % 2 == 0
+            and hidden % head_dim == 0):
+        raise ValueError(f"llama megastep: H {hidden}, F {ffn}, heads of "
+                         f"{head_dim} are not widths the GEMV takes")
 
     def bf16(m):
-        return m.scales.to(torch.bfloat16).contiguous()
+        return m.scales.to(torch.bfloat16)
 
+    qkv_c = torch.cat([q.codes, k.codes, v.codes], dim=-2)
+    qkv_s = torch.cat([q.scales, k.scales, v.scales], dim=-2).float()
+    qkv = gemv_tile(qkv_c, qkv_s, *gemv_pair_rows("rope", qkv_c.shape[-2] // 2,
+                                                   head_dim))
+    o_t = gemv_tile(o.codes, bf16(o), *gemv_pair_rows("pairs", hidden // 2))
+    gu = gemv_tile(gate.codes, bf16(gate), *gemv_pair_rows("silu", ffn),
+                   codes_b=up.codes, scales_b=bf16(up))
+    down_t = gemv_tile(down.codes, bf16(down), *gemv_pair_rows("pairs", hidden // 2))
     mega = LlamaMegaLayers(
-        qkv_codes=torch.cat([q.codes, k.codes, v.codes], dim=-2).contiguous(),
-        qkv_scales=torch.cat([q.scales, k.scales, v.scales],
-                             dim=-2).float().contiguous(),
-        o_codes=o.codes.contiguous(), o_scales=bf16(o),
-        gate_codes=gate.codes.contiguous(), gate_scales=bf16(gate),
-        up_codes=up.codes.contiguous(), up_scales=bf16(up),
-        down_codes=down.codes.contiguous(), down_scales=bf16(down),
+        *qkv, *o_t, *gu, *down_t,
         norms=torch.stack([layers.in_norm, layers.post_norm],
                           dim=1).float().contiguous())
     return mega, qtype
@@ -183,6 +348,7 @@ def llama_megastep_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     d = hidden // n_heads
     kvh = n_kv * d
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     ctx = kv_k.shape[2]
     p = torch.as_tensor(pos, device=x.device).reshape(1).long()
     ang = p.float() * inv_freq.float()
@@ -192,21 +358,24 @@ def llama_megastep_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
     k_new, v_new = [], []
     for l in range(n_layers):
         nm = mega.norms[l]
-        qkv = dqdot(rms_norm(x, nm[0]), mega.qkv_codes[l], mega.qkv_scales[l],
-                    qtype)[0]
+        qkv = dqdot(rms_norm(x, nm[0]), *weight_rows(
+            mega.qkv_codes[l], mega.qkv_scales[l], "rope", hidden + 2 * kvh, d),
+            qtype)[0]
         q = _rope(qkv[:hidden].reshape(n_heads, d), cos, sin)
         k = _rope(qkv[hidden:hidden + kvh].reshape(n_kv, d), cos, sin).reshape(-1)
         v = qkv[hidden + kvh:]
         _write_row(kv_k[l], p, k, n_kv)
         _write_row(kv_v[l], p, v, n_kv)
         attn = decode_attention_plain(q, kv_k[l], kv_v[l], p)
-        x = x + dqdot(attn.reshape(1, hidden), mega.o_codes[l],
-                      mega.o_scales[l], qtype)
+        x = x + dqdot(attn.reshape(1, hidden), *weight_rows(
+            mega.o_codes[l], mega.o_scales[l], "pairs", hidden), qtype)
         h = rms_norm(x, nm[1])
-        act = torch.nn.functional.silu(
-            dqdot(h, mega.gate_codes[l], mega.gate_scales[l], qtype)) * \
-            dqdot(h, mega.up_codes[l], mega.up_scales[l], qtype)
-        x = x + dqdot(act, mega.down_codes[l], mega.down_scales[l], qtype)
+        gate, up = weight_rows(mega.gate_up_codes[l], mega.gate_up_scales[l],
+                               "silu", ffn)
+        act = torch.nn.functional.silu(dqdot(h, *gate, qtype)) * \
+            dqdot(h, *up, qtype)
+        x = x + dqdot(act, *weight_rows(mega.down_codes[l], mega.down_scales[l],
+                                        "pairs", hidden), qtype)
         k_new.append(k)
         v_new.append(v)
     return x, torch.stack(k_new), torch.stack(v_new)
@@ -229,6 +398,31 @@ def llama_megastep_batched_plain(mega: LlamaMegaLayers, x, kv_k, kv_v, pos,
             torch.stack([o[2] for o in outs], 1))
 
 
+def tiles_packed(codes_t) -> bool:
+    """Whether tiled codes (gemv_tile) hold Q4_0 nibble-packed blocks (16
+    bytes a row a block; one-byte codes take 32)."""
+    return codes_t.shape[-1] == 16 * 16 * GEMV_STAGE_BLOCKS
+
+
+def require_tiles(codes_t, scales_t, name: str, dev, pairs: int, k: int,
+                  lead: int = 1) -> None:
+    """Validate one tiled projection (gemv_tile) with `lead` leading dims
+    (layers) for a GEMV launch over `pairs` feature pairs and K = k."""
+    _build.require(codes_t, name + "_codes", device=dev,
+                   dtypes=(torch.uint8, torch.int8), ndim=lead + 3)
+    _build.require(scales_t, name + "_scales", device=dev,
+                   dtypes=(torch.float32, torch.bfloat16), ndim=lead + 3)
+    tiles = -(-pairs // GEMV_TILE_PAIRS)
+    stages = k // GEMV_UNIT_K
+    if (codes_t.shape[lead:lead + 2] != (tiles, stages)
+            or codes_t.shape[-1] not in (256 * GEMV_STAGE_BLOCKS,
+                                         512 * GEMV_STAGE_BLOCKS)
+            or scales_t.shape[lead:] != (tiles, stages, 16 * GEMV_STAGE_BLOCKS)
+            or not gemv_k_ok(k)):
+        raise ValueError(f"{name}: tiles {tuple(codes_t.shape)} / "
+                         f"{tuple(scales_t.shape)} for {pairs} pairs over K {k}")
+
+
 class StepScratch(NamedTuple):
     """Buffers a step on the card reuses layer after layer; a caller that
     steps often (the batched engine) allocates them once."""
@@ -240,7 +434,8 @@ class StepScratch(NamedTuple):
 
 def step_scratch(mega: LlamaMegaLayers, b: int, n_heads: int, ctx: int,
                  device) -> StepScratch:
-    hidden, ffn = mega.norms.shape[2], mega.gate_codes.shape[1]
+    hidden = mega.norms.shape[2]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     d = hidden // n_heads
     f32 = dict(dtype=torch.float32, device=device)
     return StepScratch(attn=torch.empty((b, n_heads, d), **f32),
@@ -269,10 +464,10 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     (L, B, KV))."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
-    ffn = mega.gate_codes.shape[1]
-    kvn = mega.qkv_codes.shape[1]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     b, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
     kvh = n_kv * d
+    kvn = hidden + 2 * kvh
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
@@ -283,19 +478,18 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
     _build.require(inv_freq, "inv_freq", device=dev, dtypes=(torch.float32,),
                    ndim=1, align=4)
-    for name in ("qkv", "o", "gate", "up", "down"):
-        _build.require(getattr(mega, name + "_codes"), name + "_codes",
-                       device=dev, dtypes=(torch.uint8, torch.int8), ndim=3)
-        _build.require(getattr(mega, name + "_scales"), name + "_scales",
-                       device=dev, dtypes=(torch.float32, torch.bfloat16),
-                       ndim=3, align=2)
+    for name, n, k, pairs in (("qkv", kvn, hidden, kvn // 2),
+                              ("o", hidden, hidden, hidden // 2),
+                              ("gate_up", ffn, hidden, ffn),
+                              ("down", hidden, ffn, hidden // 2)):
+        require_tiles(getattr(mega, name + "_codes"),
+                      getattr(mega, name + "_scales"), name, dev, pairs, k)
     if (x.shape != (b, hidden) or kv_k.shape != (n_layers, b, n_kv, ctx, d)
-            or kv_v.shape != kv_k.shape or kvn != hidden + 2 * kvh
-            or hidden != n_heads * d or inv_freq.numel() != d // 2
-            or pos.numel() != b or not 0 < b <= MAX_BATCH
-            or mega.gate_scales.dtype != mega.up_scales.dtype):
+            or kv_v.shape != kv_k.shape or hidden != n_heads * d
+            or inv_freq.numel() != d // 2
+            or pos.numel() != b or not 0 < b <= MAX_BATCH):
         raise ValueError(f"llama_megastep: x {tuple(x.shape)}, kv "
-                         f"{tuple(kv_k.shape)}, qkv rows {kvn}, L={n_layers} "
+                         f"{tuple(kv_k.shape)}, L={n_layers} "
                          f"H={hidden}, {n_heads} heads, inv_freq "
                          f"{tuple(inv_freq.shape)}, pos {tuple(pos.shape)}, "
                          f"at most {MAX_BATCH} rows")
@@ -303,7 +497,7 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     if sc.attn.shape != (b, n_heads, d) or sc.act.shape != (b, ffn):
         raise ValueError(f"llama_megastep: scratch for {tuple(sc.act.shape)} "
                          f"does not fit {b} rows")
-    packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
+    packed = int(tiles_packed(mega.qkv_codes))
     cache_bf16 = int(kv_k.dtype == torch.bfloat16)
     kv_bstride = n_kv * ctx * d
     stream = _build.stream_ptr(dev)
@@ -314,15 +508,12 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     pos_p, inv_p = vp(pos.data_ptr()), vp(inv_freq.data_ptr())
     x_p, attn_p, act_p = (vp(t.data_ptr()) for t in (xw, sc.attn, sc.act))
 
-    def gemv(xin, rms, name, l, n, k, res, out, epi, pair=None, norm=null,
-             kc=null, vc=null):
+    def gemv(xin, rms, name, l, n, k, res, out, epi, norm=null, kc=null,
+             vc=null):
         scales = getattr(mega, name + "_scales")
         ca = vp(addr(getattr(mega, name + "_codes"), l))
         sa = vp(addr(scales, l))
-        cb, sb = (ca, sa) if pair is None else (
-            vp(addr(getattr(mega, pair + "_codes"), l)),
-            vp(addr(getattr(mega, pair + "_scales"), l)))
-        gemv_kernel(xin, norm, rms, ca, sa, cb, sb, qtype, packed,
+        gemv_kernel(xin, norm, rms, ca, sa, ca, sa, qtype, packed,
                     int(scales.dtype == torch.bfloat16), b, n, k, res, out,
                     epi, inv_p, pos_p, 1, kc, vc, hidden,
                     kvh, d, ctx, cache_bf16, kv_bstride, stream)
@@ -335,8 +526,8 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
         da._launch(attn_kernel, q_out[:, :hidden].unflatten(1, (n_heads, d)),
                    kv_k[l], kv_v[l], pos, None, sc.attn, sc.part)
         gemv(attn_p, 0, "o", l, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
-        gemv(x_p, 1, "gate", l, ffn, hidden, null, act_p, EPI_SILU_MUL,
-             pair="up", norm=vp(addr(nm, l, 1)))
+        gemv(x_p, 1, "gate_up", l, ffn, hidden, null, act_p, EPI_SILU_MUL,
+             norm=vp(addr(nm, l, 1)))
         gemv(act_p, 0, "down", l, hidden, ffn, x_p, x_p, EPI_RESIDUAL)
     return xw, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]
 
