@@ -85,7 +85,8 @@ Phases, in order; any failure exits non-zero without the final line:
 Phase 2 also holds K12 (the one-launch Parler step) at Parler-Mini width
 at positions 0-4095 with and without the cross block: bit for bit against
 K2 on the same state, layer by layer against its plain version, and timed
-beside K2 in turns. It holds K8 and K6 at Orpheus-3B width against their plain
+beside K2 in turns; then it times each Parler GEMV launch alone (qkv, o,
+cq, co, fc1, fc2 at 1, 8 and 16 rows) beside its weight bytes. It holds K8 and K6 at Orpheus-3B width against their plain
 versions, layer by layer at positions around K3's pages, and times them;
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
@@ -107,6 +108,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import copy
+import ctypes
 import dataclasses
 import json
 import os
@@ -208,20 +210,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> DeviceTime:
     memsets / copies) the calls ran, from a torch.profiler trace of `iters`
     calls (busy_ms: overlapping spans counted once), over `iters`; by name
     likewise, each name's spans merged. Host time between launches is not
-    counted, so a host-bound call reads as its kernels' work. Raises where
-    the profiler shows no device activity."""
+    counted, so a host-bound call reads as its kernels' work. A trace that
+    holds no device activity (the profiler can lose a window's events) is
+    taken again, twice at most; raises where the third shows none
+    either."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans: dict = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans[kernel_key(e.name)].append((e.time_range.start, e.time_range.end))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans: dict = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                spans[kernel_key(e.name)].append((e.time_range.start,
+                                                  e.time_range.end))
+        if spans:
+            break
+        log("  torch.profiler recorded no device activity; tracing again")
     if not spans:
         raise RuntimeError("torch.profiler recorded no device activity")
     by_name = {k: busy_ms(v) / iters for k, v in spans.items()}
@@ -519,7 +528,14 @@ def check_k3(gen) -> dict:
 
 
 def mini_mega(gen):
-    """Random Parler-Mini MegaLayers on the card (Q4_0 packed, bf16 scales)."""
+    """Random Parler-Mini MegaLayers on the card (Q4_0 packed, bf16 scales,
+    tiled for the GEMV)."""
+    return pm.prep_mega_layers(mini_layers(gen))
+
+
+def mini_layers(gen):
+    """Random Parler-Mini ParlerLayerWeights on the card, the source of
+    mini_mega (gemv_ab.py preps them once per version of the package)."""
     from tts_tpu_torch.models.parler.model import ParlerLayerWeights
     L, H, F = MINI["n_layers"], MINI["hidden"], MINI["ffn"]
     heads, tc = MINI["heads"], MINI["enc_len"]
@@ -536,7 +552,7 @@ def mini_mega(gen):
         cq_w=stack_quant(gen, L, H, H), co_w=stack_quant(gen, L, H, H),
         cross_k=cross[0], cross_v=cross[1], ln2_w=vec(one=True), ln2_b=vec(),
         fc1=stack_quant(gen, L, F, H), fc2=stack_quant(gen, L, H, F))
-    return pm.prep_mega_layers(lw)
+    return lw
 
 
 def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
@@ -603,12 +619,13 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
 @contextlib.contextmanager
 def dequant_once():
     """Within the block the plain llama and Dia steps untile and dequantize
-    each weight once: their batched plain versions loop over the slots,
-    which all read the same layer's weights, and that work is most of the
-    CPU yardstick's time. The values are the same."""
+    each weight once, and the plain Parler steps untile each once: their
+    batched plain versions loop over the slots, which all read the same
+    layer's weights, and that work is most of the CPU yardstick's time. The
+    values are the same."""
     real, memo = lm.dequant, {}
     real_rows, rows_memo = lm.weight_rows, {}
-    mods = (lm, lf, dm)
+    mods = (lm, lf, dm, pm)
 
     def dequant(codes, scales, qtype, dtype=torch.float32):
         key = (codes.data_ptr(), scales.data_ptr(), tuple(codes.shape), qtype,
@@ -875,6 +892,97 @@ def check_k5(gen, mega, qtype) -> dict:
                 replaces="tts_tpu/ops/parler_megastep.py:406",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# each Parler GEMV launch: (name, layer norm before it, epilogue)
+PARLER_GEMVS = (("qkv", 1, pm.EPI_QKV), ("o", 0, pm.EPI_RESIDUAL),
+                ("cq", 1, pm.EPI_STORE), ("co", 0, pm.EPI_RESIDUAL),
+                ("fc1", 1, pm.EPI_GELU), ("fc2", 0, pm.EPI_RESIDUAL))
+
+
+def time_parler_gemv(mega, qtype) -> None:
+    """The Parler GEMV's layer norm prologue against the plain version's on
+    the card (how many staged values differ), then each Parler GEMV launch
+    alone at Parler-Mini width, at 1, 8 and 16
+    rows (K2's one, K5's 8 and 16 slots; rows at MIXED_POS for the qkv
+    epilogue's cache write): device time per launch (torch.profiler, the
+    GEMV kernel's spans alone), the launch's weight bytes (one layer's
+    tiles of the projection) and the rate they stream at, beside their
+    bound at 3.35 TB/s. Each launch takes the next layer's weights and
+    follows a 64 MB write that evicts the 50 MB L2, so its weights come
+    from device memory, as in a decode step (198 MB of weights)."""
+    log("Parler GEMV (csrc/parler_gemv.cuh), one launch at a time, device "
+        "time per launch:")
+    L, H, F = pm.mega_dims(mega)
+    heads, ctx = MINI["heads"], MINI["ctx"]
+    d, th = H // heads, H // pm.TILE_ROWS
+    g = torch.Generator(device=DEV)
+    g.manual_seed(SEED + 9)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=DEV)
+    vp, null = ctypes.c_void_p, ctypes.c_void_p(0)
+    packed = int(lm.tiles_packed(mega.qkv_codes))
+    stream = _build.stream_ptr(DEV)
+    where = {"qkv": (mega.qkv_codes, mega.qkv_scales, 0, 3 * H, H, 0),
+             "o": (mega.occ_codes, mega.occ_scales, 0, H, H, None),
+             "cq": (mega.occ_codes, mega.occ_scales, th, H, H, 2),
+             "co": (mega.occ_codes, mega.occ_scales, 2 * th, H, H, None),
+             "fc1": (mega.fc1_codes, mega.fc1_scales, 0, F, H, 4),
+             "fc2": (mega.fc2_codes, mega.fc2_scales, 0, H, F, None)}
+    # the layer norm prologue against the plain version's on the card, on
+    # identity Q4_0 weights (code 9, scale 1, on the diagonal), whose product
+    # is the staged bf16 row itself
+    eye = torch.full((H, H), 8, dtype=torch.uint8, device=DEV)
+    eye[torch.arange(H), torch.arange(H)] = 9
+    ec, es = pm.tile_projection(qm.QuantTensor(
+        eye, torch.ones((H, H // 32), dtype=torch.bfloat16, device=DEV), quants.GGML_TYPE_Q4_0))
+    differ = 0
+    for _ in range(16):
+        x = torch.randn((16, H), generator=g, device=DEV) * \
+            torch.rand((16, 1), generator=g, device=DEV) * 4
+        staged = torch.empty((16, H), device=DEV)
+        pm.KERNEL_BATCHED(vp(x.data_ptr()), vp(_build.addr(mega.norms, 0, 0)),
+                          vp(_build.addr(mega.norms, 0, 1)), 1, vp(ec.data_ptr()),
+                          vp(es.data_ptr()), quants.GGML_TYPE_Q4_0, 1, 16, H, H, null,
+                          vp(staged.data_ptr()), pm.EPI_STORE, null, null, null, 0, 0,
+                          0, 0, 0, stream)
+        want = torch.cat([pm.layer_norm(x[r:r + 1], mega.norms[0, 0], mega.norms[0, 1])
+                          for r in range(16)]).to(torch.bfloat16).float()
+        differ += int((staged != want).sum())
+    log(f"  layer norm prologue: {differ} of {16 * 16 * H} staged values differ "
+        f"from the plain version's layer_norm on the card, rounded to bf16")
+    for b in (1, 8, 16):
+        xs = {k: torch.randn((b, k), generator=g, device=DEV) for k in (H, F)}
+        out = torch.zeros((b, 3 * H + F), device=DEV)
+        kc, vc = (torch.zeros((b, heads, ctx, d), dtype=torch.bfloat16,
+                              device=DEV) for _ in range(2))
+        pos = torch.tensor((MIXED_POS * 2)[:b], dtype=torch.int32, device=DEV)
+        for name, ln, epi in PARLER_GEMVS:
+            codes, scales, t0, n, k, norm = where[name]
+            nbytes = tensor_bytes([codes[0, t0:t0 + n // pm.TILE_ROWS],
+                                   scales[0, t0:t0 + n // pm.TILE_ROWS]])
+            turn = [0]
+
+            def launch():
+                l = turn[0] % L
+                turn[0] += 1
+                flush.zero_()
+                lnw, lnb = ((vp(_build.addr(mega.norms, l, norm)),
+                             vp(_build.addr(mega.norms, l, norm + 1)))
+                            if ln else (null, null))
+                pm.KERNEL_BATCHED(
+                    vp(xs[k].data_ptr()), lnw, lnb, ln,
+                    vp(_build.addr(codes, l, t0)), vp(_build.addr(scales, l, t0)),
+                    qtype, packed, b, n, k, vp(out.data_ptr()), vp(out.data_ptr()),
+                    epi, vp(kc.data_ptr()), vp(vc.data_ptr()), vp(pos.data_ptr()),
+                    H, d, ctx, 1, heads * ctx * d, stream)
+
+            us = device_ms(launch).by_name["gemv_kernel"] * 1e3
+            log(f"  {b:2d} rows, {name:3s} ({n} x {k}): {us:.2f} us a launch, "
+                f"{nbytes / 1e6:.3f} MB of weights, {nbytes / us / 1e6:.3f} "
+                f"TB/s (bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)")
+        del kc, vc
+    del flush
+    torch.cuda.empty_cache()
 
 
 K12_POS = (0, 1, 255, 256, 1000, 4095)   # around K3's 256-row pages
@@ -3164,7 +3272,7 @@ def kernel_name(mangled: str) -> str:
 def ptxas_summary(src: str) -> list[str]:
     """nvcc's register and spill report for one source, by the last int of
     the kernels' template arguments where their names carry one (the
-    n-tiles of the llama GEMV, the rows of K2's)."""
+    n-tiles of the llama GEMV, the epilogue of the Parler GEMV)."""
     groups, name, spill = defaultdict(list), None, 0
     for line in _build.ptxas_report(src).splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -3185,7 +3293,9 @@ def ptxas_summary(src: str) -> list[str]:
             f"spill)" for key, v in sorted(groups.items())]
 
 
-GEMV_SOURCES = ("llama_megastep", "dia_megastep")   # the GEMV of K6-K11
+# the tensor-core GEMVs: K6-K11's, and K2 / K5's and K12's
+GEMV_SOURCES = ("llama_megastep", "dia_megastep", "parler_megastep",
+                "parler_flat")
 
 
 def hmma_count(src: str) -> int:
@@ -3241,6 +3351,7 @@ def main() -> int:
             phase(check_k3, gen), phase(check_k4, gen),
             phase(check_k5, gen, mega, qtype),
             phase(check_k12, gen, mega, qtype)]
+    phase(time_parler_gemv, mega, qtype)
     del mega
     torch.cuda.empty_cache()
     lmega, flat, lkw = orpheus_kernel_weights(gen)

@@ -21,9 +21,11 @@ widths, it measures in turns (OTHER, committed, committed, OTHER):
   scaled_dot_product_attention on the same inputs is timed beside them;
 - the steps: K8 / K6 at one slot (pos 1000), K9 / K7 at 8 and 16 slots
   and K11 at 4 and 8 pairs at chip_smoke's mixed positions, K10 at one
-  pair (pos 1000), K2 at pos 1000 and K5 at 8 slots, with the GEMV's and
-  the attention's device time; and K9 at 16 slots against its plain
-  version at every depth, beside the other-order yardstick (k9_by_depth);
+  pair (pos 1000), K2 and K12 at pos 1000 and K5 at 8 and 16 slots, with
+  the GEMV's and the attention's device time; K9 at 16 slots against its
+  plain version at every depth, beside the other-order yardstick
+  (k9_by_depth); and K5 against its plain version per slot and layer,
+  beside the plain version on the CPU (parler_by_slot);
 - one row: each of K6's GEMV launches alone at Orpheus-3B width (qkv, o,
   gate / up, down, each layer in turn so that the weights come from device
   memory, and the head), its time per launch beside its weight bytes and
@@ -58,8 +60,9 @@ ATTN_SHAPES = (("parler", 16, 16, 64), ("orpheus", 24, 8, 128),
 MODULES = dict(build="ops._build", da="ops.decode_attention",
                dm="ops.dia_megastep", lf="ops.llama_flat",
                lm="ops.llama_megastep", pm="ops.parler_megastep",
-               qm="ops.quant_matmul", orpheus="models.orpheus.model",
-               dia="models.dia.model")
+               pf="ops.parler_flat", qm="ops.quant_matmul",
+               orpheus="models.orpheus.model", dia="models.dia.model",
+               parler="models.parler.model")
 
 
 def version(spec: str, index: int):
@@ -419,27 +422,96 @@ def dia_steps(versions, gen) -> None:
 
 
 def parler_steps(versions, gen) -> None:
-    mega, qtype = cs.mini_mega(gen)
+    """K2 and K12 at pos 1000, K5 at 8 and 16 slots at chip_smoke's mixed
+    positions, at Parler-Mini width: each version preps its own MegaLayers
+    (and K12's) from the same source weights, so the layouts may differ."""
+    lw = cs.mini_layers(gen)
+    megas = {}
+    for v in versions:
+        layers = v.parler.ParlerLayerWeights(*(as_version(v, m) for m in lw))
+        megas[v.label], qtype = v.pm.prep_mega_layers(layers)
+    del lw
+    torch.cuda.empty_cache()
     L, heads, ctx = cs.MINI["n_layers"], cs.MINI["heads"], cs.MINI["ctx"]
     d, dev = cs.MINI["hidden"] // heads, cs.DEV
     kw = dict(qtype=qtype, use_cross=True, n_heads=heads)
-    b = len(cs.MIXED_POS)
-    kc, vc = ((torch.randn((L, b, heads, ctx, d), generator=gen, device=dev)
-               * 0.5).to(torch.bfloat16) for _ in range(2))
-    x = torch.randn((b, cs.MINI["hidden"]), generator=gen, device=dev)
+    slots = cs.MIXED_POS * 2
+    kc, vc = ((torch.randn((L, len(slots), heads, ctx, d), generator=gen,
+                           device=dev) * 0.5).to(torch.bfloat16)
+              for _ in range(2))
+    x = torch.randn((len(slots), cs.MINI["hidden"]), generator=gen, device=dev)
     pos = torch.tensor([1000], dtype=torch.int32, device=dev)
     compare("K2 pos 1000", [(v, lambda v=v: v.pm.parler_megastep_cuda(
-        mega, x[:1], kc[:, 0], vc[:, 0], pos, **kw)) for v in versions])
-    pos = torch.tensor(cs.MIXED_POS, dtype=torch.int32, device=dev)
+        megas[v.label], x[:1], kc[:, 0], vc[:, 0], pos, **kw)) for v in versions])
 
-    def k5(v):
-        sc = v.pm.step_scratch(mega, b, heads, ctx, dev)
-        return lambda: v.pm.parler_megastep_batched_cuda(
-            mega, x, kc, vc, pos, scratch=sc, **kw)
-    compare(f"K5 {b} slots at {list(cs.MIXED_POS)}",
-            [(v, k5(v)) for v in versions])
-    del kc, vc, mega
+    k1, v1 = kc[:, 0].contiguous(), vc[:, 0].contiguous()   # K12's dense caches
+
+    def k12(v):
+        flat = v.pf.prep_parler_flat(megas[v.label], qtype, ctx)
+        return lambda: v.pf.parler_flat_megastep_cuda(
+            flat, x[:1], k1, v1, pos, qtype=qtype, n_heads=heads)
+    compare("K12 pos 1000", [(v, k12(v)) for v in versions])
+    for b in (8, 16):
+        pos = torch.tensor(slots[:b], dtype=torch.int32, device=dev)
+
+        def k5(v):
+            sc = v.pm.step_scratch(megas[v.label], b, heads, ctx, dev)
+            return lambda: v.pm.parler_megastep_batched_cuda(
+                megas[v.label], x[:b], kc[:, :b], vc[:, :b], pos, scratch=sc,
+                **kw)
+        compare(f"K5 {b} slots at {list(slots[:b])}",
+                [(v, k5(v)) for v in versions])
+    parler_by_slot(versions, megas, x[:8], kc[:, :8], vc[:, :8], kw)
+    del kc, vc, k1, v1, megas
     torch.cuda.empty_cache()
+
+
+def parler_by_slot(versions, megas, x, kc, vc, kw) -> None:
+    """K5 in chip_smoke's layer-check setting (8 slots at MIXED_POS, the
+    24 layers run one at a time on the committed version's x chain): each
+    version's x_out - x_in per (slot, layer) against the plain version on
+    the card (|a - b| over the batch's max |b|), beside the plain version
+    on the CPU (the check's yardstick). Prints, for each, how many of the
+    192 slot-layers differ by more than 1e-5 and 1e-4 (a bf16 rounding
+    that flipped) and the mean, and the check's statistic: the mean and
+    largest of its 6 compared layers' largest slot error."""
+    import numpy as np
+    ours = versions[0]
+    L = megas[ours.label].norms.shape[0]
+    pos = torch.tensor(cs.MIXED_POS, dtype=torch.int32, device=cs.DEV)
+
+    def layer(v, l):
+        m = megas[v.label]
+        return type(m)(*(t[l:l + 1] for t in m[:-1]), m.cross_pos)
+
+    errs = {k: [] for k in [v.label for v in versions] + ["CPU plain"]}
+    xin = x
+    with cs.dequant_once():
+        for l in range(L):
+            caches = (kc[l:l + 1], vc[l:l + 1])
+            outs = {v.label: v.pm.parler_megastep_batched_cuda(
+                layer(v, l), xin, *(c.clone() for c in caches), pos, **kw)[0] - xin
+                for v in versions}
+            m = layer(ours, l)
+            ref = ours.pm.parler_megastep_batched_plain(
+                m, xin, *(c.clone() for c in caches), pos, **kw)[0] - xin
+            outs["CPU plain"] = (ours.pm.parler_megastep_batched_plain(
+                type(m)(*(t.cpu() for t in m)), xin.cpu(),
+                *(c.cpu() for c in caches), pos.cpu(), **kw)[0] - xin.cpu()).to(cs.DEV)
+            scale = float(ref.abs().max())
+            for k, o in outs.items():
+                errs[k].append([float((o[s] - ref[s]).abs().max()) / scale
+                                for s in range(x.shape[0])])
+            xin = xin + outs[ours.label]
+    print(f"K5 by slot and layer against the plain version on the card "
+          f"({L} layers x {x.shape[0]} slots at {list(cs.MIXED_POS)}):", flush=True)
+    for k, e in errs.items():
+        e = np.asarray(e)
+        case = e.max(axis=1)[list(cs.K5_LAYERS)]
+        print(f"  {k}: > 1e-5 in {int((e > 1e-5).sum())}, > 1e-4 in "
+              f"{int((e > 1e-4).sum())} of {e.size}, mean {e.mean():.3e}; "
+              f"layer-check cases (layers {list(cs.K5_LAYERS)}) mean "
+              f"{case.mean():.3e}, max {case.max():.3e}", flush=True)
 
 
 def main(argv) -> int:

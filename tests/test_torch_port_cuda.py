@@ -15,6 +15,8 @@ steps (K8, K6) are checked at positions on both sides of K3's 256-row
 pages, with bf16 caches; their batched forms (K9, K7) at 1, 5, 8 and 16
 slots at mixed positions (one at 0), each slot against K8 / K6 bit for
 bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge. The
+Parler GEMV (K2, K5, K12) gives a row in each of a launch's 16 positions
+the bits a one-row launch gives it, for every epilogue and quant type. The
 Dia steps: the cross-attention with and without its pad tail at every
 bucket; K10 at positions across the pages and at both tail cases; K11 at
 1, 3 and 8 pairs at mixed positions, each pair against K10 bit for bit.
@@ -683,23 +685,122 @@ def test_gemv_chain_with_k3_between_equals_plain(dev):
                                    msg=lambda m, i=i: f"iteration {i}: {m}")
 
 
-def test_parler_gemv_at_the_48k_shared_memory_boundary(dev):
-    """12 rows of Parler-Mini's K 1024 in f32 are exactly 48 KB (K5 at 12
-    slots): the LN-prologue launch opts in, and agrees with its plain
-    version within BOUNDARY_TOL."""
+def _parler_gemv(dev, x, w, out, epi, *, ln=None, res=None, cache=None):
+    """One launch of tts_parler_gemv on K5's counter: x (b, K) against the
+    QuantTensor w, tiled as the prep tiles it (pm.tile_projection), with the
+    layer norm (ln = (weight, bias)) as a prologue when given; `cache` (kc,
+    vc, pos, hidden, d) feeds the qkv epilogue, row r's cache at kc / vc[r]
+    (bf16, (heads, ctx, d) each)."""
     import ctypes
     from tts_tpu_torch.ops import _build
-    torch.manual_seed(0)
-    qt, b, k, n = quants.GGML_TYPE_Q4_0, 12, 1024, 64
-    w = _rand_quant(n, k, qt, torch.bfloat16, dev).pack()
-    x = torch.randn((b, k), device=dev)
-    lw, lb = torch.rand(k, device=dev) + 0.5, torch.randn(k, device=dev) * 0.1
-    out = torch.empty((b, n), device=dev)
     vp, null = _build.ptr, ctypes.c_void_p(0)
-    pm.KERNEL_BATCHED(vp(x), vp(lw), vp(lb), 1, vp(w.codes), vp(w.scales), qt,
-                      1, b, n, k, null, vp(out), pm.EPI_STORE, null, null, null,
-                      0, 0, 0, 0, 0, _build.stream_ptr(dev))
-    ref = pm._qdot(pm.layer_norm(x, lw, lb), w.codes, w.scales, qt)
+    b, k = x.shape
+    codes, scales = pm.tile_projection(w)
+    kc, vc, pos, hidden, d = cache if cache is not None else \
+        (None, None, None, 0, 0)
+
+    def opt(t):
+        return vp(t) if t is not None else null
+
+    pm.KERNEL_BATCHED(vp(x), opt(ln and ln[0]), opt(ln and ln[1]),
+                      int(ln is not None), vp(codes), vp(scales), w.qtype,
+                      int(w.pack().is_packed), b, w.shape[0], k, opt(res),
+                      vp(out), epi, opt(kc), opt(vc), opt(pos), hidden, d,
+                      kc.shape[2] if kc is not None else 0, 1,
+                      kc[0].numel() if kc is not None else 0,
+                      _build.stream_ptr(dev))
+
+
+def _parler_plain(x, w, epi, *, ln=None, res=None):
+    """The GEMV's plain version: `_dqdot` of LN?(x) and w, then the
+    epilogue (the qkv epilogue's outputs are its store's)."""
+    h = pm.layer_norm(x, *ln) if ln is not None else x
+    y = pm._qdot(h, w.codes, w.scales, w.qtype)
+    if epi == pm.EPI_GELU:
+        return torch.nn.functional.gelu(y, approximate="tanh")
+    return res + y if epi == pm.EPI_RESIDUAL else y
+
+
+PARLER_EPIS = {"qkv": pm.EPI_QKV, "store": pm.EPI_STORE, "gelu": pm.EPI_GELU,
+               "residual": pm.EPI_RESIDUAL}
+
+
+@pytest.mark.parametrize("k", [384, 4096])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
+                                   quants.GGML_TYPE_Q8_0])
+@pytest.mark.parametrize("epi", list(PARLER_EPIS))
+def test_parler_gemv_row_in_each_position_equals_one_row(dev, epi, qtype, k):
+    """The Parler GEMV (K2, K5, K12) gives a row the same bits in each of
+    the 16 positions of a launch (two n-tiles of 8 columns) as a one-row
+    launch gives it: each epilogue (qkv with its k / v cache write, store
+    and tanh-GELU behind the layer norm, the residual add without), Q4_0,
+    Q5_0 and Q8_0, at K 384 (3 stages, no K split: 8 tiles a block) and K
+    4096 (K split over the block's 8 warps, 4 stages each). Rows at their
+    own positions write their own caches, compared too; the launch is held
+    to its plain version within BOUNDARY_TOL."""
+    torch.manual_seed(0)
+    b, heads, d, ctx = 16, 4, 64, 64
+    hidden = heads * d
+    code = PARLER_EPIS[epi]
+    n = 3 * hidden if epi == "qkv" else 384
+    w = _rand_quant(n, k, qtype, torch.bfloat16, dev).pack()
+    x = torch.randn((b, k), device=dev)
+    ln = None if epi == "residual" else (torch.rand(k, device=dev) + 0.5,
+                                         torch.randn(k, device=dev) * 0.1)
+    res = torch.randn((b, n), device=dev) if epi == "residual" else None
+    pos = torch.randint(0, ctx, (b,), dtype=torch.int32, device=dev)
+    kc0 = torch.randn((b, heads, ctx, d), device=dev).to(torch.bfloat16)
+    vc0 = torch.randn((b, heads, ctx, d), device=dev).to(torch.bfloat16)
+
+    def launch(rows, kc, vc):
+        out = torch.empty((len(range(*rows.indices(b))), n), device=dev)
+        cache = (kc, vc, pos[rows], hidden, d) if epi == "qkv" else None
+        _parler_gemv(dev, x[rows], w, out, code, ln=ln,
+                     res=res[rows] if res is not None else None, cache=cache)
+        return out
+
+    kc, vc = kc0.clone(), vc0.clone()
+    out = launch(slice(0, b), kc, vc)
+    for r in range(b):
+        k1, v1 = kc0[r:r + 1].clone(), vc0[r:r + 1].clone()
+        one = launch(slice(r, r + 1), k1, v1)
+        assert torch.equal(out[r:r + 1], one), f"row {r}"
+        assert torch.equal(kc[r:r + 1], k1) and torch.equal(vc[r:r + 1], v1), r
+    if epi == "qkv":   # row r's k and v, in bf16, at its cache row pos[r]
+        for r in range(b):
+            p = int(pos[r])
+            assert torch.equal(kc[r, :, p], out[r, hidden:2 * hidden].view(
+                heads, d).to(torch.bfloat16))
+            assert torch.equal(vc[r, :, p], out[r, 2 * hidden:].view(
+                heads, d).to(torch.bfloat16))
+    ref = _parler_plain(x, w, code, ln=ln, res=res)
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=BOUNDARY_TOL * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("b,k,qtype", [
+    (3, 1024, quants.GGML_TYPE_Q4_0), (4, 1024, quants.GGML_TYPE_Q4_0),
+    (16, 4096, quants.GGML_TYPE_Q4_0), (16, 4096, quants.GGML_TYPE_Q8_0)])
+def test_parler_gemv_at_the_48k_shared_memory_boundary(dev, b, k, qtype):
+    """The Parler GEMV's dynamic shared memory (the warps' weight rings,
+    the K-range partial sums and the b rows as bf16, pm.gemv_smem_bytes)
+    crosses the 48 KB a block gets without opting in between 3 and 4 rows
+    of Parler-Mini's K 1024 (47,200 and 49,280 bytes), and is largest at 16
+    rows of its F 4096 (fc2 of K5 at 16 slots: 176,640 bytes for Q4_0,
+    209,408 for Q8_0). Every instantiation opts in to the most a launch may
+    ask; the LN-prologue launch agrees with its plain version within
+    BOUNDARY_TOL."""
+    smem = pm.gemv_smem_bytes(b, k, qtype == quants.GGML_TYPE_Q4_0)
+    assert (smem > 48 * 1024) == ((b, k) != (3, 1024))
+    assert smem <= pm.GEMV_SMEM_LIMIT
+    torch.manual_seed(0)
+    n = 64
+    w = _rand_quant(n, k, qtype, torch.bfloat16, dev).pack()
+    x = torch.randn((b, k), device=dev)
+    ln = (torch.rand(k, device=dev) + 0.5, torch.randn(k, device=dev) * 0.1)
+    out = torch.empty((b, n), device=dev)
+    _parler_gemv(dev, x, w, out, pm.EPI_STORE, ln=ln)
+    ref = _parler_plain(x, w, pm.EPI_STORE, ln=ln)
     torch.testing.assert_close(out, ref, rtol=0,
                                atol=BOUNDARY_TOL * ref.abs().max().item())
 

@@ -210,17 +210,19 @@ def test_cpu_tensors_take_the_plain_versions():
     lg, _, _ = lf.llama_flat_megastep_batched(flat, torch.randn(2, 256), kv2,
                                               kv2.clone(), pos2, **step)
     assert lg.shape == (2, 256) and not lg[:, 70:].any()
-    # one Parler layer at H 64 (one head of 64) through K12
-    pmega = pm.MegaLayers(c(192, 64), s(192, 64), c(192, 64), s(192, 64),
-                          c(128, 64), s(128, 64), c(64, 128), s(64, 128),
-                          torch.ones(1, 6, 64), torch.randn(1, 1, 8, 64),
-                          torch.randn(1, 1, 8, 64),
-                          torch.tensor([7], dtype=torch.int32))
+    # one Parler layer at H 128 (two heads of 64, F 256), tiled for the
+    # GEMV by its prep, through K12
+    from tts_tpu_torch.models.parler.model import ParlerLayerWeights
+    h, cross = torch.ones(1, 128), torch.randn(1, 2, 8, 64)
+    pmega, _ = pm.prep_mega_layers(ParlerLayerWeights(
+        h, h, q4(128, 128), q4(128, 128), q4(128, 128), q4(128, 128), h, h,
+        q4(128, 128), q4(128, 128), cross, cross, h, h, q4(256, 128),
+        q4(128, 256)))
     pflat = pf.prep_parler_flat(pmega, 2, 40)
-    pkv = torch.zeros(1, 1, 40, 64)
-    xo, kn, _ = pf.parler_flat_megastep(pflat, torch.randn(1, 64), pkv,
-                                        pkv.clone(), pos, qtype=2, n_heads=1)
-    assert xo.shape == (1, 64) and torch.equal(pkv[0, 0, 5], kn[0])
+    pkv = torch.zeros(1, 2, 40, 64)
+    xo, kn, _ = pf.parler_flat_megastep(pflat, torch.randn(1, 128), pkv,
+                                        pkv.clone(), pos, qtype=2, n_heads=2)
+    assert xo.shape == (1, 128) and torch.equal(pkv[0, :, 5].reshape(-1), kn[0])
     assert [k.launches for k in kernels] == before
     assert all(k._fn is None for k in kernels)
 

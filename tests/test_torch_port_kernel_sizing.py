@@ -7,12 +7,15 @@ reckons it after csrc/gemv.cuh: the shared memory of every Orpheus and
 Dia projection's launch, the weight ring's stages, the grid, that one
 launch copies each weight once, and the L2 bytes its staging reads, which
 for a batched Orpheus-3B step must stay below the weights it streams.
+The Parler GEMV's shared memory (`ops/parler_megastep.py` after
+csrc/parler_gemv.cuh) at Parler-Mini's widths.
 """
 import pytest
 import torch
 
 from tts_tpu_torch.ops import decode_attention as da
 from tts_tpu_torch.ops import llama_megastep as lm
+from tts_tpu_torch.ops import parler_megastep as pm
 
 
 def test_arrivals_are_zeroed_shared_and_grow():
@@ -167,3 +170,23 @@ def test_gemv_tile_layout_and_roundtrip(kind, n, d, cb, scale_dtype):
             lm.weight_rows(ct, st, kind, n, d)),
             torch.utils._pytree.tree_leaves(want)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("k", [1024, 4096])
+def test_parler_gemv_shared_memory_fits(k, b, packed):
+    """Every Parler-Mini GEMV launch (K 1024: qkv, o, cq, co, fc1; K 4096:
+    fc2) at 1, 8 and 16 rows, Q4_0 packed and one-byte codes, asks for no
+    more dynamic shared memory than a block may have: the 8 warps' rings of
+    4 stages (1152 / 2176 bytes), the partial sums, and the rows as bf16.
+    Two blocks fit on one SM (each takes 1 KB more than it asks), so that
+    the next launch's blocks start beside a launch's (programmatic
+    dependent launch), except fc2's 16 rows, and its 8 rows of one-byte
+    codes."""
+    smem = pm.gemv_smem_bytes(b, k, packed)
+    ring = 8 * 4 * (1152 if packed else 2176)
+    assert smem == ring + 8 * (1 if b <= 8 else 2) * 512 + b * (k * 2 + 32)
+    assert smem <= pm.GEMV_SMEM_LIMIT
+    two = 2 * (smem + 1024) <= lm.GEMV_SM_SMEM
+    assert two == (k == 1024 or b == 1 or (b == 8 and packed))

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from tts_tpu.ops import quant_matmul as jqm
 from tts_tpu.ops.parler_megastep import parler_megastep_reference
 from tts_tpu.ops.parler_megastep import prep_mega_layers as jax_prep_mega
+from tts_tpu_torch.gguf import quants
 from tts_tpu_torch.models.parler.convert import parler_weights_from_numpy
 from tts_tpu_torch.ops.parler_megastep import parler_megastep, prep_mega_layers
 
@@ -76,3 +77,58 @@ def test_plain_vs_reference(tiny, pos, use_cross):
     np.testing.assert_array_equal(vv.numpy()[:, :, pos, :].reshape(L, H), pvn)
     keep = np.arange(cfg.max_ctx_length) != pos
     np.testing.assert_array_equal(kk.numpy()[:, :, keep], kv_k[:, :, keep])
+
+
+# (qtype, codes as they come): Q4_0 packed and unpacked (prep packs them),
+# Q5_0 and Q8_0 one-byte codes
+TILE_QTYPES = [(quants.GGML_TYPE_Q4_0, True), (quants.GGML_TYPE_Q4_0, False),
+               (quants.GGML_TYPE_Q5_0, False), (quants.GGML_TYPE_Q8_0, False)]
+
+
+@pytest.mark.parametrize("hidden,ffn", [(1024, 256), (128, 4096)])
+@pytest.mark.parametrize("qtype,packed", TILE_QTYPES)
+def test_tiles_read_back_the_row_major_weights(qtype, packed, hidden, ffn):
+    """prep_mega_layers tiles each projection for the GEMV; the plain
+    versions' read-back (projection_rows) gives every layer's row-major
+    codes and bf16 scales bit for bit: qkv, o / cross-q / cross-o (H / 16
+    tiles each of occ), fc1 and fc2, at K 1024 (H: every projection but
+    fc2) and K 4096 (F: fc2), with Q4_0 codes nibble-packed whether they
+    came packed or not."""
+    from tts_tpu_torch.models.parler.model import ParlerLayerWeights
+    from tts_tpu_torch.ops import parler_megastep as pm
+    from tts_tpu_torch.ops.quant_matmul import QuantTensor
+    g = torch.Generator().manual_seed(qtype)
+    L, heads = 2, hidden // 64
+    hi = {quants.GGML_TYPE_Q4_0: 16, quants.GGML_TYPE_Q5_0: 32}.get(qtype, 256)
+
+    def quant(n, k):
+        codes = torch.randint(0, hi, (L, n, k), generator=g).to(torch.uint8)
+        if qtype == quants.GGML_TYPE_Q8_0:
+            codes = codes.view(torch.int8)
+        scales = torch.rand((L, n, k // 32), generator=g).to(torch.bfloat16)
+        w = QuantTensor(codes, scales, qtype)
+        return w.pack() if packed else w
+
+    vec = torch.ones(L, hidden)
+    cross = torch.zeros(L, heads, 4, 64)
+    hh = [quant(hidden, hidden) for _ in range(6)]
+    f1, f2 = quant(ffn, hidden), quant(hidden, ffn)
+    mega, qt = pm.prep_mega_layers(ParlerLayerWeights(
+        vec, vec, *hh[:4], vec, vec, *hh[4:], cross, cross, vec, vec, f1, f2))
+    assert qt == qtype
+    th = hidden // pm.TILE_ROWS
+    want = {"qkv": hh[:3], "o": [hh[3]], "cq": [hh[4]], "co": [hh[5]],
+            "fc1": [f1], "fc2": [f2]}
+    for l in range(L):
+        got = {"qkv": pm.projection_rows(mega.qkv_codes[l], mega.qkv_scales[l]),
+               "fc1": pm.projection_rows(mega.fc1_codes[l], mega.fc1_scales[l]),
+               "fc2": pm.projection_rows(mega.fc2_codes[l], mega.fc2_scales[l])}
+        for i, name in enumerate(("o", "cq", "co")):
+            got[name] = pm.projection_rows(mega.occ_codes[l, i * th:(i + 1) * th],
+                                           mega.occ_scales[l, i * th:(i + 1) * th])
+        for name, ms in want.items():
+            codes = torch.cat([m.pack().codes[l] for m in ms])
+            scales = torch.cat([m.scales[l] for m in ms])
+            assert torch.equal(got[name][0], codes), (name, l)
+            assert got[name][1].dtype == torch.bfloat16
+            assert torch.equal(got[name][1], scales), (name, l)

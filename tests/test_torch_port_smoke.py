@@ -23,7 +23,7 @@ plain = pm.parler_megastep_plain
 def no_round_fc2(*a, **k):
     """The step with fc2's input left in f32 (not rounded to bf16)."""
     qdot = pm._qdot
-    ffn = a[0].fc1_codes.shape[1]
+    ffn = pm.mega_dims(a[0])[2]
 
     def q(h, codes, scales, qt):
         if h.shape[-1] == ffn:   # fc2's input; every other product has K = H

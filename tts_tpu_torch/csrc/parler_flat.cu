@@ -21,18 +21,20 @@
 // cannot be resident at once (so the barriers cannot deadlock). The step
 // runs the eight phases of K2's launch sequence (parler_megastep.cu) in
 // order, each ended by a grid-wide barrier:
-//   1. every block normalizes x (LN1) into shared memory; the warps of the
-//      grid take the 3H qkv features in turn (feature n on warp n mod the
-//      grid's warps); the epilogue writes k, v into cache row pos
+//   1. LN1 -> qkv: the GEMV's tile groups over the blocks, each block
+//      normalizing x into shared memory itself; the epilogue writes k, v
+//      into cache row pos
 //   2. self-attention: the (head, 256-row page) items up to pos over the
 //      blocks, then (with more than one live page) the per-head combine
 //   3. o, x += .     4. LNc, cross-q     5. cross-attention pages (+combine)
 //   6. co, x += .    7. LN2, fc1, GELU   8. fc2, x += .
-// Phases 4-6 drop when use_cross is off. Each GEMV feature and each
+// Phases 4-6 drop when use_cross is off. Each GEMV phase and each
 // attention page / combine item is computed by the very device code K2 and
-// K3 launch (parler_gemv.cuh, attention.cuh), with the same block shape
-// (8 warps, of which the first 4 walk a page's rows), so a feature sums in
-// the same order on both routes and K12 equals K2 bit for bit.
+// K3 launch (parler_gemv.cuh's `gemv`, attention.cuh), with the same block
+// shape (8 warps: a GEMV tile's K split over them, the first 4 walking a
+// page's rows), so a feature sums in the same order on both routes and K12
+// equals K2 bit for bit. The GEMV splits K over the warps of a block, not
+// over a cluster, so that this cooperative launch runs the same order.
 //
 // The barrier is a counter and a generation word in device memory: a
 // block's thread 0 fences its block's writes, adds one to the counter, and
@@ -40,9 +42,9 @@
 // which the others wait; the wait gives up with a trap after about ten
 // seconds rather than hang. Data that blocks of the launch write (x, qkv,
 // the attention output and partials, the cache row pos, cq, the GELU
-// output) is read through plain loads, never the read-only cache; weights
-// and the cross K/V go through the read-only cache. No TMA, wgmma or warp
-// specialisation: a right, simple kernel first.
+// output) is read through plain loads, never the read-only cache; the
+// weights stream through cp.async (L2), the cross K/V through the
+// read-only cache.
 #include <cuda_runtime.h>
 
 #include "attention.cuh"
@@ -88,13 +90,13 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
 struct FlatArgs {
   float* x;                 // (H) the residual stream, updated in place
   const float* norms;       // (L, 6, H)
-  const uint8_t* qkv_c;     // (L, 3H, Kc(H)) codes, bf16 scales beside
-  const __nv_bfloat16* qkv_s;
-  const uint8_t* occ_c;     // (L, 3H, Kc(H)): o, cross-q, cross-o
+  const uint8_t* qkv_c;     // (L, 3H / 16, H / 128, .) tiled codes (gemv_tile),
+  const __nv_bfloat16* qkv_s;  // bf16 scales beside
+  const uint8_t* occ_c;     // (L, 3H / 16, H / 128, .): o, cross-q, cross-o
   const __nv_bfloat16* occ_s;
-  const uint8_t* fc1_c;     // (L, F, Kc(H))
+  const uint8_t* fc1_c;     // (L, F / 16, H / 128, .)
   const __nv_bfloat16* fc1_s;
-  const uint8_t* fc2_c;     // (L, H, Kc(F))
+  const uint8_t* fc2_c;     // (L, H / 16, F / 128, .)
   const __nv_bfloat16* fc2_s;
   const float* cross_k;     // (L, heads, Tc, D) f32
   const float* cross_v;
@@ -111,20 +113,6 @@ struct FlatArgs {
   int n_layers, hidden, ffn, heads, ctx, tc, use_cross;
   float scale;              // D ** -0.5
 };
-
-// One GEMV phase: feature n on the grid's warp n mod (grid warps).
-template <int QT, bool PACKED, int EPI>
-__device__ __forceinline__ void gemv_phase(const float* xin,
-                                           const uint8_t* codes,
-                                           const __nv_bfloat16* scales, int N,
-                                           int K, const float* res, float* out,
-                                           const CacheArgs& c) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int n = blockIdx.x * WARPS + warp; n < N; n += gridDim.x * WARPS) {
-    gemv_feature<QT, PACKED, EPI, 1>(xin, codes, scales, 1, N, K, res, out,
-                                     c, n, lane);
-  }
-}
 
 // One attention over heads x ceil(rows / 256) pages of (heads, rows, D)
 // K/V up to row `last`, then the combine (where more than the first page
@@ -156,8 +144,7 @@ __device__ __forceinline__ void attention_phase(const FlatArgs& a,
 
 template <int QT, bool PACKED, typename T>
 __global__ void __launch_bounds__(WARPS * 32) pflat_kernel(FlatArgs a) {
-  extern __shared__ float4 xs4[];  // H floats: the normalized x
-  float* xs = reinterpret_cast<float*>(xs4);
+  extern __shared__ __align__(16) uint8_t smem[];  // the GEMV's (smem_bytes)
   const int H = a.hidden, F = a.ffn;
   const size_t rb_h = PACKED ? H / 2 : H, rb_f = PACKED ? F / 2 : F;
   const size_t sb_h = H / QK, sb_f = F / QK;
@@ -174,43 +161,41 @@ __global__ void __launch_bounds__(WARPS * 32) pflat_kernel(FlatArgs a) {
     const uint8_t* occ_c = a.occ_c + (size_t)l * 3 * H * rb_h;
     const __nv_bfloat16* occ_s = a.occ_s + (size_t)l * 3 * H * sb_h;
     // 1. LN1 -> qkv; k, v into cache row pos
-    ln_rows(a.x, nm, nm + H, 1, H, xs);
-    gemv_phase<QT, PACKED, EPI_QKV>(xs, a.qkv_c + (size_t)l * 3 * H * rb_h,
-                                    a.qkv_s + (size_t)l * 3 * H * sb_h, 3 * H,
-                                    H, nullptr, qkv, c);
+    gemv<QT, PACKED, 1, true, EPI_QKV, false>(
+        a.x, nm, nm + H, a.qkv_c + (size_t)l * 3 * H * rb_h,
+        a.qkv_s + (size_t)l * 3 * H * sb_h, 1, 3 * H, H, nullptr, qkv, c, smem);
     grid_sync(a.bar);
     // 2. self-attention over rows [0, pos]
     attention_phase<T, false>(a, qkv, kc, vc, a.ctx, pos);
     // 3. o; x += .
-    gemv_phase<QT, PACKED, EPI_RESIDUAL>(a.attn, occ_c, occ_s, H, H, a.x,
-                                         a.x, c);
+    gemv<QT, PACKED, 1, false, EPI_RESIDUAL, false>(
+        a.attn, nullptr, nullptr, occ_c, occ_s, 1, H, H, a.x, a.x, c, smem);
     grid_sync(a.bar);
     if (a.use_cross) {
       // 4. LNc -> cross-q
-      ln_rows(a.x, nm + 2 * H, nm + 3 * H, 1, H, xs);
-      gemv_phase<QT, PACKED, EPI_STORE>(xs, occ_c + H * rb_h, occ_s + H * sb_h,
-                                        H, H, nullptr, a.cq, c);
+      gemv<QT, PACKED, 1, true, EPI_STORE, false>(
+          a.x, nm + 2 * H, nm + 3 * H, occ_c + H * rb_h, occ_s + H * sb_h, 1,
+          H, H, nullptr, a.cq, c, smem);
       grid_sync(a.bar);
       // 5. cross-attention over every row of the cross K/V
       attention_phase<float, true>(a, a.cq, a.cross_k + l * cross_layer,
                                    a.cross_v + l * cross_layer, a.tc,
                                    a.tc - 1);
       // 6. co; x += .
-      gemv_phase<QT, PACKED, EPI_RESIDUAL>(a.attn, occ_c + 2 * H * rb_h,
-                                           occ_s + 2 * H * sb_h, H, H, a.x,
-                                           a.x, c);
+      gemv<QT, PACKED, 1, false, EPI_RESIDUAL, false>(
+          a.attn, nullptr, nullptr, occ_c + 2 * H * rb_h, occ_s + 2 * H * sb_h,
+          1, H, H, a.x, a.x, c, smem);
       grid_sync(a.bar);
     }
     // 7. LN2 -> fc1 -> GELU
-    ln_rows(a.x, nm + 4 * H, nm + 5 * H, 1, H, xs);
-    gemv_phase<QT, PACKED, EPI_GELU>(xs, a.fc1_c + (size_t)l * F * rb_h,
-                                     a.fc1_s + (size_t)l * F * sb_h, F, H,
-                                     nullptr, a.up, c);
+    gemv<QT, PACKED, 1, true, EPI_GELU, false>(
+        a.x, nm + 4 * H, nm + 5 * H, a.fc1_c + (size_t)l * F * rb_h,
+        a.fc1_s + (size_t)l * F * sb_h, 1, F, H, nullptr, a.up, c, smem);
     grid_sync(a.bar);
     // 8. fc2; x += .
-    gemv_phase<QT, PACKED, EPI_RESIDUAL>(a.up, a.fc2_c + (size_t)l * H * rb_f,
-                                         a.fc2_s + (size_t)l * H * sb_f, H, F,
-                                         a.x, a.x, c);
+    gemv<QT, PACKED, 1, false, EPI_RESIDUAL, false>(
+        a.up, nullptr, nullptr, a.fc2_c + (size_t)l * H * rb_f,
+        a.fc2_s + (size_t)l * H * sb_f, 1, H, F, a.x, a.x, c, smem);
     if (l + 1 < a.n_layers) grid_sync(a.bar);
   }
 }
@@ -218,13 +203,13 @@ __global__ void __launch_bounds__(WARPS * 32) pflat_kernel(FlatArgs a) {
 template <int QT, bool PACKED, typename T>
 int launch(FlatArgs a, cudaStream_t s, int* grid_out) {
   auto kern = pflat_kernel<QT, PACKED, T>;
-  const size_t smem = (size_t)a.hidden * sizeof(float);
+  const int smem = smem_bytes<PACKED, 1>(1, a.hidden > a.ffn ? a.hidden : a.ffn);
   cudaError_t e;
-  if (smem > 47 * 1024) {
-    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // opted in at every size: the page code's static shared memory counts
+  // toward the 48 KB a block gets without
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
@@ -272,8 +257,8 @@ extern "C" long long tts_parler_flat_scratch(int n_layers, int hidden,
 
 // One decode step of L Parler layers for one stream: x (H) f32, updated in
 // place to the pre-final-norm output; weights as MegaLayers
-// (ops/parler_megastep.py: Q4_0 packed, Q5_0 or Q8_0 codes, bf16 scales,
-// contiguous, stacked on L); kv_k / kv_v (L, heads, ctx, 64) bf16
+// (ops/parler_megastep.py: tiled, Q4_0 packed, Q5_0 or Q8_0 codes, bf16
+// scales, contiguous, stacked on L; H and F multiples of 128); kv_k / kv_v (L, heads, ctx, 64) bf16
 // (cache_bf16) or f32, row min(pos, ctx - 1) written in place; pos a
 // device int32; scratch of tts_parler_flat_scratch floats, 16-byte
 // aligned, whose first L * 3H floats receive q, k_new, v_new per layer.
@@ -288,8 +273,7 @@ extern "C" int tts_parler_flat(
     int tc, int cache_bf16, int use_cross, float scale, int* grid,
     void* stream) {
   if (n_layers <= 0 || hidden <= 0 || hidden != heads * HEAD_D ||
-      hidden % QK || ffn <= 0 || ffn % QK || ctx <= 0 || tc <= 0 ||
-      (size_t)hidden * sizeof(float) > 232448 ||
+      hidden % UNIT_K || ffn <= 0 || ffn % UNIT_K || ctx <= 0 || tc <= 0 ||
       scratch_floats < tts_parler_flat_scratch(n_layers, hidden, ffn, heads,
                                                ctx, tc)) {
     return (int)cudaErrorInvalidValue;

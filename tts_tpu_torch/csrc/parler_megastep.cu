@@ -30,22 +30,22 @@
 //   6. gemv  co;   epilogue x += .
 //   7. gemv  LN2 prologue, fc1;  epilogue tanh-GELU
 //   8. gemv  fc2;  epilogue x += .
-// Each gemv block normalizes the B input rows into shared memory itself
-// (B x K floats; recomputing the LN per block costs L2 reads, not
-// device-memory traffic), then one warp per output feature streams that
-// feature's weight row as K1 does (dequant.cuh): each lane dequantizes a
-// 32-weight block once into registers and dots it with all B rows, keeping
-// one accumulator per row, so one weight read serves every slot. Each row
-// sums in the same order whatever B is, so slot s of a batched step equals
-// a one-row step on slot s's state bit for bit. The GEMV body lives in
-// parler_gemv.cuh, shared with the one-launch K12 (parler_flat.cu). The
-// current token's k/v are written into the cache before the attention
-// reads rows [0, pos]: exact in
-// f32; on a bf16 cache the current row is rounded to bf16 too (the TPU
-// kernels fold the f32 row in analytically). The plain version does the
-// same. Inactive slots still compute and write their row at a frozen pos,
-// which nothing reads. K12 (parler_flat.cu) runs the same step as a
-// single persistent launch.
+// Each gemv launch is parler_gemv.cuh's `gemv` (its header has the design:
+// tensor cores, the B rows staged once per block as bf16 behind the layer
+// norm, weights tiled at prep and streamed through a cp.async ring per
+// warp, K split over the warps of a block), one block per group of tiles,
+// launched with programmatic dependent launch: a block issues its first
+// weight copies, lets the next launch start, then waits for the kernel
+// before it. Each row sums in one order whatever B is, so slot s of a
+// batched step equals a one-row step on slot s's state bit for bit; K12
+// (parler_flat.cu) runs the same function inside its one persistent
+// launch. The current token's k/v are written into the cache before the
+// attention reads rows [0, pos]: exact in f32; on a bf16 cache the current
+// row is rounded to bf16 too (the TPU kernels fold the f32 row in
+// analytically). The plain version does the same. Inactive slots still
+// compute and write their row at a frozen pos, which nothing reads.
+#include <mutex>
+
 #include <cuda_runtime.h>
 
 #include "parler_gemv.cuh"
@@ -55,51 +55,55 @@ namespace {
 using namespace tts;
 using namespace tts::parler;
 
-// Grid N / WARPS blocks; B <= ROWS input rows x (B, K), outputs (B, N). The
-// body is parler_gemv.cuh's, which K12 runs inside its persistent loop.
-template <int QT, bool PACKED, bool LN, int EPI, int ROWS>
-__global__ void __launch_bounds__(WARPS * 32)
-gemv_kernel(const float* __restrict__ x, const float* __restrict__ ln_w,
-            const float* __restrict__ ln_b, const uint8_t* __restrict__ codes,
+template <int QT, bool PACKED, int NT, bool LN, int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+gemv_kernel(const float* x, const float* ln_w, const float* ln_b,
+            const uint8_t* __restrict__ codes,
             const __nv_bfloat16* __restrict__ scales, int B, int N, int K,
             const float* res, float* out, CacheArgs c) {
-  extern __shared__ float4 xs4[];  // B x K floats: the normalized input rows
-  const float* xin = x;
-  if constexpr (LN) {
-    float* xs = reinterpret_cast<float*>(xs4);
-    ln_rows(x, ln_w, ln_b, B, K, xs);
-    xin = xs;
-  }
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n = blockIdx.x * WARPS + warp;
-  if (n >= N) return;
-  gemv_feature<QT, PACKED, EPI, ROWS>(xin, codes, scales, B, N, K, res, out,
-                                      c, n, lane);
+  extern __shared__ __align__(16) uint8_t smem[];
+  gemv<QT, PACKED, NT, LN, EPI, true>(x, ln_w, ln_b, codes, scales, B, N, K,
+                                      res, out, c, smem);
 }
 
-constexpr size_t OPT_IN_FROM = 47 * 1024;
-
-template <int QT, bool PACKED, bool LN, int EPI, int ROWS>
+// One block per SM at most, each taking groups of WARPS / k_split(K) tiles
+// in turn: a block stages its rows once for all its groups, and its warps'
+// rings run ahead across them.
+template <int QT, bool PACKED, int NT, bool LN, int EPI>
 int launch_one(const float* x, const float* ln_w, const float* ln_b,
                const uint8_t* codes, const __nv_bfloat16* sc, int B, int N,
                int K, const float* res, float* out, CacheArgs c,
                cudaStream_t s) {
-  const dim3 grid((N + WARPS - 1) / WARPS);
-  const size_t smem = LN ? (size_t)B * K * sizeof(float) : 0;
-  auto kern = gemv_kernel<QT, PACKED, LN, EPI, ROWS>;
-  // A block gets 48 KB without opting in, its static shared memory (the
-  // norm's block sum) included: opt in before the dynamic rows reach it.
-  if (smem > OPT_IN_FROM) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<grid, WARPS * 32, smem, s>>>(x, ln_w, ln_b, codes, sc, B, N, K, res,
-                                      out, c);
+  auto kern = gemv_kernel<QT, PACKED, NT, LN, EPI>;
+  const int smem = smem_bytes<PACKED, NT>(B, K);
+  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  // past 48 KB a launch needs the kernel's opt-in: each instantiation opts
+  // in once, to every size a launch may ask for
+  static std::once_flag opted;
+  static cudaError_t opt_err = cudaSuccess;
+  std::call_once(opted, [&] {
+    opt_err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   SMEM_LIMIT);
+  });
+  if (opt_err != cudaSuccess) return (int)opt_err;
+  const int tpb = WARPS / k_split(K), groups = (N / TILE + tpb - 1) / tpb;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(groups < sm_count() ? groups : sm_count());
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, x, ln_w, ln_b, codes, sc,
+                                           B, N, K, res, out, c);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <int QT, bool PACKED, int ROWS>
+template <int QT, bool PACKED, int NT>
 int launch(int ln, int epi, const float* x, const float* ln_w,
            const float* ln_b, const uint8_t* codes, const void* scales, int B,
            int N, int K, const float* res, float* out, CacheArgs c,
@@ -107,32 +111,30 @@ int launch(int ln, int epi, const float* x, const float* ln_w,
   const __nv_bfloat16* sc = reinterpret_cast<const __nv_bfloat16*>(scales);
 #define TTS_GEMV_ARGS x, ln_w, ln_b, codes, sc, B, N, K, res, out, c, s
   if (ln && epi == EPI_QKV) {
-    return launch_one<QT, PACKED, true, EPI_QKV, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<QT, PACKED, NT, true, EPI_QKV>(TTS_GEMV_ARGS);
   } else if (ln && epi == EPI_STORE) {
-    return launch_one<QT, PACKED, true, EPI_STORE, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<QT, PACKED, NT, true, EPI_STORE>(TTS_GEMV_ARGS);
   } else if (ln && epi == EPI_GELU) {
-    return launch_one<QT, PACKED, true, EPI_GELU, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<QT, PACKED, NT, true, EPI_GELU>(TTS_GEMV_ARGS);
   } else if (!ln && epi == EPI_RESIDUAL) {
-    return launch_one<QT, PACKED, false, EPI_RESIDUAL, ROWS>(TTS_GEMV_ARGS);
+    return launch_one<QT, PACKED, NT, false, EPI_RESIDUAL>(TTS_GEMV_ARGS);
   }
 #undef TTS_GEMV_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
-template <int ROWS>
+template <int NT>
 int dispatch(int ln, int epi, const float* x, const float* ln_w,
              const float* ln_b, const uint8_t* codes, const void* scales,
              int qtype, int packed, int B, int N, int K, const float* res,
              float* out, CacheArgs c, cudaStream_t s) {
 #define TTS_GEMV_ARGS ln, epi, x, ln_w, ln_b, codes, scales, B, N, K, res, out, c, s
   if (qtype == Q4_0 && packed) {
-    return launch<Q4_0, true, ROWS>(TTS_GEMV_ARGS);
-  } else if (qtype == Q4_0) {
-    return launch<Q4_0, false, ROWS>(TTS_GEMV_ARGS);
+    return launch<Q4_0, true, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q5_0 && !packed) {
-    return launch<Q5_0, false, ROWS>(TTS_GEMV_ARGS);
+    return launch<Q5_0, false, NT>(TTS_GEMV_ARGS);
   } else if (qtype == Q8_0 && !packed) {
-    return launch<Q8_0, false, ROWS>(TTS_GEMV_ARGS);
+    return launch<Q8_0, false, NT>(TTS_GEMV_ARGS);
   }
 #undef TTS_GEMV_ARGS
   return (int)cudaErrorInvalidValue;
@@ -140,30 +142,34 @@ int dispatch(int ln, int epi, const float* x, const float* ln_w,
 
 }  // namespace
 
-constexpr int MAX_ROWS = 16;
-constexpr size_t MAX_SMEM = 232448;  // what one block may opt in to on sm_90
-
-// out (B, N) = epilogue(LN?(x) @ dequant(W)^T) for x (B, K), W (N, K) with
-// bf16 scales, 1 <= B <= 16 (K2 is the call with B = 1). (ln, epi) is one
-// of (1, QKV), (1, STORE), (1, GELU), (0, RESIDUAL); the cache arguments
-// are read only by the QKV epilogue (N = 3 * hidden): slot r's k/v go to
-// kc/vc + r * kv_bstride elements, row min(pos[r], ctx - 1).
+// out (B, N) = epilogue(LN?(x) @ dequant(W)^T) for x (B, K) and W (N, K)
+// tiled (ops/parler_megastep.py prep_mega_layers: gemv_tile's "pairs",
+// codes Q4_0 nibble-packed, Q5_0 or Q8_0, bf16 scales), 1 <= B <= 16 (K2 is
+// the call with B = 1), N a multiple of 16, K of 128. (ln, epi) is one of
+// (1, QKV), (1, STORE), (1, GELU), (0, RESIDUAL); with ln, ln_w / ln_b (K)
+// are the norm's weight and bias; res may be out. The cache arguments are
+// read only by the QKV epilogue (N = 3 * hidden): slot r's k/v go to kc/vc
+// + r * kv_bstride elements, row min(pos[r], ctx - 1). x, ln_w, ln_b,
+// codes and scales 16-byte aligned. Launched with programmatic dependent
+// launch on `stream`.
 extern "C" int tts_parler_gemv(
     const float* x, const float* ln_w, const float* ln_b, int ln,
     const uint8_t* codes, const void* scales, int qtype, int packed, int B,
     int N, int K, const float* res, float* out, int epi, void* kc, void* vc,
     const int* pos, int hidden, int d, int ctx, int cache_bf16,
     long long kv_bstride, void* stream) {
-  if (B <= 0 || B > MAX_ROWS || N <= 0 || K <= 0 || K % tts::QK ||
-      (ln && (size_t)B * K * sizeof(float) > MAX_SMEM)) {
+  if (B <= 0 || B > MAX_ROWS || N <= 0 || N % TILE || K <= 0 ||
+      K % tts::UNIT_K || (size_t)x % 16 || (size_t)codes % 16 ||
+      (size_t)scales % 16 ||
+      (ln && (ln_w == nullptr || ln_b == nullptr || (size_t)ln_w % 16 ||
+              (size_t)ln_b % 16)) ||
+      (epi == EPI_QKV && (d <= 0 || d % 2 || hidden % d || N != 3 * hidden))) {
     return (int)cudaErrorInvalidValue;
   }
-  const tts::parler::CacheArgs c{kc, vc, pos, hidden, d, ctx, cache_bf16,
-                                 kv_bstride};
+  const CacheArgs c{kc, vc, pos, hidden, d, ctx, cache_bf16, kv_bstride};
   cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
 #define TTS_GEMV_ARGS ln, epi, x, ln_w, ln_b, codes, scales, qtype, packed, B, N, K, res, out, c, s
-  if (B == 1) return dispatch<1>(TTS_GEMV_ARGS);
-  if (B <= 8) return dispatch<8>(TTS_GEMV_ARGS);
-  return dispatch<MAX_ROWS>(TTS_GEMV_ARGS);
+  if (B <= 8) return dispatch<1>(TTS_GEMV_ARGS);
+  return dispatch<2>(TTS_GEMV_ARGS);
 #undef TTS_GEMV_ARGS
 }

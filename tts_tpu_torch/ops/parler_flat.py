@@ -12,9 +12,10 @@ pre-final-norm x and each layer's k_new / v_new; the LM heads stay outside.
 On the card it is one cooperative launch of a persistent kernel
 (csrc/parler_flat.cu, its header says why) that runs K2's eight phases per
 layer with grid-wide barriers between them, through the same device code
-as K2 and K3, so K12 equals K2 bit for bit. The JAX kernel's flat tile
+as K2 and K3 (the tensor-core GEMV of csrc/parler_gemv.cuh, the page
+attention), so K12 equals K2 bit for bit. The JAX kernel's flat tile
 stream, half-split nibble packing and schedule fed the TPU's VMEM pipeline
-and have no counterpart: K12 reads K2's `MegaLayers` as they are. Its
+and have no counterpart: K12 reads K2's tiled `MegaLayers` as they are. Its
 contract is the port's K2 contract, not the TPU kernel's: the step writes
 this token's k / v into cache row `pos` in place, then attends rows
 [0, pos], so the runner can swap one route for the other.
@@ -33,7 +34,10 @@ import torch
 
 from ..gguf import quants
 from . import _build
-from .parler_megastep import MegaLayers, parler_megastep_plain
+from .llama_megastep import tiles_packed
+from .parler_megastep import (GEMV_SMEM_LIMIT, GEMV_UNIT_K, MegaLayers,
+                              gemv_smem_bytes, mega_dims, parler_megastep_plain,
+                              require_mega)
 from .quant_matmul import BIAS
 
 _vp = ctypes.c_void_p
@@ -63,17 +67,18 @@ def prep_parler_flat(mega: MegaLayers, qtype: int, ctx: int,
     """K12's weights from K2's `MegaLayers` (nothing is copied). `ctx` is
     the KV cache's row count. Raises ValueError on shapes the kernel does
     not take (heads of another size than 64, dims that are not whole
-    32-weight blocks), as the JAX `prep_parler_flat` does on shapes without
-    a uniform tile; the caller then keeps K2."""
+    128-weight stages, a GEMV whose shared memory would not fit), as the
+    JAX `prep_parler_flat` does on shapes without a uniform tile; the
+    caller then keeps K2."""
     n_layers, heads, tc, d = mega.cross_k.shape
-    hidden, ffn = mega.norms.shape[2], mega.fc1_codes.shape[1]
-    if (d != HEAD_D or hidden != heads * d or hidden % 32 or ffn % 32
-            or qtype not in BIAS or tc < 1 or ctx < 1
-            or hidden * 4 > 232448):
-        raise ValueError(f"K12 takes heads of {HEAD_D} and whole blocks: "
+    _, hidden, ffn = mega_dims(mega)
+    packed = tiles_packed(mega.qkv_codes)
+    if (d != HEAD_D or hidden != heads * d or hidden % GEMV_UNIT_K
+            or ffn % GEMV_UNIT_K or qtype not in BIAS or tc < 1 or ctx < 1
+            or gemv_smem_bytes(1, max(hidden, ffn), packed) > GEMV_SMEM_LIMIT):
+        raise ValueError(f"K12 takes heads of {HEAD_D} and whole stages: "
                          f"H={hidden} heads={heads} D={d} F={ffn} Tc={tc} "
                          f"ctx={ctx} qtype={qtype}")
-    packed = mega.qkv_codes.shape[2] * 2 == hidden
     if packed != (qtype == quants.GGML_TYPE_Q4_0):
         raise ValueError("K12 takes packed Q4_0 codes or byte Q5_0 / Q8_0 codes")
     return ParlerFlat(mega, qtype, bool(use_cross), heads, ctx)
@@ -109,24 +114,17 @@ def parler_flat_megastep_cuda(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
     global launched_blocks
     m = flat.layers
     dev = x.device
-    n_layers, hidden = m.norms.shape[0], m.norms.shape[2]
-    ffn, tc = m.fc1_codes.shape[1], m.cross_k.shape[2]
+    n_layers, hidden, ffn = mega_dims(m)
+    tc = m.cross_k.shape[2]
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=4)
     ctx = kv_k.shape[2]
     _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=4)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
-    _build.require(m.norms, "norms", device=dev, dtypes=(torch.float32,),
-                   ndim=3)
     for name in ("cross_k", "cross_v"):
         _build.require(getattr(m, name), name, device=dev,
                        dtypes=(torch.float32,), ndim=4)
-    for name in ("qkv_codes", "occ_codes", "fc1_codes", "fc2_codes"):
-        _build.require(getattr(m, name), name, device=dev,
-                       dtypes=(torch.uint8, torch.int8), ndim=3)
-    for name in ("qkv_scales", "occ_scales", "fc1_scales", "fc2_scales"):
-        _build.require(getattr(m, name), name, device=dev,
-                       dtypes=(torch.bfloat16,), ndim=3, align=2)
+    require_mega(m, dev)
     if (qtype != flat.qtype or n_heads != flat.n_heads or ctx != flat.ctx
             or x.numel() != hidden or pos.numel() != 1
             or kv_k.shape != (n_layers, n_heads, ctx, HEAD_D)
@@ -145,7 +143,7 @@ def parler_flat_megastep_cuda(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
            p(m.occ_scales), p(m.fc1_codes), p(m.fc1_scales), p(m.fc2_codes),
            p(m.fc2_scales), p(m.cross_k), p(m.cross_v), p(kv_k), p(kv_v),
            p(pos), p(scratch), n_scratch, qtype,
-           int(m.qkv_codes.shape[2] * 2 == hidden), n_layers, hidden, ffn,
+           int(tiles_packed(m.qkv_codes)), n_layers, hidden, ffn,
            n_heads, ctx, tc, int(kv_k.dtype == torch.bfloat16),
            int(flat.use_cross), float(HEAD_D ** -0.5), ctypes.byref(grid),
            _build.stream_ptr(dev))

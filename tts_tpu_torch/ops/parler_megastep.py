@@ -12,14 +12,22 @@ k_new / v_new.
 
 On the card the step is a sequence of hand-written kernels on one stream
 (csrc/parler_megastep.cu, its header says why): per layer 6 launches of the
-dequant GEMV, which fuses the layer norm before it and the residual add or
-GELU after it, and 2 launches of the decode attention
-(ops/decode_attention.py) for the self- and cross-attention. K2 and K5 are
-one kernel (K2 is B = 1) and one launch sequence, `_megastep_cuda`; K2
-uses K3 for attention and K5 uses K4. Each row of a batched GEMV sums in the order a
-one-row GEMV does, so slot s of K5 equals K2 on slot s's state bit for bit.
-On CPU tensors `parler_megastep_plain` / `parler_megastep_batched_plain`
-compute the same in plain PyTorch.
+dequant GEMV (csrc/parler_gemv.cuh: tensor cores, the input rows staged as
+bf16 behind the fused layer norm, the weights streamed through a cp.async
+ring, the residual add or GELU fused after it), and 2 launches of the
+decode attention (ops/decode_attention.py) for the self- and
+cross-attention. K2 and K5 are one kernel (K2 is B = 1) and one launch
+sequence, `_megastep_cuda`; K2 uses K3 for attention and K5 uses K4. Each
+row of a batched GEMV sums in the order a one-row GEMV does, so slot s of
+K5 equals K2 on slot s's state bit for bit. On CPU tensors
+`parler_megastep_plain` / `parler_megastep_batched_plain` compute the same
+in plain PyTorch.
+
+The prep (`prep_mega_layers`) lays each projection out in the order the
+GEMV streams it: tiles of 16 weight rows (rows 2p and 2p + 1 of pairs p,
+`llama_megastep.gemv_tile`'s "pairs"), each a run of stages of 128
+weights, Q4_0 nibble-packed; the plain versions read the same tiles back in
+row order (`projection_rows`).
 
 Unlike the TPU kernel, which folds the current token's k/v into the softmax
 and leaves the cache write to its caller, this step writes k/v into cache
@@ -38,6 +46,7 @@ from . import _build
 from ._build import addr
 from . import decode_attention as da
 from .decode_attention import decode_attention_plain
+from .llama_megastep import gemv_pair_rows, gemv_tile, tiles_packed, weight_rows
 from .quant_matmul import BIAS, QuantTensor, quant_matmul_plain
 
 _vp = ctypes.c_void_p
@@ -50,33 +59,69 @@ KERNEL_BATCHED = _build.Kernel("parler_megastep", "tts_parler_gemv", _ARGS)  # K
 EPI_STORE, EPI_RESIDUAL, EPI_GELU, EPI_QKV = 0, 1, 2, 3
 LN_EPS = 1e-5
 MAX_BATCH = 16  # rows one batched GEMV launch takes; larger batches run in groups
+# csrc/parler_gemv.cuh's shapes: a warp's tile is TILE_ROWS weight rows,
+# streamed in stages of GEMV_UNIT_K weights through a ring of GEMV_RING
+# stages, GEMV_WARPS warps a block; the rings, the partial sums of the
+# warps that share a tile's K and the staged rows share a block's dynamic
+# shared memory, at most GEMV_SMEM_LIMIT bytes.
+TILE_ROWS, GEMV_UNIT_K, GEMV_RING, GEMV_WARPS = 16, 128, 4, 8
+GEMV_SMEM_LIMIT = 226 * 1024
+
+
+def gemv_smem_bytes(b: int, k: int, packed: bool = True) -> int:
+    """A GEMV block's dynamic shared memory at b rows of k (csrc/
+    parler_gemv.cuh smem_bytes): the warps' rings of 4 stages (1152 bytes
+    for Q4_0, 2176 for one-byte codes), a float4 a lane a warp an n-tile of
+    partial sums, and the b rows as bf16, each padded to 32 bytes past a
+    multiple of 128."""
+    stage = 4 * 16 * (16 if packed else 32) + 16 * 4 * 2
+    nt = 1 if b <= 8 else 2
+    return GEMV_WARPS * (GEMV_RING * stage + nt * 512) + \
+        b * (-(-k * 2 // 128) * 128 + 32)
 
 
 class MegaLayers(NamedTuple):
     """Per-layer weights in the megastep layout (all stacked on L).
 
-    Codes row-major (see ops/quant_matmul.py), Q4 nibble-packed; scales
-    bf16. qkv = concat(q, k, v) on N; occ = concat(o, cq, co) on N.
-    norms packs (ln1_w, ln1_b, lnc_w, lnc_b, ln2_w, ln2_b).
+    Each projection tiled for the GEMV (`llama_megastep.gemv_tile`, pairs
+    of rows 2p, 2p + 1: (L, N / 16, K / 128, 64 Cb) codes, Cb 16 for Q4_0
+    nibble-packed, 32 for one-byte codes, and (L, N / 16, K / 128, 64)
+    bf16 scales). qkv = concat(q, k, v) on N; occ = concat(o, cq, co) on N,
+    H / 16 tiles each. norms packs (ln1_w, ln1_b, lnc_w, lnc_b, ln2_w,
+    ln2_b).
     """
 
-    qkv_codes: torch.Tensor   # (L, 3H, Kc(H))
-    qkv_scales: torch.Tensor  # (L, 3H, H/32) bf16
-    occ_codes: torch.Tensor   # (L, 3H, Kc(H))
-    occ_scales: torch.Tensor  # (L, 3H, H/32) bf16
-    fc1_codes: torch.Tensor   # (L, F, Kc(H))
-    fc1_scales: torch.Tensor  # (L, F, H/32) bf16
-    fc2_codes: torch.Tensor   # (L, H, Kc(F))
-    fc2_scales: torch.Tensor  # (L, H, F/32) bf16
+    qkv_codes: torch.Tensor   # (L, 3H / 16, H / 128, 64 Cb)
+    qkv_scales: torch.Tensor  # (L, 3H / 16, H / 128, 64) bf16
+    occ_codes: torch.Tensor   # (L, 3H / 16, H / 128, 64 Cb)
+    occ_scales: torch.Tensor  # (L, 3H / 16, H / 128, 64) bf16
+    fc1_codes: torch.Tensor   # (L, F / 16, H / 128, 64 Cb)
+    fc1_scales: torch.Tensor  # (L, F / 16, H / 128, 64) bf16
+    fc2_codes: torch.Tensor   # (L, H / 16, F / 128, 64 Cb)
+    fc2_scales: torch.Tensor  # (L, H / 16, F / 128, 64) bf16
     norms: torch.Tensor       # (L, 6, H) f32
     cross_k: torch.Tensor     # (L, heads, Tc, D) f32
     cross_v: torch.Tensor     # (L, heads, Tc, D) f32
     cross_pos: torch.Tensor   # (1,) int32 = Tc - 1: cross-attention reads all rows
 
 
+def tile_projection(*ms: QuantTensor):
+    """The GEMV's tiles of the projections ms (QuantTensors of one qtype,
+    (..., N_i, K)) joined on N: Q4_0 codes nibble-packed, scales bf16, in
+    `gemv_tile`'s order for pairs of rows 2p, 2p + 1. Returns (codes (...,
+    N / 16, K / 128, 64 Cb), scales (..., N / 16, K / 128, 64)),
+    contiguous."""
+    ms = [m.pack() for m in ms]
+    codes = torch.cat([m.codes for m in ms], dim=-2)
+    scales = torch.cat([m.scales.to(torch.bfloat16) for m in ms], dim=-2)
+    return gemv_tile(codes, scales,
+                     *gemv_pair_rows("pairs", codes.shape[-2] // 2))
+
+
 def prep_mega_layers(layers) -> tuple[MegaLayers, int]:
     """MegaLayers from stacked ParlerLayerWeights whose 8 projections are
-    QuantTensors of one block qtype. Raises ValueError otherwise (the caller
+    QuantTensors of one block qtype (Q4_0 codes packed here if they are
+    not), H and F multiples of 128. Raises ValueError otherwise (the caller
     then takes the per-matmul path)."""
     mats = [layers.q_w, layers.k_w, layers.v_w, layers.o_w, layers.cq_w,
             layers.co_w, layers.fc1, layers.fc2]
@@ -86,24 +131,17 @@ def prep_mega_layers(layers) -> tuple[MegaLayers, int]:
     if len(qtypes) != 1 or next(iter(qtypes)) not in BIAS:
         raise ValueError(f"megastep needs one uniform qtype, got {qtypes}")
     qtype = next(iter(qtypes))
-    q, k, v, o, cq, co, f1, f2 = [m.pack() for m in mats]
-
-    def cat(ms):
-        return (torch.cat([m.codes for m in ms], dim=-2).contiguous(),
-                torch.cat([m.scales.to(torch.bfloat16) for m in ms],
-                          dim=-2).contiguous())
-
-    qkv_c, qkv_s = cat([q, k, v])
-    occ_c, occ_s = cat([o, cq, co])
+    q, k, v, o, cq, co, f1, f2 = mats
+    hidden, ffn = o.shape[0], f1.shape[0]
+    if hidden % GEMV_UNIT_K or ffn % GEMV_UNIT_K:
+        raise ValueError(f"megastep needs H and F multiples of {GEMV_UNIT_K}, "
+                         f"got H={hidden} F={ffn}")
     norms = torch.stack([layers.ln1_w, layers.ln1_b, layers.lnc_w,
                          layers.lnc_b, layers.ln2_w, layers.ln2_b], dim=1)
     tc = layers.cross_k.shape[2]
     mega = MegaLayers(
-        qkv_codes=qkv_c, qkv_scales=qkv_s, occ_codes=occ_c, occ_scales=occ_s,
-        fc1_codes=f1.codes.contiguous(),
-        fc1_scales=f1.scales.to(torch.bfloat16).contiguous(),
-        fc2_codes=f2.codes.contiguous(),
-        fc2_scales=f2.scales.to(torch.bfloat16).contiguous(),
+        *tile_projection(q, k, v), *tile_projection(o, cq, co),
+        *tile_projection(f1), *tile_projection(f2),
         norms=norms.float().contiguous(),
         cross_k=layers.cross_k.float().contiguous(),
         cross_v=layers.cross_v.float().contiguous(),
@@ -120,6 +158,40 @@ def layer_norm(x, w, b, eps: float = LN_EPS):
     return (x - mu) * torch.rsqrt(var + eps) * w + b
 
 
+def mega_dims(mega: MegaLayers) -> tuple[int, int, int]:
+    """(L, H, F) of a MegaLayers."""
+    return (mega.norms.shape[0], mega.norms.shape[2],
+            mega.fc1_codes.shape[1] * TILE_ROWS)
+
+
+def projection_rows(codes_t, scales_t):
+    """A tiled projection (MegaLayers, one layer's or a slice of its tiles)
+    in row order, for the plain versions: (codes (N, Kc), scales (N,
+    K/32))."""
+    return weight_rows(codes_t, scales_t, "pairs", codes_t.shape[-3] * TILE_ROWS)
+
+
+def require_mega(mega: MegaLayers, dev) -> None:
+    """Validate MegaLayers for the kernels on `dev`: tiled codes and bf16
+    scales of the widths the norms give, H and F multiples of 128."""
+    _, hidden, ffn = mega_dims(mega)
+    _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
+                   ndim=3)
+    for name, n, k in (("qkv", 3 * hidden, hidden), ("occ", 3 * hidden, hidden),
+                       ("fc1", ffn, hidden), ("fc2", hidden, ffn)):
+        codes, scales = getattr(mega, name + "_codes"), getattr(mega, name + "_scales")
+        _build.require(codes, name + "_codes", device=dev,
+                       dtypes=(torch.uint8, torch.int8), ndim=4)
+        _build.require(scales, name + "_scales", device=dev,
+                       dtypes=(torch.bfloat16,), ndim=4)
+        if (k % GEMV_UNIT_K or n % TILE_ROWS
+                or codes.shape[1:3] != (n // TILE_ROWS, k // GEMV_UNIT_K)
+                or codes.shape[3] not in (1024, 2048)
+                or scales.shape[1:] != (n // TILE_ROWS, k // GEMV_UNIT_K, 64)):
+            raise ValueError(f"{name}: tiles {tuple(codes.shape)} / "
+                             f"{tuple(scales.shape)} for N {n}, K {k}")
+
+
 def _qdot(h, codes, scales, qtype):
     return quant_matmul_plain(h, QuantTensor(codes, scales, qtype))
 
@@ -134,34 +206,36 @@ def parler_megastep_plain(mega: MegaLayers, x, kv_k, kv_v, pos, *,
     """K2's plain PyTorch version. x (1, H); kv_k/kv_v (L, heads, CTX, D),
     written in place at row pos; pos an int or one-element int tensor.
     Returns (x_out (1, H) f32, k_new (L, H), v_new (L, H))."""
-    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
-    d = hidden // n_heads
+    n_layers, hidden, _ = mega_dims(mega)
+    d, th = hidden // n_heads, hidden // TILE_ROWS
     ctx = kv_k.shape[2]
     p = torch.as_tensor(pos, device=x.device).reshape(1).long().clamp(max=ctx - 1)
     x = x.float()
     k_new, v_new = [], []
     for l in range(n_layers):
         nm = mega.norms[l]
-        qkv = _qdot(layer_norm(x, nm[0], nm[1]), mega.qkv_codes[l],
-                    mega.qkv_scales[l], qtype)[0]
+
+        def occ(i):   # o, cq, co: H / 16 tiles each
+            return projection_rows(mega.occ_codes[l, i * th:(i + 1) * th],
+                                   mega.occ_scales[l, i * th:(i + 1) * th])
+
+        qkv = _qdot(layer_norm(x, nm[0], nm[1]), *projection_rows(
+            mega.qkv_codes[l], mega.qkv_scales[l]), qtype)[0]
         q, k, v = qkv[:hidden], qkv[hidden:2 * hidden], qkv[2 * hidden:]
         _write_row(kv_k[l], p, k, n_heads)
         _write_row(kv_v[l], p, v, n_heads)
         attn = decode_attention_plain(q.reshape(n_heads, d), kv_k[l], kv_v[l], p)
-        x = x + _qdot(attn.reshape(1, hidden), mega.occ_codes[l, :hidden],
-                      mega.occ_scales[l, :hidden], qtype)
+        x = x + _qdot(attn.reshape(1, hidden), *occ(0), qtype)
         if use_cross:
-            cq = _qdot(layer_norm(x, nm[2], nm[3]),
-                       mega.occ_codes[l, hidden:2 * hidden],
-                       mega.occ_scales[l, hidden:2 * hidden], qtype)
+            cq = _qdot(layer_norm(x, nm[2], nm[3]), *occ(1), qtype)
             ca = decode_attention_plain(cq.reshape(n_heads, d), mega.cross_k[l],
                                         mega.cross_v[l], mega.cross_k.shape[2])
-            x = x + _qdot(ca.reshape(1, hidden), mega.occ_codes[l, 2 * hidden:],
-                          mega.occ_scales[l, 2 * hidden:], qtype)
-        up = _qdot(layer_norm(x, nm[4], nm[5]), mega.fc1_codes[l],
-                   mega.fc1_scales[l], qtype)
+            x = x + _qdot(ca.reshape(1, hidden), *occ(2), qtype)
+        up = _qdot(layer_norm(x, nm[4], nm[5]), *projection_rows(
+            mega.fc1_codes[l], mega.fc1_scales[l]), qtype)
         up = torch.nn.functional.gelu(up, approximate="tanh")
-        x = x + _qdot(up, mega.fc2_codes[l], mega.fc2_scales[l], qtype)
+        x = x + _qdot(up, *projection_rows(mega.fc2_codes[l], mega.fc2_scales[l]),
+                      qtype)
         k_new.append(k)
         v_new.append(v)
     return x, torch.stack(k_new), torch.stack(v_new)
@@ -195,7 +269,7 @@ class StepScratch(NamedTuple):
 
 def step_scratch(mega: MegaLayers, b: int, n_heads: int, ctx: int,
                  device) -> StepScratch:
-    hidden, ffn = mega.norms.shape[2], mega.fc1_codes.shape[1]
+    _, hidden, ffn = mega_dims(mega)
     d = hidden // n_heads
     f32 = dict(dtype=torch.float32, device=device)
     return StepScratch(
@@ -214,23 +288,15 @@ def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
     GEMV launches through `gemv_kernel` and 2 attention launches through
     `attn_kernel`, on the current stream."""
     dev = x.device
-    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
-    ffn = mega.fc1_codes.shape[1]
-    d = hidden // n_heads
+    n_layers, hidden, ffn = mega_dims(mega)
+    d, th = hidden // n_heads, hidden // TILE_ROWS
     b, ctx = x.shape[0], kv_k.shape[3]
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
     _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), ndim=5,
                    outer=1)
-    _build.require(mega.norms, "norms", device=dev, dtypes=(torch.float32,),
-                   ndim=3)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
-    for name in ("qkv_codes", "occ_codes", "fc1_codes", "fc2_codes"):
-        _build.require(getattr(mega, name), name, device=dev,
-                       dtypes=(torch.uint8, torch.int8), ndim=3)
-    for name in ("qkv_scales", "occ_scales", "fc1_scales", "fc2_scales"):
-        _build.require(getattr(mega, name), name, device=dev,
-                       dtypes=(torch.bfloat16,), ndim=3, align=2)
+    require_mega(mega, dev)
     if (kv_k.shape != (n_layers, b, n_heads, ctx, d) or kv_v.shape != kv_k.shape
             or x.shape != (b, hidden) or pos.numel() != b
             or not 0 < b <= MAX_BATCH):
@@ -238,7 +304,7 @@ def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
                          f"kv {tuple(kv_k.shape)}, pos {tuple(pos.shape)}, "
                          f"L={n_layers} H={hidden}, at most {MAX_BATCH} rows")
     sc = scratch or step_scratch(mega, b, n_heads, ctx, dev)
-    packed = int(mega.qkv_codes.shape[2] * 2 == hidden)
+    packed = int(tiles_packed(mega.qkv_codes))
     cache_bf16 = int(kv_k.dtype == torch.bfloat16)
     kv_bstride = n_heads * ctx * d
     stream = _build.stream_ptr(dev)
@@ -247,8 +313,6 @@ def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
     nm, vp = mega.norms, ctypes.c_void_p
     null = vp(0)
     pos_p = vp(pos.data_ptr())
-    bpr_h = mega.qkv_codes.shape[2] * mega.qkv_codes.element_size()
-    sbr_h = mega.qkv_scales.shape[2] * 2
 
     def gemv(xin, ln, codes_addr, scales_addr, n, k, res, out, epi,
              kc=null, vc=null, lnw=null, lnb=null):
@@ -268,17 +332,17 @@ def _megastep_cuda(gemv_kernel, attn_kernel, mega: MegaLayers, x, kv_k, kv_v,
              lnw=vp(addr(nm, l, 0)), lnb=vp(addr(nm, l, 1)))
         attend(q_out[:, :hidden].unflatten(1, (n_heads, d)), kv_k[l], kv_v[l],
                pos)
-        occ_c, occ_s = addr(mega.occ_codes, l), addr(mega.occ_scales, l)
-        gemv(attn_p, 0, occ_c, occ_s, hidden, hidden, x_p, x_p, EPI_RESIDUAL)
+        occ_c, occ_s = mega.occ_codes, mega.occ_scales   # o, cq, co: th tiles each
+        gemv(attn_p, 0, addr(occ_c, l), addr(occ_s, l), hidden, hidden, x_p,
+             x_p, EPI_RESIDUAL)
         if use_cross:
-            gemv(x_p, 1, occ_c + hidden * bpr_h, occ_s + hidden * sbr_h,
-                 hidden, hidden, null, vp(sc.cq.data_ptr()), EPI_STORE,
+            gemv(x_p, 1, addr(occ_c, l, th), addr(occ_s, l, th), hidden,
+                 hidden, null, vp(sc.cq.data_ptr()), EPI_STORE,
                  lnw=vp(addr(nm, l, 2)), lnb=vp(addr(nm, l, 3)))
             attend(sc.cq.view(b, n_heads, d), mega.cross_k[l], mega.cross_v[l],
                    mega.cross_pos)
-            gemv(attn_p, 0, occ_c + 2 * hidden * bpr_h,
-                 occ_s + 2 * hidden * sbr_h, hidden, hidden, x_p, x_p,
-                 EPI_RESIDUAL)
+            gemv(attn_p, 0, addr(occ_c, l, 2 * th), addr(occ_s, l, 2 * th),
+                 hidden, hidden, x_p, x_p, EPI_RESIDUAL)
         gemv(x_p, 1, addr(mega.fc1_codes, l), addr(mega.fc1_scales, l),
              ffn, hidden, null, vp(sc.up.data_ptr()), EPI_GELU,
              lnw=vp(addr(nm, l, 4)), lnb=vp(addr(nm, l, 5)))
@@ -292,7 +356,7 @@ def parler_megastep_cuda(mega: MegaLayers, x, kv_k, kv_v, pos, *,
     """K2 on the card: 6 GEMV launches and 2 K3 launches per layer on the
     current stream. Same contract as `parler_megastep_plain`, with pos a
     one-element int32 CUDA tensor."""
-    if x.numel() != mega.norms.shape[2] or kv_k.dim() != 4:
+    if x.numel() != mega_dims(mega)[1] or kv_k.dim() != 4:
         raise ValueError(f"parler_megastep: x {tuple(x.shape)}, "
                          f"kv {tuple(kv_k.shape)}")
     xo, kn, vn = _megastep_cuda(
