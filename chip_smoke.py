@@ -66,9 +66,10 @@ Phases, in order; any failure exits non-zero without the final line:
    1024, decoder 18 layers of H 2048, 16 q / 4 kv heads of 128, F 8192, 9
    codebooks of vocab 1028, DAC-44k; random weights from a seed; the
    generation window cut to 1024 steps) turned into a WAV by the port's
-   CLI; counters set to 0 just before, read just after; K1, K4, K10 and its
-   cross-attention must have risen. Then the path timed stage by stage and
-   a device trace of 32 decode steps.
+   CLI; counters set to 0 just before, read just after; K1 and K10 must
+   have risen, K4 and the cross-attention entry not (K10 runs both inside
+   its one launch). Then the path timed stage by stage and a device trace
+   of 32 decode steps: one K10 launch a step, at most 95 kernels a step.
 11. Dia serving: the port's HTTP server in this process (batch_slots 8, the
    Dia-1.6B GGUF) answers 12 concurrent dialogue requests of 20-200 bytes
    with mixed sampling parameters; K1, K4, K11 and its cross-attention
@@ -91,9 +92,13 @@ versions, layer by layer at positions around K3's pages, and times them;
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
 layer against the plain versions, K7's logits per slot, timed. It holds K10
-at Dia-1.6B width layer by layer at positions 0-3071 over cross buckets of
-128 (with an 896-row tail) and 1024 rows, and K11 at 4 and 8 pairs at mixed
-positions, each pair bit for bit against K10, and times both. The CPU
+(the persistent Dia step, one cooperative launch) at Dia-1.6B width bit
+for bit against the launch sequence (K11 at one pair) and layer by layer
+against its plain version at positions 0-3071 over cross buckets of 128
+(with an 896-row tail) and 1024 rows, Q5_0 and Q8_0 on 2 layers bit for
+bit too, and times it beside the launch sequence in turns; and K11 at 4
+and 8 pairs at mixed positions, each pair bit for bit against K10, and
+times it. The CPU
 yardsticks of the layer checks compare a few layers of each step (K5 6 of
 24, K6-K9 4 of 28, K10 / K11 2 of 18; the llama and Dia steps'
 dequantization done once per layer for all slots), to keep the run in its
@@ -130,6 +135,7 @@ import torch
 from tts_tpu_torch.gguf import GGUFWriter, quants
 from tts_tpu_torch.ops import _build
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import dia_flat as dfl
 from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
@@ -184,6 +190,7 @@ class DeviceTime(NamedTuple):
     ms: float        # device time of one call
     by_name: dict    # its split by kernel name, ms
     events: float    # device events (kernels, memsets, copies) of one call
+    counts: dict     # device events of one call by kernel name
 
 
 def busy_ms(spans) -> float:
@@ -235,7 +242,8 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> DeviceTime:
         raise RuntimeError("torch.profiler recorded no device activity")
     by_name = {k: busy_ms(v) / iters for k, v in spans.items()}
     every = [sp for v in spans.values() for sp in v]
-    return DeviceTime(busy_ms(every) / iters, by_name, len(every) / iters)
+    return DeviceTime(busy_ms(every) / iters, by_name, len(every) / iters,
+                      {k: len(v) / iters for k, v in spans.items()})
 
 
 def step_ms(fn, label: str, iters: int = 20) -> float:
@@ -250,14 +258,20 @@ def step_ms(fn, label: str, iters: int = 20) -> float:
     return dt.ms
 
 
+last_trace: dict | None = None   # device_trace's numbers, None: not measured
+
+
 def device_trace(fn, label: str, per: int):
     """Run fn() once under torch.profiler (device activity only) and print
     the card's busy share over the span from the first kernel's start to
     the last one's end (busy_ms), and device time by kernel name, per `per` units
-    (steps); returns fn()'s result. Only the profiler is a diagnostic:
-    where it fails to start or to report device activity the trace says
-    "not measured", but an error from fn() itself ends the run."""
+    (steps); returns fn()'s result and keeps the kernels and busy share per
+    unit in `last_trace`. Only the profiler is a diagnostic: where it fails
+    to start or to report device activity the trace says "not measured"
+    (`last_trace` None), but an error from fn() itself ends the run."""
     from torch.profiler import ProfilerActivity, profile
+    global last_trace
+    last_trace = None
     torch.cuda.synchronize()
     try:
         prof = profile(activities=[ProfilerActivity.CUDA])
@@ -297,6 +311,8 @@ def device_trace(fn, label: str, per: int):
         f"busy {busy / per:.4f} ms of a {span / per:.4f} ms span per step "
         f"(busy share {busy / span:.3f}); by kernel, ms per step: "
         + ", ".join(f"{n} {t / per:.4f}" for n, t in top))
+    last_trace = dict(kernels=len(kernels) / per, busy_share=busy / span,
+                      busy_ms=busy / per, span_ms=span / per)
     return out
 
 
@@ -345,12 +361,14 @@ def rand_quant(gen, n, k, qtype, scale_dtype, packed=True):
     return qt.pack() if packed else qt
 
 
-def stack_quant(gen, layers, n, k, scale_dtype=torch.bfloat16):
-    ws = [rand_quant(gen, n, k, quants.GGML_TYPE_Q4_0, scale_dtype)
-          for _ in range(layers)]
+def stack_quant(gen, layers, n, k, scale_dtype=torch.bfloat16,
+                qtype=quants.GGML_TYPE_Q4_0):
+    """`layers` random (n, k) weights stacked; Q8_0's scales divided by 16
+    (its codes span 16x Q4_0's), so that the weights keep std ~0.02."""
+    ws = [rand_quant(gen, n, k, qtype, scale_dtype) for _ in range(layers)]
+    div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
     return qm.QuantTensor(torch.stack([w.codes for w in ws]),
-                          torch.stack([w.scales for w in ws]),
-                          quants.GGML_TYPE_Q4_0)
+                          torch.stack([w.scales for w in ws]) / div, qtype)
 
 
 def tensor_bytes(ts) -> int:
@@ -2563,33 +2581,33 @@ DiaStepLayer = collections.namedtuple(
     "DiaStepLayer", dm.DiaMegaLayers._fields + ("ck", "cv", "vtail"))
 
 
-def dia_source_weights(gen):
+def dia_source_weights(gen, qtype=quants.GGML_TYPE_Q4_0, n_layers=None):
     """Random Dia-1.6B decoder weights on the card before the step's prep
-    (a stacked DiaDecoderLayer, Q4_0 packed, f32 scales) and the head
-    size."""
+    (a stacked DiaDecoderLayer of `n_layers` (default all 18), Q4_0 packed
+    or Q5_0 / Q8_0 bytes, bf16 scales) and the head size."""
     from tts_tpu_torch.models.dia.model import DiaDecoderLayer
-    L, H, F = DIA["n_layers"], DIA["hidden"], DIA["ffn"]
+    L, H, F = n_layers or DIA["n_layers"], DIA["hidden"], DIA["ffn"]
     kvn = DIA["kv_heads"] * H // DIA["heads"]
 
     def vec():
         return torch.randn((L, H), generator=gen, device=DEV) * 0.1 + 1.0
 
+    def sq(n, k):
+        return stack_quant(gen, L, n, k, qtype=qtype)
+
     lw = DiaDecoderLayer(
-        vec(), stack_quant(gen, L, H, H), stack_quant(gen, L, kvn, H),
-        stack_quant(gen, L, kvn, H), stack_quant(gen, L, H, H), vec(),
-        stack_quant(gen, L, H, H), None, None, stack_quant(gen, L, H, H),
-        vec(), stack_quant(gen, L, F, H), stack_quant(gen, L, F, H),
-        stack_quant(gen, L, H, F))
+        vec(), sq(H, H), sq(kvn, H), sq(kvn, H), sq(H, H), vec(), sq(H, H),
+        None, None, sq(H, H), vec(), sq(F, H), sq(F, H), sq(H, F))
     return lw, H // DIA["heads"]
 
 
-def dia_kernel_weights(gen):
-    """Random Dia-1.6B decoder weights on the card in K10's layout (Q4_0
-    packed, bf16 scales, tiled for the GEMV) and the step's keyword
+def dia_kernel_weights(gen, qtype=quants.GGML_TYPE_Q4_0, n_layers=None):
+    """Random Dia-1.6B decoder weights on the card in K10's layout (bf16
+    scales, tiled for the GEMV; dia_source_weights) and the step's keyword
     arguments."""
-    lw, d = dia_source_weights(gen)
-    mega, qtype = dm.prep_dia_mega(lw, d)
-    return mega, dict(qtype=qtype, n_heads=DIA["heads"], n_kv=DIA["kv_heads"])
+    lw, d = dia_source_weights(gen, qtype, n_layers)
+    mega, qt = dm.prep_dia_mega(lw, d)
+    return mega, dict(qtype=qt, n_heads=DIA["heads"], n_kv=DIA["kv_heads"])
 
 
 def dia_cross(gen, lead, sb):
@@ -2648,18 +2666,54 @@ def dia_bound(mega, rows, kv_rows, cross, sb):
     return b_ms, b_by, wbytes / 1e6, kv_bytes / 1e6
 
 
+def dia_sequence(mega, x, kc, vc, pos, ck, cv, vt, n_tail, **kw):
+    """K10's function through the launch sequence (6 GEMV, 1 K4 and 1
+    cross-attention launch a layer): K11 at one pair, on views of the same
+    caches (written in place) and of K10's cross K/V (L, 2 heads, Sb, D)."""
+    heads = kw["n_heads"]
+    return dm.dia_megastep_batched_cuda(
+        mega, x, kc[:, None], vc[:, None], pos,
+        *(t.unflatten(1, (2, heads))[:, None] for t in (ck, cv, vt)), n_tail,
+        **kw)
+
+
+def dia_equal_sequence(mega, x, kc, vc, ck, cv, vt, n_tail, kw, label) -> None:
+    """At each of DIA_POS: K10 (one launch) and the launch sequence on
+    copies of the same state give the same x_out, k_new, v_new and caches,
+    bit for bit; raises otherwise."""
+    for p in DIA_POS:
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        got = dm.dia_megastep_cuda(mega, x, k1, v1, pos, ck, cv, vt, n_tail, **kw)
+        seq = dia_sequence(mega, x, k2, v2, pos, ck, cv, vt, n_tail, **kw)
+        if not (all(torch.equal(a, b) for a, b in zip(got, seq))
+                and torch.equal(k1, k2) and torch.equal(v1, v2)):
+            raise AssertionError(f"K10 differs from the launch sequence: "
+                                 f"{label}, pos {p}")
+        del k1, v1, k2, v2
+    log(f"  {label}: x_out, k_new, v_new and both caches equal the launch "
+        f"sequence's (K11 at one pair) bit for bit at positions "
+        f"{list(DIA_POS)} (max_abs_err 0): ok")
+
+
 def check_dia(gen, mega, kw) -> dict:
-    """K10 at Dia-1.6B width against its plain version: the cross-attention
-    kernel alone (with and without a tail), then layer by layer at
-    DIA_POS x DIA_BUCKETS (Sb 128 with an 896-row tail, Sb 1024 with none),
-    judged against the yardstick pair; the cache rows it writes; timed at
-    pos 1000 over the engine's bucket (256, tail 768)."""
-    log("K10 dia_megastep (csrc/dia_megastep.cu + K4 + the cross-attention "
-        "of csrc/decode_attention.cu) vs dia_megastep_plain, Dia-1.6B width, "
-        f"bf16 cache of {DIA_CTX} rows, positions {list(DIA_POS)}, buckets "
-        f"(Sb, n_tail) {list(DIA_BUCKETS)}:")
+    """K10, the persistent step (one cooperative launch), at Dia-1.6B width:
+    the cross-attention kernel alone (with and without a tail); then at
+    DIA_POS x DIA_BUCKETS (Sb 128 with an 896-row tail, Sb 1024 with none)
+    bit for bit against the launch sequence (K11 at one pair), and layer by
+    layer against its plain version, judged against the yardstick pair;
+    Q5_0 and Q8_0 weights on 2 layers bit for bit against the launch
+    sequence likewise; the cache rows it writes; then timed at pos 1000
+    over the engine's bucket (256, tail 768) beside the launch sequence, in
+    turns, with the grid it launched and a device trace of each."""
+    log("K10 dia_megastep (csrc/dia_flat.cu: one cooperative launch a step) "
+        "vs the launch sequence (K11 at one pair) and dia_megastep_plain, "
+        f"Dia-1.6B width, bf16 cache of {DIA_CTX} rows, positions "
+        f"{list(DIA_POS)}, buckets (Sb, n_tail) {list(DIA_BUCKETS)}:")
     L, H, heads, nkv = DIA["n_layers"], DIA["hidden"], DIA["heads"], DIA["kv_heads"]
     d = H // heads
+    for line in ptxas_summary("dia_flat"):
+        log(f"  ptxas dia_flat: {line}")
     errs = []
     why = "f32 softmax over the same values, sums in another order"
     for sb, nt in DIA_BUCKETS + ((256, 768),):
@@ -2677,6 +2731,8 @@ def check_dia(gen, mega, kw) -> dict:
     err, base = defaultdict(list), defaultdict(list)
     for sb, nt in DIA_BUCKETS:
         ck, cv, vt = (t.flatten(1, 2) for t in dia_cross(gen, (2,), sb))
+        dia_equal_sequence(mega, x, kc, vc, ck, cv, vt, nt, kw,
+                           f"Q4_0, {L} layers, Sb {sb} n_tail {nt}")
         for p in DIA_POS:
             pos = torch.tensor([p], dtype=torch.int32, device=DEV)
             errs += layer_errors(one_dia_layer(mega, ck, cv, vt), L, x, kc, vc,
@@ -2689,6 +2745,13 @@ def check_dia(gen, mega, kw) -> dict:
                  f"at positions {list(DIA_POS)} x buckets {list(DIA_BUCKETS)}, "
                  f"layer by layer, yardstick the larger of plain on the CPU "
                  f"and plain summed in another order vs plain on the card")
+    for qt in (quants.GGML_TYPE_Q5_0, quants.GGML_TYPE_Q8_0):
+        qmega, qkw = dia_kernel_weights(gen, qt, n_layers=2)
+        for sb, nt in DIA_BUCKETS:
+            ck, cv, vt = (t[:2].flatten(1, 2) for t in dia_cross(gen, (2,), sb))
+            dia_equal_sequence(qmega, x, kc[:2], vc[:2], ck, cv, vt, nt, qkw,
+                               f"qtype {qt}, 2 layers, Sb {sb} n_tail {nt}")
+        del qmega
     p = 1000
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
     ck, cv, vt = (t.flatten(1, 2) for t in dia_cross(gen, (2,), 256))
@@ -2702,22 +2765,59 @@ def check_dia(gen, mega, kw) -> dict:
                             got[1].reshape(L, 2, nkv, d).to(torch.bfloat16).float(),
                             0.0, "the written row is k_new in bf16"))
     del k1, v1
-    ms = step_ms(lambda: dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
-                                              768, **kw), f"K10 step at pos {p}")
+
+    def k10():
+        dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt, 768, **kw)
+
+    def seq():
+        dia_sequence(mega, x, kc, vc, pos, ck, cv, vt, 768, **kw)
+
+    def k10_device_ms():
+        """K10's launch alone, per launch the trace recorded (the profiler
+        has dropped some of a cooperative kernel's events), beside the
+        events it recorded of the 20 calls."""
+        for _ in range(3):
+            dt = device_ms(k10)
+            name = next((k for k in dt.by_name if k.startswith("dia_flat_kernel")), None)
+            if name is not None:
+                log(f"  K10: {dt.counts[name] * 20:.0f} of 20 launches in the "
+                    f"trace, {dt.ms:.4f} ms of device time a call with the "
+                    f"copy of x")
+                return dt.by_name[name] / dt.counts[name]
+        raise RuntimeError("torch.profiler recorded no K10 launch")
+
+    # in turns: sequence, K10, K10, sequence; with the host and device time
+    times = [cuda_ms(fn, iters=20) for fn in (seq, k10, k10, seq)]
+    dtimes = [device_ms(seq).ms, k10_device_ms(), k10_device_ms(),
+              device_ms(seq).ms]
+    ms = min(dtimes[1:3])
     plain_ms = device_ms(lambda: dm.dia_megastep_plain(
         mega, x, kc, vc, pos, ck, cv, vt, 768, **kw), iters=3, warmup=1).ms
     b_ms, b_by, wmb, kvmb = dia_bound(mega, 2, 2 * (p + 1), (ck, cv, vt), 256)
-    log(f"  {L} layers, pos {p}, Sb 256: kernels (device time) {ms:.4f} ms/step ({6 * L} "
-        f"gemv + {L} K4 + {L} cross launches), plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({b_by}; {wmb:.1f} MB weights + {kvmb:.1f} MB KV + "
+    smem = dfl.smem_bytes(H, DIA["ffn"])
+    log(f"  {L} layers, pos {p}, Sb 256: K10 {times[1]:.4f} / {times[2]:.4f} "
+        f"ms/step (1 launch of {dfl.launched_blocks} blocks of 256 threads, "
+        f"{dfl.blocks_per_sm} an SM, {smem} bytes of dynamic shared memory; "
+        f"{8 * L - 1} grid barriers), launch sequence {times[0]:.4f} / "
+        f"{times[3]:.4f} ms/step ({6 * L} gemv + {L} K4 + {L} cross "
+        f"launches), with the host's launch path; device time K10 "
+        f"{dtimes[1]:.4f} / {dtimes[2]:.4f}, launch sequence {dtimes[0]:.4f} / "
+        f"{dtimes[3]:.4f} ms/step; plain {plain_ms:.4f} ms, bound {b_ms:.4f} "
+        f"ms ({b_by}; {wmb:.1f} MB weights + {kvmb:.1f} MB KV + "
         f"{tensor_bytes((ck, cv, vt)) / 1e6:.1f} MB cross), library none")
-    device_trace(lambda: [dm.dia_megastep_cuda(mega, x, kc, vc, pos, ck, cv, vt,
-                                               768, **kw) for _ in range(5)],
-                 f"K10 step alone, pos {p}", 5)
+    items = dfl.attention_items(heads, nkv, p, DIA_CTX, 256)
+    log(f"  K10's phases a layer on {dfl.launched_blocks} blocks: " + ", ".join(
+        f"{ph.name} {ph.items} (tile, K range) items of {ph.stages} stages, "
+        f"{dfl.warps_with_items(ph, dfl.launched_blocks)} warps busy"
+        for ph in dfl.gemv_phases(H, DIA["ffn"], heads, nkv))
+        + f"; {items[0]} self- and {items[1]} cross-attention page items")
+    device_trace(lambda: [k10() for _ in range(5)], f"K10 step alone, pos {p}", 5)
+    device_trace(lambda: [seq() for _ in range(5)],
+                 f"launch sequence alone, pos {p}", 5)
     del kc, vc
     torch.cuda.empty_cache()
     return dict(name="dia_megastep", route="cuda",
-                source="tts_tpu_torch/csrc/dia_megastep.cu",
+                source="tts_tpu_torch/csrc/dia_flat.cu",
                 replaces="tts_tpu/ops/dia_megastep.py:148",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None)
@@ -2990,8 +3090,8 @@ def check_small_dia(tmp) -> None:
 # the Dia main path and Dia serving at Dia-1.6B width
 # ---------------------------------------------------------------------------
 
-DIA_PATH = ("quant_matmul", "decode_attention_batched", "dia_megastep",
-            "dia_cross_attention")
+DIA_PATH = ("quant_matmul", "dia_megastep")
+DIA_KERNELS_PER_STEP = 95   # the Dia CLI's device trace may show at most
 DIA_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                     "dia_megastep_batched", "dia_cross_attention_batched")
 DIA_GREEDY_STEPS = 300   # the greedy parity check's generation window
@@ -3002,9 +3102,11 @@ DIA_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=1.0,
 def run_dia_main_path(tmp) -> tuple[dict, str]:
     """Dia-1.6B Q4_0 + DAC-44k text -> WAV through the port's CLI on the
     card (sampled, top-k 50, fixed seed, the 1024-step window); counters set
-    to 0 just before, read just after: K1, K4, K10 and its cross-attention
-    must have risen. Then the same path timed stage by stage, and a device
-    trace of 32 decode steps."""
+    to 0 just before, read just after: K1 and K10 must have risen, and
+    neither K4 nor the cross-attention launched alone (K10 runs both
+    inside its one launch). Then the same path timed stage by stage, and a
+    device trace of 32 decode steps: exactly one K10 launch a step, at
+    most DIA_KERNELS_PER_STEP kernels a step."""
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
     from tts_tpu_torch.models.dia import model as dmodel
@@ -3034,6 +3136,10 @@ def run_dia_main_path(tmp) -> tuple[dict, str]:
     for n in DIA_PATH:
         if launches[n] == 0:
             raise AssertionError(f"kernel {n} was not launched on the Dia path")
+    for n in ("decode_attention_batched", "dia_cross_attention",
+              "dia_megastep_batched"):
+        if launches[n]:
+            raise AssertionError(f"kernel {n} was launched on the Dia path")
 
     # the same path, stage by stage, synchronized
     t0 = time.perf_counter()
@@ -3075,11 +3181,21 @@ def run_dia_main_path(tmp) -> tuple[dict, str]:
         raise AssertionError("timed run produced the wrong shape")
     # a steady window of 32 decode steps from the start
     st = dmodel.init_state(cfg, cfg.max_generation_size, DEV)
+    before = dm.KERNEL.launches
     st = device_trace(lambda: dmodel.decode_chunk(
         cfg, w, st, cross, 32, gen, max_steps=cfg.max_generation_size,
         mega=r.mega, **DIA_SAMPLE), "Dia decode (K10)", 32)
     if int(st.pos) != 32:
         raise AssertionError("traced decode window produced the wrong count")
+    k10_per_step = (dm.KERNEL.launches - before) / 32
+    if last_trace is None or k10_per_step != 1 or \
+            last_trace["kernels"] > DIA_KERNELS_PER_STEP:
+        raise AssertionError(f"Dia decode: {k10_per_step} K10 launches a "
+                             f"step, device trace {last_trace}: want 1 and at "
+                             f"most {DIA_KERNELS_PER_STEP} kernels a step")
+    log(f"  Dia decode: {k10_per_step:.0f} K10 launch a step, "
+        f"{last_trace['kernels']:.1f} kernels a step in the device trace "
+        f"(at most {DIA_KERNELS_PER_STEP}): ok")
     del r, st
     torch.cuda.empty_cache()
     return launches, path
@@ -3293,9 +3409,9 @@ def ptxas_summary(src: str) -> list[str]:
             f"spill)" for key, v in sorted(groups.items())]
 
 
-# the tensor-core GEMVs: K6-K11's, and K2 / K5's and K12's
+# the tensor-core GEMVs: K6-K9 and K11's, K2 / K5's, K12's and K10's
 GEMV_SOURCES = ("llama_megastep", "dia_megastep", "parler_megastep",
-                "parler_flat")
+                "parler_flat", "dia_flat")
 
 
 def hmma_count(src: str) -> int:

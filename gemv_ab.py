@@ -2,7 +2,7 @@
 """Compare the port's decode-step kernels with other versions of the port on
 one card, in turns, by device time.
 
-    python3 gemv_ab.py [--only attention|steps] [OTHER ...]
+    python3 gemv_ab.py [--only attention|steps|dia] [OTHER ...]
 
 OTHER is another version of the `tts_tpu_torch` package: its directory, or a
 directory that holds it (for example a parent commit's, unpacked with `git
@@ -20,8 +20,9 @@ widths, it measures in turns (OTHER, committed, committed, OTHER):
   slots at mixed positions at the same shapes; PyTorch's
   scaled_dot_product_attention on the same inputs is timed beside them;
 - the steps: K8 / K6 at one slot (pos 1000), K9 / K7 at 8 and 16 slots
-  and K11 at 4 and 8 pairs at chip_smoke's mixed positions, K10 at one
-  pair (pos 1000), K2 and K12 at pos 1000 and K5 at 8 and 16 slots, with
+  and K11 at 4 and 8 pairs at chip_smoke's mixed positions, K10 (one
+  launch of csrc/dia_flat.cu; an older version's may be the launch
+  sequence) at one pair (pos 1000), K2 and K12 at pos 1000 and K5 at 8 and 16 slots, with
   the GEMV's and the attention's device time; K9 at 16 slots against its
   plain version at every depth, beside the other-order yardstick
   (k9_by_depth); and K5 against its plain version per slot and layer,
@@ -37,7 +38,8 @@ the kernel before it runs; chip_smoke.device_ms). Each line says
 whether the two versions' outputs are bit-equal, and where they are not,
 the largest relative error between them (|a - b| over max |b|, for each
 output, the largest). With no OTHER it measures the committed package
-alone; `--only` keeps one of the two parts. Needs a card and nvcc.
+alone; `--only` keeps one of the two parts, or (dia) the Dia steps
+alone. Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -517,7 +519,7 @@ def parler_by_slot(versions, megas, x, kc, vc, kw) -> None:
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("attention", "steps"))
+    ap.add_argument("--only", choices=("attention", "steps", "dia"))
     ap.add_argument("paths", nargs="*", metavar="OTHER")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -525,16 +527,20 @@ def main(argv) -> int:
         return 2
     print(cs.nvidia_smi(), flush=True)
     versions = [version(spec, i) for i, spec in enumerate(["", *args.paths])]
-    sources = ["decode_attention"] if args.only == "attention" else None
+    sources = {"attention": ["decode_attention"],
+               "dia": ["decode_attention", "dia_megastep", "dia_flat"]}.get(args.only)
     for v in versions:   # each build starts its sources' nvcc runs together
-        v.build.build(sources or v.build.SOURCES)
+        v.build.build([n for n in sources or v.build.SOURCES
+                       if n in v.build.SOURCES])
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
-    if args.only != "steps":
+    if args.only in (None, "attention"):
         attention(versions, gen)
-    if args.only != "attention":
+    if args.only in (None, "steps"):
         llama_steps(versions, gen)
+    if args.only in (None, "steps", "dia"):
         dia_steps(versions, gen)
+    if args.only in (None, "steps"):
         parler_steps(versions, gen)
     return 0
 

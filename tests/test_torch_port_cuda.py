@@ -18,8 +18,12 @@ bit. Two more tests launch the GEMVs at the 48 KB shared-memory edge. The
 Parler GEMV (K2, K5, K12) gives a row in each of a launch's 16 positions
 the bits a one-row launch gives it, for every epilogue and quant type. The
 Dia steps: the cross-attention with and without its pad tail at every
-bucket; K10 at positions across the pages and at both tail cases; K11 at
-1, 3 and 8 pairs at mixed positions, each pair against K10 bit for bit.
+bucket; K10 (the persistent step, one launch) at positions across the
+pages and at both tail cases, and bit for bit against the launch sequence
+(K11 at one pair) for every qtype, both cache dtypes, positions 0-1000
+and buckets with and without a tail, writing only cache row pos, the same
+bits over 1,000 launches, one launch a step; K11 at 1, 3 and 8 pairs at
+mixed positions, each pair against K10 bit for bit.
 The batched steps past one launch's rows run in slot groups: K5, K9 and K7
 at 20 slots and K11 at 12 pairs, slots at positions across the pages, each
 slot against its one-sequence kernel bit for bit. K12, the one-launch
@@ -39,6 +43,7 @@ import torch
 
 from tts_tpu_torch.gguf import quants
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import dia_flat as dfl
 from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
@@ -876,6 +881,97 @@ def test_k10_matches_plain(dev, qtype, pos, sb, n_tail):
     assert torch.equal(v1[:, :, :, rows], vc[:, :, :, rows])
     assert torch.equal(k1[:, :, :, pos], got[1].reshape(2, 2, 2, 64).to(torch.bfloat16))
     assert torch.equal(v1[:, :, :, pos], got[2].reshape(2, 2, 2, 64).to(torch.bfloat16))
+
+
+def _dia_state(dev, cache_dtype, ctx, sb):
+    """A pair's random state for the tiny Dia: x (2, 256), caches (2, 2, 2,
+    ctx, 64) and the bucketed cross K/V (2, 2, 4, sb, 64) with its tail."""
+    kc = torch.randn((2, 2, 2, ctx, 64), device=dev).to(cache_dtype)
+    vc = torch.randn((2, 2, 2, ctx, 64), device=dev).to(cache_dtype)
+    return torch.randn((2, 256), device=dev), kc, vc, _dia_cross(dev, (2,), sb)
+
+
+def _launch_sequence(mega, x, kc, vc, p, ck, cv, vt, n_tail, kw):
+    """K10's function through the launch sequence: K11 at one pair (views
+    of the same caches, written in place)."""
+    return dm.dia_megastep_batched_cuda(mega, x, kc[:, None], vc[:, None], p,
+                                        ck[:, None], cv[:, None], vt[:, None],
+                                        n_tail, **kw)
+
+
+@pytest.mark.parametrize("sb,n_tail", [(128, 896), (1024, 0)])
+@pytest.mark.parametrize("pos", [0, 255, 256, 1000])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
+                                   quants.GGML_TYPE_Q8_0])
+def test_persistent_k10_equals_launch_sequence(dev, qtype, cache_dtype, pos,
+                                               sb, n_tail):
+    """The persistent K10 (one cooperative launch) against the launch
+    sequence on the same state: x_out, k_new, v_new and both caches bit for
+    bit; cache row pos is the only row either writes."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, qtype)
+    ctx = 1024
+    x, kc, vc, (ck, cv, vt) = _dia_state(dev, cache_dtype, ctx, sb)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = dm.KERNEL.launches
+    got = dm.dia_megastep_cuda(mega, x, k1, v1, p, ck.flatten(1, 2),
+                               cv.flatten(1, 2), vt.flatten(1, 2), n_tail, **kw)
+    assert dm.KERNEL.launches - before == 1
+    seq = _launch_sequence(mega, x, k2, v2, p, ck, cv, vt, n_tail, kw)
+    for a, b in zip(got, seq):
+        assert torch.equal(a, b)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
+    rows = torch.arange(ctx, device=dev) != pos
+    assert torch.equal(k1[:, :, :, rows], kc[:, :, :, rows])
+    assert torch.equal(v1[:, :, :, rows], vc[:, :, :, rows])
+    assert torch.equal(k1[:, :, :, pos], got[1].reshape(2, 2, 2, 64).to(cache_dtype))
+
+
+def test_persistent_k10_repeats_its_bits(dev):
+    """1,000 launches back to back on the same state (each rewrites cache
+    row pos with the same bits) give the first launch's outputs bit for
+    bit: the grid barrier's generation word runs on over 143 x 1,000
+    barriers without a reset, and the arrival counters stay zeroed."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, (ck, cv, vt) = _dia_state(dev, torch.bfloat16, 1024, 256)
+    p = torch.tensor([700], dtype=torch.int32, device=dev)
+    args = (ck.flatten(1, 2), cv.flatten(1, 2), vt.flatten(1, 2), 768)
+    first = [t.clone() for t in dm.dia_megastep_cuda(mega, x, kc, vc, p, *args, **kw)]
+    outs = [dm.dia_megastep_cuda(mega, x, kc, vc, p, *args, **kw) for _ in range(1000)]
+    for i, o in enumerate(first):
+        assert torch.equal(torch.stack([r[i] for r in outs]),
+                           o.expand(1000, *o.shape)), i
+
+
+def test_persistent_k10_one_launch_and_refusals(dev):
+    """One launch a step on K10's own counter over a grid of whole SMs; no
+    GEMV, K4 or cross-attention launch. What the persistent step does not
+    take raises, with no launch: f32 cross K/V, two positions."""
+    torch.manual_seed(0)
+    mega, kw = _tiny_dia(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, (ck, cv, vt) = _dia_state(dev, torch.bfloat16, 640, 256)
+    ck, cv, vt = (t.flatten(1, 2) for t in (ck, cv, vt))
+    counters = (dm.KERNEL, dm.KERNEL_BATCHED, dm.CROSS, dm.CROSS_BATCHED,
+                da.KERNEL, da.KERNEL_BATCHED)
+    before = [k.launches for k in counters]
+    for i in range(3):
+        dm.dia_megastep(mega, x, kc, vc, torch.tensor([i], dtype=torch.int32,
+                                                      device=dev),
+                        ck, cv, vt, 768, **kw)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counters, before)] == [3, 0, 0, 0, 0, 0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert dfl.launched_blocks == sms * dfl.blocks_per_sm and dfl.blocks_per_sm >= 1
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="bf16 cross K/V"):
+        dm.dia_megastep_cuda(mega, x, kc, vc, p, ck.float(), cv.float(), vt,
+                             768, **kw)
+    with pytest.raises(ValueError):
+        dm.dia_megastep_cuda(mega, x, kc, vc, p.repeat(2), ck, cv, vt, 768, **kw)
+    assert dm.KERNEL.launches - before[0] == 3
 
 
 @pytest.mark.parametrize("b", [1, 3, 8])

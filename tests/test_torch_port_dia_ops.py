@@ -8,7 +8,8 @@ The same seeded numpy inputs go through the JAX package's
 weights carried across by `dia_mega_from_numpy`. Tolerance 1e-2 of the
 largest value: both round weights and activations to bf16 the same way,
 and a sum in another order can flip one rounding. The caches are float32,
-so the port's write-then-attend of the current token is exact.
+so the port's write-then-attend of the current token is exact, except in
+the bf16-cache cases, where the port rounds the current row to bf16 first.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +35,7 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-Q4, Q8 = quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0
+Q4, Q5, Q8 = quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0, quants.GGML_TYPE_Q8_0
 
 
 def tiny_cfg(tc=64):
@@ -194,6 +195,42 @@ def test_k10_plain_matches_reference(qtype, sentence_len, sb):
         assert torch.equal(tv[:, :, :, p].reshape(L, 2, -1), got[2])
         rows = torch.arange(ctx) != p
         assert torch.equal(tk[:, :, :, rows], torch.from_numpy(kvk)[:, :, :, rows])
+
+
+@pytest.mark.parametrize("pos", [0, 255, 256, 1000])
+@pytest.mark.parametrize("qtype", [Q4, Q5, Q8])
+def test_k10_plain_matches_reference_bf16_cache(qtype, pos):
+    """K10's plain version against `dia_megastep_reference` on a bf16 cache
+    of 1024 rows, at positions on both sides of the 256-row pages and past
+    the third, every qtype, bucket 256 with a 768-row tail. The port rounds
+    the current token's k / v to bf16 in cache row pos before it attends
+    it, the reference attends them in f32: within the file's 1e-2. Row pos
+    holds k_new / v_new in bf16 and no other row changes."""
+    cfg = tiny_cfg(tc=1024)
+    mega, pmega, qt = mega_pair(cfg, qtype)
+    ck, cv = fake_cross(cfg, 200)
+    jck, jcv, jvt, jnt = jdm.prep_dia_cross(jnp.asarray(ck), jnp.asarray(cv), 200)
+    rng = np.random.default_rng(pos)
+    L, nkv, d, ctx = cfg.n_decoder_layers, cfg.n_kv_heads, cfg.head_size, 1024
+    kvk, kvv = (jnp.asarray(rng.standard_normal((L, 2, nkv, ctx, d)) * 0.5,
+                            jnp.bfloat16) for _ in range(2))
+    x = rng.standard_normal((2, cfg.decoder_hidden_size)).astype(np.float32)
+    kw = dict(qtype=qt, n_heads=cfg.decoder_attn_heads, n_kv=nkv)
+    want = jdm.dia_megastep_reference(mega, jnp.asarray(x), kvk, kvv,
+                                      jnp.int32(pos), jck, jcv, jvt, jnt, **kw)
+    tk, tv = _t(kvk), _t(kvv)
+    got = pdm.dia_megastep(pmega, torch.from_numpy(x), tk, tv, pos, _t(jck),
+                           _t(jcv), _t(jvt), jnt, **kw)
+    assert jnt == 768 and tk.dtype == torch.bfloat16
+    for g, w_ in zip(got, want):
+        assert rel_err(g, w_) < 1e-2, rel_err(g, w_)
+    assert torch.equal(tk[:, :, :, pos].reshape(L, 2, -1),
+                       got[1].to(torch.bfloat16))
+    assert torch.equal(tv[:, :, :, pos].reshape(L, 2, -1),
+                       got[2].to(torch.bfloat16))
+    rows = torch.arange(ctx) != pos
+    assert torch.equal(tk[:, :, :, rows], _t(kvk)[:, :, :, rows])
+    assert torch.equal(tv[:, :, :, rows], _t(kvv)[:, :, :, rows])
 
 
 def test_cross_tail_fold_matches_full_window():

@@ -36,7 +36,8 @@ assert {"tts_tpu_torch.runtime.batched_parler",
         "tts_tpu_torch.ops.dia_megastep", "tts_tpu_torch.models.dia.model",
         "tts_tpu_torch.models.dia.loader", "tts_tpu_torch.models.dia.convert",
         "tts_tpu_torch.runtime.batched_dia",
-        "tts_tpu_torch.ops.parler_flat"} <= set(names), names
+        "tts_tpu_torch.ops.parler_flat",
+        "tts_tpu_torch.ops.dia_flat"} <= set(names), names
 print(len(names), bad)
 """
 

@@ -8,12 +8,15 @@ Dia projection's launch, the weight ring's stages, the grid, that one
 launch copies each weight once, and the L2 bytes its staging reads, which
 for a batched Orpheus-3B step must stay below the weights it streams.
 The Parler GEMV's shared memory (`ops/parler_megastep.py` after
-csrc/parler_gemv.cuh) at Parler-Mini's widths.
+csrc/parler_gemv.cuh) at Parler-Mini's widths. The persistent K10's plan
+(`ops/dia_flat.py` after csrc/dia_flat.cu): each GEMV phase's (tile, K
+range) items, its shared memory, scratch and attention items.
 """
 import pytest
 import torch
 
 from tts_tpu_torch.ops import decode_attention as da
+from tts_tpu_torch.ops import dia_flat as dfl
 from tts_tpu_torch.ops import llama_megastep as lm
 from tts_tpu_torch.ops import parler_megastep as pm
 
@@ -190,3 +193,80 @@ def test_parler_gemv_shared_memory_fits(k, b, packed):
     assert smem <= pm.GEMV_SMEM_LIMIT
     two = 2 * (smem + 1024) <= lm.GEMV_SM_SMEM
     assert two == (k == 1024 or b == 1 or (b == 8 and packed))
+
+
+# (hidden, ffn, q heads, kv heads): Dia-1.6B's decoder and the tiny test
+# width of tests/test_torch_port_cuda.py (_tiny_dia)
+DIA_WIDTHS = {"dia": (2048, 8192, 16, 4), "tiny": (256, 512, 4, 2)}
+
+
+@pytest.mark.parametrize("model,items,stages", [
+    ("dia", dict(qkv=384, o=256, cq=256, co=256, gate_up=2048, down=512),
+     dict(qkv=8, o=8, cq=8, co=8, gate_up=8, down=16)),
+    ("tiny", dict(qkv=64, o=32, cq=32, co=32, gate_up=128, down=32),
+     dict(qkv=1, o=1, cq=1, co=1, gate_up=1, down=2))])
+def test_dia_flat_gemv_items(model, items, stages):
+    """Each GEMV phase of a layer: its tiles of 8 pairs times k_split(K) K
+    ranges (the launch sequence's cluster size: 2 at K 2048, 4 at K 8192),
+    each range whole ring stages of 128 weights, covering K once."""
+    phases = dfl.gemv_phases(*DIA_WIDTHS[model])
+    assert [p.name for p in phases] == ["qkv", "o", "cq", "co", "gate_up", "down"]
+    assert {p.name: p.items for p in phases} == items
+    assert {p.name: p.stages for p in phases} == stages
+    for p in phases:
+        assert p.k_split == lm.gemv_k_split(p.k)
+        assert p.items == p.tiles * p.k_split
+        assert p.stages * p.k_split * lm.GEMV_UNIT_K == p.k
+
+
+@pytest.mark.parametrize("grid,busy", [(132, dict(qkv=384, o=256, gate_up=1056,
+                                                  down=512)),
+                                       (264, dict(qkv=384, o=256, gate_up=2048,
+                                                  down=512))])
+def test_dia_flat_warps_with_items(grid, busy):
+    """At Dia-1.6B width on 132 SMs (one or two blocks an SM): the warps
+    that hold an item in each phase; o / cq / co leave most of the 1,056
+    or 2,112 warps idle."""
+    phases = {p.name: p for p in dfl.gemv_phases(*DIA_WIDTHS["dia"])}
+    for name, n in busy.items():
+        assert dfl.warps_with_items(phases[name], grid) == n
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("hidden,ffn", [(2048, 2048), (2048, 8192), (256, 512)])
+def test_dia_flat_shared_memory_fits(hidden, ffn, packed):
+    """A block's dynamic shared memory for the pair at K 2048 and K 8192:
+    8 warps' rings of 8 stages (a whole item at K 2048: 1,152 bytes a
+    Q4_0 stage, 2,176 of one-byte codes), the two buffers of range sums,
+    the f32 rows and norm weights of an RMS prologue, and the two rows
+    staged as bf16 at the larger K; within the 227 KB a block may have,
+    with room for the attention's static shared memory (under 10 KB). One
+    block an SM: 136 KB at Dia-1.6B width in Q4_0, 200 KB in Q8_0."""
+    smem = dfl.smem_bytes(hidden, ffn, packed)
+    ring = 8 * 8 * (1152 if packed else 2176)
+    k = max(hidden, ffn)
+    assert dfl.RING_STAGES * lm.GEMV_UNIT_K * lm.gemv_k_split(2048) == 2048
+    assert smem == ring + 2 * 8 * 32 * 16 + 3 * hidden * 4 + 2 * (2 * k + 32)
+    assert smem + 10 * 1024 <= dfl.SMEM_LIMIT
+    if (hidden, ffn) == (2048, 8192):
+        assert smem == (139328 if packed else 204864)
+        assert 2 * (smem + 1024) > lm.GEMV_SM_SMEM
+
+
+def test_dia_flat_scratch_and_attention_items():
+    """Scratch floats (attention output, cross q, SiLU output, page
+    partials over the larger of ctx and the bucket) and words (an arrival
+    counter per row and head, the barrier's two); the attention's page
+    items: self-attention 2 q heads a block (n_rep 4 or 2) over the pages
+    up to pos, cross-attention one head a block over the bucket's pages."""
+    assert dfl.n_pages(3072, 256) == 12 and dfl.n_pages(640, 1024) == 4
+    assert dfl.scratch_floats(2048, 8192, 16, 128, 3072, 256) == \
+        4 * 2048 + 2 * 8192 + 2 * 16 * 12 * 130
+    assert dfl.scratch_floats(256, 512, 4, 64, 640, 1024) == \
+        4 * 256 + 2 * 512 + 2 * 4 * 4 * 66
+    assert dfl.scratch_words(16) == 34
+    assert dfl.attention_items(16, 4, 1000, 3072, 256) == (64, 32)
+    assert dfl.attention_items(16, 4, 5000, 3072, 1024) == (192, 128)
+    assert dfl.attention_items(4, 2, 255, 640, 128) == (4, 8)
+    assert dfl.attention_items(4, 4, 256, 640, 128) == (16, 8)
+    assert dfl.attention_items(3, 3, 0, 640, 128) == (6, 6)

@@ -4,8 +4,10 @@
 // after it (RoPE + KV-row write, SiLU(gate) * up, residual add, store).
 // Each source that launches it (llama_megastep.cu, dia_megastep.cu)
 // instantiates the types and n-tile counts it needs, so the sources build
-// in parallel. The design notes are in llama_megastep.cu's header; the
-// stage layout, its copier and the dequantization into A fragments are
+// in parallel. Its per-item device code (WeightStream, stage_mma, rms_sum /
+// rms_rstd / norm4 / pack4, tile_epilogue) also runs inside the persistent
+// Dia step (dia_flat.cu), so that a row's sums have one order on both. The
+// design notes are in llama_megastep.cu's header; the stage layout, its copier and the dequantization into A fragments are
 // gemv_tiles.cuh's, shared with the Parler GEMV (parler_gemv.cuh).
 //
 // In short: the products run on the tensor cores (mma.sync m16n8k16, bf16
@@ -206,6 +208,151 @@ __device__ __forceinline__ void epilogue(int epi, int p, int row, float va,
   }
 }
 
+// The outputs of the tile's pairs to thread (g, t): pair p = the tile's
+// first pair + g, features of input rows n * 8 + 2 t + h (acc[n][h] its "a"
+// row, acc[n][2 + h] its "b" row), through the epilogue.
+template <int NT>
+__device__ __forceinline__ void tile_epilogue(float acc[NT][4], int p,
+                                              int P, int t, int B, int epi,
+                                              int N, const float* res,
+                                              float* out, const RopeArgs& ra) {
+  if (p >= P) return;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = n * 8 + 2 * t + h;
+      if (row < B) epilogue(epi, p, row, acc[n][h], acc[n][2 + h], N, res, out, ra);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// One (tile, K range) item, shared by the cluster kernel below and the
+// persistent Dia step (dia_flat.cu), so that a row's sums run in one order
+// on both
+// ---------------------------------------------------------------------------
+
+// A warp's weight stream: the K range [first_stage, first_stage +
+// per_item) of tiles first, first + stride, ... (n_items of them), stage
+// after stage, each copied into a ring slot as one commit group.
+template <bool PACKED, bool SBF16>
+struct WeightStream {
+  Copier<PACKED, SBF16> cp;
+  const uint8_t* codes;
+  const void* scales;
+  int first, stride, n_items, per_item, stages, first_stage;
+  int c_item, c_stage;   // the next stage to copy
+
+  __device__ __forceinline__ void init(const uint8_t* codes_t, const void* scales_t,
+                                       int first_tile, int tile_stride, int items,
+                                       int item_stages, int tile_stages,
+                                       int range_stage) {
+    codes = codes_t;
+    scales = scales_t;
+    first = first_tile;
+    stride = tile_stride;
+    n_items = items;
+    per_item = item_stages;
+    stages = tile_stages;
+    first_stage = range_stage;
+    c_item = c_stage = 0;
+    if (n_items > 0) cp.set_tile(first, codes, scales, stages, first_stage);
+  }
+
+  // The copies of the next stage (if any) into st; always one commit group,
+  // so that cp_async_wait counts stages.
+  __device__ __forceinline__ void next(uint8_t* st, int lane) {
+    if (c_item < n_items) {
+      cp.issue(st, c_stage, lane);
+      if (++c_stage == per_item) {
+        c_stage = 0;
+        if (++c_item < n_items) {
+          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
+        }
+      }
+    }
+    cp_async_commit();
+  }
+};
+
+// One ring stage's products into acc: its UNIT_BLOCKS 32-weight blocks in
+// order, each block's two mma products summed apart (d) and then added into
+// the f32 sums. The staged input rows (bf16, xstride bytes apart, groups of
+// 4 in the order 0, 2, 1, 3) are read at element kl of the staged K.
+template <int QT, bool PACKED, bool SBF16, int NT>
+__device__ __forceinline__ void stage_mma(const uint8_t* st, const uint8_t* xs,
+                                          int xstride, int B, int kl, int g,
+                                          int t, float acc[NT][4]) {
+#pragma unroll
+  for (int jb = 0; jb < UNIT_BLOCKS; ++jb) {
+    uint32_t a[2][4];
+    a_frags<QT, PACKED, SBF16>(st, jb, g, t, a);
+    float d[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int col = n * 8 + g;
+        uint2 b = make_uint2(0u, 0u);
+        if (col < B) {
+          b = *reinterpret_cast<const uint2*>(
+              xs + (size_t)col * xstride + (kl + jb * QK + 16 * s + 4 * t) * 2);
+        }
+        mma_bf16(d[n], a[s], b.x, b.y);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
+    }
+  }
+}
+
+// The RMS prologue follows the plain version's operations, so that its
+// rstd agrees with the plain version's (each disagreement may flip the
+// bf16 rounding of an input): the squares rounded to f32, their sum in
+// f64 (one warp per row and K range, lane l taking float4s l, l + 32, ...
+// in order, then the lanes (rms_sum), then the ranges in order) rounded
+// once to f32, times 1 / K, plus eps, rsqrtf (rms_rstd), then x * rstd * w
+// (norm4).
+__device__ __forceinline__ double rms_sum(const float* xr, int n4, int lane) {
+  double ss = 0.0;
+  const float4* v4 = reinterpret_cast<const float4*>(xr);
+#pragma unroll 4
+  for (int j = lane; j < n4; j += 32) {
+    const float4 v = v4[j];
+    ss += (double)__fmul_rn(v.x, v.x) + (double)__fmul_rn(v.y, v.y) +
+          (double)__fmul_rn(v.z, v.z) + (double)__fmul_rn(v.w, v.w);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  return ss;
+}
+
+// parts[q * stride] is range q's sum.
+__device__ __forceinline__ float rms_rstd(const double* parts, int stride,
+                                          int ks, int K) {
+  double s = 0.0;
+  for (int q = 0; q < ks; ++q) s += parts[q * stride];
+  const float mean = __fmul_rn((float)s, 1.f / (float)K);
+  return rsqrtf(__fadd_rn(mean, RMS_EPS));
+}
+
+// Four input elements normalized: x * rstd * w, each product rounded.
+__device__ __forceinline__ float4 norm4(float4 v, float4 w, float rs) {
+  return make_float4(__fmul_rn(__fmul_rn(v.x, rs), w.x), __fmul_rn(__fmul_rn(v.y, rs), w.y),
+                     __fmul_rn(__fmul_rn(v.z, rs), w.z), __fmul_rn(__fmul_rn(v.w, rs), w.w));
+}
+
+// Four input elements as two bf16x2 words in the order 0, 2, 1, 3.
+__device__ __forceinline__ uint2 pack4(float4 v) {
+  return make_uint2(pack_bf16x2(v.x, v.z), pack_bf16x2(v.y, v.w));
+}
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
@@ -262,54 +409,26 @@ llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
   cluster_arrive();   // waited on before the first access to another block
 
   // the first stages' weight copies: weights are never written by a kernel
-  Copier<PACKED, SBF16> cp;
-  const int stages = nb / UNIT_BLOCKS, first_stage = rank * per_item;
-  int c_item = 0, c_stage = 0;   // the next stage to copy
-  if (n_items > 0) cp.set_tile(first, codes, scales, stages, first_stage);
+  WeightStream<PACKED, SBF16> ws;
+  ws.init(codes, scales, first, stride, n_items, per_item, nb / UNIT_BLOCKS,
+          rank * per_item);
 #pragma unroll
-  for (int f = 0; f < STAGES; ++f) {
-    if (c_item < n_items) {
-      cp.issue(ring + f * S::BYTES, c_stage, lane);
-      if (++c_stage == per_item) {
-        c_stage = 0;
-        if (++c_item < n_items) {
-          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
-        }
-      }
-    }
-    cp_async_commit();
-  }
+  for (int f = 0; f < STAGES; ++f) ws.next(ring + f * S::BYTES, lane);
 
   // Nothing before this point reads what a kernel before writes, or writes
   // anything in device memory.
   launch_dependents();
   grid_dependency_wait();
 
-  // The input rows, this rank's K range, as bf16 (RMS-normalized first).
-  // The norm follows the plain version's operations, so that its rstd
-  // agrees with the plain version's (each disagreement may flip the bf16
-  // rounding of an input): the squares rounded to f32, their sum (in f64,
-  // one warp a row, lane l taking float4s l, l + 32, ... in order, then the
-  // lanes, then the ranks in rank order) rounded once to f32, times 1 / K,
-  // plus eps, rsqrtf, then x * rstd * w. Each group of 4 elements is
-  // stored in the order 0, 2, 1, 3.
+  // The input rows, this rank's K range, as bf16 (RMS-normalized first,
+  // rms_sum / rms_rstd / norm4; the ranges are the cluster's ranks).
   const float* xk = x + (size_t)rank * kr;
   if (norm_w != nullptr) {
     double ss[MAX_ROWS / WARPS];
 #pragma unroll
     for (int i = 0; i < MAX_ROWS / WARPS; ++i) {
       const int r = warp + WARPS * i;
-      ss[i] = 0.0;
-      if (r >= B) continue;
-      const float4* xr = reinterpret_cast<const float4*>(xk + (size_t)r * K);
-#pragma unroll 4
-      for (int j = lane; j < kr / 4; j += 32) {
-        const float4 v = xr[j];
-        ss[i] += (double)__fmul_rn(v.x, v.x) + (double)__fmul_rn(v.y, v.y) +
-                 (double)__fmul_rn(v.z, v.z) + (double)__fmul_rn(v.w, v.w);
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) ss[i] += __shfl_xor_sync(0xffffffffu, ss[i], o);
+      ss[i] = r < B ? rms_sum(xk + (size_t)r * K, kr / 4, lane) : 0.0;
     }
     cluster_wait();     // every block has started: its shared memory is ours to write
 #pragma unroll
@@ -320,10 +439,7 @@ llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
     cluster_arrive();
     cluster_wait();     // every block's sums have landed
     if (threadIdx.x < B) {
-      double s = 0.0;
-      for (int q = 0; q < ks; ++q) s += rms_part[q][threadIdx.x];
-      const float mean = __fmul_rn((float)s, 1.f / (float)K);
-      rstd[threadIdx.x] = rsqrtf(__fadd_rn(mean, RMS_EPS));
+      rstd[threadIdx.x] = rms_rstd(&rms_part[0][threadIdx.x], MAX_ROWS, ks, K);
     }
     __syncthreads();
   } else {
@@ -336,14 +452,8 @@ llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
   for (int idx = threadIdx.x; idx < B * per_row; idx += THREADS) {
     const int r = idx / per_row, i = idx - r * per_row;
     float4 v = reinterpret_cast<const float4*>(xk + (size_t)r * K)[i];
-    if (nw != nullptr) {
-      const float4 w = reinterpret_cast<const float4*>(nw)[i];
-      const float rs = rstd[r];
-      v = make_float4(__fmul_rn(__fmul_rn(v.x, rs), w.x), __fmul_rn(__fmul_rn(v.y, rs), w.y),
-                      __fmul_rn(__fmul_rn(v.z, rs), w.z), __fmul_rn(__fmul_rn(v.w, rs), w.w));
-    }
-    reinterpret_cast<uint2*>(xs + (size_t)r * xstride)[i] =
-        make_uint2(pack_bf16x2(v.x, v.z), pack_bf16x2(v.y, v.w));
+    if (nw != nullptr) v = norm4(v, reinterpret_cast<const float4*>(nw)[i], rstd[r]);
+    reinterpret_cast<uint2*>(xs + (size_t)r * xstride)[i] = pack4(v);
   }
   __syncthreads();
 
@@ -355,45 +465,10 @@ llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
   for (int u = 0; u < n_units; ++u) {
     cp_async_wait<STAGES - 1>();
     __syncwarp();
-    const uint8_t* st = ring + (u % STAGES) * S::BYTES;
-    const int kl = stage * UNIT_K;
-#pragma unroll
-    for (int jb = 0; jb < UNIT_BLOCKS; ++jb) {
-      uint32_t a[2][4];
-      a_frags<QT, PACKED, SBF16>(st, jb, g, t, a);
-      float d[NT][4];
-#pragma unroll
-      for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
-#pragma unroll
-      for (int s = 0; s < 2; ++s) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const int col = n * 8 + g;
-          uint2 b = make_uint2(0u, 0u);
-          if (col < B) {
-            b = *reinterpret_cast<const uint2*>(
-                xs + (size_t)col * xstride + (kl + jb * QK + 16 * s + 4 * t) * 2);
-          }
-          mma_bf16(d[n], a[s], b.x, b.y);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[n][i] += d[n][i];
-      }
-    }
+    uint8_t* st = ring + (u % STAGES) * S::BYTES;
+    stage_mma<QT, PACKED, SBF16, NT>(st, xs, xstride, B, stage * UNIT_K, g, t, acc);
     __syncwarp();   // every lane is done with the stage before it is refilled
-    if (c_item < n_items) {
-      cp.issue(ring + (u % STAGES) * S::BYTES, c_stage, lane);
-      if (++c_stage == per_item) {
-        c_stage = 0;
-        if (++c_item < n_items) {
-          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
-        }
-      }
-    }
-    cp_async_commit();
+    ws.next(st, lane);
     if (++stage < per_item) continue;
 
     // the tile's last stage: the ranks' sums meet in rank 0
@@ -422,17 +497,8 @@ llama_gemv_kernel(const float* x, const float* __restrict__ norm_w,
       if (item + NBUF < n_items) {
         for (int q = 1; q < ks; ++q) mbar_arrive_cluster(&empty[warp][buf], q);
       }
-      const int p = (first + stride * item) * TILE_PAIRS + g;
-      if (p < P) {
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int row = n * 8 + 2 * t + h;
-            if (row < B) epilogue(epi, p, row, acc[n][h], acc[n][2 + h], N, res, out, ra);
-          }
-        }
-      }
+      tile_epilogue<NT>(acc, (first + stride * item) * TILE_PAIRS + g, P, t, B,
+                        epi, N, res, out, ra);
     }
 #pragma unroll
     for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;

@@ -36,11 +36,9 @@
 // equals K2 bit for bit. The GEMV splits K over the warps of a block, not
 // over a cluster, so that this cooperative launch runs the same order.
 //
-// The barrier is a counter and a generation word in device memory: a
-// block's thread 0 fences its block's writes, adds one to the counter, and
-// the last of the grid to arrive resets it and bumps the generation, for
-// which the others wait; the wait gives up with a trap after about ten
-// seconds rather than hang. Data that blocks of the launch write (x, qkv,
+// The barrier is grid_sync.cuh's, shared with K10 (dia_flat.cu): a
+// counter and a generation word in device memory, the wait giving up with
+// a trap after about ten seconds rather than hang. Data that blocks of the launch write (x, qkv,
 // the attention output and partials, the cache row pos, cq, the GELU
 // output) is read through plain loads, never the read-only cache; the
 // weights stream through cp.async (L2), the cross K/V through the
@@ -48,6 +46,7 @@
 #include <cuda_runtime.h>
 
 #include "attention.cuh"
+#include "grid_sync.cuh"
 #include "parler_gemv.cuh"
 
 namespace {
@@ -57,35 +56,10 @@ using namespace tts::parler;
 using tts::attn::PAGE;
 
 constexpr int HEAD_D = 64;  // Parler's head size (hidden / heads)
-constexpr long long SPIN_LIMIT = 20000000000LL;  // clock cycles, ~10 s
 // passes whose K / V loads a page's warp keeps in flight: fewer than K3's,
 // so that the page code does not raise the step's registers per thread,
 // which set how many blocks of the one launch fit on an SM
 constexpr int PAGE_PF = 2;
-
-// Barrier across the whole (co-resident) grid; bar[0] counts arrivals,
-// bar[1] is the generation.
-__device__ __forceinline__ void grid_sync(unsigned int* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned int* gen = bar + 1;
-    const unsigned int g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      const long long t0 = clock64();
-      while (*gen == g) {
-        __nanosleep(32);
-        if (clock64() - t0 > SPIN_LIMIT) __trap();
-      }
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
 
 struct FlatArgs {
   float* x;                 // (H) the residual stream, updated in place

@@ -29,8 +29,8 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "decode_attention", "parler_megastep",
-           "llama_megastep", "dia_megastep",
-           "parler_flat")  # K1; K3/K4; K2/K5; K6-K9; K10/K11; K12
+           "llama_megastep", "dia_megastep", "parler_flat",
+           "dia_flat")  # K1; K3/K4; K2/K5; K6-K9; K11; K12; K10
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

@@ -22,16 +22,21 @@ sums the V rows past it into `vtail`; the n_tail rows past the bucket each
 give logit 0 and fold in analytically: m = max(m, 0), denom += n_tail
 e^{-m}, numer += e^{-m} vtail. With no tail there is no max with 0.
 
-On the card the step is a sequence of hand-written kernels on one stream
-(csrc/dia_megastep.cu, its header says why): per layer 6 launches of the
-dequant GEMV (csrc/gemv.cuh, the llama steps' GEMV, with the RMS norm
-fused before and RoPE + KV-row write, residual add or SiLU(gate) * up
-after), 1 of K4 for the self-attention (each row over its own cache) and
-1 of the cross-attention (csrc/decode_attention.cu's K4 kernel through its
+On the card K10 is one cooperative launch of a persistent kernel
+(csrc/dia_flat.cu, its header says why; ops/dia_flat.py reckons its plan):
+per layer eight phases with a grid barrier after each, the GEMV phases
+running the dequant GEMV's device code (csrc/gemv.cuh, the llama steps'
+GEMV, with the RMS norm fused before and RoPE + KV-row write, residual add
+or SiLU(gate) * up after), the attention phases K4's page and merge code
+(csrc/attention.cuh). K11 is a sequence of hand-written kernels on one
+stream (csrc/dia_megastep.cu): per layer 6 launches of that GEMV, 1 of K4
+for the self-attention (each row over its own cache) and 1 of the
+cross-attention (csrc/decode_attention.cu's K4 kernel through its
 tts_cross_attention entry, the tail merged as one more partial state).
-Each K11 pair equals K10 on that pair's state bit for bit. On CPU tensors
-`dia_megastep_plain` and `dia_megastep_batched_plain` compute the same in
-plain PyTorch.
+Both sum every feature in one order, so K10 equals the launch sequence on
+its pair bit for bit, and each K11 pair equals K10 on that pair's state.
+On CPU tensors `dia_megastep_plain` and `dia_megastep_batched_plain`
+compute the same in plain PyTorch.
 
 K11 departs from the TPU batched kernel in one rounding, as K9 does: that
 kernel rounds q, K/V and the probabilities to bf16 for its attention
@@ -51,6 +56,7 @@ import torch
 
 from . import _build
 from . import decode_attention as da
+from . import dia_flat
 from ._build import addr
 from .attention import rope_freqs
 from .decode_attention import decode_attention_plain
@@ -66,11 +72,13 @@ _i32 = ctypes.c_int
 _CROSS_ARGS = [_vp, _vp, _vp, _vp, ctypes.c_float, _vp, _vp, _vp, _vp, _i32,
                _i32, _i32, _i32, _i32, ctypes.c_longlong, ctypes.c_longlong,
                ctypes.c_float, _vp]
-# One GEMV entry and one cross-attention entry serve K10 and K11; each path
-# counts its own launches (the self-attention launches count on K4's).
-KERNEL = _build.Kernel("dia_megastep", "tts_dia_gemv", ARGS)                      # K10
+# K10 is the persistent step; K11's launch sequence counts its GEMV and
+# cross-attention launches (its self-attention launches count on K4's).
+# CROSS counts the cross-attention entry launched alone
+# (`cross_attention_cuda`).
+KERNEL = _build.Kernel("dia_flat", "tts_dia_flat", dia_flat.ARGS)                  # K10
 KERNEL_BATCHED = _build.Kernel("dia_megastep", "tts_dia_gemv", ARGS)              # K11
-CROSS = _build.Kernel("decode_attention", "tts_cross_attention", _CROSS_ARGS)          # K10
+CROSS = _build.Kernel("decode_attention", "tts_cross_attention", _CROSS_ARGS)
 CROSS_BATCHED = _build.Kernel("decode_attention", "tts_cross_attention", _CROSS_ARGS)  # K11
 CROSS_BUCKETS = (128, 256, 512, 1024)
 ROPE_THETA = 10000.0
@@ -298,27 +306,16 @@ def step_scratch(mega: DiaMegaLayers, rows: int, n_heads: int, ctx: int,
                                                 device))
 
 
-def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
-                pos, ck, cv, vtail, n_tail: int, *, qtype: int, n_heads: int,
-                scratch: DiaScratch | None = None):
-    """The L layers on the card for R <= 16 rows: x (R, H) f32; kv_k / kv_v
-    (L, R, n_kv, CTX, D); pos int32, one element shared by every row or (R,);
-    ck / cv (L, R, heads, Sb, D); vtail (L, R, heads, D) f32, read only when
-    n_tail > 0; all on the card. Each row's part of the caches, cross K/V and
-    tail is dense and the layer axis may have any stride (a group of a larger
-    batch's rows). Per layer 6 GEMV launches through
-    `gemv_kernel` (K10's or K11's counter), 1 K4 launch for the
-    self-attention and 1 cross-attention launch through `cross_kernel`, on
-    the current stream. Returns (x_out (R, H), k_new (L, R, KV), v_new
-    (L, R, KV))."""
+def require_step(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
+                 n_tail: int, *, n_heads: int) -> None:
+    """Validate a step's tensors on the card (layers_cuda's contract, up to
+    16 rows); raise ValueError on what the kernels do not take."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     rows, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
     sb = ck.shape[3]
-    kvh = n_kv * d
-    kvn = hidden + 2 * kvh
-    t1 = hidden // (2 * GEMV_TILE_PAIRS)   # occ's tiles of each of its three
+    kvn = hidden + 2 * n_kv * d
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
@@ -350,6 +347,30 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
                          f"{tuple(vtail.shape)}, qkv rows {kvn}, L={n_layers} "
                          f"H={hidden}, {n_heads} heads, pos {tuple(pos.shape)}, "
                          f"n_tail {n_tail}, at most {2 * MAX_PAIRS} rows")
+
+
+def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
+                pos, ck, cv, vtail, n_tail: int, *, qtype: int, n_heads: int,
+                scratch: DiaScratch | None = None):
+    """The L layers on the card for R <= 16 rows: x (R, H) f32; kv_k / kv_v
+    (L, R, n_kv, CTX, D); pos int32, one element shared by every row or (R,);
+    ck / cv (L, R, heads, Sb, D); vtail (L, R, heads, D) f32, read only when
+    n_tail > 0; all on the card. Each row's part of the caches, cross K/V and
+    tail is dense and the layer axis may have any stride (a group of a larger
+    batch's rows). Per layer 6 GEMV launches through
+    `gemv_kernel` (K11's counter), 1 K4 launch for the self-attention and 1
+    cross-attention launch through `cross_kernel`, on the current stream. Returns (x_out (R, H), k_new (L, R, KV), v_new
+    (L, R, KV))."""
+    dev = x.device
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
+    rows, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
+    sb = ck.shape[3]
+    kvh = n_kv * d
+    kvn = hidden + 2 * kvh
+    t1 = hidden // (2 * GEMV_TILE_PAIRS)   # occ's tiles of each of its three
+    require_step(mega, x, kv_k, kv_v, pos, ck, cv, vtail, n_tail,
+                 n_heads=n_heads)
     sc = scratch or step_scratch(mega, rows, n_heads, ctx, sb, dev)
     n_pages = -(-max(ctx, sb) // da.PAGE)
     if (sc.attn.shape != (rows, n_heads, d) or sc.act.shape != (rows, ffn)
@@ -407,18 +428,36 @@ def layers_cuda(gemv_kernel, cross_kernel, mega: DiaMegaLayers, x, kv_k, kv_v,
 def dia_megastep_cuda(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
                       n_tail: int, *, qtype: int, n_heads: int, n_kv: int,
                       scratch: DiaScratch | None = None):
-    """K10 on the card: 6 GEMV, 1 K4 and 1 cross-attention launch per layer
-    on the current stream. Same contract as `dia_megastep_plain`, with pos
-    a one-element int32 CUDA tensor."""
+    """K10 on the card: one cooperative launch of the persistent step
+    (csrc/dia_flat.cu) on the current stream. Same contract as
+    `dia_megastep_plain`, with pos a one-element int32 CUDA tensor and the
+    cross K/V in bf16 (prep_dia_cross's); heads of 64 or 128. `scratch`
+    (the launch sequence's) is not used: the step keeps its scratch per
+    stream (ops/dia_flat.py). Raises where the card refuses the launch."""
     if kv_k.dim() != 5 or kv_k.shape[1:3] != (2, n_kv) or ck.dim() != 4:
         raise ValueError(f"dia_megastep: kv {tuple(kv_k.shape)}, n_kv {n_kv}, "
                          f"cross {tuple(ck.shape)}")
     n_layers, _, sb, d = ck.shape
-    return layers_cuda(KERNEL, CROSS, mega, x.float().contiguous(), kv_k, kv_v,
-                       pos, ck.view(n_layers, 2, n_heads, sb, d),
-                       cv.view(n_layers, 2, n_heads, sb, d),
-                       vtail.view(n_layers, 2, n_heads, d), n_tail,
-                       qtype=qtype, n_heads=n_heads, scratch=scratch)
+    ck, cv = (t.view(n_layers, 2, n_heads, sb, d) for t in (ck, cv))
+    vtail = vtail.view(n_layers, 2, n_heads, d)
+    xw = x.float().contiguous().clone()
+    require_step(mega, xw, kv_k, kv_v, pos, ck, cv, vtail, n_tail,
+                 n_heads=n_heads)
+    hidden, ffn = mega.norms.shape[2], mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
+    packed = tiles_packed(mega.qkv_codes)
+    if (ck.dtype != torch.bfloat16 or pos.numel() != 1 or d not in (64, 128)
+            or n_heads % n_kv
+            or dia_flat.smem_bytes(hidden, ffn, packed) > dia_flat.SMEM_LIMIT):
+        raise ValueError(f"dia_megastep: cross K/V {ck.dtype}, pos "
+                         f"{tuple(pos.shape)}, heads of {d}, {n_heads} / "
+                         f"{n_kv} heads, H {hidden}, F {ffn}: the persistent "
+                         f"step takes bf16 cross K/V, one position and heads "
+                         f"of 64 or 128")
+    qkv = dia_flat.launch(KERNEL, mega, xw, kv_k, kv_v, pos, ck, cv, vtail,
+                          n_tail, inv_freq(d, x.device), qtype=qtype,
+                          packed=packed, n_heads=n_heads)
+    kvh = n_kv * d
+    return xw, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]
 
 
 def dia_megastep(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
