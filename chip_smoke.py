@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero without the final line:
    the CPU as a yardstick; K3 / K4 also at heads of 128 with 3 and 4 q
    heads a kv head (one launch a K3 call); K4 and K5 at 8 slots at mixed
    positions across page boundaries, and each of their slots against K3 /
-   K2 on that slot's state, bit for bit. K7's check prints the L2 bytes
+   K2 on that slot's state, bit for bit; K3 / K4 and the cross-attention
+   entry at heads of 80, 192 and 256 (the generic path), bf16 and f32
+   caches, timed beside SDPA. K7's check prints the L2 bytes
    its GEMVs read to stage their input rows beside its weight bytes (and
    fails unless they are fewer).
 3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
@@ -47,10 +49,12 @@ Phases, in order; any failure exits non-zero without the final line:
    24/8 heads of 128, F 8192, vocab 156,940, Q4_0 head, F16 embeddings,
    SNAC-24k; random weights from a seed) turned into a WAV by the port's
    CLI with a voice (sampled, fixed seed, up to 2100 tokens); counters set
-   to 0 just before, read just after; K1, K3 and K6 must have risen. Then
-   the path timed stage by stage and a device trace of 32 decode steps,
-   the K8 route (the head swapped for an F16 one, 64 decode steps): K8
-   must have risen, and the K9 route (the batched engine on those weights,
+   to 0 just before, read just after; K1 and K6 must have risen, K3 and
+   the launch sequences' GEMV not (K6 is one launch a step). Then the path
+   timed stage by stage and a device trace of 32 decode steps: one K6
+   launch a step, at most 75 kernels a step; the K8 route (the head
+   swapped for an F16 one, 64 decode steps): one K8 launch a step, and
+   the K9 route (the batched engine on those weights,
    8 slots, 64 batched steps): K9 must have risen, K7 not.
 8. Orpheus serving: the port's HTTP server in this process (batch_slots 8,
    the Orpheus-3B GGUF) answers 12 concurrent requests with a voice and
@@ -82,13 +86,24 @@ Phases, in order; any failure exits non-zero without the final line:
    request: each request's codes equal the single-stream runner's. Then
    the server with batch_slots 12 on the small Dia GGUF reaches READY and
    answers a request.
+13. Head sizes past 64 / 128, on small models (run before phases 10-11):
+   Parler, Orpheus and Dia GGUFs with heads of 256 and 192, each runner on
+   the card teacher-forced against the CPU's plain versions, and each
+   engine's greedy codes (tokens) against its runner's on the card (the
+   persistent steps take 64 / 128 only: Orpheus's single stream runs K7 /
+   K9 at one slot there, Dia's K11 at one pair).
 
 Phase 2 also holds K12 (the one-launch Parler step) at Parler-Mini width
 at positions 0-4095 with and without the cross block: bit for bit against
 K2 on the same state, layer by layer against its plain version, and timed
 beside K2 in turns; then it times each Parler GEMV launch alone (qkv, o,
-cq, co, fc1, fc2 at 1, 8 and 16 rows) beside its weight bytes. It holds K8 and K6 at Orpheus-3B width against their plain
-versions, layer by layer at positions around K3's pages, and times them;
+cq, co, fc1, fc2 at 1, 8 and 16 rows) beside its weight bytes. It holds K8
+and K6 (the persistent llama step, one cooperative launch) at Orpheus-3B
+width bit for bit against the launch sequence (K9 / K7 at one slot) at
+positions 0-3583, Q4_0 on 28 layers and Q5_0 / Q8_0 on 2, layer by layer
+against their plain versions at positions around the pages, and times
+them beside the launch sequence in turns (at pos 1000, and K6 at the
+cache's first and last rows);
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
 layer against the plain versions, K7's logits per slot, timed. It holds K10
@@ -100,9 +115,9 @@ bit too, and times it beside the launch sequence in turns; and K11 at 4
 and 8 pairs at mixed positions, each pair bit for bit against K10, and
 times it. The CPU
 yardsticks of the layer checks compare a few layers of each step (K5 6 of
-24, K6-K9 4 of 28, K10 / K11 2 of 18; the llama and Dia steps'
-dequantization done once per layer for all slots), to keep the run in its
-time.
+24, K6-K9 4 of 28 (K6 / K8 at 4 positions), K10 / K11 2 of 18; the llama
+and Dia steps' dequantization done once per layer for all slots), to keep
+the run in its time.
 
 The last three lines of standard output are the card's name and power
 limit, one JSON object describing each kernel, and
@@ -139,6 +154,7 @@ from tts_tpu_torch.ops import dia_flat as dfl
 from tts_tpu_torch.ops import dia_megastep as dm
 from tts_tpu_torch.ops import llama_flat as lf
 from tts_tpu_torch.ops import llama_megastep as lm
+from tts_tpu_torch.ops import llama_persistent as lp
 from tts_tpu_torch.ops import parler_flat as pf
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
@@ -856,6 +872,81 @@ def check_k4(gen) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
+OTHER_HEADS = (80, 192, 256)   # the generic path's head sizes checked
+OTHER_POS = (0, 255, 256, 257, 1000, 2047, 3000, 3583)   # its slots / positions
+
+
+def check_other_head_sizes() -> None:
+    """K3 and K4 at head sizes past 64 / 128 (the generic path): rows whose
+    16-byte chunks do not divide a warp (80, 192) and rows wider than a
+    warp's lanes (bf16 and f32 256, f32 192), over bf16 and f32 caches of
+    3584 rows with Orpheus's 24 / 8 heads. K3 at OTHER_POS and K4 with 8
+    slots at those positions against the plain versions (1e-5 of the
+    largest output), each K4 slot equal to K3 bit for bit, and the
+    cross-attention entry over a 256-row bucket with a 768-row tail; then
+    K3 and K4 timed (bf16) beside SDPA and their bounds. Its own generator,
+    so that the later checks' inputs stay as they were."""
+    log("K3 / K4 at other head sizes (csrc/decode_attention.cu's generic path) "
+        "vs their plain versions, 24 / 8 heads, caches of 3584 rows:")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 11)
+    hq, hkv, ctx, b = 24, 8, 3584, len(OTHER_POS)
+    why = "f32 softmax over the same values, sums in another order"
+    pos = torch.tensor(OTHER_POS, dtype=torch.int32, device=DEV)
+    for d in OTHER_HEADS:
+        for dt in (torch.bfloat16, torch.float32):
+            kc, vc = (torch.randn((b, hkv, ctx, d), generator=gen, device=DEV)
+                      .to(dt) for _ in range(2))
+            q = torch.randn((b, hq, d), generator=gen, device=DEV)
+            name = f"heads of {d}, {str(dt)[6:]} cache"
+            for s, p in enumerate(OTHER_POS):
+                check_close(f"K3 {name}, pos {p}",
+                            da.decode_attention_cuda(q[s], kc[s], vc[s], pos[s:s + 1]),
+                            da.decode_attention_plain(q[s], kc[s], vc[s], p),
+                            1e-5, why)
+            got = da.decode_attention_batched_cuda(q, kc, vc, pos)
+            check_close(f"K4 {name}, 8 slots at {list(OTHER_POS)}", got,
+                        da.decode_attention_batched_plain(q, kc, vc, pos), 1e-5, why)
+            for s in range(b):
+                if not torch.equal(got[s], da.decode_attention_cuda(
+                        q[s], kc[s], vc[s], pos[s:s + 1])):
+                    raise AssertionError(f"K4 {name} slot {s} is not K3 bit "
+                                         f"for bit")
+            ck, cv = kc[:2, :, :256], vc[:2, :, :256]
+            vt = torch.randn((2, hkv, d), generator=gen, device=DEV) * 8
+            qc = q[:2, :hkv].contiguous()
+            check_close(f"cross-attention {name}, Sb 256, n_tail 768",
+                        dm.cross_attention_cuda(qc, ck.contiguous(),
+                                                cv.contiguous(), vt, 768),
+                        dm.cross_attention_plain(qc, ck, cv, vt, 768), 1e-5, why)
+            if dt == torch.bfloat16:
+                p = 1000
+                p1 = torch.tensor([p], dtype=torch.int32, device=DEV)
+                qb = q.to(torch.bfloat16)[:, :, None, :]
+                k3 = device_ms(lambda: da.decode_attention_cuda(
+                    q[4], kc[4], vc[4], p1)).ms
+                k3_lib = device_ms(lambda: sdpa(qb[4:5], kc[4:5, :, :p + 1],
+                                                vc[4:5, :, :p + 1])).ms
+                k3_bound = bound(2 * hkv * (p + 1) * d * 2 + 2 * hq * d * 4,
+                                 4 * hq * (p + 1) * d, "f32")[0]
+                out = torch.empty_like(q)
+                scratch = da.attention_scratch(b, hq, ctx, d, DEV)
+                k4 = device_ms(lambda: da.decode_attention_batched_cuda(
+                    q, kc, vc, pos, out=out, scratch=scratch)).ms
+                mask = (torch.arange(ctx, device=DEV)[None, :] <=
+                        pos[:, None])[:, None, None, :]
+                k4_lib = device_ms(lambda: sdpa(qb, kc, vc, mask)).ms
+                rows = sum(p + 1 for p in OTHER_POS)
+                k4_bound = bound(2 * hkv * rows * d * 2 + 2 * b * hq * d * 4
+                                 + b * 4, 4 * hq * rows * d, "f32")[0]
+                log(f"  heads of {d}, bf16, device time: K3 at pos {p} "
+                    f"{k3:.4f} ms (sdpa {k3_lib:.4f}, bound {k3_bound:.4f}); "
+                    f"K4 at 8 slots {k4:.4f} ms (masked sdpa {k4_lib:.4f}, "
+                    f"bound {k4_bound:.4f})")
+            del kc, vc
+    torch.cuda.empty_cache()
+
+
 def check_k5(gen, mega, qtype) -> dict:
     log("K5 parler_megastep batched (csrc/parler_megastep.cu + K4) vs K2 and "
         "parler_megastep_batched_plain:")
@@ -1115,8 +1206,11 @@ def check_k12(gen, mega, qtype) -> dict:
 # OrpheusConfig defaults). The cache has cache_ctx(OrpheusConfig()) rows.
 ORPHEUS = dict(n_layers=28, hidden=3072, heads=24, kv_heads=8, ffn=8192,
                vocab=156940, ctx=3584, theta=500000.0)
-LLAMA_POS = (0, 255, 256, 511, 512, 1000, 3000)  # around K3's 256-row pages
-LLAMA_LAYERS = (0, 9, 18, 27)                    # compared at every position
+# the persistent step against the launch sequence: around the 256-row
+# pages, to the cache's last row
+LLAMA_POS = (0, 255, 256, 511, 512, 1000, 3000, 3583)
+LLAMA_LAYER_POS = (0, 256, 1000, 3000)   # layer by layer against the plain version
+LLAMA_LAYERS = (0, 9, 18, 27)            # compared at each of them
 VOICE = "zoe"
 
 
@@ -1133,39 +1227,41 @@ def llama3_rope_factors(d: int, theta: float) -> np.ndarray:
     return f.astype(np.float32)
 
 
-def orpheus_source_weights(gen):
+def orpheus_source_weights(gen, qtype=quants.GGML_TYPE_Q4_0, n_layers=None):
     """Random Orpheus-3B weights on the card before the steps' prep: the
-    stacked OrpheusLayer (Q4_0 packed, f32 scales), the head (156,940 rows),
-    the final norm's weight, the head size and the step's keyword arguments
+    stacked OrpheusLayer of `n_layers` (default all 28; Q4_0 packed or Q5_0
+    / Q8_0 bytes, f32 scales), the head (156,940 rows, the same qtype), the
+    final norm's weight, the head size and the step's keyword arguments
     (RoPE inverse frequencies with the llama3 factors)."""
     from tts_tpu_torch.models.orpheus.model import OrpheusLayer
     from tts_tpu_torch.ops.attention import rope_freqs
-    L, H, F = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["ffn"]
+    L, H, F = n_layers or ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["ffn"]
     d = H // ORPHEUS["heads"]
     kvn, f32 = ORPHEUS["kv_heads"] * d, torch.float32
 
     def vec():
         return torch.randn((L, H), generator=gen, device=DEV) * 0.1 + 1.0
 
-    lw = OrpheusLayer(vec(), stack_quant(gen, L, H, H, f32),
-                      stack_quant(gen, L, kvn, H, f32),
-                      stack_quant(gen, L, kvn, H, f32),
-                      stack_quant(gen, L, H, H, f32), vec(),
-                      stack_quant(gen, L, F, H, f32), stack_quant(gen, L, F, H, f32),
-                      stack_quant(gen, L, H, F, f32))
-    head = rand_quant(gen, ORPHEUS["vocab"], H, quants.GGML_TYPE_Q4_0, f32)
+    def sq(n, k):
+        return stack_quant(gen, L, n, k, f32, qtype)
+
+    lw = OrpheusLayer(vec(), sq(H, H), sq(kvn, H), sq(kvn, H), sq(H, H), vec(),
+                      sq(F, H), sq(F, H), sq(H, F))
+    head = rand_quant(gen, ORPHEUS["vocab"], H, qtype, f32)
+    if qtype == quants.GGML_TYPE_Q8_0:
+        head = qm.QuantTensor(head.codes, head.scales / 16.0, qtype)
     inv = rope_freqs(d, ORPHEUS["theta"], torch.from_numpy(
         llama3_rope_factors(d, ORPHEUS["theta"])).to(DEV))
     return lw, head, vec()[0], d, dict(n_heads=ORPHEUS["heads"],
                                        n_kv=ORPHEUS["kv_heads"], inv_freq=inv)
 
 
-def orpheus_kernel_weights(gen):
+def orpheus_kernel_weights(gen, qtype=quants.GGML_TYPE_Q4_0, n_layers=None):
     """Random Orpheus-3B weights on the card as the two steps take them: K8's
-    layers (Q4_0 packed, qkv scales f32, the others bf16), K6's (every scale
-    bf16, the head padded from 156,940 to 157,184 rows), both tiled for the
-    GEMV, and the step's keyword arguments."""
-    lw, head, out_norm, d, kw = orpheus_source_weights(gen)
+    layers (Q4_0 packed, or Q5_0 / Q8_0; qkv scales f32, the others bf16),
+    K6's (every scale bf16, the head padded from 156,940 to 157,184 rows),
+    both tiled for the GEMV, and the step's keyword arguments."""
+    lw, head, out_norm, d, kw = orpheus_source_weights(gen, qtype, n_layers)
     mega, qtype = lm.prep_llama_mega(lw, d)
     del lw
     flat = lf.prep_llama_flat(mega, head, out_norm, qtype, kw["n_heads"],
@@ -1174,11 +1270,57 @@ def orpheus_kernel_weights(gen):
 
 
 def k6_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
-    """K6's layer sequence alone (its launch counter, no head)."""
-    xo, kn, vn = lm.layers_cuda(lf.KERNEL, da.KERNEL, m, x, kc.unsqueeze(1),
-                                vc.unsqueeze(1), pos, qtype=qtype,
-                                n_heads=n_heads, inv_freq=inv_freq)
-    return xo, kn[:, 0], vn[:, 0]
+    """K6's layers alone (the persistent step without the head phase, on
+    K6's counter)."""
+    xo, kn, vn, _ = lm.persistent_step(lf.KERNEL, m, x, kc, vc, pos,
+                                       qtype=qtype, n_heads=n_heads, n_kv=n_kv,
+                                       inv_freq=inv_freq)
+    return xo, kn, vn
+
+
+def llama_sequence(w, x, kc, vc, pos, **kw):
+    """K8's (K6's) function through the launch sequence (4 GEMV and 1 K4
+    launch a layer, K6's head GEMV after them): K9 (K7) at one slot, on
+    views of the same caches (written in place)."""
+    fn = (lf.llama_flat_megastep_batched_cuda if isinstance(w, lf.LlamaFlat)
+          else lm.llama_megastep_batched_cuda)
+    out, kn, vn = fn(w, x, kc[:, None], vc[:, None], pos, **kw)
+    return out, kn[:, 0], vn[:, 0]
+
+
+def llama_equal_sequence(steps, x, kc, vc, kw, label, positions) -> None:
+    """At each position: the persistent K8 and K6 (one launch) and the
+    launch sequence on copies of the same state give the same x_out (K6:
+    logits), k_new, v_new and caches, bit for bit; raises otherwise."""
+    for p in positions:
+        pos = torch.tensor([p], dtype=torch.int32, device=DEV)
+        for name, (w, kern) in steps.items():
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = kern(w, x, k1, v1, pos, **kw)
+            seq = llama_sequence(w, x, k2, v2, pos, **kw)
+            if not (all(torch.equal(a, b) for a, b in zip(got, seq))
+                    and torch.equal(k1, k2) and torch.equal(v1, v2)):
+                raise AssertionError(f"{name} differs from the launch "
+                                     f"sequence: {label}, pos {p}")
+            del k1, v1, k2, v2
+    log(f"  {label}: {' and '.join(steps)} (one launch) give the launch "
+        f"sequence's (K9 / K7 at one slot) x_out / logits, k_new, v_new and "
+        f"both caches bit for bit at positions {list(positions)} "
+        f"(max_abs_err 0): ok")
+
+
+def persistent_ms(fn, prefix: str, label: str) -> float:
+    """A persistent kernel's device time a launch, by the launches the
+    trace recorded (torch.profiler drops some of a cooperative kernel's
+    events), logged beside the events it recorded of the 20 calls."""
+    for _ in range(3):
+        dt = device_ms(fn)
+        name = next((k for k in dt.by_name if k.startswith(prefix)), None)
+        if name is not None:
+            log(f"  {label}: {dt.counts[name] * 20:.0f} of 20 launches in the "
+                f"trace, {dt.ms:.4f} ms of device time a call with its copies")
+            return dt.by_name[name] / dt.counts[name]
+    raise RuntimeError(f"torch.profiler recorded no {prefix} launch")
 
 
 def k7_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
@@ -1218,15 +1360,37 @@ def other_order():
 
 
 def check_llama(gen, mega, flat, kw) -> list[dict]:
-    log("K8 llama_megastep and K6 llama_flat_megastep (csrc/llama_megastep.cu "
-        "+ K3) vs their plain versions, Orpheus-3B width, bf16 cache of "
-        f"{ORPHEUS['ctx']} rows, positions {list(LLAMA_POS)}:")
+    """K8 and K6, the persistent llama step (one cooperative launch of
+    csrc/llama_flat.cu; K6 with its head phase), at Orpheus-3B width: bit
+    for bit against the launch sequence (K9 / K7 at one slot) at
+    LLAMA_POS, Q4_0 on 28 layers and Q5_0 / Q8_0 on 2; layer by layer
+    against the plain version at LLAMA_LAYER_POS (the yardstick of
+    layer_errors), the whole step against the plain version summed in
+    another order; then timed at pos 1000 beside the launch sequence in
+    turns (sequence, step, step, sequence), with the grid it launched."""
+    log("K8 llama_megastep and K6 llama_flat_megastep (csrc/llama_flat.cu: "
+        "one cooperative launch a step) vs the launch sequence (K9 / K7 at one "
+        "slot) and their plain versions, Orpheus-3B width, bf16 cache of "
+        f"{ORPHEUS['ctx']} rows:")
     L, H, vocab = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["vocab"]
     nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
+    for line in ptxas_summary("llama_flat"):
+        log(f"  ptxas llama_flat: {line}")
     shape = (L, nkv, ctx, d)
     kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
     vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
     x = torch.randn((1, H), generator=gen, device=DEV)
+    llama_equal_sequence({"K8": (mega, lm.llama_megastep_cuda),
+                          "K6": (flat, lf.llama_flat_megastep_cuda)},
+                         x, kc, vc, kw, f"Q4_0, {L} layers", LLAMA_POS)
+    for qt in (quants.GGML_TYPE_Q5_0, quants.GGML_TYPE_Q8_0):
+        qmega, qflat, qkw = orpheus_kernel_weights(gen, qt, n_layers=2)
+        llama_equal_sequence({"K8": (qmega, lm.llama_megastep_cuda),
+                              "K6": (qflat, lf.llama_flat_megastep_cuda)},
+                             x, kc[:2], vc[:2], qkw, f"qtype {qt}, 2 layers",
+                             LLAMA_POS)
+        del qmega, qflat
+        torch.cuda.empty_cache()
     steps = {  # label: (weights, kernel step, plain step, layer kernel, names)
         "K8": (mega, lm.llama_megastep_cuda, lm.llama_megastep_plain,
                lm.llama_megastep_cuda, ("x_out", "k_new", "v_new")),
@@ -1236,7 +1400,7 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
     pooled = {label: (defaultdict(list), defaultdict(list)) for label in steps}
     whole = {label: (defaultdict(list), defaultdict(list)) for label in steps}
     agree = 0
-    for p in LLAMA_POS:
+    for p in LLAMA_LAYER_POS:
         pos = torch.tensor([p], dtype=torch.int32, device=DEV)
         for label, (w, kern, plain, layer_kern, names) in steps.items():
             layers = w if label == "K8" else w.layers
@@ -1267,23 +1431,35 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
                 whole[label][0][nm].append(max_err(a, b) / scale)
                 whole[label][1][nm].append(max_err(c, b) / scale)
     log(f"  K6 logits argmax equal to the plain version's at "
-        f"{agree}/{len(LLAMA_POS)} positions (a near-tie among 156,940 "
+        f"{agree}/{len(LLAMA_LAYER_POS)} positions (a near-tie among 156,940 "
         f"random logits may part them)")
     for label in steps:
         judge_layers(*pooled[label], label, f"{label} layers "
-                     f"{list(LLAMA_LAYERS)} at positions {list(LLAMA_POS)}, "
+                     f"{list(LLAMA_LAYERS)} at positions {list(LLAMA_LAYER_POS)}, "
                      f"layer by layer, yardstick plain on the CPU vs plain "
                      f"on the card")
         judge_layers(*whole[label], label, f"{label} whole 28-layer step at "
-                     f"positions {list(LLAMA_POS)}, yardstick plain vs plain "
-                     f"summed in another order")
+                     f"positions {list(LLAMA_LAYER_POS)}, yardstick plain vs "
+                     f"plain summed in another order")
     rows = []
     p = 1000
     pos = torch.tensor([p], dtype=torch.int32, device=DEV)
     kv_bytes = 2 * L * nkv * (p + 1) * d * 2   # rows 0..pos, bf16
     for label, (w, kern, plain, _, _) in steps.items():
-        ms = step_ms(lambda: kern(w, x, kc, vc, pos, **kw),
-                     f"{label} step at pos {p}")
+        def step():
+            return kern(w, x, kc, vc, pos, **kw)
+
+        def seq():
+            return llama_sequence(w, x, kc, vc, pos, **kw)
+
+        # in turns: sequence, step, step, sequence; device and host time
+        host = [cuda_ms(fn, iters=20) for fn in (seq, step, step, seq)]
+        name = "llama_megastep" if label == "K8" else "llama_flat_megastep"
+        dev_ms = [device_ms(seq).ms,
+                  persistent_ms(step, "llama_flat_kernel", label),
+                  persistent_ms(step, "llama_flat_kernel", label),
+                  device_ms(seq).ms]
+        ms = min(dev_ms[1:3])
         plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=3,
                              warmup=1).ms
         if label == "K8":
@@ -1296,21 +1472,53 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
             2 * L * nkv * d * 4
         b_ms, b_by = bound(wbytes + kv_bytes + H * 4 + out_bytes,
                            2 * n_weights, "bf16")
-        gemv = 4 * L + (label == "K6")
-        log(f"  {label} 28 layers{' + head' if label == 'K6' else ''}, pos "
-            f"{p}: kernels (device time) {ms:.4f} ms/step ({gemv} gemv + {L} attention "
-            f"launches), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-            f"{wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV)")
-        if label == "K6":
-            device_trace(lambda: [kern(w, x, kc, vc, pos, **kw) for _ in range(5)],
+        head = label == "K6"
+        layers = w.layers if head else w
+        smem = lp.smem_bytes(H, ORPHEUS["ffn"], lm.tiles_packed(layers.qkv_codes),
+                             layers.qkv_scales.dtype == torch.bfloat16)
+        log(f"  {label} {L} layers{' + head' if head else ''}, pos {p}: step "
+            f"{host[1]:.4f} / {host[2]:.4f} ms (1 launch of "
+            f"{lp.launched_blocks} blocks, {lp.blocks_per_sm} an SM, "
+            f"{smem} bytes of dynamic shared memory, {lp.barriers(L, head)} grid "
+            f"barriers), launch sequence {host[0]:.4f} / {host[3]:.4f} ms "
+            f"({4 * L + head} gemv + {L} K4 launches), with the host's launch "
+            f"path; device time step {dev_ms[1]:.4f} / {dev_ms[2]:.4f}, "
+            f"launch sequence {dev_ms[0]:.4f} / {dev_ms[3]:.4f} ms; plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+            f"{wbytes / 1e6:.1f} MB weights + {kv_bytes / 1e6:.1f} MB KV), "
+            f"library none")
+        if head:
+            device_trace(lambda: [step() for _ in range(5)],
                          f"K6 step alone, pos {p}", 5)
+            device_trace(lambda: [seq() for _ in range(5)],
+                         f"K6's launch sequence alone, pos {p}", 5)
         rows.append(dict(
-            name="llama_megastep" if label == "K8" else "llama_flat_megastep",
-            route="cuda", source="tts_tpu_torch/csrc/llama_megastep.cu",
+            name=name, route="cuda", source="tts_tpu_torch/csrc/llama_flat.cu",
             replaces="tts_tpu/ops/llama_megastep.py:124" if label == "K8"
             else "tts_tpu/ops/llama_flat.py:381",
             max_abs_err=max(errs[label]), ms=ms, plain_ms=plain_ms,
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # how the step grows with the rows it attends (28 attention phases):
+    # K6 and its launch sequence at the cache's first and last row
+    for p2 in (0, ctx - 1):
+        pos2 = torch.tensor([p2], dtype=torch.int32, device=DEV)
+        s_ms = persistent_ms(lambda: lf.llama_flat_megastep_cuda(
+            flat, x, kc, vc, pos2, **kw), "llama_flat_kernel", f"K6 at pos {p2}")
+        q_ms = device_ms(lambda: llama_sequence(flat, x, kc, vc, pos2, **kw)).ms
+        log(f"  K6 at pos {p2}: step {s_ms:.4f} ms, launch sequence {q_ms:.4f} "
+            f"ms a step (device time)")
+    phases = lp.gemv_phases(H, ORPHEUS["ffn"], ORPHEUS["heads"], nkv,
+                            flat.head.shape[0])
+    log(f"  the step's phases a layer on {lp.launched_blocks} blocks: "
+        + ", ".join(f"{ph.name} {ph.items} (tile, K range) items of "
+                    f"{ph.stages} stages, "
+                    f"{dfl.warps_with_items(ph, lp.launched_blocks)} warps busy"
+                    for ph in phases)
+        + f"; attention page items at pos 1000 / 3583: "
+        f"{lp.attention_items(ORPHEUS['heads'], p, ctx, lp.launched_blocks)} / "
+        f"{lp.attention_items(ORPHEUS['heads'], ctx - 1, ctx, lp.launched_blocks)}")
+    del kc, vc
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -1641,22 +1849,26 @@ def prompt_len() -> int:
 # phase 3: a small model, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def check_small_reference(tmp) -> None:
-    """A small Q4_0 Parler decoded greedily on the CPU (plain versions); the
-    card (kernels) follows the same token history (teacher forcing) and its
-    logits must match at every step. Free-running greedy tokens are
-    reported too, but not required to match: with 9 x 1088 random logits a
-    near-tie flips on a last-bit difference, and the history then parts.
-    The tolerance comes from the CPU's own sensitivity, measured alongside
-    on a run whose positional embeddings moved by one ulp."""
+def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
+                          n_steps=48) -> None:
+    """A small Q4_0 Parler (written to tmp/name) decoded greedily on the CPU
+    (plain versions); the card (kernels) follows the same token history
+    (teacher forcing) and its logits must match at every step.
+    Free-running greedy tokens are reported too, but not required to
+    match: with 9 x 1088 random logits a near-tie flips on a last-bit
+    difference, and the history then parts. The tolerance comes from the
+    CPU's own sensitivity, measured alongside on a run whose positional
+    embeddings moved by one ulp."""
     from tts_tpu_torch.models.parler import model as pmodel
     from tts_tpu_torch.models.registry import runner_from_file
-    log("Reference: small Q4_0 Parler (L=2, H=256, 4 heads, 48 steps), f32 "
-        "caches, card kernels vs CPU plain versions:")
-    path = os.path.join(tmp, "parler-small.gguf")
-    write_parler(path, np.random.default_rng(SEED + 1), n_layers=2, hidden=256,
-                 heads=4, ffn=1024, n_out=9, vocab=1088, ctx=256, enc_len=16,
-                 max_generation=prompt_len() + 48, dac_chans=(64, 32, 16, 8, 4))
+    log(f"Reference: small Q4_0 Parler (L=2, H={hidden}, {heads} heads of "
+        f"{hidden // heads}, {n_steps} steps), f32 caches, card kernels vs CPU "
+        f"plain versions:")
+    path = os.path.join(tmp, name)
+    write_parler(path, np.random.default_rng(SEED + 1), n_layers=2,
+                 hidden=hidden, heads=heads, ffn=1024, n_out=9, vocab=1088,
+                 ctx=256, enc_len=16, max_generation=prompt_len() + 48,
+                 dac_chans=(64, 32, 16, 8, 4))
     kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
               repetition_penalty=1.0)
     runners, states = [], []
@@ -1664,7 +1876,8 @@ def check_small_reference(tmp) -> None:
     for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
                          (torch.device("cpu"), True)):
         r = runner_from_file(path, device=dev)
-        assert r.mega is not None, "small model must take the megastep path"
+        if r.mega is None:
+            raise AssertionError("small model must take the megastep path")
         if perturb:   # every positional embedding moved by one ulp, +-
             pe = r.weights.pos_embd
             pe.mul_(1 + (torch.randint(0, 2, pe.shape, generator=gen) * 2 - 1)
@@ -1679,7 +1892,7 @@ def check_small_reference(tmp) -> None:
     (rg, rc, rp), (sg, sc, sp) = runners, states
     worst, sens, first, agree, n = 0.0, 0.0, None, 0, 0
     with torch.no_grad():
-        for _ in range(48):
+        for _ in range(n_steps):
             lg, lc, lp = (pmodel.step_logits(r.cfg, r.weights, s, use_cross=True,
                                              mega=r.mega)
                           for r, s in zip(runners, (sg, sc, sp)))
@@ -2244,35 +2457,40 @@ def write_orpheus(path, rng, *, n_layers, hidden, heads, kv_heads, ffn,
 # phase 6: a small Orpheus, kernels on the card vs plain versions on the CPU
 # ---------------------------------------------------------------------------
 
-def check_small_orpheus(tmp) -> None:
+def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
+                        n_steps=48) -> None:
     """A small Q4_0 Orpheus on both decode routes (Q4_0 head: K6; F16 head:
-    K8), decoded greedily on the CPU (plain versions); the card (kernels)
-    follows the same token history (teacher forcing) and its logits must
-    match at every step, within 4x the CPU's own change when every
-    embedding moves by one ulp, or 1e-3 (the Parler check's rule). Then
-    the CPU's tokens are vocoded on both (SNAC, 4 channel widths)."""
+    K8; for heads other than 64 / 128, K7 / K9 at one slot), decoded
+    greedily on the CPU (plain versions); the card (kernels) follows the
+    same token history (teacher forcing) and its logits must match at
+    every step, within 4x the CPU's own change when every embedding moves
+    by one ulp, or 1e-3 (the Parler check's rule). Then the CPU's tokens
+    are vocoded on both (SNAC, 4 channel widths)."""
     from tts_tpu_torch.models.orpheus import model as omodel
     from tts_tpu_torch.models.registry import runner_from_file
     from tts_tpu_torch.ops.llama_flat import LlamaFlat
-    n_steps = 48
+    d = hidden // heads
     kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
               repetition_penalty=1.0, max_steps=n_steps + 1)
     for q4_head, route in ((True, "K6"), (False, "K8")):
-        log(f"Reference: small Q4_0 Orpheus (L=2, H=256, 4/2 heads, F 1024, "
+        log(f"Reference: small Q4_0 Orpheus (L=2, H={hidden}, {heads}/"
+            f"{kv_heads} heads of {d}, F 1024, "
             f"{'Q4_0' if q4_head else 'F16'} head: {route}), f32 caches, "
             f"{n_steps} steps, card kernels vs CPU plain versions:")
-        path = os.path.join(tmp, f"orpheus-small-{route}.gguf")
+        path = os.path.join(tmp, f"orpheus-small-{route}-d{d}.gguf")
         write_orpheus(path, np.random.default_rng(SEED + 2), n_layers=2,
-                      hidden=256, heads=4, kv_heads=2, ffn=1024, vocab=1000,
-                      q4_head=q4_head, snac_dims=(64, 32, 16, 8, 4),
+                      hidden=hidden, heads=heads, kv_heads=kv_heads, ffn=1024,
+                      vocab=1000, q4_head=q4_head, snac_dims=(64, 32, 16, 8, 4),
                       snac_latent=32)
         gen = torch.Generator().manual_seed(SEED)
         runs = []
         for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
                              (torch.device("cpu"), True)):
             r = runner_from_file(path, device=dev)
-            if (route == "K6") != isinstance(r.mega.step, LlamaFlat):
-                raise AssertionError(f"small model did not take the {route} route")
+            if (route == "K6") != isinstance(r.mega.step, LlamaFlat) or \
+                    r.mega.persistent != (d in da.STEP_HEAD_SIZES):
+                raise AssertionError(f"small model did not take the {route} "
+                                     f"route")
             if perturb:   # every embedding moved by one ulp, +-
                 e = r.weights.embd
                 e.mul_(1 + (torch.randint(0, 2, e.shape, generator=gen) * 2 - 1)
@@ -2329,7 +2547,12 @@ def check_small_orpheus(tmp) -> None:
 # phase 7: the Orpheus main path at Orpheus-3B width, and the K8 route
 # ---------------------------------------------------------------------------
 
-ORPHEUS_PATH = ("quant_matmul", "decode_attention", "llama_flat_megastep")
+ORPHEUS_PATH = ("quant_matmul", "llama_flat_megastep")
+# kernels the Orpheus single stream must not launch: K6 and K8 run their
+# GEMVs and attention inside their one launch
+ORPHEUS_NOT_PATH = ("decode_attention", "decode_attention_batched",
+                    "llama_megastep_batched", "llama_flat_megastep_batched")
+ORPHEUS_KERNELS_PER_STEP = 75   # the Orpheus CLI's device trace may show at most
 K8_ROUTE_STEPS = 64
 K9_ROUTE_STEPS = 64
 TOKEN_AUDIO_S = 2048 / 7 / 24000   # 7 tokens -> 4 SNAC frames of 512 samples
@@ -2338,10 +2561,13 @@ TOKEN_AUDIO_S = 2048 / 7 / 24000   # 7 tokens -> 4 SNAC frames of 512 samples
 def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     """Orpheus-3B Q4_0 (Q4_0 head) + SNAC-24k text -> WAV through the port's
     CLI on the card (sampled, top-k 50, fixed seed, up to 2100 tokens);
-    counters set to 0 just before, read just after: K1, K3 and K6 must have
-    risen. Then the same path timed stage by stage and traced, and the K8
-    route: the loaded weights with the head swapped for an F16 one, 64
-    decode steps through the runner's decode loop."""
+    counters set to 0 just before, read just after: K1 and K6 must have
+    risen, and neither K3 nor a launch-sequence GEMV (K6 runs them inside
+    its one launch). Then the same path timed stage by stage (one K6 launch
+    a decode step) and a device trace of 32 decode steps (at most
+    ORPHEUS_KERNELS_PER_STEP kernels a step), and the K8 route: the loaded
+    weights with the head swapped for an F16 one, 64 decode steps through
+    the runner's decode loop, one K8 launch a step."""
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
     from tts_tpu_torch.common import GenerationConfig, kv_cache_dtype
@@ -2379,6 +2605,9 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     for n in ORPHEUS_PATH:
         if launches[n] == 0:
             raise AssertionError(f"kernel {n} was not launched on the Orpheus path")
+    for n in ORPHEUS_NOT_PATH + ("llama_megastep",):
+        if launches[n]:
+            raise AssertionError(f"kernel {n} was launched on the Orpheus path")
 
     # the same path, stage by stage, synchronized
     t0 = time.perf_counter()
@@ -2435,11 +2664,22 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
         raise AssertionError("a token is out of the vocabulary")
     # a steady window of 32 decode steps, from the prompt's end again
     st = omodel.init_state(cfg, first, len(ids), kk, vv, cfg.max_generation_size)
+    before = {n: KERNELS[n].launches for n in ("llama_flat_megastep",) + ORPHEUS_NOT_PATH}
     st = device_trace(lambda: omodel.decode_chunk(
         cfg, w, inv, st, 32, gen, mega=r.mega,
         max_steps=cfg.max_generation_size, **kw), "Orpheus decode (K6)", 32)
     if int(st.n_out) != 33:
         raise AssertionError("traced decode window produced the wrong count")
+    window = {n: (KERNELS[n].launches - b) / 32 for n, b in before.items()}
+    if window.pop("llama_flat_megastep") != 1 or any(window.values()) or \
+            last_trace is None or last_trace["kernels"] > ORPHEUS_KERNELS_PER_STEP:
+        raise AssertionError(f"Orpheus decode: launches a step {window}, "
+                             f"device trace {last_trace}: want one K6 launch a "
+                             f"step, no launch sequence and at most "
+                             f"{ORPHEUS_KERNELS_PER_STEP} kernels a step")
+    log(f"  Orpheus decode: 1 K6 launch a step, {last_trace['kernels']:.1f} "
+        f"kernels a step in the device trace (at most "
+        f"{ORPHEUS_KERNELS_PER_STEP}): ok")
 
     # the K8 route: the same layers with an F16 head (as the quantizer leaves
     # it without -qh), through the runner's decode loop
@@ -2461,10 +2701,13 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     toks = out8[:n8].cpu()
     log(f"  K8 route (F16 head): {n8 - 1} decode steps, {t8:.4f} ms/step; "
         f"launches {k8_launches}")
-    if n8 != K8_ROUTE_STEPS + 1 or k8_launches["llama_megastep"] == 0 or \
-            k8_launches["llama_flat_megastep"] or bool((toks < 0).any()) or \
-            bool((toks >= cfg.vocab_size).any()):
-        raise AssertionError("the K8 route did not decode through K8")
+    if n8 != K8_ROUTE_STEPS + 1 or \
+            k8_launches["llama_megastep"] != K8_ROUTE_STEPS or \
+            k8_launches["llama_flat_megastep"] or \
+            any(k8_launches[n] for n in ORPHEUS_NOT_PATH) or \
+            bool((toks < 0).any()) or bool((toks >= cfg.vocab_size).any()):
+        raise AssertionError("the K8 route did not decode through K8, one "
+                             "launch a step")
     del kk, vv
     torch.cuda.empty_cache()
 
@@ -2990,28 +3233,32 @@ def write_dia(path, rng, *, enc_layers, enc_hidden, enc_heads, enc_ffn,
     w.write()
 
 
-def dia_small_runners(tmp):
-    """A small Q4_0 Dia (L=2, H=256, 4/2 heads of 64, F 1024; a 1-layer
-    encoder of H 128; 9 codebooks of 1028; a 1024-byte window; a small DAC)
-    loaded on the card, on the CPU, and on the CPU with every decoder
-    embedding moved by one ulp."""
+def dia_small_runners(tmp, hidden=256, heads=4, kv_heads=2,
+                      name="dia-small.gguf"):
+    """A small Q4_0 Dia (L=2, H=256, 4/2 heads of 64 unless told otherwise,
+    F 1024; a 1-layer encoder of H 128; 9 codebooks of 1028; a 1024-byte
+    window; a small DAC) written to tmp/name and loaded on the card, on the
+    CPU, and on the CPU with every decoder embedding moved by one ulp."""
     from tts_tpu_torch.models.registry import runner_from_file
-    path = os.path.join(tmp, "dia-small.gguf")
+    path = os.path.join(tmp, name)
     write_dia(path, np.random.default_rng(SEED + 3), enc_layers=1,
-              enc_hidden=128, enc_heads=2, enc_ffn=256, n_layers=2, hidden=256,
-              heads=4, kv_heads=2, ffn=1024, n_out=9, vocab=1028, tc=1024,
-              max_gen=64, dac_chans=(64, 32, 16, 8, 4))
+              enc_hidden=128, enc_heads=2, enc_ffn=256, n_layers=2,
+              hidden=hidden, heads=heads, kv_heads=kv_heads, ffn=1024, n_out=9,
+              vocab=1028, tc=1024, max_gen=64, dac_chans=(64, 32, 16, 8, 4))
     gen = torch.Generator().manual_seed(SEED)
     runners = [runner_from_file(path, device=dev) for dev in
                (DEV, torch.device("cpu"), torch.device("cpu"))]
     e = runners[2].weights.dec_embds
     e.mul_(1 + (torch.randint(0, 2, e.shape, generator=gen) * 2 - 1) * 2 ** -23)
-    if any(r.mega is None for r in runners):
-        raise AssertionError("small Dia must take the K10 route")
+    if any(r.mega is None or r.mega.persistent !=
+           (hidden // heads in da.STEP_HEAD_SIZES) for r in runners):
+        raise AssertionError("small Dia must take the K10 route (K11 at one "
+                             "pair for heads other than 64 / 128)")
     return runners
 
 
-def check_small_dia(tmp) -> None:
+def check_small_dia(tmp, hidden=256, heads=4, kv_heads=2,
+                    name="dia-small.gguf", n_steps=48) -> None:
     """A small Q4_0 Dia: its encoder on the card against the CPU's (f32,
     1e-4 of the largest value); then greedy decoding on the CPU (plain
     versions) while the card (kernels) follows the same token history
@@ -3020,11 +3267,11 @@ def check_small_dia(tmp) -> None:
     change when every decoder embedding moves by one ulp, or 1e-3 (the
     Parler check's rule). Then the CPU's codes vocoded on both."""
     from tts_tpu_torch.models.dia import model as dmodel
-    n_steps = 48
-    log(f"Reference: small Q4_0 Dia (decoder L=2, H=256, 4/2 heads; encoder "
-        f"L=1, H=128; 1024-byte window), f32 caches, {n_steps} steps, card "
-        f"kernels vs CPU plain versions:")
-    runners = dia_small_runners(tmp)
+    log(f"Reference: small Q4_0 Dia (decoder L=2, H={hidden}, {heads}/"
+        f"{kv_heads} heads of {hidden // heads}; encoder L=1, H=128; "
+        f"1024-byte window), f32 caches, {n_steps} steps, card kernels vs CPU "
+        f"plain versions:")
+    runners = dia_small_runners(tmp, hidden, heads, kv_heads, name)
     rg, rc, _ = runners
     cfg = rc.cfg
     ids = dmodel.tokenize_sentence(DIA_PROMPT, cfg)
@@ -3275,6 +3522,99 @@ def small_orpheus_prompt_ids():
         omodel.PREPENDED_TOKENS, omodel.APPENDED_TOKENS = saved
 
 
+def engine_parity(label, eng, prompts, want, same) -> None:
+    """Greedy requests of `prompts`, one a slot, through the engine `eng`:
+    each request's codes (tokens) must equal `want(prompt)`, the
+    single-stream runner's, by `same`; logs the kernels launched."""
+    from tts_tpu_torch.common import GenerationConfig
+    rids = [eng.submit(p, GenerationConfig(sample=False)) for p in prompts]
+    if any(r is None for r in eng.slot_req):
+        raise AssertionError(f"{label}: a slot is idle")
+    before = {n: k.launches for n, k in KERNELS.items()}
+    eng.run_until_done()
+    torch.cuda.synchronize()
+    launched = {n: k.launches - before[n] for n, k in KERNELS.items()
+                if k.launches != before[n]}
+    for rid, p in zip(rids, prompts):
+        if not same(eng.results[rid], want(p)):
+            raise AssertionError(f"{label}: greedy codes of the engine "
+                                 f"differ from the runner's for {p!r}")
+    log(f"  {label}: {len(prompts)} greedy requests in {eng.n_slots} slots "
+        f"give the single-stream runner's codes exactly; launches "
+        f"{launched}: ok")
+
+
+# head sizes past 64 / 128, each family at (hidden, q heads, kv heads)
+HEAD_SIZE_MODELS = {256: (512, 2, 1), 192: (768, 4, 2)}
+
+
+def check_head_sizes(tmp) -> None:
+    """Small Q4_0 Parler, Orpheus and Dia models with heads of 256 and 192
+    (decode attention on K3 / K4's generic path; the persistent steps take
+    64 and 128 only, so Orpheus's single stream takes K7 / K9 at one slot
+    and Dia's K11 at one pair): each through its runner on the card,
+    teacher-forced against the CPU's plain versions (check_small_reference,
+    check_small_orpheus, check_small_dia, fewer steps), then its engine on
+    the card (2 slots) against the card runner's greedy codes (tokens),
+    equal."""
+    from tts_tpu_torch.models.dia.model import tokenize_sentence
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.batched_dia import BatchedDiaEngine
+    from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
+    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
+    from tts_tpu_torch.common import GenerationConfig
+    greedy = GenerationConfig(sample=False)
+    same_codes = (lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+    for d, (hidden, heads, kv) in HEAD_SIZE_MODELS.items():
+        # Parler: K2 and K5 with K3 / K4 at heads of d
+        name = f"parler-d{d}.gguf"
+        check_small_reference(tmp, hidden, heads, name, n_steps=24)
+        runner = runner_from_file(os.path.join(tmp, name))
+        prompts = serving_prompts(runner.tokenizer, n=2, lo=3, hi=20)
+        lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
+        single = copy.copy(runner)
+        single.cfg = dataclasses.replace(runner.cfg,
+                                         max_generation_size=max(lens) + 24)
+        engine_parity(f"Parler heads of {d}, K5", BatchedParlerEngine(
+            single.cfg, runner.weights, runner.tokenizer, n_slots=2, chunk=32),
+            prompts, lambda p: single.generate_codes(p, greedy), same_codes)
+        # Orpheus: K7 / K9 (the single stream at one slot)
+        check_small_orpheus(tmp, hidden, heads, kv, n_steps=24)
+        with small_orpheus_prompt_ids():
+            runner = runner_from_file(os.path.join(tmp, f"orpheus-small-K6-d{d}.gguf"))
+            single = copy.copy(runner)
+            single.cfg = dataclasses.replace(runner.cfg, max_generation_size=24)
+            eng = BatchedLlamaEngine(single.cfg, runner.weights,
+                                     runner.tokenizer, n_slots=2, chunk=32)
+            # the engine takes K7 for heads that are a multiple of 128 and K9
+            # (the head per matmul) for the others, as the JAX engine does;
+            # the runner takes the engine's route here, at one slot
+            single._mega, single._mega_ready = eng.mega, True
+            if single.mega.persistent:
+                raise AssertionError(f"heads of {d} took the persistent step")
+
+            def want(p):
+                out, n_out, _ = single.generate_tokens(p, greedy)
+                return omodel.prepare_output_tokens(out, n_out)
+
+            engine_parity(f"Orpheus heads of {d}, "
+                          f"{'K7' if d % 128 == 0 else 'K9'}", eng,
+                          ["hey?", "how are you doing?"], want,
+                          lambda a, b: a == b)
+        # Dia: K11 (the single stream at one pair), prompts of 129-256 bytes
+        name = f"dia-d{d}.gguf"
+        check_small_dia(tmp, hidden, heads, kv, name, n_steps=24)
+        runner = runner_from_file(os.path.join(tmp, name))
+        prompts = dia_prompts(n=2, lo=130, hi=250)
+        if not all(128 < len(tokenize_sentence(p, runner.cfg)) <= 256
+                   for p in prompts):
+            raise AssertionError("Dia prompts outside 129-256 bytes")
+        engine_parity(f"Dia heads of {d}, K11", BatchedDiaEngine(
+            runner.cfg, runner.weights, n_slots=2, chunk=32), prompts,
+            lambda p: runner.generate_codes(p, greedy), same_codes)
+
+
 def check_slot_groups(tmp) -> None:
     """The batched engines past one launch's rows, on small models: a Parler
     engine with 20 slots and an Orpheus engine with 20 (K5 and K7 in two
@@ -3290,23 +3630,7 @@ def check_slot_groups(tmp) -> None:
     from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
     from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
     greedy = GenerationConfig(sample=False)
-
-    def parity(label, eng, prompts, want, same):
-        rids = [eng.submit(p, greedy) for p in prompts]
-        if any(r is None for r in eng.slot_req):
-            raise AssertionError(f"{label}: a slot is idle")
-        before = {n: k.launches for n, k in KERNELS.items()}
-        eng.run_until_done()
-        torch.cuda.synchronize()
-        launched = {n: k.launches - before[n] for n, k in KERNELS.items()
-                    if k.launches != before[n]}
-        for rid, p in zip(rids, prompts):
-            if not same(eng.results[rid], want(p)):
-                raise AssertionError(f"{label}: greedy codes of the engine "
-                                     f"differ from the runner's for {p!r}")
-        log(f"  {label}: {len(prompts)} greedy requests in {eng.n_slots} slots "
-            f"give the single-stream runner's codes exactly; launches "
-            f"{launched}: ok")
+    parity = engine_parity
 
     # Parler, 20 slots (K5 in groups of 10)
     runner = runner_from_file(os.path.join(tmp, "parler-small.gguf"))
@@ -3468,6 +3792,7 @@ def main() -> int:
             phase(check_k5, gen, mega, qtype),
             phase(check_k12, gen, mega, qtype)]
     phase(time_parler_gemv, mega, qtype)
+    phase(check_other_head_sizes)
     del mega
     torch.cuda.empty_cache()
     lmega, flat, lkw = orpheus_kernel_weights(gen)
@@ -3496,6 +3821,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase(check_small_dia, tmp)
         phase(check_slot_groups, tmp)
+        phase(check_head_sizes, tmp)
         dia, dia_path = phase(run_dia_main_path, tmp)
         served_dia = phase(run_dia_serving, dia_path)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler

@@ -19,7 +19,9 @@ widths, it measures in turns (OTHER, committed, committed, OTHER):
   taken in turn so that the K/V rows come from device memory), and K4 at 8
   slots at mixed positions at the same shapes; PyTorch's
   scaled_dot_product_attention on the same inputs is timed beside them;
-- the steps: K8 / K6 at one slot (pos 1000), K9 / K7 at 8 and 16 slots
+- the steps: K8 / K6 at one slot (pos 1000 and 3583, the cache's last
+  row; one launch of csrc/llama_flat.cu, an older version's may be the
+  launch sequence), K9 / K7 at 8 and 16 slots
   and K11 at 4 and 8 pairs at chip_smoke's mixed positions, K10 (one
   launch of csrc/dia_flat.cu; an older version's may be the launch
   sequence) at one pair (pos 1000), K2 and K12 at pos 1000 and K5 at 8 and 16 slots, with
@@ -210,9 +212,9 @@ def llama_steps(versions, gen) -> None:
     L, H, ctx = cs.ORPHEUS["n_layers"], cs.ORPHEUS["hidden"], cs.ORPHEUS["ctx"]
     nkv = cs.ORPHEUS["kv_heads"]
     dev = cs.DEV
-    for b in (1, 8, 16):
+    for b, p1 in ((1, 1000), (1, ctx - 1), (8, None), (16, None)):
         slots = cs.LLAMA_SLOTS_16 if b == 16 else cs.LLAMA_SLOTS
-        pos = torch.tensor(slots[:b] if b > 1 else [1000], dtype=torch.int32,
+        pos = torch.tensor(slots[:b] if b > 1 else [p1], dtype=torch.int32,
                            device=dev)
         kc, vc = ((torch.randn((L, b, nkv, ctx, d), generator=gen, device=dev)
                    * 0.5).to(torch.bfloat16) for _ in range(2))
@@ -231,7 +233,7 @@ def llama_steps(versions, gen) -> None:
                     "K7": lambda: v.lf.llama_flat_megastep_batched_cuda(
                         flat, x, kc, vc, pos, scratch=sc, **kw)}
 
-        where = "pos 1000" if b == 1 else f"{b} slots at {list(slots[:b])}"
+        where = f"pos {p1}" if b == 1 else f"{b} slots at {list(slots[:b])}"
         fns = {v.label: steps(v) for v in versions}
         for name in fns[versions[0].label]:
             compare(f"{name} {where}", [(v, fns[v.label][name]) for v in versions])
@@ -291,8 +293,8 @@ def k9_by_depth(versions, megas, x, kc, vc, pos, kw) -> None:
 
 
 def one_row(versions, gen, flats, kw) -> None:
-    """K6's GEMV launches one at a time at one row (pos 1000), on K6's
-    counter: each projection of layer l = 0, 1, ... in turn (the 28 layers'
+    """K6's GEMV launches one at a time at one row (pos 1000), through the
+    GEMV's entry on K7's counter: each projection of layer l = 0, 1, ... in turn (the 28 layers'
     weights are far more than the 50 MB L2 holds), then the head; the
     time per launch beside the projection's weight bytes. Each version
     launches its own layout: tiles (one tensor for gate and up) or rows."""
@@ -327,7 +329,7 @@ def one_row(versions, gen, flats, kw) -> None:
 
         def launch(a, bp, n, k, rms, epi, norm=null, kvh=0, resid=null,
                    cache=(null, null)):
-            v.lf.KERNEL(vp(x.data_ptr()), norm, rms, *a, *bp, kw["qtype"],
+            v.lf.KERNEL_BATCHED(vp(x.data_ptr()), norm, rms, *a, *bp, kw["qtype"],
                         packed, 1, 1, n, k, resid, vp(out.data_ptr()), epi,
                         vp(kw["inv_freq"].data_ptr()), vp(pos.data_ptr()), 1,
                         *cache, H, kvh, d, ctx, 1, 0, v.build.stream_ptr(dev))

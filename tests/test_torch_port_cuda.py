@@ -36,7 +36,15 @@ a one-row launch at 1, 8, 9 and 16 rows over K 3072 and 8192, and a row in
 each of a launch's 16 positions equals the one-row launch for every
 epilogue, quant type and scale type; 100 iterations of dependent GEMV
 launches with K3 between them, enqueued without a sync, each held to the
-plain version (the programmatic dependent launch's wait).
+plain version (the programmatic dependent launch's wait). The persistent
+llama step (K8 and K6, one cooperative launch of csrc/llama_flat.cu)
+bit for bit against the launch sequence (K9 / K7 at one slot) for every
+qtype, both cache dtypes and heads of 64 and 128 at positions across the
+pages, the same bits over 1,000 launches, one launch a step on its own
+counter, and its refusals (heads of 256, two positions, f32 scales past
+the qkv phase). K3 / K4 and the cross-attention entry at heads of 8, 80,
+96, 192 and 256 (the generic path) against their plain versions, and the
+head sizes they refuse.
 """
 import pytest
 import torch
@@ -200,6 +208,60 @@ def test_k3_k4_gqa_d128_match_plain(dev, cache_dtype, n_rep):
         assert torch.equal(got[s], one)
 
 
+@pytest.mark.parametrize("d", [8, 80, 96, 192, 256])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_rep", [1, 3])
+def test_k3_k4_other_head_sizes_match_plain(dev, cache_dtype, n_rep, d):
+    """Head sizes past 64 / 128 on the generic path: rows wider than a
+    warp's 16-byte lanes (bf16 192 / 256, f32 192 / 256) and rows whose
+    chunks do not divide 32 (80, 96, 192). K3 at positions across the
+    pages and K4 with slots at those positions, 1e-5 absolute against the
+    plain versions (f32 softmax, sums in another order); each K4 slot
+    equals K3 bit for bit."""
+    torch.manual_seed(0)
+    b = len(MIXED)
+    q = torch.randn((b, 2 * n_rep, d), device=dev)
+    k = torch.randn((b, 2, 640, d), device=dev).to(cache_dtype)
+    v = torch.randn((b, 2, 640, d), device=dev).to(cache_dtype)
+    p = torch.tensor(MIXED, dtype=torch.int32, device=dev)
+    got = da.decode_attention_batched_cuda(q, k, v, p)
+    torch.testing.assert_close(got, da.decode_attention_batched_plain(q, k, v, p),
+                               rtol=0, atol=1e-5)
+    for s in range(b):
+        assert torch.equal(got[s], da.decode_attention_cuda(q[s], k[s], v[s],
+                                                            p[s:s + 1]))
+
+
+@pytest.mark.parametrize("d", [12, 264, 512])
+def test_k3_refuses_head_sizes_it_does_not_take(dev, d):
+    """Heads that are not a multiple of 8 or are wider than 256 raise
+    before any launch."""
+    q = torch.randn((2, d), device=dev)
+    k = torch.randn((2, 64, d), device=dev)
+    p = torch.tensor([3], dtype=torch.int32, device=dev)
+    before = da.KERNEL.launches
+    with pytest.raises(ValueError):
+        da.decode_attention_cuda(q, k, k, p)
+    assert da.KERNEL.launches == before and not da.head_size_ok(d)
+
+
+@pytest.mark.parametrize("d", [80, 192, 256])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+def test_dia_cross_attention_other_head_sizes(dev, cache_dtype, d):
+    """The cross-attention entry takes K4's head sizes: bucket 256 with a
+    tail of 768, and 512 with none, 1e-5 of the largest output."""
+    torch.manual_seed(0)
+    q = torch.randn((2, 2, d), device=dev)
+    for sb, n_tail in ((256, 768), (512, 0)):
+        ck = torch.randn((2, 2, sb, d), device=dev).to(cache_dtype)
+        cv = torch.randn((2, 2, sb, d), device=dev).to(cache_dtype)
+        vt = torch.randn((2, 2, d), device=dev) * 10
+        got = dm.cross_attention_cuda(q, ck, cv, vt, n_tail)
+        ref = dm.cross_attention_plain(q, ck, cv, vt, n_tail)
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * ref.abs().max().item())
+
+
 def _device_events(fn, calls: int = 10) -> int:
     """Kernels (and memsets / copies) the card ran for one fn() call, over
     `calls` calls and rounded (the profiler may miss an event of its
@@ -312,14 +374,16 @@ def test_k5_matches_k2_and_plain(dev, qtype, b):
         torch.testing.assert_close(a, r, rtol=0, atol=5e-4 * r.abs().max().item())
 
 
-def _tiny_llama(dev, qtype):
-    """Two random llama layers at H=256 (4 q / 2 kv heads of 64, F 512) as
-    K8's and K6's weights, with a 1000-row head (padded to 1024), llama3
-    frequency factors of 1.25. Q8_0 scales are divided by 16, as in
-    _tiny_mega."""
+def _tiny_llama(dev, qtype, d=64, h=256, kv=None):
+    """Two random llama layers at H=256 (4 q / 2 kv heads of 64, F 512; with
+    d 128, 2 q / 1 kv heads; with d 256, one of each; F = 2 h; kv kv heads
+    where given) as K8's and K6's weights, with a 1000-row head (padded to 1024), llama3 frequency factors
+    of 1.25. Q8_0 scales are divided by 16, as in _tiny_mega."""
     from tts_tpu_torch.models.orpheus.model import OrpheusLayer
     from tts_tpu_torch.ops.attention import rope_freqs
-    L, H, F, heads, kv = 2, 256, 512, 4, 2
+    L, H, F = 2, h, 2 * h
+    heads = H // d
+    kv = kv or max(1, heads // 2)
     div = 16.0 if qtype == quants.GGML_TYPE_Q8_0 else 1.0
 
     def quant(n, k):
@@ -332,11 +396,11 @@ def _tiny_llama(dev, qtype):
                               torch.stack([w.scales for w in ws]), qtype)
 
     vec = lambda: torch.randn((L, H), device=dev) * 0.1 + 1  # noqa: E731
-    lw = OrpheusLayer(vec(), stack(H, H), stack(128, H), stack(128, H),
+    lw = OrpheusLayer(vec(), stack(H, H), stack(kv * d, H), stack(kv * d, H),
                       stack(H, H), vec(), stack(F, H), stack(F, H), stack(H, F))
-    mega, qt = lm.prep_llama_mega(lw, 64)
+    mega, qt = lm.prep_llama_mega(lw, d)
     flat = lf.prep_llama_flat(mega, quant(1000, H), vec()[0], qt, heads, kv)
-    inv = rope_freqs(64, 500000.0, torch.full((32,), 1.25, device=dev))
+    inv = rope_freqs(d, 500000.0, torch.full((d // 2,), 1.25, device=dev))
     return mega, flat, qt, dict(qtype=qt, n_heads=heads, n_kv=kv, inv_freq=inv)
 
 
@@ -394,17 +458,151 @@ def test_k6_matches_plain(dev, qtype, pos):
 
 
 def test_llama_launch_counters(dev):
-    """Each wrapper counts its own launches: per layer 4 GEMVs on K8's or
-    K6's counter and 1 K3, and K6's head GEMV on K6's."""
+    """Each wrapper counts its own launches: K8 and K6 are one persistent
+    launch a step each (the head inside K6's), with no GEMV, K3 or K4
+    launch."""
     torch.manual_seed(0)
     mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
     x, kc, vc, p = _llama_inputs(dev, 300)
-    before = (lm.KERNEL.launches, lf.KERNEL.launches, da.KERNEL.launches)
+    counters = (lm.KERNEL, lf.KERNEL, da.KERNEL, lm.KERNEL_BATCHED,
+                lf.KERNEL_BATCHED, da.KERNEL_BATCHED)
+    before = [k.launches for k in counters]
     lm.llama_megastep(mega, x, kc, vc, p, **kw)
     lf.llama_flat_megastep(flat, x, kc, vc, p, **kw)
     torch.cuda.synchronize()
-    after = (lm.KERNEL.launches, lf.KERNEL.launches, da.KERNEL.launches)
-    assert [a - b for a, b in zip(after, before)] == [8, 9, 4]
+    assert [k.launches - b for k, b in zip(counters, before)] == [1, 1, 0, 0, 0, 0]
+    assert _device_events(lambda: lf.llama_flat_megastep(flat, x, kc, vc, p, **kw),
+                          calls=5) <= 3   # the step, and the copy of x
+
+
+def _llama_sequence(w, x, kc, vc, p, kw):
+    """K8's (K6's) function through the launch sequence: K9 (K7) at one
+    slot, on views of the same caches (written in place)."""
+    fn = (lf.llama_flat_megastep_batched_cuda if isinstance(w, lf.LlamaFlat)
+          else lm.llama_megastep_batched_cuda)
+    out, kn, vn = fn(w, x, kc[:, None], vc[:, None], p, **kw)
+    return out, kn[:, 0], vn[:, 0]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
+                                   quants.GGML_TYPE_Q8_0])
+def test_persistent_llama_equals_launch_sequence(dev, qtype, cache_dtype, d):
+    """The persistent K8 (f32 qkv scales) and K6 (bf16 scales, the head its
+    last phase) against the launch sequence (K9 / K7 at one slot) on the
+    same state, at positions on both sides of the 256-row pages: x_out (the
+    logits, their padded rows 0), k_new, v_new and both caches bit for bit;
+    cache row pos is the only row either writes."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, qtype, d)
+    kv = kw["n_kv"]
+    kc = torch.randn((2, kv, 640, d), device=dev).to(cache_dtype)
+    vc = torch.randn((2, kv, 640, d), device=dev).to(cache_dtype)
+    x = torch.randn((1, 256), device=dev)
+    for pos in (0, 255, 256, 257, 639):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        for w, step in ((mega, lm.llama_megastep_cuda),
+                        (flat, lf.llama_flat_megastep_cuda)):
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = step(w, x, k1, v1, p, **kw)
+            seq = _llama_sequence(w, x, k2, v2, p, kw)
+            for a, b in zip(got, seq):
+                assert torch.equal(a, b), (pos, step.__name__)
+            assert torch.equal(k1, k2) and torch.equal(v1, v2)
+            rows = torch.arange(640, device=dev) != pos
+            assert torch.equal(k1[:, :, rows], kc[:, :, rows])
+            assert torch.equal(v1[:, :, rows], vc[:, :, rows])
+            assert torch.equal(k1[:, :, pos],
+                               got[1].reshape(2, kv, d).to(cache_dtype))
+        assert not got[0][:, 1000:].any()
+
+
+def test_persistent_llama_takes_widths_in_any_order(dev):
+    """One kernel serves models of several widths (and heads of 64 and 128):
+    its shared memory opt-in only rises, so a wide model's step after a
+    narrow one's is not refused as too large to be resident. K6 at H 512,
+    then H 256, then H 512 again, each equal to the launch sequence."""
+    torch.manual_seed(0)
+    p = torch.tensor([300], dtype=torch.int32, device=dev)
+    models = {h: _tiny_llama(dev, quants.GGML_TYPE_Q4_0, 128, h) for h in (512, 256)}
+    for h in (512, 256, 512):
+        _, flat, _, kw = models[h]
+        kv = kw["n_kv"]
+        kc = torch.randn((2, kv, 640, 128), device=dev).to(torch.bfloat16)
+        x = torch.randn((1, h), device=dev)
+        got = lf.llama_flat_megastep_cuda(flat, x, kc.clone(), kc.clone(), p, **kw)
+        seq = _llama_sequence(flat, x, kc.clone(), kc.clone(), p, kw)
+        for a, b in zip(got, seq):
+            assert torch.equal(a, b), h
+
+
+def test_persistent_llama_pairs_of_heads(dev):
+    """Past one round of the grid (heads x live pages > its blocks) the
+    attention phase serves two q heads a block, which at 3 q heads a kv
+    head read two kv heads: 24 / 8 heads of 64 at H 1536, positions on
+    both sides of 1280 (5 -> 6 pages: 120 -> 144 items), K8 and K6 bit for
+    bit against the launch sequence (K4 serves all 3 heads of a kv head in
+    one block)."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0, 64, 1536, 8)
+    assert kw["n_heads"] == 24 and kw["n_kv"] == 8
+    kc = torch.randn((2, 8, 1536, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((2, 8, 1536, 64), device=dev).to(torch.bfloat16)
+    x = torch.randn((1, 1536), device=dev)
+    for pos in (1000, 1279, 1280, 1535):
+        p = torch.tensor([pos], dtype=torch.int32, device=dev)
+        for w, step in ((mega, lm.llama_megastep_cuda),
+                        (flat, lf.llama_flat_megastep_cuda)):
+            k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+            got = step(w, x, k1, v1, p, **kw)
+            seq = _llama_sequence(w, x, k2, v2, p, kw)
+            for a, b in zip(got, seq):
+                assert torch.equal(a, b), (pos, step.__name__)
+            assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def test_persistent_llama_repeats_its_bits(dev):
+    """1,000 K6 launches back to back on the same state (each rewrites cache
+    row pos with the same bits) give the first launch's logits, k_new and
+    v_new bit for bit: the grid barrier's count runs on over 10 x 1,000
+    barriers without a reset, and the arrival counters stay zeroed."""
+    torch.manual_seed(0)
+    _, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, p = _llama_inputs(dev, 600)
+    first = [t.clone() for t in lf.llama_flat_megastep_cuda(flat, x, kc, vc, p, **kw)]
+    outs = [lf.llama_flat_megastep_cuda(flat, x, kc, vc, p, **kw)
+            for _ in range(1000)]
+    for i, o in enumerate(first):
+        assert torch.equal(torch.stack([r[i] for r in outs]),
+                           o.expand(1000, *o.shape)), i
+
+
+def test_persistent_llama_grid_and_refusals(dev):
+    """One launch of a grid of whole SMs; what the persistent step does not
+    take raises, with no launch: heads of 256 (its gate sends them to the
+    launch sequence), two positions, f32 o / gate / up / down scales."""
+    from tts_tpu_torch.ops import llama_persistent as lp
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    x, kc, vc, p = _llama_inputs(dev, 3)
+    lm.llama_megastep_cuda(mega, x, kc, vc, p, **kw)
+    torch.cuda.synchronize()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert lp.launched_blocks == sms * lp.blocks_per_sm and lp.blocks_per_sm >= 1
+    before = (lm.KERNEL.launches, lf.KERNEL.launches)
+    m256, f256, _, kw256 = _tiny_llama(dev, quants.GGML_TYPE_Q4_0, 256)
+    k256 = torch.zeros((2, 1, 640, 256), device=dev, dtype=torch.bfloat16)
+    for w, step in ((m256, lm.llama_megastep_cuda),
+                    (f256, lf.llama_flat_megastep_cuda)):
+        with pytest.raises(ValueError, match="heads of"):
+            step(w, x, k256, k256.clone(), p, **kw256)
+    with pytest.raises(ValueError):
+        lm.llama_megastep_cuda(mega, x, kc, vc, p.repeat(2), **kw)
+    with pytest.raises(ValueError, match="bfloat16"):
+        lm.llama_megastep_cuda(mega._replace(o_scales=mega.o_scales.float()),
+                               x, kc, vc, p, **kw)
+    assert (lm.KERNEL.launches, lf.KERNEL.launches) == before
 
 
 # slots of the batched llama steps: at positions on both sides of K4's

@@ -53,12 +53,14 @@ PROMPTS = ["[S1] hi there.", "[S2] ab", "[S1] a b c d. [S2] e f g.", "ok",
            "[S1] the quick brown fox."]
 
 
-def write_tiny_dia(path, rng, tc=64, max_gen=40):
+def write_tiny_dia(path, rng, tc=64, max_gen=40, **over):
     """A tiny F32 Dia GGUF with a tiny DAC-style decoder (2 blocks, 8x
-    upsampling), written with the JAX package's writer. The heads' EOS /
-    PAD / BOS rows are damped so that greedy decoding makes valid frames
-    for a while."""
-    c = dict(TINY, max_encoder_context_length=tc, max_generation_size=max_gen)
+    upsampling), written with the JAX package's writer; `over` replaces
+    fields of TINY (the head count and size). The heads' EOS / PAD / BOS
+    rows are damped so that greedy decoding makes valid frames for a
+    while."""
+    c = dict(TINY, max_encoder_context_length=tc, max_generation_size=max_gen,
+             **over)
     H, E, d = c["decoder_hidden_size"], c["encoder_hidden_size"], c["head_size"]
     QH, KVH = c["decoder_attn_heads"] * d, c["decoder_attn_heads"] // \
         c["decoder_query_heads"] * d

@@ -10,7 +10,9 @@ for a batched Orpheus-3B step must stay below the weights it streams.
 The Parler GEMV's shared memory (`ops/parler_megastep.py` after
 csrc/parler_gemv.cuh) at Parler-Mini's widths. The persistent K10's plan
 (`ops/dia_flat.py` after csrc/dia_flat.cu): each GEMV phase's (tile, K
-range) items, its shared memory, scratch and attention items.
+range) items, its shared memory, scratch and attention items. The
+persistent llama step's (`ops/llama_persistent.py` after
+csrc/llama_flat.cu) likewise, with its grid barriers, at Orpheus-3B width.
 """
 import pytest
 import torch
@@ -18,6 +20,7 @@ import torch
 from tts_tpu_torch.ops import decode_attention as da
 from tts_tpu_torch.ops import dia_flat as dfl
 from tts_tpu_torch.ops import llama_megastep as lm
+from tts_tpu_torch.ops import llama_persistent as lp
 from tts_tpu_torch.ops import parler_megastep as pm
 
 
@@ -270,3 +273,92 @@ def test_dia_flat_scratch_and_attention_items():
     assert dfl.attention_items(4, 2, 255, 640, 128) == (4, 8)
     assert dfl.attention_items(4, 4, 256, 640, 128) == (16, 8)
     assert dfl.attention_items(3, 3, 0, 640, 128) == (6, 6)
+
+
+# Orpheus-3B's step (H 3072, F 8192, 24 / 8 heads of 128, the head padded to
+# 157,184 rows) and the tiny width of tests/test_torch_port_cuda.py
+# (_tiny_llama: H 256, F 512, 4 / 2 heads, a 1024-row head)
+LLAMA_WIDTHS = {"orpheus": (3072, 8192, 24, 8, 157184),
+                "tiny": (256, 512, 4, 2, 1024)}
+
+
+@pytest.mark.parametrize("model,items,stages", [
+    ("orpheus", dict(qkv=640, o=384, gate_up=2048, down=768, head=19648),
+     dict(qkv=12, o=12, gate_up=12, down=16, head=12)),
+    ("tiny", dict(qkv=64, o=32, gate_up=128, down=32, head=128),
+     dict(qkv=1, o=1, gate_up=1, down=2, head=1))])
+def test_llama_persistent_gemv_items(model, items, stages):
+    """The GEMV phases of a layer and K6's head: tiles of 8 pairs times
+    k_split(K) K ranges (the launch sequence's cluster: 2 at K 3072, 4 at K
+    8192), each range whole ring stages of 128 weights covering K once; the
+    head's 19,648 items are 18-19 a warp of 132 x 8."""
+    h, f, heads, kv, vocab = LLAMA_WIDTHS[model]
+    phases = lp.gemv_phases(h, f, heads, kv, vocab)
+    assert [p.name for p in phases] == ["qkv", "o", "gate_up", "down", "head"]
+    assert {p.name: p.items for p in phases} == items
+    assert {p.name: p.stages for p in phases} == stages
+    for p in phases:
+        assert p.k_split == lm.gemv_k_split(p.k)
+        assert p.items == p.tiles * p.k_split
+        assert p.stages * p.k_split * lm.GEMV_UNIT_K == p.k
+    assert [p.name for p in lp.gemv_phases(h, f, heads, kv)] == \
+        ["qkv", "o", "gate_up", "down"]
+    if model == "orpheus":
+        head = phases[-1]
+        assert dfl.warps_with_items(head, 132) == 132 * 8
+        assert -(-head.items // (132 * 8)) == 19
+
+
+@pytest.mark.parametrize("n_layers,head,barriers", [
+    (28, False, 139), (28, True, 140), (4, False, 19), (4, True, 20),
+    (2, True, 10)])
+def test_llama_persistent_barriers(n_layers, head, barriers):
+    """One grid barrier after each of a layer's five phases but the last
+    layer's last, and one before K6's head."""
+    assert lp.barriers(n_layers, head) == barriers
+
+
+@pytest.mark.parametrize("qkv_bf16", [True, False])
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("model", ["orpheus", "tiny"])
+def test_llama_persistent_shared_memory_fits(model, packed, qkv_bf16):
+    """A block's dynamic shared memory: 8 warps' rings of 8 stages of the
+    larger of the qkv phase's stage (K8 keeps f32 qkv scales: 1,280 bytes a
+    Q4_0 stage, 2,304 of one-byte codes) and the others' (1,152 / 2,176),
+    the two buffers of range sums, the f32 row and norm weights of an RMS
+    prologue and the row staged as bf16 at the larger K; with the static
+    shared memory (the attention pages' state, under 20 KB) within the 227
+    KB a block may have. One block an SM at Orpheus-3B width: 123-197 KB."""
+    h, f = LLAMA_WIDTHS[model][:2]
+    smem = lp.smem_bytes(h, f, packed, qkv_bf16)
+    stage = {(True, True): 1152, (True, False): 1280, (False, True): 2176,
+             (False, False): 2304}[packed, qkv_bf16]
+    assert smem == 8 * 8 * stage + 2 * 8 * 32 * 16 + 2 * h * 4 + \
+        (2 * max(h, f) + 127) // 128 * 128 + 32
+    assert lp.RING_STAGES == 8
+    assert smem + lp.STATIC_SMEM <= lp.SMEM_LIMIT
+    if model == "orpheus":
+        assert smem == {(True, True): 122912, (True, False): 131104,
+                        (False, True): 188448, (False, False): 196640}[
+            packed, qkv_bf16]
+        assert 2 * (smem + 1024) > lm.GEMV_SM_SMEM
+
+
+def test_llama_persistent_scratch_and_attention_items():
+    """Scratch floats (the attention output, the SiLU output, the page
+    partials over ctx) and words (an arrival counter per q head, the
+    barrier's two); the attention phase's page items on 132 blocks, one q
+    head a block while they fit in one round, else two: Orpheus-3B's 24
+    heads go to pairs past 5 pages (pos 1280)."""
+    assert lp.n_pages(3584) == 14 and lp.n_pages(640) == 3
+    assert lp.scratch_floats(3072, 8192, 24, 128, 3584) == \
+        3072 + 8192 + 24 * 14 * 130
+    assert lp.scratch_floats(256, 512, 4, 64, 640) == 256 + 512 + 4 * 3 * 66
+    assert lp.scratch_words(24) == 26
+    assert lp.attention_items(24, 0, 3584, 132) == 24
+    assert lp.attention_items(24, 1000, 3584, 132) == 96
+    assert lp.attention_items(24, 1279, 3584, 132) == 120
+    assert lp.attention_items(24, 1280, 3584, 132) == 72
+    assert lp.attention_items(24, 3583, 3584, 132) == 168
+    assert lp.attention_items(3, 3583, 3584, 2) == 42
+    assert lp.attention_items(4, 5000, 640, 132) == 12

@@ -43,6 +43,10 @@
 // pass in flight, so the outputs are the two-launch design's bit for bit.
 // The K/V batch stride may be 0: the Parler cross-attention K/V are shared
 // by every slot, so one kernel serves both attentions of the batched step.
+// Head sizes: the models' 64 and 128 are compiled for; every other multiple
+// of 8 from 8 to 256 (attention.cuh head_size_ok) runs on one generic
+// instantiation per cache dtype and group, which takes the head size at run
+// time and spreads a row over the lanes as attention.cuh's lane layout says.
 //
 // The Dia steps' cross-attention (K10 / K11, ops/dia_megastep.py) is the
 // same kernel through its own entry, tts_cross_attention: every row of the
@@ -73,7 +77,8 @@ using namespace tts::attn;
 // q at q + s * q_bstride, its cache at kc/vc + s * kv_bstride and its
 // position at pos[s * pos_stride] (every row of the cache when pos_ptr is
 // null). With a tail, the state (0, n_tail, tail[(s * Hq + h) * D ..]) is
-// merged last (see the header).
+// merged last (see the header). D 0: the head size is d (the generic
+// path), else D.
 template <typename T, int D, int G, int PF>
 __global__ void __launch_bounds__(NWARPS * G * 32)
 attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
@@ -83,15 +88,15 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  unsigned int* __restrict__ arrivals, int hq, int n_rep,
                  int ctx, long long q_bstride, long long kv_bstride,
                  int pos_stride, float scale, const float* __restrict__ tail,
-                 float n_tail) {
+                 float n_tail, int d) {
   const int bg = blockIdx.x, s = bg / (hq / G);
   const int pos = pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1;
   attn_page<T, D, G, true, PF>(
       q, kc, vc, pos, out, part_ml, part_acc, bg, blockIdx.y, gridDim.y, hq,
-      n_rep, ctx, q_bstride, kv_bstride, scale, tail, n_tail);
+      n_rep, ctx, q_bstride, kv_bstride, scale, tail, n_tail, d);
   if (last_page(pos) > 0 && (int)blockIdx.y <= last_page(pos)) {
     attn_finish<D, G>(part_ml, part_acc, arrivals, pos, out, bg, gridDim.y,
-                      hq, tail, n_tail);
+                      hq, tail, n_tail, d);
   }
 }
 
@@ -119,20 +124,26 @@ int group_of(int n_rep) {
   return n_rep % 4 == 0 ? 4 : n_rep % 3 == 0 ? 3 : n_rep % 2 == 0 ? 2 : 1;
 }
 
+// The generic path (D 0) keeps 4 passes in flight: a lane of an f32 row
+// of more than 128 elements holds two chunks, so 8 passes' loads would
+// take 128 registers.
 template <typename T, int D, int G>
 void launch(const float* q, const void* kc, const void* vc, const int* pos,
             float* out, float* part_ml, float* part_acc,
             unsigned int* arrivals, int b, int hq, int n_rep, int ctx,
             long long q_bstride, long long kv_bstride, int pos_stride,
-            float scale, const float* tail, float n_tail, cudaStream_t s) {
+            float scale, const float* tail, float n_tail, int d,
+            cudaStream_t s) {
   const int n_pages = (ctx + PAGE - 1) / PAGE;
   const dim3 grid(b * hq / G, n_pages);
-  auto kern = passes_in_flight((long long)grid.x * grid.y) == 8
-                  ? attn_page_kernel<T, D, G, 8> : attn_page_kernel<T, D, G, 4>;
+  auto kern = attn_page_kernel<T, D, G, 4>;
+  if constexpr (D > 0) {
+    if (passes_in_flight((long long)grid.x * grid.y) == 8) kern = attn_page_kernel<T, D, G, 8>;
+  }
   kern<<<grid, NWARPS * G * 32, 0, s>>>(
       q, reinterpret_cast<const T*>(kc), reinterpret_cast<const T*>(vc), pos,
       out, part_ml, part_acc, arrivals, hq, n_rep, ctx, q_bstride, kv_bstride,
-      pos_stride, scale, tail, n_tail);
+      pos_stride, scale, tail, n_tail, d);
 }
 
 template <typename T, int D>
@@ -140,11 +151,11 @@ void launch_group(int g, const float* q, const void* kc, const void* vc,
                   const int* pos, float* out, float* part_ml, float* part_acc,
                   unsigned int* arrivals, int b, int hq, int n_rep, int ctx,
                   long long q_bstride, long long kv_bstride, int pos_stride,
-                  float scale, const float* tail, float n_tail,
+                  float scale, const float* tail, float n_tail, int d,
                   cudaStream_t s) {
 #define TTS_ATTN_ARGS q, kc, vc, pos, out, part_ml, part_acc, arrivals, b, hq, \
                       n_rep, ctx, q_bstride, kv_bstride, pos_stride, scale,   \
-                      tail, n_tail, s
+                      tail, n_tail, d, s
   if (g == 4) {
     launch<T, D, 4>(TTS_ATTN_ARGS);
   } else if (g == 3) {
@@ -167,10 +178,12 @@ int dispatch(const float* q, const void* kc, const void* vc, const int* pos,
       (ctx + PAGE - 1) / PAGE > 65535 || arrivals == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
+  if (!head_size_ok(d)) return (int)cudaErrorInvalidValue;
   const int g = group_of(n_rep);
 #define TTS_ATTN_ARGS g, q, kc, vc, pos, out, part_ml, part_acc, arrivals, b, \
                       hq, n_rep, ctx, q_bstride, kv_bstride, pos_stride,       \
-                      scale, tail, n_tail, s
+                      scale, tail, n_tail, d, s
+  // the models' head sizes compiled for, every other one on the generic path
   if (cache_bf16 && d == 64) {
     launch_group<__nv_bfloat16, 64>(TTS_ATTN_ARGS);
   } else if (cache_bf16 && d == 128) {
@@ -179,8 +192,10 @@ int dispatch(const float* q, const void* kc, const void* vc, const int* pos,
     launch_group<float, 64>(TTS_ATTN_ARGS);
   } else if (!cache_bf16 && d == 128) {
     launch_group<float, 128>(TTS_ATTN_ARGS);
+  } else if (cache_bf16) {
+    launch_group<__nv_bfloat16, 0>(TTS_ATTN_ARGS);
   } else {
-    return (int)cudaErrorInvalidValue;
+    launch_group<float, 0>(TTS_ATTN_ARGS);
   }
 #undef TTS_ATTN_ARGS
   return (int)cudaGetLastError();
@@ -198,7 +213,8 @@ extern "C" int tts_attention_abi(void) { return 2; }
 // out (b, hq, d) f32; part_ml (b * hq, ceil(ctx/256), 2) and part_acc
 // (b * hq, ceil(ctx/256), d) f32 scratch; arrivals at least b * hq zeroed
 // uint32 counters, left zeroed (launches that share them must be ordered,
-// as on one stream). d must be 64 or 128. K3 is the call with b = 1.
+// as on one stream). d a multiple of 8 from 8 to 256 (head_size_ok). K3 is
+// the call with b = 1.
 extern "C" int tts_decode_attention(
     const float* q, const void* kc, const void* vc, const int* pos,
     float* out, float* part_ml, float* part_acc, unsigned int* arrivals,

@@ -29,7 +29,8 @@
 //   6. cross o, x += .  7. RMS -> gate / up, SiLU(gate) * up
 //   8. down, x += .
 // A GEMV phase runs gemv.cuh's per-item device code (the weight stream, the
-// mma over a stage, the RMS sums, the epilogues): k_split(K) warps of one
+// mma over a stage, the RMS sums, the epilogues; the phase functions are
+// flat_gemv.cuh's, shared with the llama step): k_split(K) warps of one
 // block take the K ranges of one tile (2 at K 2048, 4 at K 8192), and the
 // first adds the others' sums in range order through shared memory, the
 // order in which the launch sequence's cluster rank 0 adds its ranks'. A
@@ -69,7 +70,7 @@
 #include <cuda_runtime.h>
 
 #include "attention.cuh"
-#include "gemv.cuh"
+#include "flat_gemv.cuh"
 #include "grid_sync.cuh"
 
 namespace {
@@ -77,7 +78,6 @@ namespace {
 using tts::attn::PAGE;
 
 constexpr int ROWS = 2;       // the CFG pair
-constexpr int FLAT_NT = 1;    // one n-tile of 8 input rows holds them
 // Ring stages a warp keeps: a whole (tile, K range) item at K 2048, so
 // that the qkv, o, cq and co phases (one item a warp at Dia-1.6B width)
 // find all their weights in shared memory when their barrier opens.
@@ -85,8 +85,6 @@ constexpr int FLAT_STAGES = 8;
 // passes whose K / V loads a page's warp keeps in flight (K4 keeps 8 for
 // one sequence, 2% slower here; the outputs do not depend on it)
 constexpr int ATTN_PF = 4;
-constexpr int PREFETCH_CHUNK = 16384;   // bytes of one L2 prefetch
-constexpr int STAGE_BATCH = 8;          // float4 loads in flight a thread
 
 struct DiaArgs {
   float* x;                  // (2, H), updated in place
@@ -120,29 +118,6 @@ struct DiaArgs {
   unsigned int* arrivals;    // 2 heads counters, zero on entry and exit
   unsigned int* bar;         // grid_sync's 2 words
   int n_layers, hidden, ffn, heads, n_kv, ctx, sb, n_pages, cache_bf16;
-};
-
-// One GEMV phase: out = epilogue(RMS?(x) @ dequant(W)^T) for the 2 rows.
-struct Gemv {
-  const uint8_t* codes;
-  const uint8_t* scales;
-  const float* x;
-  const float* norm_w;       // null: no RMS prologue
-  int P, N, K, epi;
-  const float* res;
-  float* out;
-  RopeArgs ra;
-};
-
-// A block's dynamic shared memory (flat_smem_bytes): this warp's ring of
-// FLAT_STAGES stages, the double-buffered range sums (a float4 a lane a
-// warp), the f32 copies of the two rows and the norm weights for an RMS
-// prologue (3 H floats), and the two rows staged as bf16 at the larger K.
-struct Smem {
-  uint8_t* ring;
-  float4* slots;
-  float4* raw;
-  uint8_t* xs;
 };
 
 enum Which { W_QKV = 0, W_O = 1, W_CQ = 2, W_CO = 3, W_GATE_UP = 4, W_DOWN = 5 };
@@ -215,163 +190,6 @@ __device__ __forceinline__ Gemv gemv_of(const DiaArgs& a, int l, int which,
   return g;
 }
 
-__device__ __forceinline__ void named_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
-// This warp's part of a GEMV phase: warps w .. w + ks - 1 (w = j ks) of
-// block b take the ks K ranges of tiles j B + b, j B + b + S, ... (B blocks,
-// S = B * WARPS / ks slots), so the tiles spread over the blocks first.
-// Sets up the warp's weight stream and issues its first FLAT_STAGES stages
-// (weights are never written in the launch: this may run before the
-// barrier that ends the phase before).
-template <bool PACKED>
-__device__ __forceinline__ void gemv_begin(WeightStream<PACKED, true>& ws,
-                                           const Gemv& gv, uint8_t* ring,
-                                           int warp, int lane) {
-  using S = Stage<PACKED, true>;
-  const int ks = k_split(gv.K), tpb = WARPS / ks;
-  const int tiles = (gv.P + TILE_PAIRS - 1) / TILE_PAIRS;
-  const int slots = gridDim.x * tpb, first = (warp / ks) * gridDim.x + blockIdx.x;
-  const int n_items = first < tiles ? (tiles - 1 - first) / slots + 1 : 0;
-  const int stages = gv.K / UNIT_K, per_item = stages / ks;
-  ws.init(gv.codes, gv.scales, first, slots, n_items, per_item, stages,
-          (warp % ks) * per_item);
-#pragma unroll
-  for (int f = 0; f < FLAT_STAGES; ++f) ws.next(ring + f * S::BYTES, lane);
-}
-
-// The rest of a GEMV phase, after gemv_begin and the barrier: the staging
-// of the two rows (every block with a tile), then the warp's items, each
-// tile's ranges added in order by its first warp (partial sums
-// double-buffered in shared memory, the ks warps of a tile meeting at a
-// named barrier), then the epilogue. With an RMS prologue the rows and the
-// norm weights are first copied to shared memory as f32 (one round of
-// loads), the sums taken there, then the rows normalized from there.
-template <int QT, bool PACKED>
-__device__ __forceinline__ void gemv_run(WeightStream<PACKED, true>& ws,
-                                         const Gemv& gv, const Smem& sm,
-                                         double (*rms_part)[MAX_ROWS],
-                                         float* rstd) {
-  using S = Stage<PACKED, true>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int K = gv.K, ks = k_split(K), kr = K / ks, range = warp % ks;
-  if ((int)blockIdx.x >= (gv.P + TILE_PAIRS - 1) / TILE_PAIRS) {
-    cp_async_wait<0>();   // no tile in this block
-    return;
-  }
-  uint8_t* xs = sm.xs;
-  float4* raw = sm.raw;
-  const int xstride = xs_stride(K);
-  const int n4 = ROWS * K / 4, per_row = K / 4;
-  const float4* x4 = reinterpret_cast<const float4*>(gv.x);
-  if (gv.norm_w != nullptr) {
-    const float4* w4 = reinterpret_cast<const float4*>(gv.norm_w);
-    for (int base = threadIdx.x; base < n4 + per_row; base += STAGE_BATCH * THREADS) {
-      float4 v[STAGE_BATCH];
-#pragma unroll
-      for (int j = 0; j < STAGE_BATCH; ++j) {
-        const int idx = base + j * THREADS;
-        if (idx < n4 + per_row) v[j] = idx < n4 ? x4[idx] : w4[idx - n4];
-      }
-#pragma unroll
-      for (int j = 0; j < STAGE_BATCH; ++j) {
-        const int idx = base + j * THREADS;
-        if (idx < n4 + per_row) raw[idx] = v[j];
-      }
-    }
-    __syncthreads();
-    const float* rawf = reinterpret_cast<const float*>(raw);
-    for (int c = warp; c < ROWS * ks; c += WARPS) {   // (row, range) a warp
-      const int r = c / ks, q = c % ks;
-      const double s = rms_sum(rawf + (size_t)r * K + q * kr, kr / 4, lane);
-      if (lane == 0) rms_part[q][r] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < ROWS) {
-      rstd[threadIdx.x] = rms_rstd(&rms_part[0][threadIdx.x], MAX_ROWS, ks, K);
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n4; idx += THREADS) {
-      const int r = idx / per_row, i = idx - r * per_row;
-      reinterpret_cast<uint2*>(xs + (size_t)r * xstride)[i] =
-          pack4(norm4(raw[idx], raw[n4 + i], rstd[r]));
-    }
-  } else {
-    for (int base = threadIdx.x; base < n4; base += STAGE_BATCH * THREADS) {
-      float4 v[STAGE_BATCH];
-#pragma unroll
-      for (int j = 0; j < STAGE_BATCH; ++j) {
-        if (base + j * THREADS < n4) v[j] = x4[base + j * THREADS];
-      }
-#pragma unroll
-      for (int j = 0; j < STAGE_BATCH; ++j) {
-        const int idx = base + j * THREADS;
-        if (idx < n4) {
-          const int r = idx / per_row, i = idx - r * per_row;
-          reinterpret_cast<uint2*>(xs + (size_t)r * xstride)[i] = pack4(v[j]);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  int u = 0;   // the stage being computed, counted over the items
-#pragma unroll 1
-  for (int item = 0; item < ws.n_items; ++item) {
-    float acc[FLAT_NT][4] = {{0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 1
-    for (int s = 0; s < ws.per_item; ++s, ++u) {
-      cp_async_wait<FLAT_STAGES - 1>();
-      __syncwarp();
-      uint8_t* st = sm.ring + (u % FLAT_STAGES) * S::BYTES;
-      stage_mma<QT, PACKED, true, FLAT_NT>(st, xs, xstride, ROWS,
-                                           (ws.first_stage + s) * UNIT_K, g, t, acc);
-      __syncwarp();   // every lane is done with the stage before it is refilled
-      ws.next(st, lane);
-    }
-    if (ks > 1) {   // the tile's range sums meet in its first warp, in order
-      float4* buf = sm.slots + (item & 1) * WARPS * 32;
-      if (range != 0) {
-        buf[warp * 32 + lane] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-      }
-      named_sync(1 + warp / ks, 32 * ks);
-      if (range == 0) {
-        for (int q = 1; q < ks; ++q) {
-          const float4 v = buf[(warp + q) * 32 + lane];
-          acc[0][0] += v.x;
-          acc[0][1] += v.y;
-          acc[0][2] += v.z;
-          acc[0][3] += v.w;
-        }
-      }
-    }
-    if (range == 0) {
-      tile_epilogue<FLAT_NT>(acc, (ws.first + ws.stride * item) * TILE_PAIRS + g,
-                             gv.P, t, ROWS, gv.epi, gv.N, gv.res, gv.out, gv.ra);
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// An L2 prefetch of n_runs runs of `bytes` each (16-byte multiples, 16-byte
-// aligned), run i at base + i * stride elements of T, in PREFETCH_CHUNK
-// pieces spread over the lanes of every block's last warp.
-template <typename T>
-__device__ __forceinline__ void prefetch_l2(const T* base, long long stride,
-                                            int n_runs, long long bytes) {
-  if (threadIdx.x / 32 != WARPS - 1) return;
-  const long long per_run = (bytes + PREFETCH_CHUNK - 1) / PREFETCH_CHUNK;
-  for (long long c = blockIdx.x * 32LL + threadIdx.x % 32; c < n_runs * per_run;
-       c += gridDim.x * 32LL) {
-    const long long off = (c % per_run) * PREFETCH_CHUNK;
-    const unsigned n = (unsigned)(bytes - off < PREFETCH_CHUNK ? bytes - off : PREFETCH_CHUNK);
-    const uint8_t* p = reinterpret_cast<const uint8_t*>(base + (c / per_run) * stride) + off;
-    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(n) : "memory");
-  }
-}
-
 // The self-attention of layer l: the (pair row, q-head group) x 256-row
 // page items over the blocks, each block merging an item's pages when it
 // finishes its last (attn_finish). G q heads share a page block.
@@ -436,7 +254,7 @@ __global__ void __launch_bounds__(THREADS, 1) dia_flat_kernel(DiaArgs a) {
   const bool pairs_of_heads = (a.heads / a.n_kv) % 2 == 0;
   WeightStream<PACKED, true> ws;
   Gemv gv = gemv_of<PACKED>(a, 0, W_QKV, &pos_s, inv_s);
-  gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+  gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
   if (threadIdx.x == 0) pos_s = a.pos[0];
   if (threadIdx.x < D / 2) inv_s[threadIdx.x] = a.inv[threadIdx.x];
   __syncthreads();
@@ -450,9 +268,9 @@ __global__ void __launch_bounds__(THREADS, 1) dia_flat_kernel(DiaArgs a) {
     const T* vc = reinterpret_cast<const T*>(a.kv_v) + l * a.kv_ls;
     prefetch_l2(kc, (long long)a.ctx * D, ROWS * a.n_kv, kv_bytes);
     prefetch_l2(vc, (long long)a.ctx * D, ROWS * a.n_kv, kv_bytes);
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     gv = gemv_of<PACKED>(a, l, W_O, &pos_s, inv_s);
-    gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+    gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
     grid_sync(a.bar);
     // 2. self-attention over rows [0, pos]
     if (pairs_of_heads) {
@@ -464,33 +282,33 @@ __global__ void __launch_bounds__(THREADS, 1) dia_flat_kernel(DiaArgs a) {
     // 3. o; x += .  (this layer's cross K / V into L2 meanwhile)
     prefetch_l2(a.ck + l * a.cross_ls, 0, 1, cross_bytes);
     prefetch_l2(a.cv + l * a.cross_ls, 0, 1, cross_bytes);
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     gv = gemv_of<PACKED>(a, l, W_CQ, &pos_s, inv_s);
-    gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+    gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
     grid_sync(a.bar);
     // 4. RMS -> cross q, RoPE
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     gv = gemv_of<PACKED>(a, l, W_CO, &pos_s, inv_s);
-    gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+    gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
     grid_sync(a.bar);
     // 5. cross-attention over the bucket, the tail folded last
     cross_attention<D>(a, l);
     grid_sync(a.bar);
     // 6. cross o; x += .
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     gv = gemv_of<PACKED>(a, l, W_GATE_UP, &pos_s, inv_s);
-    gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+    gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
     grid_sync(a.bar);
     // 7. RMS -> gate / up, SiLU(gate) * up
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     gv = gemv_of<PACKED>(a, l, W_DOWN, &pos_s, inv_s);
-    gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+    gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
     grid_sync(a.bar);
     // 8. down; x += .
-    gemv_run<QT, PACKED>(ws, gv, sm, rms_part, rstd);
+    gemv_run<QT, PACKED, true, ROWS, FLAT_STAGES>(ws, gv, sm, rms_part, rstd);
     if (l + 1 < a.n_layers) {
       gv = gemv_of<PACKED>(a, l + 1, W_QKV, &pos_s, inv_s);
-      gemv_begin<PACKED>(ws, gv, sm.ring, warp, lane);
+      gemv_begin<PACKED, true, FLAT_STAGES>(ws, gv, sm.ring, warp, lane);
       grid_sync(a.bar);
     }
   }
@@ -506,40 +324,11 @@ int flat_smem_bytes(int hidden, int ffn) {
          ROWS * xs_stride(hidden > ffn ? hidden : ffn);
 }
 
-// Blocks of `kern` an SM holds with `smem` bytes, asked of the driver (and
-// the kernel opted in to `smem`) once per (kernel, smem).
-int blocks_per_sm(const void* kern, int smem) {
-  static std::mutex mu;
-  static std::map<std::pair<const void*, int>, int> known;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_pair(kern, smem);
-  auto it = known.find(key);
-  if (it != known.end()) return it->second;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
-  if (e != cudaSuccess) return -(int)e;
-  int n = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, THREADS, smem);
-  if (e != cudaSuccess) return -(int)e;
-  known[key] = n;
-  return n;
-}
-
 template <int QT, bool PACKED, typename T, int D>
 int launch(DiaArgs a, int smem, cudaStream_t s, int* grid_out, int* per_sm_out) {
   if (smem != flat_smem_bytes<PACKED>(a.hidden, a.ffn)) return (int)cudaErrorInvalidValue;
-  auto kern = dia_flat_kernel<QT, PACKED, T, D>;
-  const int per_sm = blocks_per_sm(reinterpret_cast<const void*>(kern), smem);
-  if (per_sm < 0) return -per_sm;
-  if (per_sm == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int grid = sm_count() * per_sm;
-  if (grid_out) *grid_out = grid;
-  if (per_sm_out) *per_sm_out = per_sm;
-  void* args[] = {&a};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(kern), dim3(grid), dim3(THREADS), args, smem, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_cooperative(reinterpret_cast<const void*>(dia_flat_kernel<QT, PACKED, T, D>),
+                            a, smem, s, grid_out, per_sm_out);
 }
 
 template <typename T, int D>

@@ -28,6 +28,8 @@ Decode step routes, chosen by the weights and never by the device:
     block-quantized with one qtype and the dims qualify: the layer stack
     over the bucketed bf16 cross K/V with the analytic pad-tail fold
     (`prep_dia_cross`), then the final norm and the stacked heads (K1);
+    one persistent launch for heads of 64 or 128, K11's launch sequence at
+    one pair for the other head sizes K4 takes;
   * per matmul otherwise (`decode_layers`: K1 for quantized weights, K4
     for the self-attention of both rows, the full cross window in plain
     PyTorch).
@@ -50,9 +52,11 @@ from ...common import (GenerationConfig, SAMPLE_RATE_DAC, TTSResponse,
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import apply_rope_neox, sdpa
-from ...ops.decode_attention import decode_attention_batched
+from ...ops.decode_attention import (STEP_HEAD_SIZES, decode_attention_batched,
+                                     require_head_size)
 from ...ops.dia_megastep import (cross_attention_plain, dia_megastep,
-                                 inv_freq, prep_dia_cross, prep_dia_mega)
+                                 dia_megastep_batched, inv_freq,
+                                 prep_dia_cross, prep_dia_mega)
 from ...ops.linear import (Weight, dense, from_gguf_tensor, matmul,
                            stack_weights)
 from ...ops.llama_megastep import rms_norm
@@ -218,9 +222,13 @@ class DiaCross(NamedTuple):
 
 
 class Mega(NamedTuple):
-    """K10's weights and their qtype (see maybe_prep_dia_mega)."""
+    """K10's weights and their qtype (see maybe_prep_dia_mega).
+    `persistent`: the single stream takes the persistent K10 (heads of 64
+    or 128); else the same function through K11's launch sequence at one
+    pair."""
     layers: Any
     qtype: int
+    persistent: bool = True
 
 
 def maybe_prep_dia_mega(cfg: DiaConfig, w: DiaWeights) -> Mega | None:
@@ -228,13 +236,18 @@ def maybe_prep_dia_mega(cfg: DiaConfig, w: DiaWeights) -> Mega | None:
     projections and kernel-friendly dims (the JAX package's gate,
     model.py:377-383, without its platform test: the weights choose the
     route, not the device; the widths the GEMV takes are `prep_dia_mega`'s
-    to refuse). None -> the per-matmul route."""
+    to refuse). None -> the per-matmul route. Heads that no decode route's
+    attention takes raise ValueError (every route runs K4); heads that the
+    persistent K10 does not take (other than 64 and 128) get K11's launch
+    sequence (`persistent` False)."""
+    require_head_size(cfg.head_size, "Dia")
     if cfg.head_size % 64:
         return None
     try:
-        return Mega(*prep_dia_mega(w.dec_layers, cfg.head_size))
+        layers, qtype = prep_dia_mega(w.dec_layers, cfg.head_size)
     except ValueError:
         return None
+    return Mega(layers, qtype, cfg.head_size in STEP_HEAD_SIZES)
 
 
 def embed_step(w: DiaWeights, tokens_in: torch.Tensor) -> torch.Tensor:
@@ -323,11 +336,20 @@ def step_logits(cfg: DiaConfig, w: DiaWeights, tokens_in, pos, kv_k, kv_v,
     vocab) logits. tokens_in (n_heads,); pos (1,) int32; kv_k / kv_v (L, 2,
     n_kv, ctx, D), row pos written in place."""
     x = embed_step(w, tokens_in[None])
-    if mega is not None:
+    kw = dict(n_heads=cfg.decoder_attn_heads, n_kv=cfg.n_kv_heads)
+    if mega is not None and mega.persistent:
         xo, _, _ = dia_megastep(mega.layers, x, kv_k, kv_v, pos, cross.ck,
                                 cross.cv, cross.vtail, cross.n_tail,
-                                qtype=mega.qtype, n_heads=cfg.decoder_attn_heads,
-                                n_kv=cfg.n_kv_heads)
+                                qtype=mega.qtype, **kw)
+    elif mega is not None:
+        # K11's launch sequence at one pair, which computes what K10
+        # computes, bit for bit: views of the pair's caches and cross K/V
+        heads = cfg.decoder_attn_heads
+        xo, _, _ = dia_megastep_batched(
+            mega.layers, x, kv_k[:, None], kv_v[:, None], pos,
+            *(t.unflatten(1, (2, heads))[:, None]
+              for t in (cross.ck, cross.cv, cross.vtail)),
+            cross.n_tail, qtype=mega.qtype, **kw)
     else:
         xo = decode_layers(cfg, w, x, kv_k, kv_v, pos, cross)
     return cfg_logits(cfg, w, final_norm(w, xo))[0]

@@ -23,8 +23,10 @@ JAX package's `maybe_prep_llama_flat` chooses them:
     then the final norm and the head per matmul;
   * per matmul otherwise (`decode_layers`: K1 for quantized weights, K4
     for attention, one row per sequence as in the batched engine).
-Both kernels use K3 for attention. On CPU tensors every kernel runs its
-plain PyTorch version. Prefill runs per matmul (K1 for M <= 256).
+Both are one persistent launch a step for heads of 64 or 128; heads of
+192 or 256 take K7 / K9's launch sequence at one slot, which computes the
+same bit for bit. On CPU tensors every kernel runs its plain PyTorch
+version. Prefill runs per matmul (K1 for M <= 256).
 The batched engine (runtime/batched_llama.py) shares the prefill, the
 per-matmul decode layers, the prompt ids and the voice check with the
 runner.
@@ -44,11 +46,14 @@ from ...common import (GenerationConfig, SAMPLE_RATE_SNAC, TTSResponse,
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import apply_rope_neox, gqa_prefill, rope_freqs
-from ...ops.decode_attention import decode_attention_batched
+from ...ops.decode_attention import (STEP_HEAD_SIZES, decode_attention_batched,
+                                     require_head_size)
 from ...ops.linear import (Weight, dense, from_gguf_tensor, matmul,
                            stack_weights, take_rows)
-from ...ops.llama_flat import LlamaFlat, llama_flat_megastep, prep_llama_flat
-from ...ops.llama_megastep import llama_megastep, prep_llama_mega, rms_norm
+from ...ops.llama_flat import (LlamaFlat, llama_flat_megastep,
+                               llama_flat_megastep_batched, prep_llama_flat)
+from ...ops.llama_megastep import (llama_megastep, llama_megastep_batched,
+                                   prep_llama_mega, rms_norm)
 from ...ops.quant_matmul import QuantTensor
 from ...text import BPETokenizer
 from ..base import TTSRunner
@@ -207,22 +212,30 @@ class OrpheusState(NamedTuple):
 
 class Mega(NamedTuple):
     """A decode route's prepared weights (see maybe_prep_llama_flat):
-    LlamaFlat for K6, LlamaMegaLayers for K8."""
+    LlamaFlat for K6, LlamaMegaLayers for K8. `persistent`: the single
+    stream takes the persistent step (heads of 64 or 128); else the same
+    function through the launch sequence of K7 / K9 at one slot."""
     step: Any
     qtype: int
+    persistent: bool = True
 
 
 def maybe_prep_llama_mega(cfg: OrpheusConfig, w: OrpheusWeights) -> Mega | None:
     """K8's weights when its route applies: uniformly quantized projections
     and kernel-friendly dims (the JAX package's gate, model.py:222-228; the
     widths the GEMV takes are `prep_llama_mega`'s to refuse). Depends on
-    the weights, not on the device. None -> the per-matmul route."""
+    the weights, not on the device. None -> the per-matmul route. Heads
+    that no decode route's attention takes raise ValueError (every route
+    runs K3 / K4); heads that the persistent step does not take (other
+    than 64 and 128) get the launch sequence (`persistent` False)."""
+    require_head_size(cfg.head_size, "Orpheus")
     if cfg.head_size % 64:
         return None
     try:
-        return Mega(*prep_llama_mega(w.layers, cfg.head_size))
+        mega, qtype = prep_llama_mega(w.layers, cfg.head_size)
     except ValueError:
         return None
+    return Mega(mega, qtype, cfg.head_size in STEP_HEAD_SIZES)
 
 
 def maybe_prep_llama_flat(cfg: OrpheusConfig, w: OrpheusWeights) -> Mega | None:
@@ -233,9 +246,9 @@ def maybe_prep_llama_flat(cfg: OrpheusConfig, w: OrpheusWeights) -> Mega | None:
     if mega is None:
         return None
     try:
-        return Mega(prep_llama_flat(mega.step, w.head, w.out_norm, mega.qtype,
-                                    cfg.n_attn_heads, cfg.n_kv_heads),
-                    mega.qtype)
+        return mega._replace(step=prep_llama_flat(
+            mega.step, w.head, w.out_norm, mega.qtype, cfg.n_attn_heads,
+            cfg.n_kv_heads))
     except ValueError:
         return mega
 
@@ -269,18 +282,25 @@ def step_logits(cfg: OrpheusConfig, w: OrpheusWeights, inv, st: OrpheusState,
     per matmul), final norm, LM head -> (1, vocab) logits. Writes this
     step's K/V into the cache in place."""
     x = take_rows(w.embd, st.token_in)
-    kw = dict(n_heads=cfg.n_attn_heads, n_kv=cfg.n_kv_heads, inv_freq=inv)
-    if mega is not None and isinstance(mega.step, LlamaFlat):
-        lg, _, _ = llama_flat_megastep(mega.step, x, st.kv_k, st.kv_v, st.pos,
-                                       qtype=mega.qtype, **kw)
-        return lg[:, : cfg.vocab_size]
-    if mega is not None:
-        xo, _, _ = llama_megastep(mega.step, x, st.kv_k, st.kv_v, st.pos,
-                                  qtype=mega.qtype, **kw)
-        h = rms_norm(xo, w.out_norm)
-    else:
+    if mega is None:
         h = decode_layers(cfg, w, inv, x, st.kv_k.unsqueeze(1),
                           st.kv_v.unsqueeze(1), st.pos)
+        return matmul(h, w.head)[:, : cfg.vocab_size]
+    flat = isinstance(mega.step, LlamaFlat)
+    kw = dict(qtype=mega.qtype, n_heads=cfg.n_attn_heads, n_kv=cfg.n_kv_heads,
+              inv_freq=inv)
+    if mega.persistent:
+        fn = llama_flat_megastep if flat else llama_megastep
+        out, _, _ = fn(mega.step, x, st.kv_k, st.kv_v, st.pos, **kw)
+    else:
+        # the launch sequence at one slot (K7 / K9), which computes what
+        # the persistent step computes, bit for bit
+        fn = llama_flat_megastep_batched if flat else llama_megastep_batched
+        out, _, _ = fn(mega.step, x, st.kv_k.unsqueeze(1),
+                       st.kv_v.unsqueeze(1), st.pos, **kw)
+    if flat:
+        return out[:, : cfg.vocab_size]
+    h = rms_norm(out, w.out_norm)
     return matmul(h, w.head)[:, : cfg.vocab_size]
 
 
@@ -417,6 +437,9 @@ class OrpheusRunner(TTSRunner):
     def __init__(self, cfg: OrpheusConfig, weights: OrpheusWeights,
                  tokenizer: BPETokenizer, snac_runner=None):
         strict_fp32()
+        # every decode route attends through K3 / K4: refuse their head
+        # sizes now, not at the first step (the route is prepared lazily)
+        require_head_size(cfg.head_size, "Orpheus")
         self.cfg = cfg
         if isinstance(weights.head, QuantTensor):
             # the 156,940-row head: N padded to 256 with zero scales, bf16

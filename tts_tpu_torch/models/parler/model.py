@@ -42,7 +42,7 @@ from ...common import (GenerationConfig, SAMPLE_RATE_DAC, TTSResponse,
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import sdpa
-from ...ops.decode_attention import decode_attention
+from ...ops.decode_attention import decode_attention, require_head_size
 from ...ops.linear import (Weight, dense, from_gguf_tensor, matmul,
                            stack_weights, take_rows)
 from ...ops.parler_flat import (ParlerFlat, parler_flat_megastep,
@@ -359,7 +359,9 @@ def maybe_prep_mega(cfg: ParlerConfig, w: ParlerWeights) -> Mega | None:
     """The megastep's weights when its path applies: all 8 projections
     block-quantized with one qtype and kernel-friendly dims (as the JAX
     package's gate, model.py:461-463). Depends on the weights, not on the
-    device. None -> the per-matmul path."""
+    device. None -> the per-matmul path. Heads that no decode route's
+    attention takes raise ValueError (every route runs K3 / K4)."""
+    require_head_size(cfg.head_size, "Parler")
     if (cfg.hidden_size % 128 or cfg.head_size % 64 or
             cfg.hidden_size // 32 < 8):
         return None

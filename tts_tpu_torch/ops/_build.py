@@ -30,7 +30,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "decode_attention", "parler_megastep",
            "llama_megastep", "dia_megastep", "parler_flat",
-           "dia_flat")  # K1; K3/K4; K2/K5; K6-K9; K11; K12; K10
+           "dia_flat", "llama_flat")  # K1; K3/K4; K2/K5; K7/K9; K11; K12; K10; K6/K8
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _LOCK = threading.Lock()

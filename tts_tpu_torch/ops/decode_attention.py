@@ -7,7 +7,8 @@ once, each at its own position: q (B, Hq, D), k/v (B, Hkv, CTX, D) (or one
 (Hkv, CTX, D) cache shared by every slot), pos (B,). On CUDA tensors
 `decode_attention` / `decode_attention_batched` launch the hand-written
 kernel (csrc/decode_attention.cu, one kernel for both: K3 is K4 with B = 1),
-which reads only the rows up to each pos; on CPU tensors they run
+which reads only the rows up to each pos, for any head size `head_size_ok`
+takes (a multiple of 8 from 8 to 256); on CPU tensors they run
 `decode_attention_plain` / `decode_attention_batched_plain`, the masked
 softmax the JAX package's `_xla_fallback` computes (vmapped for K4).
 
@@ -33,6 +34,11 @@ from . import _build
 
 PAGE = 256  # rows per block in the kernel; scratch is sized by it
 MIN_ARRIVALS = 4096  # counters made at least, so that buffers rarely grow
+MAX_HEAD = 256       # the largest head size the kernel takes
+# head sizes the persistent steps (K10, K12's 64, the llama step) compile
+# their attention phases for; their gates send other sizes to a route of
+# K3 / K4
+STEP_HEAD_SIZES = (64, 128)
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
@@ -41,6 +47,25 @@ _ARGS = [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
 # One C entry serves both; each path counts its own launches.
 KERNEL = _build.Kernel("decode_attention", "tts_decode_attention", _ARGS)          # K3
 KERNEL_BATCHED = _build.Kernel("decode_attention", "tts_decode_attention", _ARGS)  # K4
+
+
+def head_size_ok(d: int, dtype=torch.bfloat16) -> bool:
+    """Whether K3 / K4 (and the cross-attention entry) take heads of d over
+    a cache of `dtype`: multiples of 8 from 8 to 256, bf16 or f32 alike
+    (csrc/attention.cuh head_size_ok). 64 and 128 run on code compiled for
+    them, the others on the generic path."""
+    return dtype in (torch.bfloat16, torch.float32) and \
+        d % 8 == 0 and 8 <= d <= MAX_HEAD
+
+
+def require_head_size(d: int, what: str) -> None:
+    """Raise ValueError, naming the head size, where the decode attention
+    does not take heads of d: every decode route runs it, so a model whose
+    heads it refuses is refused when its runner or engine is built."""
+    if not head_size_ok(d):
+        raise ValueError(f"{what}: heads of {d} are not a size the decode "
+                         f"attention takes (a multiple of 8 from 8 to "
+                         f"{MAX_HEAD})")
 
 
 def _scale(q, scale):
@@ -127,7 +152,7 @@ def _launch(kernel, q, kv_k, kv_v, pos, scale, out, scratch):
     if (q.stride(2) != 1 or q.stride(1) != d or dk != d
             or kv_v.shape != kv_k.shape or kv_k.dim() not in (3, 4)
             or (not shared_kv and kv_k.shape[0] != b) or hq % hkv
-            or d not in (64, 128) or pos.numel() not in (1, b)):
+            or not head_size_ok(d, kv_k.dtype) or pos.numel() not in (1, b)):
         raise ValueError(f"decode_attention: q {tuple(q.shape)} strides "
                          f"{q.stride()}, k/v {tuple(kv_k.shape)}, pos "
                          f"{tuple(pos.shape)}")
@@ -154,7 +179,8 @@ def decode_attention_cuda(q: torch.Tensor, kv_k: torch.Tensor,
                           kv_v: torch.Tensor, pos: torch.Tensor,
                           scale: float | None = None) -> torch.Tensor:
     """Launch K3 on the card. q (Hq, D) float32; kv_k/kv_v (Hkv, CTX, D)
-    bfloat16 or float32, D 64 or 128; pos a one-element int32 tensor."""
+    bfloat16 or float32, D as `head_size_ok` takes; pos a one-element int32
+    tensor."""
     if q.dim() != 2 or kv_k.dim() != 3 or pos.numel() != 1:
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, "
                          f"k/v {tuple(kv_k.shape)}, pos {tuple(pos.shape)}")
@@ -176,7 +202,8 @@ def decode_attention_batched_cuda(q: torch.Tensor, kv_k: torch.Tensor,
     """Launch K4 on the card. q (B, Hq, D) float32 whose slots may sit at any
     stride (each slot's heads contiguous: a view of a wider qkv row works);
     kv_k/kv_v (B, Hkv, CTX, D), or (Hkv, CTX, D) shared by every slot,
-    bfloat16 or float32, D 64 or 128; pos (B,) int32, or one element shared.
+    bfloat16 or float32, D as `head_size_ok` takes; pos (B,) int32, or one
+    element shared.
     `out` (B, Hq, D) and `scratch` (attention_scratch) are allocated when
     not given."""
     return _launch(KERNEL_BATCHED, q, kv_k, kv_v, pos, scale, out, scratch)

@@ -309,7 +309,8 @@ def step_scratch(mega: DiaMegaLayers, rows: int, n_heads: int, ctx: int,
 def require_step(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
                  n_tail: int, *, n_heads: int) -> None:
     """Validate a step's tensors on the card (layers_cuda's contract, up to
-    16 rows); raise ValueError on what the kernels do not take."""
+    16 rows, heads of any size K4 takes); raise ValueError on what the
+    kernels do not take."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
@@ -341,7 +342,7 @@ def require_step(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
             or ck.shape != (n_layers, rows, n_heads, sb, d)
             or cv.shape != ck.shape or vtail.shape != (n_layers, rows, n_heads, d)
             or pos.numel() not in (1, rows) or not 0 < rows <= 2 * MAX_PAIRS
-            or n_tail < 0):
+            or n_tail < 0 or not da.head_size_ok(d, kv_k.dtype)):
         raise ValueError(f"dia_megastep: x {tuple(x.shape)}, kv "
                          f"{tuple(kv_k.shape)}, cross {tuple(ck.shape)}, vtail "
                          f"{tuple(vtail.shape)}, qkv rows {kvn}, L={n_layers} "
@@ -445,8 +446,8 @@ def dia_megastep_cuda(mega: DiaMegaLayers, x, kv_k, kv_v, pos, ck, cv, vtail,
                  n_heads=n_heads)
     hidden, ffn = mega.norms.shape[2], mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     packed = tiles_packed(mega.qkv_codes)
-    if (ck.dtype != torch.bfloat16 or pos.numel() != 1 or d not in (64, 128)
-            or n_heads % n_kv
+    if (ck.dtype != torch.bfloat16 or pos.numel() != 1
+            or d not in da.STEP_HEAD_SIZES or n_heads % n_kv
             or dia_flat.smem_bytes(hidden, ffn, packed) > dia_flat.SMEM_LIMIT):
         raise ValueError(f"dia_megastep: cross K/V {ck.dtype}, pos "
                          f"{tuple(pos.shape)}, heads of {d}, {n_heads} / "
@@ -524,7 +525,8 @@ def cross_attention_cuda(q, ck, cv, vtail, n_tail: int):
                          (cv, "cv", (ck.dtype,)), (vtail, "vtail", (torch.float32,))):
         _build.require(t, name, device=dev, dtypes=dts)
     if (ck.shape != (rows, h, sb, d) or cv.shape != ck.shape
-            or vtail.shape != (rows, h, d) or d not in (64, 128) or n_tail < 0):
+            or vtail.shape != (rows, h, d) or not da.head_size_ok(d, ck.dtype)
+            or n_tail < 0):
         raise ValueError(f"cross_attention: q {tuple(q.shape)}, k/v "
                          f"{tuple(ck.shape)}, vtail {tuple(vtail.shape)}")
     out = torch.empty((rows, h, d), dtype=torch.float32, device=dev)

@@ -11,16 +11,17 @@ caller slices the real vocab.
 The TPU kernel streams every weight of the step as one flat sequence of
 tiles, with a schedule and a `meta` array that drive Mosaic's sequential
 grid; none of that carries over (blocks on the H100 run in no order). On
-the card the step is K8's launch sequence (`llama_megastep.layers_cuda`)
-counted on K6's own counter, plus one more launch of the same GEMV for the
-head with the RMS(out_norm) prologue (csrc/llama_megastep.cu). On CPU
-tensors `llama_flat_megastep_plain` computes the same in plain PyTorch.
+the card the step is K8's persistent launch (csrc/llama_flat.cu) with one
+more phase, the GEMV of the head with the RMS(out_norm) prologue, counted
+on K6's own counter. On CPU tensors `llama_flat_megastep_plain` computes
+the same in plain PyTorch.
 As K8, the step writes the current token's k/v into cache row `pos` in
 place before it attends rows [0, pos].
 
 K7 computes `llama_flat_megastep_batched`: K9's batched layer sequence
 (one row per slot, K4 for attention) on the bf16-scale layers, then one
-B-row head GEMV, logits (B, vocab_pad) with the padded rows exactly 0.
+B-row head GEMV launch (csrc/llama_megastep.cu), logits (B, vocab_pad)
+with the padded rows exactly 0.
 Each slot equals K6 on that slot's state bit for bit; like K9 it keeps
 K3's f32 softmax where the TPU batched kernel rounds its page dots to bf16
 (ops/llama_megastep.py). Plain version: `llama_flat_megastep_batched_plain`.
@@ -35,14 +36,18 @@ import torch
 from . import _build
 from . import decode_attention as da
 from .llama_megastep import (ARGS, EPI_STORE, GEMV_TILE_PAIRS, GEMV_UNIT_K,
-                             MAX_BATCH, LlamaMegaLayers, StepScratch, dqdot,
-                             gemv_pair_rows, gemv_tile, group_scratch,
-                             layers_cuda, llama_megastep_batched_plain,
-                             llama_megastep_plain, require_tiles, rms_norm,
-                             tiles_packed, weight_rows)
+                             MAX_BATCH, STEP_ARGS, LlamaMegaLayers,
+                             StepScratch, dqdot, gemv_pair_rows, gemv_tile,
+                             group_scratch, layers_cuda,
+                             llama_megastep_batched_plain,
+                             llama_megastep_plain, persistent_step,
+                             require_tiles, rms_norm, tiles_packed,
+                             weight_rows)
 from .quant_matmul import QuantTensor
 
-KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)           # K6
+# K6 is one persistent launch a step (the head its last phase); K7's launch
+# sequence counts its GEMV launches, the head's among them.
+KERNEL = _build.Kernel("llama_flat", "tts_llama_flat", STEP_ARGS)          # K6
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K7
 
 
@@ -135,18 +140,18 @@ def _head_cuda(kernel, flat: LlamaFlat, xo, qtype: int):
 
 def llama_flat_megastep_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
                              qtype: int, n_heads: int, n_kv: int, inv_freq):
-    """K6 on the card: 4 GEMV launches and 1 K3 launch per layer, then the
-    head GEMV, on the current stream. Same contract as
-    `llama_flat_megastep_plain`, with pos a one-element int32 CUDA tensor."""
-    if kv_k.dim() != 4 or kv_k.shape[1] != n_kv:
-        raise ValueError(f"llama_flat_megastep: kv {tuple(kv_k.shape)}, "
-                         f"n_kv {n_kv}")
+    """K6 on the card: one cooperative launch of the persistent step
+    (csrc/llama_flat.cu) with the RMS(out_norm) -> head phase last, on the
+    current stream, equal to the launch sequence and its head GEMV bit for
+    bit. Same contract as `llama_flat_megastep_plain`, with pos a
+    one-element int32 CUDA tensor; heads of 64 or 128 (the Orpheus gate
+    sends other sizes to K7's launch sequence). Raises where the card
+    refuses the launch."""
     _require_head(flat, x.device)
-    xo, kn, vn = layers_cuda(KERNEL, da.KERNEL, flat.layers,
-                             x.float().reshape(1, -1).contiguous(),
-                             kv_k.unsqueeze(1), kv_v.unsqueeze(1), pos,
-                             qtype=qtype, n_heads=n_heads, inv_freq=inv_freq)
-    return _head_cuda(KERNEL, flat, xo, qtype), kn[:, 0], vn[:, 0]
+    _, kn, vn, logits = persistent_step(
+        KERNEL, flat.layers, x, kv_k, kv_v, pos, qtype=qtype, n_heads=n_heads,
+        n_kv=n_kv, inv_freq=inv_freq, head=flat.head, out_norm=flat.out_norm)
+    return logits, kn, vn
 
 
 def llama_flat_megastep(flat: LlamaFlat, x, kv_k, kv_v, pos, *, qtype: int,

@@ -12,15 +12,17 @@ v_new; the caller applies the final norm and the LM head. K9 computes
 single-stream reference per slot): one row per slot, each slot at its own
 position with its own cache.
 
-On the card the step is a sequence of hand-written kernels on one stream
-(csrc/llama_megastep.cu, its header says why): per layer 4 launches of the
-dequant GEMV, which fuses the RMS norm before it and the RoPE + KV-row
-write, SiLU(gate) * up or residual add after it, and 1 launch of the decode
-attention (K3 for one row, K4 for B rows, ops/decode_attention.py). K9 is
-the same sequence with B rows, one weight read for every slot; each of its
-slots equals K8 on that slot's state bit for bit. K6 and K7
-(ops/llama_flat.py) run the same layers through `layers_cuda` and add the
-LM head. On CPU tensors `llama_megastep_plain` and
+On the card K8 is one cooperative launch of a persistent kernel a step
+(csrc/llama_flat.cu, its header says why; ops/llama_persistent.py reckons
+its plan): per layer five phases with a grid barrier after each. K9 is a
+sequence of hand-written kernels on one stream (`layers_cuda`,
+csrc/llama_megastep.cu): per layer 4 launches of the dequant GEMV, which
+fuses the RMS norm before it and the RoPE + KV-row write, SiLU(gate) * up
+or residual add after it, and 1 launch of the decode attention (K4,
+ops/decode_attention.py), one weight read for every slot. The persistent
+step's phases run the same per-item device code, so each K9 slot equals
+K8 on that slot's state bit for bit. K6 and K7 (ops/llama_flat.py) run the
+same layers and add the LM head. On CPU tensors `llama_megastep_plain` and
 `llama_megastep_batched_plain` compute the same in plain PyTorch.
 
 The prep (`prep_llama_mega`) lays each projection out in the order the
@@ -55,11 +57,18 @@ from .quant_matmul import BIAS, QuantTensor, dequant
 
 _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
+_i64 = ctypes.c_longlong
 ARGS = [_vp, _vp, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
         _vp, _vp, _i32, _vp, _vp, _i32, _vp, _vp, _i32, _i32, _i32, _i32, _i32,
-        ctypes.c_longlong, _vp]
-# One C entry serves K6-K9; each path counts its own launches.
-KERNEL = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)           # K8
+        _i64, _vp]
+# the persistent step's C entry (csrc/llama_flat.cu tts_llama_flat), K8's and
+# K6's; ops/llama_persistent.py reckons its plan and launches it
+STEP_ARGS = ([_vp, _vp, _vp, _vp, _i32] + [_vp] * 6 + [_vp, _vp, _vp, _vp, _i32]
+             + [_vp, _vp, _i64, _vp, _vp, ctypes.c_float, _vp, _vp, _i64, _vp,
+                _i32] + [_i32] * 11 + [_vp, _vp, _vp])
+# K8 is one persistent launch a step; K9's launch sequence counts its GEMV
+# launches (its attention launches count on K4's).
+KERNEL = _build.Kernel("llama_flat", "tts_llama_flat", STEP_ARGS)          # K8
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K9
 EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
 RMS_EPS = 1e-5
@@ -451,23 +460,17 @@ def group_scratch(scratch: StepScratch | None, g: slice):
         attn=scratch.attn[g], act=scratch.act[g])
 
 
-def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
-                kv_v, pos, *, qtype: int, n_heads: int, inv_freq,
-                scratch: StepScratch | None = None):
-    """The L layers on the card for B <= 16 rows: x (B, H), kv_k/kv_v
-    (L, B, n_kv, CTX, D) (each slot's cache dense, the layer axis at any
-    stride: a group of a larger batch's slots), pos (B,) int32, inv_freq
-    (D/2,) float32, all on the card. Per layer 4 GEMV launches through `gemv_kernel` (K8's, K6's,
-    K9's or K7's counter) and 1 attention launch through `attn_kernel` (K3's
-    or K4's), on the current stream. `scratch` (step_scratch) is allocated
-    when not given. Returns (x_out (B, H), k_new (L, B, KV), v_new
-    (L, B, KV))."""
+def require_step(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, inv_freq, *,
+                 n_heads: int) -> None:
+    """Validate a step's tensors on the card for B <= 16 rows (x (B, H),
+    kv_k / kv_v (L, B, n_kv, CTX, D), pos (B,) int32, inv_freq (D/2,)
+    float32, heads of any size K3 / K4 take); raise ValueError on what the
+    kernels do not take."""
     dev = x.device
     n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
     ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
     b, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
-    kvh = n_kv * d
-    kvn = hidden + 2 * kvh
+    kvn = hidden + 2 * n_kv * d
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(kv_k, "kv_k", device=dev,
                    dtypes=(torch.bfloat16, torch.float32), ndim=5, outer=1)
@@ -486,13 +489,36 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
                       getattr(mega, name + "_scales"), name, dev, pairs, k)
     if (x.shape != (b, hidden) or kv_k.shape != (n_layers, b, n_kv, ctx, d)
             or kv_v.shape != kv_k.shape or hidden != n_heads * d
-            or inv_freq.numel() != d // 2
+            or inv_freq.numel() != d // 2 or not da.head_size_ok(d, kv_k.dtype)
             or pos.numel() != b or not 0 < b <= MAX_BATCH):
         raise ValueError(f"llama_megastep: x {tuple(x.shape)}, kv "
                          f"{tuple(kv_k.shape)}, L={n_layers} "
                          f"H={hidden}, {n_heads} heads, inv_freq "
                          f"{tuple(inv_freq.shape)}, pos {tuple(pos.shape)}, "
                          f"at most {MAX_BATCH} rows")
+
+
+def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
+                kv_v, pos, *, qtype: int, n_heads: int, inv_freq,
+                scratch: StepScratch | None = None):
+    """The L layers on the card as a launch sequence, for B <= 16 rows:
+    x (B, H), kv_k/kv_v (L, B, n_kv, CTX, D) (each slot's cache dense, the
+    layer axis at any stride: a group of a larger batch's slots), pos (B,)
+    int32, inv_freq (D/2,) float32, all on the card. Per layer 4 GEMV
+    launches through `gemv_kernel` (K9's or K7's counter) and 1 attention
+    launch through `attn_kernel` (K4's), on the current stream. K9 and K7
+    run on it; so do K8 and K6 through them at one slot where the
+    persistent step does not take the head size (the models' gates), and
+    it is chip_smoke's yardstick for the persistent step. `scratch`
+    (step_scratch) is allocated when not given. Returns (x_out (B, H),
+    k_new (L, B, KV), v_new (L, B, KV))."""
+    dev = x.device
+    n_layers, hidden = mega.norms.shape[0], mega.norms.shape[2]
+    ffn = mega.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
+    b, n_kv, ctx, d = kv_k.shape[1], kv_k.shape[2], kv_k.shape[3], kv_k.shape[4]
+    kvh = n_kv * d
+    kvn = hidden + 2 * kvh
+    require_step(mega, x, kv_k, kv_v, pos, inv_freq, n_heads=n_heads)
     sc = scratch or step_scratch(mega, b, n_heads, ctx, dev)
     if sc.attn.shape != (b, n_heads, d) or sc.act.shape != (b, ffn):
         raise ValueError(f"llama_megastep: scratch for {tuple(sc.act.shape)} "
@@ -532,18 +558,45 @@ def layers_cuda(gemv_kernel, attn_kernel, mega: LlamaMegaLayers, x, kv_k,
     return xw, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]
 
 
+def persistent_step(kernel, layers: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                    qtype: int, n_heads: int, n_kv: int, inv_freq, head=None,
+                    out_norm=None):
+    """One launch of the persistent step (csrc/llama_flat.cu) through
+    `kernel` (K8's or K6's counter), validated as `layers_cuda` validates
+    one row, heads of 64 or 128: x (1, H); kv_k / kv_v (L, n_kv, CTX, D),
+    written in place at row pos. Returns (x_out (1, H), k_new (L, KV), v_new
+    (L, KV), logits (1, vocab_pad) with K6's `head` and `out_norm`, else
+    None). Raises where the card refuses the launch (a grid that cannot be
+    resident at once among them)."""
+    from . import llama_persistent
+    if kv_k.dim() != 4 or kv_k.shape[1] != n_kv or pos.numel() != 1:
+        raise ValueError(f"llama step: kv {tuple(kv_k.shape)}, n_kv {n_kv}, "
+                         f"pos {tuple(pos.shape)}")
+    xw = x.float().reshape(1, -1).contiguous().clone()
+    require_step(layers, xw, kv_k.unsqueeze(1), kv_v.unsqueeze(1), pos,
+                 inv_freq, n_heads=n_heads)
+    hidden, kvh = layers.norms.shape[2], n_kv * kv_k.shape[3]
+    for name in ("o", "gate_up", "down"):
+        if getattr(layers, name + "_scales").dtype != torch.bfloat16:
+            raise ValueError(f"llama step: {name} scales must be bfloat16")
+    qkv, logits = llama_persistent.launch(
+        kernel, layers, xw, kv_k, kv_v, pos, inv_freq, qtype=qtype,
+        n_heads=n_heads, head=head, out_norm=out_norm)
+    return xw, qkv[:, 0, hidden:hidden + kvh], qkv[:, 0, hidden + kvh:], logits
+
+
 def llama_megastep_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
                         qtype: int, n_heads: int, n_kv: int, inv_freq):
-    """K8 on the card: 4 GEMV launches and 1 K3 launch per layer on the
-    current stream. Same contract as `llama_megastep_plain`, with pos a
-    one-element int32 CUDA tensor."""
-    if kv_k.dim() != 4 or kv_k.shape[1] != n_kv:
-        raise ValueError(f"llama_megastep: kv {tuple(kv_k.shape)}, n_kv {n_kv}")
-    xo, kn, vn = layers_cuda(KERNEL, da.KERNEL, mega,
-                             x.float().reshape(1, -1).contiguous(),
-                             kv_k.unsqueeze(1), kv_v.unsqueeze(1), pos,
-                             qtype=qtype, n_heads=n_heads, inv_freq=inv_freq)
-    return xo, kn[:, 0], vn[:, 0]
+    """K8 on the card: one cooperative launch of the persistent step
+    (csrc/llama_flat.cu, planned by ops/llama_persistent.py) on the current
+    stream, equal to the launch sequence bit for bit. Same contract as
+    `llama_megastep_plain`, with pos a one-element int32 CUDA tensor; heads
+    of 64 or 128 (da.STEP_HEAD_SIZES: the Orpheus gate sends other sizes to
+    K9's launch sequence). Raises where the card refuses the launch."""
+    xo, kn, vn, _ = persistent_step(KERNEL, mega, x, kv_k, kv_v, pos,
+                                    qtype=qtype, n_heads=n_heads, n_kv=n_kv,
+                                    inv_freq=inv_freq)
+    return xo, kn, vn
 
 
 def llama_megastep(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
