@@ -93,7 +93,19 @@ Phases, in order; any failure exits non-zero without the final line:
    persistent steps take 64 / 128 only: Orpheus's single stream runs K7 /
    K9 at one slot there, Dia's K11 at one pair).
 
-Phase 2 also holds K12 (the one-launch Parler step) at Parler-Mini width
+14. K1's census: each main path's K1 calls by shape (qm.SHAPES, counted
+   over the same windows as the launch counters), and K1 timed at every
+   shape of it beside its bound, its plain version and dequant +
+   torch.matmul (device time of back-to-back calls from CUDA events, the
+   calls queued behind a spin kernel: queued_ms). Each CLI path also logs
+   its prefill's (Dia: encoder's) device time and K1's part of it.
+
+Phase 2 holds K1 at 1-256 rows (each warp layout: 1-8, 9-16, 17-32,
+33-64, 65-128, 129-256 rows; both numeric modes, every quant type, K
+1024-8192) within 1e-5 of the largest output of its
+plain version, and each row of a 16-row heads call and of a 256-row f32
+prefill call bit for bit against that row's call alone. It also holds K12
+(the one-launch Parler step) at Parler-Mini width
 at positions 0-4095 with and without the cross block: bit for bit against
 K2 on the same state, layer by layer against its plain version, and timed
 beside K2 in turns; then it times each Parler GEMV launch alone (qkv, o,
@@ -395,12 +407,38 @@ def tensor_bytes(ts) -> int:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
+QNAME = {quants.GGML_TYPE_Q4_0: "Q4_0", quants.GGML_TYPE_Q5_0: "Q5_0",
+         quants.GGML_TYPE_Q8_0: "Q8_0"}
+
+
+def k1_bound(m, n, k, w) -> tuple[float, str]:
+    """K1's bound: the weight, x and out bytes over the HBM rate, or the
+    products over the bf16 tensor-core rate: 2 M N K in bf16 mode, three
+    times that in f32 mode (the fewest bf16 passes that carry an f32
+    activation's 24 bits against the exact codes)."""
+    passes = 1 if w.scales.dtype == torch.bfloat16 else 3
+    return bound(tensor_bytes((w.codes, w.scales)) + m * k * 4 + m * n * 4,
+                 passes * 2.0 * m * n * k, "bf16")
+
+
+def k1_rows_alone(label, x, w) -> None:
+    """Every row of a K1 call of M rows equals that row's call alone, bit
+    for bit (the engines' greedy parity rests on it)."""
+    got = qm.quant_matmul_cuda(x, w)
+    for r in range(x.shape[0]):
+        if not torch.equal(got[r:r + 1], qm.quant_matmul_cuda(x[r:r + 1].contiguous(), w)):
+            raise AssertionError(f"K1 {label}: row {r} of {x.shape[0]} differs "
+                                 f"from its call alone")
+    log(f"  {label}: each of {x.shape[0]} rows equals its call alone, bit for bit: ok")
+
+
 def check_k1(gen) -> dict:
     log("K1 quant_matmul (csrc/quant_matmul.cu) vs quant_matmul_plain:")
     H, N = MINI["hidden"], MINI["n_out"] * 1280   # heads, per-head padded
     Q4, Q5, Q8 = (quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0,
                   quants.GGML_TYPE_Q8_0)
     bf16, f32 = torch.bfloat16, torch.float32
+    OH, OF = ORPHEUS["hidden"], ORPHEUS["ffn"]
     cases = [  # name, M, N, K, qtype, scale dtype, packed
         ("heads Q4_0 packed bf16", 1, N, H, Q4, bf16, True),
         ("prefill Q4_0 packed f32", 64, 4 * H, H, Q4, f32, True),
@@ -412,14 +450,31 @@ def check_k1(gen) -> dict:
         ("ragged N Q8_0 f32", 3, 1001, H, Q8, f32, False),
         ("fc2 K=4096 Q4_0 f32", 64, H, 4 * H, Q4, f32, True),
     ]
+    # the cases of 16, 17, 100 and 256 rows draw from a generator of their own,
+    # so that the later checks' inputs stay as they were
+    own = torch.Generator(device=DEV)
+    own.manual_seed(SEED + 5)
+    cases += [(*c, own) for c in (
+        ("Dia serving heads 16 rows", 16, N, DIA["hidden"], Q4, bf16, True),
+        ("17 rows Q4_0 packed bf16", 17, N, DIA["hidden"], Q4, bf16, True),
+        ("prefill 100 rows Q4_0 f32", 100, OH, OH, Q4, f32, True),
+        ("prefill 256 rows gate Q4_0 f32", 256, OF, OH, Q4, f32, True),
+        ("prefill 256 rows down Q8_0 f32", 256, OH, OF, Q8, f32, False),
+        ("prefill 256 rows Q5_0 bf16", 256, 4 * H, H, Q5, bf16, False))]
     errs = []
-    for name, m, n, k, qt, sd, packed in cases:
-        w = rand_quant(gen, n, k, qt, sd, packed)
-        x = torch.randn((m, k), generator=gen, device=DEV)
+    for name, m, n, k, qt, sd, packed, *g in cases:
+        g = g[0] if g else gen
+        w = rand_quant(g, n, k, qt, sd, packed)
+        x = torch.randn((m, k), generator=g, device=DEV)
         got = qm.quant_matmul_cuda(x, w)
         ref = qm.quant_matmul_plain(x, w)
         errs.append(check_close(name, got, ref, 1e-5,
                                 "same rounding, f32 sums in another order"))
+    for label, m, n, k, qt, sd in (
+            ("Dia serving heads 16x11520x2048 bf16", 16, N, DIA["hidden"], Q4, bf16),
+            ("Orpheus prefill gate 256x8192x3072 f32", 256, OF, OH, Q4, f32)):
+        k1_rows_alone(label, torch.randn((m, k), generator=own, device=DEV),
+                      rand_quant(own, n, k, qt, sd))
     # timed at the main path's per-step shape: the 9 stacked heads, cold in
     # L2 as in the decode step (copies rotate through > 50 MB)
     ws = [rand_quant(gen, N, H, Q4, bf16) for _ in range(12)]
@@ -429,11 +484,10 @@ def check_k1(gen) -> dict:
     def nxt():
         return ws[next(it) % len(ws)]
 
-    ms = device_ms(lambda: qm.quant_matmul_cuda(x, nxt()), iters=50).ms
+    ms = k1_device_ms(lambda: qm.quant_matmul_cuda(x, nxt()), iters=50)
     plain_ms = device_ms(lambda: qm.quant_matmul_plain(x, nxt())).ms
     lib_ms = device_ms(lambda: x @ nxt().dense().T).ms
-    b_ms, b_by = bound(tensor_bytes((ws[0].codes, ws[0].scales)) +
-                       x.numel() * 4 + N * 4, 2 * N * H, "bf16")
+    b_ms, b_by = k1_bound(1, N, H, ws[0])
     log(f"  heads 1x{N}x{H}, device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"dequant+matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name="quant_matmul", route="cuda",
@@ -441,6 +495,137 @@ def check_k1(gen) -> dict:
                 replaces="tts_tpu/ops/quant_matmul.py:134",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+# K1's census: the main paths' K1 calls by shape (M, N, K, qtype, scale
+# dtype, packed), counted on qm.SHAPES over each path's counted window;
+# time_k1_census times every shape of it at the end of the run.
+K1_CENSUS: dict = {}
+# gemv_ab.py --only k1's shapes: from the census of PR 12's run (96 shapes,
+# chip_smoke.K1_CENSUS; `gemv_ab.py --census LOG` takes a run's whole
+# census), the heads and the Orpheus head row, and each Parler-Mini and
+# Orpheus-3B prefill matrix at the CLI's prompt (23 / 17 tokens) and at 64
+# and 256 rows.
+_Q4 = quants.GGML_TYPE_Q4_0
+K1_SHAPES = tuple(
+    [(m, n, k, _Q4, "bf16", True) for m, n, k in (
+        (1, 11520, 1024), (8, 11520, 1024), (2, 11520, 2048),
+        (16, 11520, 2048), (1, 157184, 3072))] +
+    [(m, n, k, _Q4, "f32", True) for m in (23, 64, 256) for n, k in (
+        (1024, 1024), (4096, 1024), (1024, 4096))] +
+    [(m, n, k, _Q4, "f32", True) for m in (17, 64, 256) for n, k in (
+        (3072, 3072), (1024, 3072), (8192, 3072), (3072, 8192))])
+
+
+def zero_counts() -> None:
+    """Every kernel's launch counter and K1's shape tally set to 0."""
+    for k in KERNELS.values():
+        k.launches = 0
+    qm.SHAPES.clear()
+
+
+def read_counts(path: str | None = None) -> dict:
+    """Every kernel's launches since zero_counts; with `path`, K1's shape
+    tally is kept as that main path's census."""
+    if path is not None:
+        K1_CENSUS[path] = dict(qm.SHAPES)
+    return {n: k.launches for n, k in KERNELS.items()}
+
+
+def whole_trace(fn, whole, what: str, iters: int = 20,
+                warmup: int = 3) -> DeviceTime:
+    """device_ms of fn(), taken again (twice at most) until `whole(dt)`
+    says the trace holds the call's kernels: the profiler can lose some of
+    a window's events, and a part of a call would read as the call."""
+    for _ in range(3):
+        dt = device_ms(fn, iters=iters, warmup=warmup)
+        if whole(dt):
+            return dt
+        log(f"  the trace lost kernels of {what}; tracing again")
+    raise RuntimeError(f"torch.profiler lost kernels of {what} three times")
+
+
+def k1_device_ms(fn, iters: int = 20) -> float:
+    """device_ms of a K1 call, whose trace must hold the matmul kernel (its
+    conversion kernel alone would read as K1)."""
+    return whole_trace(fn, lambda dt: dt.counts.get("qmm_kernel", 0) >= 1,
+                       "K1", iters).ms
+
+
+def queued_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """The device time of `iters` back-to-back fn() calls, over iters, from
+    CUDA events: the calls are queued behind a spin kernel of ~10 ms, so
+    that the device runs them without waiting for the host, and the events
+    time the device alone (the gaps between kernels included). No profiler
+    session: chip_smoke's hundreds of them in a row have lost a window's
+    events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def k1_inputs(gen, shape) -> tuple[list, torch.Tensor]:
+    """A census shape's inputs: copies of a random weight that exceed the
+    L2 cache together (at most 12), to take in turn, and x (M, K)."""
+    m, n, k, qt, sd, packed = shape
+    dtype = torch.bfloat16 if sd == "bf16" else torch.float32
+    one = rand_quant(gen, n, k, qt, dtype, packed)
+    nbytes = tensor_bytes((one.codes, one.scales))
+    ws = [one] + [rand_quant(gen, n, k, qt, dtype, packed)
+                  for _ in range(min(11, int(120e6 // nbytes)))]
+    return ws, torch.randn((m, k), generator=gen, device=DEV)
+
+
+def time_k1_census() -> None:
+    """K1 at every shape of the census, by device time (queued_ms), beside
+    its bound (k1_bound), its plain version and dequant + torch.matmul on
+    the same inputs, timed alike, with the launches of each main path;
+    weights taken in turn from copies that exceed the L2 cache together."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 12)
+    shapes = sorted({s for c in K1_CENSUS.values() for s in c},
+                    key=lambda s: (s[4], s[0], s[1], s[2]))
+    log(f"K1 census: {len(shapes)} shapes over {len(K1_CENSUS)} main paths, "
+        f"{sum(s in K1_SHAPES for s in shapes)} of them in K1_SHAPES")
+    log(f"K1 census shapes: {json.dumps([list(s) for s in shapes])}")
+    for shape in shapes:
+        m, n, k, qt, sd, packed = shape
+        ws, x = k1_inputs(gen, shape)
+        one = ws[0]
+        nbytes = tensor_bytes((one.codes, one.scales))
+        it = iter(range(1 << 30))
+
+        def nxt():
+            return ws[next(it) % len(ws)]
+
+        ms = queued_ms(lambda: qm.quant_matmul_cuda(x, nxt()))
+        plain_ms = queued_ms(lambda: qm.quant_matmul_plain(x, nxt()), 3, 1)
+        lib_ms = queued_ms(lambda: x @ nxt().dense().T, 3, 1)
+        b_ms, b_by = k1_bound(m, n, k, one)
+        per_path = {p: c[shape] for p, c in K1_CENSUS.items() if shape in c}
+        log(f"  K1 {m}x{n}x{k} {QNAME[qt]} {sd}{' packed' if packed else ''}: "
+            f"kernel {ms:.4f} ms ({nbytes / ms / 1e9:.3f} TB/s of weights), "
+            f"plain {plain_ms:.4f}, dequant+matmul {lib_ms:.4f}, bound "
+            f"{b_ms:.4f} ({b_by}); launches {per_path}")
+        del ws
+        torch.cuda.empty_cache()
+
+
+def prefill_device(label, fn) -> None:
+    """A prefill's (or encoder's) device time and K1's part of it (its
+    conversion and matmul kernels), over 3 calls."""
+    dt = device_ms(fn, iters=3, warmup=1)
+    k1 = sum(t for n, t in dt.by_name.items() if "qmm" in n or "stage_x" in n)
+    log(f"  {label}, device time: {dt.ms:.4f} ms a call, K1 {k1:.4f} ms of it "
+        f"({dt.events:.0f} device events)")
 
 
 K3_POS = (0, 1, 255, 256, 257, 1000)   # and ctx - 1: around the pages
@@ -1085,7 +1270,8 @@ def time_parler_gemv(mega, qtype) -> None:
                     epi, vp(kc.data_ptr()), vp(vc.data_ptr()), vp(pos.data_ptr()),
                     H, d, ctx, 1, heads * ctx * d, stream)
 
-            us = device_ms(launch).by_name["gemv_kernel"] * 1e3
+            us = whole_trace(launch, lambda dt: "gemv_kernel" in dt.by_name,
+                             f"the {name} GEMV").by_name["gemv_kernel"] * 1e3
             log(f"  {b:2d} rows, {name:3s} ({n} x {k}): {us:.2f} us a launch, "
                 f"{nbytes / 1e6:.3f} MB of weights, {nbytes / us / 1e6:.3f} "
                 f"TB/s (bound {nbytes / HBM_BYTES_PER_S * 1e6:.2f} us)")
@@ -1971,17 +2157,17 @@ def k12_route():
         pmodel.ParlerRunner.__init__ = init
 
 
-def cli_wav(path, wav) -> tuple[dict, np.ndarray]:
+def cli_wav(path, wav, label) -> tuple[dict, np.ndarray]:
     """The port's CLI on `path` (sampled, top-k 50, seed SEED), every
-    kernel's counter set to 0 just before and read just after; the WAV must
-    be a valid waveform. Returns (launches, audio)."""
+    kernel's counter set to 0 just before and read just after (K1's census
+    kept under `label`); the WAV must be a valid waveform. Returns
+    (launches, audio)."""
     from tts_tpu_torch.apps import cli
     from tts_tpu_torch.audio.wav import read_audio_file
-    for k in KERNELS.values():
-        k.launches = 0
+    zero_counts()
     rc = cli.main(["-mp", path, "-p", PROMPT, "-sp", wav, "--seed", str(SEED)])
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in KERNELS.items()}
+    launches = read_counts(label)
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     audio, rate = read_audio_file(wav)
@@ -2089,6 +2275,7 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
     K3 not); both routes timed stage by stage in turns (K2, K12, K12, K2)
     and traced; their greedy codes equal. Returns (the K2 route's launches,
     the K12 route's launches, the GGUF's path)."""
+    from tts_tpu_torch.common import kv_cache_dtype
     from tts_tpu_torch.models.parler import model as pmodel
     from tts_tpu_torch.models.registry import runner_from_file
 
@@ -2104,13 +2291,14 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
     log(f"Main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
         f"{time.perf_counter() - t0:.1f} s; prompt {n_prompt} tokens, "
         f"{DECODE_STEPS} decode steps")
-    launches, audio = cli_wav(path, os.path.join(tmp, "out.wav"))
+    launches, audio = cli_wav(path, os.path.join(tmp, "out.wav"), "Parler CLI")
     for n in SINGLE_PATH:
         if launches[n] == 0:
             raise AssertionError(f"kernel {n} was not launched on the main path")
     log("Main path, K12 route (the runner's mega from maybe_prep_parler_flat):")
     with k12_route():
-        k12_launches, audio12 = cli_wav(path, os.path.join(tmp, "out-k12.wav"))
+        k12_launches, audio12 = cli_wav(path, os.path.join(tmp, "out-k12.wav"),
+                                        "Parler CLI, K12 route")
     if k12_launches["parler_flat_megastep"] == 0 or \
             k12_launches["parler_megastep"] or k12_launches["decode_attention"]:
         raise AssertionError("the K12 route did not run on K12 alone")
@@ -2126,6 +2314,15 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
         timed_route(r, mega, label)
     trace_route(r, k2, "K2 route")
     trace_route(r, flat, "K12 route")
+    ids = r.tokenizer.tokenize(PROMPT) + [r.tokenizer.eos_token]
+    shape = (r.cfg.n_layers, r.cfg.n_attn_heads, r.cfg.max_ctx_length,
+             r.cfg.head_size)
+    kk = torch.zeros(shape, dtype=kv_cache_dtype(DEV), device=DEV)
+    vv = torch.zeros_like(kk)
+    tokens = torch.tensor(ids, device=DEV)
+    prefill_device(f"Parler prefill ({len(ids)} tokens)", lambda: pmodel.parler_prefill(
+        r.cfg, r.weights, tokens, kk, vv))
+    del kk, vv
     (o2, n2), (o12, n12) = greedy_out(r, k2), greedy_out(r, flat)
     if n2 != n12 or not np.array_equal(o2, o12):
         raise AssertionError("greedy codes of the K12 route differ from the "
@@ -2219,8 +2416,7 @@ def serving_burst(path, engine_cls, params, rate, frame, kernels, label,
 
     threads = [threading.Thread(target=req, args=(i,)) for i in range(len(prompts))]
     torch.cuda.synchronize()
-    for k in KERNELS.values():
-        k.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -2228,7 +2424,7 @@ def serving_burst(path, engine_cls, params, rate, frame, kernels, label,
         t.join()
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    launches = {n: k.launches for n, k in KERNELS.items()}
+    launches = read_counts(f"{label} serving")
     httpd.shutdown()
     secs = []
     for i, ((code, body, headers), _) in enumerate(results):
@@ -2586,14 +2782,13 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     log(f"Orpheus main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
         f"{time.perf_counter() - t0:.1f} s; voice {VOICE!r}, prompt {PROMPT!r}")
     wav = os.path.join(tmp, "orpheus.wav")
-    for k in KERNELS.values():
-        k.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     rc = cli.main(["-mp", path, "-p", PROMPT, "-v", VOICE, "-sp", wav,
                    "--seed", str(SEED)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in KERNELS.items()}
+    launches = read_counts("Orpheus CLI")
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     audio, rate = read_audio_file(wav)
@@ -2655,6 +2850,9 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
                  decode_audio_s_per_wall_s=steps * TOKEN_AUDIO_S / (t2 - t1),
                  launches_per_step=per_step)
     log(f"  timed: {json.dumps(stats)}")
+    tokens = torch.tensor(ids, device=DEV)
+    prefill_device(f"Orpheus prefill ({len(ids)} tokens)", lambda: omodel.orpheus_prefill(
+        cfg, w, inv, tokens, kk, vv))
     if n_out != cfg.max_generation_size and out_np[n_out - 1] != cfg.stopping_token_id:
         raise AssertionError(f"generation stopped at {n_out} tokens without "
                              f"the stopping token")
@@ -3365,13 +3563,12 @@ def run_dia_main_path(tmp) -> tuple[dict, str]:
     log(f"Dia main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
         f"{time.perf_counter() - t0:.1f} s; prompt {DIA_PROMPT!r}")
     wav = os.path.join(tmp, "dia.wav")
-    for k in KERNELS.values():
-        k.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     rc = cli.main(["-mp", path, "-p", DIA_PROMPT, "-sp", wav, "--seed", str(SEED)])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {n: k.launches for n, k in KERNELS.items()}
+    launches = read_counts("Dia CLI")
     if rc != 0:
         raise AssertionError(f"CLI returned {rc}")
     audio, rate = read_audio_file(wav)
@@ -3422,6 +3619,7 @@ def run_dia_main_path(tmp) -> tuple[dict, str]:
                  decode_audio_s_per_wall_s=steps * 512 / 44100.0 / (t2 - t1),
                  launches_per_step=per_step)
     log(f"  timed: {json.dumps(stats)}")
+    prefill_device(f"Dia encode ({len(ids)} bytes)", lambda: r.encode(ids))
     if steps != cfg.max_generation_size - 1 or \
             codes.shape[0] != steps - cfg.max_delay or \
             wav_np.size != codes.shape[0] * 512 or not np.all(np.isfinite(wav_np)):
@@ -3824,6 +4022,8 @@ def main() -> int:
         phase(check_head_sizes, tmp)
         dia, dia_path = phase(run_dia_main_path, tmp)
         served_dia = phase(run_dia_serving, dia_path)
+    torch.cuda.empty_cache()
+    phase(time_k1_census)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
     # CLI's single stream, K12 on its K12 route, K4 and K5 on the server's
     # batched engine, K6 on

@@ -2,7 +2,7 @@
 """Compare the port's decode-step kernels with other versions of the port on
 one card, in turns, by device time.
 
-    python3 gemv_ab.py [--only attention|steps|dia] [OTHER ...]
+    python3 gemv_ab.py [--only attention|steps|dia|k1] [--census LOG] [OTHER ...]
 
 OTHER is another version of the `tts_tpu_torch` package: its directory, or a
 directory that holds it (for example a parent commit's, unpacked with `git
@@ -33,6 +33,11 @@ widths, it measures in turns (OTHER, committed, committed, OTHER):
   gate / up, down, each layer in turn so that the weights come from device
   memory, and the head), its time per launch beside its weight bytes and
   the rate they stream at.
+- k1: K1 (the block-dequant matmul) at every shape of chip_smoke's
+  census of the main paths' K1 calls (chip_smoke.K1_SHAPES, or with
+  `--census LOG` the "K1 census shapes" line of a chip_smoke log), each weight
+  taken in turn from enough copies to exceed the L2 cache, with the rate
+  its weight bytes move at. Only with `--only k1`.
 Times are device time per call or step from torch.profiler (the time the
 device was busy with the kernels a call ran, over 20 calls, spans that
 overlap counted once: programmatic dependent launch starts a GEMV while
@@ -41,7 +46,7 @@ whether the two versions' outputs are bit-equal, and where they are not,
 the largest relative error between them (|a - b| over max |b|, for each
 output, the largest). With no OTHER it measures the committed package
 alone; `--only` keeps one of the two parts, or (dia) the Dia steps
-alone. Needs a card and nvcc.
+alone, or (k1) K1 alone. Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -49,6 +54,7 @@ import ctypes
 import importlib
 import importlib.util
 import inspect
+import json
 import os
 import sys
 from types import SimpleNamespace
@@ -518,10 +524,48 @@ def parler_by_slot(versions, megas, x, kc, vc, kw) -> None:
               f"{case.mean():.3e}, max {case.max():.3e}", flush=True)
 
 
+def census(log_path: str | None):
+    """The census shapes: chip_smoke.K1_SHAPES, or those a chip_smoke log
+    printed on its "K1 census shapes:" line."""
+    if log_path is None:
+        return cs.K1_SHAPES
+    with open(log_path) as f:
+        for line in f:
+            if line.startswith("K1 census shapes: "):
+                return [tuple(s) for s in json.loads(line.split(": ", 1)[1])]
+    raise ValueError(f"{log_path}: no K1 census shapes line")
+
+
+def k1_shapes(versions, gen, shapes) -> None:
+    """K1 at each census shape: the versions in turns, over copies of the
+    weight that exceed the L2 cache together."""
+    for shape in shapes:
+        m, n, k, qtype, sd, packed = shape
+        ws, x = cs.k1_inputs(gen, shape)
+        nbytes = cs.tensor_bytes((ws[0].codes, ws[0].scales))
+        turn = [0]
+
+        def nxt():
+            turn[0] += 1
+            return ws[turn[0] % len(ws)]
+
+        def rewind():
+            turn[0] = -1
+
+        compare(f"K1 {m}x{n}x{k} {cs.QNAME[qtype]} {sd}"
+                f"{' packed' if packed else ''}",
+                [(v, lambda v=v: v.qm.quant_matmul_cuda(x, nxt()))
+                 for v in versions], nbytes=nbytes, rewind=rewind)
+        del ws
+        torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("attention", "steps", "dia"))
+    ap.add_argument("--only", choices=("attention", "steps", "dia", "k1"))
+    ap.add_argument("--census", metavar="LOG",
+                    help="k1: the shapes of a chip_smoke log's census")
     ap.add_argument("paths", nargs="*", metavar="OTHER")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -530,7 +574,8 @@ def main(argv) -> int:
     print(cs.nvidia_smi(), flush=True)
     versions = [version(spec, i) for i, spec in enumerate(["", *args.paths])]
     sources = {"attention": ["decode_attention"],
-               "dia": ["decode_attention", "dia_megastep", "dia_flat"]}.get(args.only)
+               "dia": ["decode_attention", "dia_megastep", "dia_flat"],
+               "k1": ["quant_matmul"]}.get(args.only)
     for v in versions:   # each build starts its sources' nvcc runs together
         v.build.build([n for n in sources or v.build.SOURCES
                        if n in v.build.SOURCES])
@@ -544,6 +589,8 @@ def main(argv) -> int:
         dia_steps(versions, gen)
     if args.only in (None, "steps"):
         parler_steps(versions, gen)
+    if args.only == "k1":
+        k1_shapes(versions, gen, census(args.census))
     return 0
 
 

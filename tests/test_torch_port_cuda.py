@@ -44,7 +44,11 @@ pages, the same bits over 1,000 launches, one launch a step on its own
 counter, and its refusals (heads of 256, two positions, f32 scales past
 the qkv phase). K3 / K4 and the cross-attention entry at heads of 8, 80,
 96, 192 and 256 (the generic path) against their plain versions, and the
-head sizes they refuse.
+head sizes they refuse. K1 at every row count from 1 to 256 that changes
+its warp layout, K 1024-8192 (split over 1-8 cluster ranks and not), both
+numeric modes and every quant type, against its plain version; each row of
+a call equal to that row's call alone bit for bit; its counters and
+refusals.
 """
 import pytest
 import torch
@@ -82,7 +86,8 @@ def _rand_quant(n, k, qtype, scale_dtype, dev):
                                           (quants.GGML_TYPE_Q4_0, False),
                                           (quants.GGML_TYPE_Q5_0, False),
                                           (quants.GGML_TYPE_Q8_0, False)])
-@pytest.mark.parametrize("m,n,k", [(1, 1001, 256), (37, 96, 4096)])
+@pytest.mark.parametrize("m,n,k", [(1, 1001, 256), (37, 96, 4096), (5, 130, 320),
+                                   (20, 130, 384), (16, 70, 192)])
 def test_k1_matches_plain(dev, qtype, packed, scale_dtype, m, n, k):
     """Same rounding on both sides, f32 sums in another order: 1e-5 of the
     largest output."""
@@ -92,6 +97,91 @@ def test_k1_matches_plain(dev, qtype, packed, scale_dtype, m, n, k):
     x = torch.randn((m, k), device=dev)
     got, ref = qm.quant_matmul_cuda(x, w), qm.quant_matmul_plain(x, w)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+K1_TYPES = [(quants.GGML_TYPE_Q4_0, True), (quants.GGML_TYPE_Q4_0, False),
+            (quants.GGML_TYPE_Q5_0, False), (quants.GGML_TYPE_Q8_0, False)]
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype,packed", K1_TYPES)
+@pytest.mark.parametrize("k", [1024, 2048, 3072, 4096, 8192])
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 16, 17, 64, 100, 128, 255, 256])
+def test_k1_matches_plain_at_every_row_count(dev, m, k, qtype, packed,
+                                             scale_dtype):
+    """K1 at each of its warp layouts (1-8, 9-16, 17-32, 33-64, 65-128,
+    129-256 rows) and K splits (N 200: 4 tiles, split 2-8 ways by K): 1e-5
+    of the largest output, as test_k1_matches_plain."""
+    torch.manual_seed(m * 7 + k)
+    w = _rand_quant(200, k, qtype, scale_dtype, dev)
+    w = w.pack() if packed else w
+    x = torch.randn((m, k), device=dev)
+    got, ref = qm.quant_matmul_cuda(x, w), qm.quant_matmul_plain(x, w)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 17, 256])
+def test_k1_without_k_split(dev, m, scale_dtype):
+    """N 20000 (313 tiles, two blocks an SM and more): no K split."""
+    torch.manual_seed(m)
+    w = _rand_quant(20000, 1024, quants.GGML_TYPE_Q4_0, scale_dtype, dev).pack()
+    assert qm.k1_plan(20000, 1024, qm._sm_count(dev))[1] == 1
+    x = torch.randn((m, 1024), device=dev)
+    got, ref = qm.quant_matmul_cuda(x, w), qm.quant_matmul_plain(x, w)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qtype,packed", K1_TYPES)
+@pytest.mark.parametrize("n,k", [(200, 4096), (11520, 1024), (20000, 1024)])
+def test_k1_rows_independent(dev, n, k, qtype, packed, scale_dtype):
+    """Each row of a K1 call of M rows has the bits of that row's call
+    alone, and of the same row in a call of other rows, at M 2, 9, 17, 64,
+    100 and 256 (every warp layout), with and without a K split: the
+    engines' greedy parity with the runners rests on it."""
+    torch.manual_seed(n + k)
+    w = _rand_quant(n, k, qtype, scale_dtype, dev)
+    w = w.pack() if packed else w
+    x = torch.randn((256, k), device=dev)
+    alone = torch.cat([qm.quant_matmul_cuda(x[r:r + 1].contiguous(), w)
+                       for r in range(256)])
+    for m in (2, 9, 17, 64, 100, 256):
+        assert torch.equal(qm.quant_matmul_cuda(x[:m].contiguous(), w), alone[:m]), m
+    rows = torch.tensor([200, 3, 77, 3, 255, 0, 128], device=dev)
+    assert torch.equal(qm.quant_matmul_cuda(x[rows].contiguous(), w), alone[rows])
+
+
+def test_k1_counts_and_refusals(dev):
+    """One launch on the counter and one on the shape tally a call; raises
+    for M > 256, M 0, K not a multiple of 64, and dtypes or devices the
+    kernel does not take (no fallback)."""
+    w = _rand_quant(96, 256, quants.GGML_TYPE_Q4_0, torch.bfloat16, dev).pack()
+    x = torch.randn((3, 256), device=dev)
+    n0 = qm.KERNEL.launches
+    key = (3, 96, 256, quants.GGML_TYPE_Q4_0, "bf16", True)
+    s0 = qm.SHAPES[key]
+    qm.quant_matmul_cuda(x, w)
+    qm.quant_matmul(x, w)
+    assert qm.KERNEL.launches == n0 + 2 and qm.SHAPES[key] == s0 + 2
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(torch.randn((257, 256), device=dev), w)
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(torch.randn((0, 256), device=dev), w)
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(x.double(), w)
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(x, qm.QuantTensor(w.codes, w.scales.half(), w.qtype))
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(x, w.to("cpu"))
+    w96 = _rand_quant(96, 96, quants.GGML_TYPE_Q8_0, torch.float32, dev)
+    with pytest.raises(ValueError):
+        qm.quant_matmul_cuda(torch.randn((3, 96), device=dev), w96)
+    assert qm.KERNEL.launches == n0 + 2
+    # M > 256 goes to dequant + torch.matmul, as in the JAX package
+    big = torch.randn((300, 256), device=dev)
+    torch.testing.assert_close(qm.quant_matmul(big, w), qm.quant_matmul_plain(big, w))
+    assert qm.KERNEL.launches == n0 + 2
 
 
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])

@@ -2,10 +2,16 @@
 
 `quant_matmul(x, w)` computes x @ W^T for a block-quantized weight W (N, K),
 x (M, K) -> (M, N). On a CUDA tensor it launches the hand-written kernel
-(csrc/quant_matmul.cu); on a CPU tensor it runs `quant_matmul_plain`, the
-same function in plain PyTorch. As in the JAX package, M > 256 (prefill of
-long prompts) goes to dequant + torch.matmul instead: those shapes are
-compute-bound.
+(csrc/quant_matmul.cu: tensor cores, the weights read once per call, the
+activations staged once per block); on a CPU tensor it runs
+`quant_matmul_plain`, the same function in plain PyTorch. As in the JAX
+package, M > 256 (prefill of long prompts) goes to dequant + torch.matmul
+instead.
+
+The kernel's plan (`k1_plan`: 64-feature tiles, K split over a cluster of
+1-8 blocks) is a function of N, K and the card's SM count, never of M, so
+that a row's outputs have the same bits in a call of any number of rows;
+`k1_unit` and `k1_stages` size its ring by M, which moves no sum.
 
 Layout (chosen for Hopper; the JAX package's transposed (K, N) layout and
 2048-row half-split nibble packing were chosen for Mosaic): weights stay
@@ -14,7 +20,8 @@ row-major as ggml stores them, one row per output feature,
            Q4_0 nibble-packed (..., N, K/2) uint8 in ggml's own block_q4_0
            order (byte i of a 32-block: element i low, element i+16 high);
   scales : (..., N, K/32) float32 or bfloat16.
-so a warp reads one weight row contiguously with 16-byte loads. The scale
+so a block copies its 64 rows' stage of K with 16-byte copies, each row's
+part contiguous. The scale
 dtype selects the numerics, as it does in the TPU kernel: float32 scales
 give an exact f32 product; bfloat16 scales give the megastep `_dqdot`
 rounding (weight dequantized in f32 and rounded to bf16, activation rounded
@@ -23,7 +30,9 @@ values.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -48,7 +57,77 @@ _vp = ctypes.c_void_p
 _i32 = ctypes.c_int
 KERNEL = _build.Kernel(
     "quant_matmul", "tts_quant_matmul",
-    [_vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _vp])
+    [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32, _i32, _i32,
+     _i32, _vp])
+# K1's launches by shape, beside KERNEL.launches: (M, N, K, qtype, scale
+# dtype "bf16" / "f32", packed) -> launches; cleared with the counter by
+# whoever reads it.
+SHAPES: collections.Counter = collections.Counter()
+_SHAPES_LOCK = threading.Lock()
+
+TILE_N = 64          # output features of a block (csrc/quant_matmul.cu BN)
+STAGE_K = 64         # K elements of the narrowest ring stage (2 blocks)
+MAX_SPLIT = 8        # blocks of a cluster (the portable maximum)
+MIN_SPLIT_K = 256    # K elements a rank keeps at least
+RING_BYTES = 96 * 1024
+RING_BYTES_SMALL = 54 * 1024   # up to 8 rows: 4 blocks an SM
+MIN_STAGES, MAX_STAGES = 2, 12
+
+
+def k1_plan(n: int, k: int, sms: int) -> tuple[int, int]:
+    """(tiles, ks): K1's 64-feature tiles and the ranks of a cluster that
+    split K, doubled while the blocks are fewer than the SMs and each rank
+    keeps a whole number of stages and at least MIN_SPLIT_K (the ranks'
+    meeting costs a few microseconds, more than a second block an SM
+    gains). A function of N, K and the SM count only: an output's order of
+    sums follows ks, so it must not follow M."""
+    if k % STAGE_K:
+        raise ValueError(f"quant_matmul: K {k} is not a multiple of {STAGE_K}")
+    tiles = -(-n // TILE_N)
+    ks = 1
+    while (ks < MAX_SPLIT and tiles * ks < sms
+           and k % (STAGE_K * 2 * ks) == 0 and k // (2 * ks) >= MIN_SPLIT_K):
+        ks *= 2
+    return tiles, ks
+
+
+def k1_unit(m: int, kr: int) -> int:
+    """32-weight blocks of a row in one ring stage: 8 (a whole 128-byte
+    line of packed codes) for up to 16 rows, where the weights' bytes bound
+    the call, 4 for up to 32, else 2 (the rows' activations fill the
+    stage); 2 where a rank's kr elements do not divide. It moves no sum:
+    each block's products are added in block order whatever the stage."""
+    ub = 8 if m <= 16 else 4 if m <= 32 else 2
+    return ub if kr % (32 * ub) == 0 else 2
+
+
+def k1_stage_bytes(m: int, ub: int, packed: bool, bf16: bool) -> int:
+    """Shared-memory bytes of one ring stage (csrc/quant_matmul.cu Ring):
+    `ub` 32-weight blocks of 64 features (codes and scales) and the M rows'
+    32 ub activations in one bf16 part (bf16 mode) or three (f32 mode)."""
+    codes = TILE_N * ub * (16 if packed else 32)
+    scales = TILE_N * ub * (2 if bf16 else 4)
+    acts = (1 if bf16 else 3) * m * ub * 64
+    return -(-(codes + scales + acts) // 128) * 128
+
+
+def k1_stages(m: int, ub: int, packed: bool, bf16: bool) -> int:
+    """The ring's depth: as many stages as fit RING_BYTES (RING_BYTES_SMALL
+    for up to 8 rows, whose blocks of 4 warps run 4 an SM), 2 to 12. It
+    decides how much is in flight, not the order of any sum."""
+    per = k1_stage_bytes(m, ub, packed, bf16)
+    budget = RING_BYTES_SMALL if m <= 8 else RING_BYTES
+    return max(MIN_STAGES, min(MAX_STAGES, budget // per))
+
+
+_SMS: dict = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
 
 
 def pack_codes(codes: torch.Tensor) -> torch.Tensor:
@@ -221,21 +300,34 @@ def quant_matmul_plain(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
 
 
 def quant_matmul_cuda(x: torch.Tensor, w: QuantTensor) -> torch.Tensor:
-    """Launch K1 on the card: x (M, K) float32 contiguous, M <= 256."""
+    """Launch K1 on the card: x (M, K) float32 contiguous, M <= 256, K a
+    multiple of 64."""
     dev = x.device
     _build.require(x, "x", device=dev, dtypes=(torch.float32,), ndim=2)
     _build.require(w.codes, "codes", device=dev,
                    dtypes=(torch.uint8, torch.int8), ndim=2)
-    _build.require(w.scales, "scales", device=dev,
-                   dtypes=(torch.float32, torch.bfloat16), ndim=2, align=2)
     m, k = x.shape
     n = w.shape[0]
     if k != w.shape[1] or w.scales.shape[0] != n or not 0 < m <= MAX_KERNEL_M:
         raise ValueError(f"quant_matmul: x {tuple(x.shape)} vs W {w.shape}")
+    bf16 = w.scales.dtype == torch.bfloat16
+    packed = w.is_packed
+    _, ks = k1_plan(n, k, _sm_count(dev))
+    ub = k1_unit(m, k // ks)
+    stages = k1_stages(m, ub, packed, bf16)
+    # a feature's scales of a stage are one copy of 4 or 8 bytes, or
+    # 16-byte copies
+    _build.require(w.scales, "scales", device=dev,
+                   dtypes=(torch.float32, torch.bfloat16), ndim=2,
+                   align=min(16, ub * (2 if bf16 else 4)))
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    xp = torch.empty((1 if bf16 else 3, m, k), dtype=torch.bfloat16,
+                     device=dev)
     KERNEL(_build.ptr(x), _build.ptr(w.codes), _build.ptr(w.scales),
-           _build.ptr(out), m, n, k, w.qtype, int(w.is_packed),
-           int(w.scales.dtype == torch.bfloat16), _build.stream_ptr(dev))
+           _build.ptr(xp), _build.ptr(out), m, n, k, w.qtype, int(packed),
+           int(bf16), ub, ks, stages, _build.stream_ptr(dev))
+    with _SHAPES_LOCK:
+        SHAPES[(m, n, k, w.qtype, "bf16" if bf16 else "f32", packed)] += 1
     return out
 
 
