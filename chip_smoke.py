@@ -34,13 +34,28 @@ Phases, in order; any failure exits non-zero without the final line:
    maybe_prep_parler_flat): K12 must have risen, K2 and K3 not. Then both
    routes timed stage by stage in turns (K2, K12, K12, K2), a device trace
    of 32 decode steps on each (the card's busy share, device time by
-   kernel), and their greedy codes over the 256 steps (equal).
+   kernel), and their greedy codes over the 256 steps (equal). Then the
+   runner's greedy stream (generate_stream) on each route: its codes equal
+   those, its waveform the DAC's of them (95% of samples within 1e-4, all
+   within 0.2); time to the first chunk and the chunk count logged.
 5. Serving path: the port's HTTP server in this process (batch_slots 8,
    the same GGUF) answers 12 concurrent requests with mixed sampling
-   parameters; counters set to 0 just before, read just after; K1, K4 and
-   K5 must have risen. Then the batched decode step timed and traced, one
-   request through batch_slots 0, and the engine's greedy codes against
-   the single-stream runner's (equal).
+   parameters, 2 of them streamed (`"stream": true`, top-k 1); counters
+   set to 0 just before, read just after; K1, K4 and K5 must have risen;
+   each stream's 16-bit PCM against the same request sent whole (within 1
+   LSB for 95% of samples), its time to the first samples logged, and
+   /metrics counting the streams. Then the batched decode step timed and
+   traced, one request through batch_slots 0, and the engine's greedy
+   codes against the single-stream runner's (equal). The Orpheus and Dia
+   serving phases stream 2 of their 12 requests the same way.
+5b. Conditional prompt: a T5 encoder GGUF at flan-t5-large width (24
+   layers, d 1024, 16 heads, d_ff 2816, Q4_0; random from a seed) held to
+   its plain version (dequant + matmul) on the card; the Parler CLI with
+   --conditional-prompt / --text-encoder-path (a valid WAV, Tc the
+   description's token count); the server with --text-encoder-path: POST
+   /v1/audio/conditional-prompt, then 4 greedy requests through the
+   batched engine (K5 at the new Tc) equal the runner's on the K12 and K2
+   routes; K2's and K12's layer checks at that Tc.
 6. Orpheus reference: a small Q4_0 Orpheus on both decode routes (Q4_0
    head: K6; F16 head: K8) on the card and on the CPU, teacher-forced
    logits compared at every step, and the tokens vocoded through SNAC on
@@ -52,7 +67,8 @@ Phases, in order; any failure exits non-zero without the final line:
    to 0 just before, read just after; K1 and K6 must have risen, K3 and
    the launch sequences' GEMV not (K6 is one launch a step). Then the path
    timed stage by stage and a device trace of 32 decode steps: one K6
-   launch a step, at most 75 kernels a step; the K8 route (the head
+   launch a step, at most 75 kernels a step; the runner's greedy stream
+   over the whole window against generate_tokens and its SNAC decode; the K8 route (the head
    swapped for an F16 one, 64 decode steps): one K8 launch a step, and
    the K9 route (the batched engine on those weights,
    8 slots, 64 batched steps): K9 must have risen, K7 not.
@@ -73,7 +89,8 @@ Phases, in order; any failure exits non-zero without the final line:
    CLI; counters set to 0 just before, read just after; K1 and K10 must
    have risen, K4 and the cross-attention entry not (K10 runs both inside
    its one launch). Then the path timed stage by stage and a device trace
-   of 32 decode steps: one K10 launch a step, at most 95 kernels a step.
+   of 32 decode steps: one K10 launch a step, at most 95 kernels a step;
+   the runner's greedy stream against generate_codes and the DAC.
 11. Dia serving: the port's HTTP server in this process (batch_slots 8, the
    Dia-1.6B GGUF) answers 12 concurrent dialogue requests of 20-200 bytes
    with mixed sampling parameters; K1, K4, K11 and its cross-attention
@@ -115,7 +132,8 @@ width bit for bit against the launch sequence (K9 / K7 at one slot) at
 positions 0-3583, Q4_0 on 28 layers and Q5_0 / Q8_0 on 2, layer by layer
 against their plain versions at positions around the pages, and times
 them beside the launch sequence in turns (at pos 1000, and K6 at the
-cache's first and last rows);
+cache's first and last rows); K1 also at the T5 encoder's shapes (64 rows, 1024 x 1024, 2816 x
+1024, 1024 x 2816, f32 mode);
 and K9 and K7 at 8 slots at mixed positions (one at 0): each slot bit for
 bit against K8 / K6 on its state (also at 16 slots on 4 layers), layer by
 layer against the plain versions, K7's logits per slot, timed. It holds K10
@@ -461,6 +479,13 @@ def check_k1(gen) -> dict:
         ("prefill 256 rows gate Q4_0 f32", 256, OF, OH, Q4, f32, True),
         ("prefill 256 rows down Q8_0 f32", 256, OH, OF, Q8, f32, False),
         ("prefill 256 rows Q5_0 bf16", 256, 4 * H, H, Q5, bf16, False))]
+    # the T5 encoder's products (flan-t5-large, f32 mode) at the rows of
+    # the conditional-prompt path's bucket; K 2816 is not a power of two
+    m5, (th, tf) = t5_bucket(), (T5_LARGE["hidden"], T5_LARGE["ffn"])
+    cases += [(*c, own) for c in (
+        (f"T5 q/k/v/o {m5} rows Q4_0 f32", m5, th, th, Q4, f32, True),
+        (f"T5 up/gate {m5} rows Q4_0 f32", m5, tf, th, Q4, f32, True),
+        (f"T5 down K={tf} {m5} rows Q4_0 f32", m5, th, tf, Q4, f32, True))]
     errs = []
     for name, m, n, k, qt, sd, packed, *g in cases:
         g = g[0] if g else gen
@@ -472,7 +497,8 @@ def check_k1(gen) -> dict:
                                 "same rounding, f32 sums in another order"))
     for label, m, n, k, qt, sd in (
             ("Dia serving heads 16x11520x2048 bf16", 16, N, DIA["hidden"], Q4, bf16),
-            ("Orpheus prefill gate 256x8192x3072 f32", 256, OF, OH, Q4, f32)):
+            ("Orpheus prefill gate 256x8192x3072 f32", 256, OF, OH, Q4, f32),
+            (f"T5 down {m5}x{th}x{tf} f32", m5, th, tf, Q4, f32)):
         k1_rows_alone(label, torch.randn((m, k), generator=own, device=DEV),
                       rand_quant(own, n, k, qt, sd))
     # timed at the main path's per-step shape: the 9 stacked heads, cold in
@@ -1878,8 +1904,8 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     for label, (w, kern, plain, _) in steps.items():
         ms = step_ms(lambda: kern(w, x, kc, vc, pos, scratch=scratch, **kw),
                      f"{label} step at {b} slots")
-        plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=2,
-                             warmup=1).ms
+        plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=1,
+                             warmup=0).ms
         if label == "K9":
             wts = list(w)
         else:
@@ -2269,6 +2295,113 @@ def greedy_out(r, mega) -> tuple[np.ndarray, int]:
     return out.cpu().numpy(), steps
 
 
+# ---------------------------------------------------------------------------
+# streams: the runners' generate_stream and the server's chunked PCM
+# ---------------------------------------------------------------------------
+
+# a stream against one decode of the whole (tests/test_streaming.py's
+# margins): this share of the samples within 1e-4, and every one within
+# STREAM_SEAM; through the server, 16-bit samples within 1 LSB
+STREAM_CLOSE = 0.95
+STREAM_SEAM = 0.2
+STREAMS: dict = {}   # label: the stream's numbers, for the summary
+
+
+@contextlib.contextmanager
+def recording(module, name):
+    """Every result of module.name kept in the yielded list (the codes a
+    stream delay-undoes each round)."""
+    seen, orig = [], getattr(module, name)
+
+    def wrapped(*a, **k):
+        seen.append(orig(*a, **k))
+        return seen[-1]
+
+    setattr(module, name, wrapped)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def timed_stream(chunks) -> tuple[list, float, float]:
+    """Drain a generate_stream: (the chunks, seconds to the first, seconds
+    in all; the host's clock, each chunk on the host when it comes)."""
+    t0 = time.perf_counter()
+    out, first = [], None
+    for c in chunks:
+        if first is None:
+            first = time.perf_counter() - t0
+        out.append(c)
+    return out, first, time.perf_counter() - t0
+
+
+def hold_stream(label, chunks, full, first_s, total_s, rate) -> None:
+    """A runner's stream against its `generate`'s waveform `full`: the same
+    length, STREAM_CLOSE of the samples within 1e-4 and all within
+    STREAM_SEAM, in at least two chunks; its time to the first chunk and
+    chunk count are logged and kept in STREAMS."""
+    stream = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    if stream.shape != full.shape or not full.size:
+        raise AssertionError(f"{label} stream: {stream.shape} samples, "
+                             f"generate {full.shape}")
+    diff = np.abs(stream - full)
+    stats = dict(chunks=len(chunks), first_chunk_s=first_s, total_s=total_s,
+                 audio_s=full.size / rate,
+                 within_1e_4=float((diff <= 1e-4).mean()),
+                 max_abs_err=float(diff.max()))
+    STREAMS[label] = stats
+    log(f"  {label} stream: {json.dumps(stats)} (at least {STREAM_CLOSE} "
+        f"within 1e-4, all within {STREAM_SEAM})")
+    if stats["within_1e_4"] < STREAM_CLOSE or stats["max_abs_err"] > STREAM_SEAM \
+            or len(chunks) < 2:
+        raise AssertionError(f"{label}: the stream does not match generate's "
+                             f"waveform")
+
+
+def parler_streams(r, routes, out, steps) -> None:
+    """The runner's greedy stream on each route (K2, K12): its codes equal
+    the greedy codes `out` / `steps` of generate_tokens_chunked, and its
+    waveform the DAC's of them."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.parler import model as pmodel
+    want = pmodel.adjust_output_tokens(out, steps, r.cfg)
+    full = np.asarray(r.dac.decode(want), np.float32)
+    greedy = GenerationConfig(sample=False, seed=SEED)
+    for mega, label in routes:
+        r.mega = mega
+        with recording(pmodel, "adjust_output_tokens") as seen:
+            chunks, first, total = timed_stream(r.generate_stream(PROMPT, greedy))
+        if not np.array_equal(seen[-1], want):
+            raise AssertionError(f"Parler stream, {label}: its codes differ "
+                                 f"from generate's")
+        hold_stream(f"Parler runner, {label}", chunks, full, first, total, 44100)
+
+
+def post_stream(base, payload, timeout=900):
+    """A `"stream": true` request: (status, Content-Type, the int16 samples
+    or the error body, seconds to the first samples)."""
+    req = urllib.request.Request(
+        base + "/v1/audio/speech", data=json.dumps(dict(payload, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            head = r.read(2)
+            first = time.perf_counter() - t0
+            return (r.status, r.headers.get("Content-Type", ""),
+                    np.frombuffer(head + r.read(), "<i2"), first)
+    except urllib.error.HTTPError as e:
+        return e.code, "", e.read(), None
+
+
+def wav_int16(body) -> np.ndarray:
+    """A WAV response's 16-bit samples."""
+    from tts_tpu_torch.audio.wav import decode_wav
+    audio, _ = decode_wav(body)
+    return np.round(audio * 32767).astype(np.int16)
+
+
 def run_main_path(tmp) -> tuple[dict, dict, str]:
     """The Parler CLI main path on K2's route (K1-K3 must have been
     launched), then on the K12 route (K12 must have been launched, K2 and
@@ -2328,6 +2461,7 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
         raise AssertionError("greedy codes of the K12 route differ from the "
                              "K2 route's")
     log(f"  greedy codes of the two routes equal over {n2} steps: ok")
+    parler_streams(r, ((k2, "K2 route"), (flat, "K12 route")), o2, n2)
     return launches, k12_launches, path
 
 
@@ -2346,13 +2480,14 @@ def _post(base, payload, timeout=600):
         return e.code, e.read(), dict(e.headers)
 
 
-def start_server(path, config, batch_slots):
+def start_server(path, config, batch_slots, text_encoder_path=""):
     """The port's server in this process on 127.0.0.1, an ephemeral port;
     returns (server, httpd, base url) once it is READY (kernels built,
     model loaded), or raises."""
     from tts_tpu_torch.server.server import build_server, serve
     srv = build_server(path, config=config, batch_slots=batch_slots,
-                       timeout=900.0, device=DEV)
+                       text_encoder_path=text_encoder_path, timeout=900.0,
+                       device=DEV)
     httpd = serve(srv, "127.0.0.1", 0)
     threading.Thread(target=httpd.serve_forever, daemon=True).start()
     t0 = time.perf_counter()
@@ -2389,29 +2524,39 @@ def check_wav(body, want_rate=44100, frame=512) -> float:
 
 
 def serving_burst(path, engine_cls, params, rate, frame, kernels, label,
-                  prompts=None):
+                  prompts=None, streamed=(3, 9)):
     """The port's server in this process (batch_slots 8, a sampled default
     config with top-k 50) answers 12 concurrent requests with the given
-    per-request parameters; every response must be a WAV at `rate` of
-    whole `frame`s with the right top-k cap header, /metrics must count 12
-    requests and no failure, and each of `kernels` must have been launched
-    (counters set to 0 just before, read just after). Then the batched
-    decode step alone: an `engine_cls` engine with 8 live slots, a 32-step
-    chunk timed (one host sync), a 32-step chunk traced; and one request
-    through batch_slots 0. `prompts` default to `serving_prompts` of the
-    runner's tokenizer. Returns (runner, prompts, stats, launches)."""
+    per-request parameters, those at `streamed` with `"stream": true` and
+    top-k 1 (so that their tokens do not depend on the batch); every
+    answer must be a WAV at `rate` of whole `frame`s with the right top-k
+    cap header (a stream: 16-bit PCM with its rate in the header), /metrics
+    must count 12 requests, the streams and no failure, and each of
+    `kernels` must have been launched (counters set to 0 just before, read
+    just after). Each stream's samples must equal those of the same request
+    sent whole afterwards, within 1 LSB for STREAM_CLOSE of them and
+    STREAM_SEAM elsewhere; its time to the first samples is logged. Then
+    the batched decode step alone: an `engine_cls` engine with 8 live
+    slots, a 32-step chunk timed (one host sync), a 32-step chunk traced;
+    and one request through batch_slots 0. `prompts` default to
+    `serving_prompts` of the runner's tokenizer. Returns (runner, prompts,
+    stats, launches)."""
     from tts_tpu_torch.common import GenerationConfig
     log(f"{label} serving: the port's server, batch_slots 8, sampled default "
-        f"config, 12 concurrent requests:")
+        f"config, 12 concurrent requests ({len(streamed)} streamed):")
     srv, httpd, base = start_server(path, GenerationConfig(top_k=50), 8)
     runner = srv.runners[srv.default_model]
     prompts = prompts or serving_prompts(runner.tokenizer)
-    params = params[:len(prompts)]
+    params = [dict(p, top_k=1) if i in streamed else p
+              for i, p in enumerate(params[:len(prompts)])]
     results = [None] * len(prompts)
 
     def req(i):
         t0 = time.perf_counter()
-        r = _post(base, dict(input=prompts[i], **params[i]))
+        if i in streamed:
+            r = post_stream(base, dict(input=prompts[i], **params[i]))
+        else:
+            r = _post(base, dict(input=prompts[i], **params[i]))
         results[i] = (r, time.perf_counter() - t0)
 
     threads = [threading.Thread(target=req, args=(i,)) for i in range(len(prompts))]
@@ -2425,23 +2570,63 @@ def serving_burst(path, engine_cls, params, rate, frame, kernels, label,
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     launches = read_counts(f"{label} serving")
-    httpd.shutdown()
-    secs = []
-    for i, ((code, body, headers), _) in enumerate(results):
+    m = srv.metrics_json()
+    secs, pcm = [], {}
+    for i, (res, _) in enumerate(results):
+        code, body = res[0], res[2 if i in streamed else 1]
         if code != 200:
-            raise AssertionError(f"request {i} answered {code}: {body[:300]!r}")
+            raise AssertionError(f"request {i} answered {code}: {bytes(body)[:300]!r}")
+        if i in streamed:
+            want = f"audio/pcm;rate={rate};encoding=signed-integer;bits=16"
+            if res[1] != want or body.size == 0 or body.size % frame:
+                raise AssertionError(f"stream {i}: {res[1]!r}, {body.size} samples")
+            pcm[i] = body
+            secs.append(body.size / rate)
+            continue
         secs.append(check_wav(body, rate, frame))
-        capped = headers.get("X-TTS-Top-K-Applied")
+        capped = res[2].get("X-TTS-Top-K-Applied")
         if capped != ("256" if params[i]["top_k"] == 0 else None):
             raise AssertionError(f"request {i}: X-TTS-Top-K-Applied {capped!r}")
-    m = srv.metrics_json()
+    # each stream against the same request answered whole (sent together)
+    whole_res = {}
+    threads = [threading.Thread(target=lambda i=i: whole_res.__setitem__(
+        i, _post(base, dict(input=prompts[i], **params[i])))) for i in streamed]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stream_stats = {}
+    for i in streamed:
+        code, body, _ = whole_res[i]
+        if code != 200:
+            raise AssertionError(f"request {i} sent whole answered {code}")
+        whole = wav_int16(body)
+        if whole.shape != pcm[i].shape:
+            raise AssertionError(f"stream {i}: {pcm[i].size} samples, whole "
+                                 f"{whole.size}")
+        diff = np.abs(pcm[i].astype(np.int32) - whole.astype(np.int32))
+        stream_stats[i] = dict(first_samples_s=results[i][0][3],
+                               latency_s=results[i][1], audio_s=whole.size / rate,
+                               within_1_lsb=float((diff <= 1).mean()),
+                               max_lsb=int(diff.max()))
+        if stream_stats[i]["within_1_lsb"] < STREAM_CLOSE or \
+                diff.max() > STREAM_SEAM * 32767:
+            raise AssertionError(f"stream {i} differs from its request sent "
+                                 f"whole: {stream_stats[i]}")
+    STREAMS[f"{label} server"] = stream_stats
+    httpd.shutdown()
     lat = sorted(t for _, t in results)
     log(f"  audio seconds per request {[round(x, 3) for x in secs]}; every "
-        f"response a WAV, top-k cap headers right; /metrics requests "
-        f"{m['requests_total']}, failed {m['requests_failed']}; launches "
+        f"response a WAV or (streams {list(streamed)}) 16-bit PCM, top-k cap "
+        f"headers right; /metrics requests {m['requests_total']}, streams "
+        f"{m['streams_total']}, failed {m['requests_failed']}; launches "
         f"{launches}")
-    if m["requests_total"] != len(prompts) or m["requests_failed"]:
-        raise AssertionError("/metrics does not count 12 requests and 0 failures")
+    log(f"  streams through the batched worker, each against the same request "
+        f"sent whole: {json.dumps(stream_stats)}")
+    if m["requests_total"] != len(prompts) or m["requests_failed"] or \
+            m["streams_total"] != len(streamed) or m["streams_rejected"]:
+        raise AssertionError("/metrics does not count 12 requests, the streams "
+                             "and 0 failures")
     for n in kernels:
         if launches[n] == 0:
             raise AssertionError(f"kernel {n} was not launched on the {label} "
@@ -2526,6 +2711,247 @@ def run_serving(path) -> dict:
         f"runner's codes exactly ({[eng.results[r].shape[0] for r in rids]} "
         f"frames): ok")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# conditional prompts: the T5 encoder behind the Parler runner, CLI and server
+# ---------------------------------------------------------------------------
+
+# flan-t5-large, the text encoder Parler-TTS Mini v1's config names: 24
+# layers, d_model 1024, 16 heads of 64, d_ff 2816 (gated GELU), 32 relative
+# buckets over a distance of 128, vocab 32128. No down projection: its
+# output is the Parler-Mini decoder's hidden size.
+T5_LARGE = dict(n_layers=24, hidden=1024, heads=16, ffn=2816, vocab=32128)
+DESCRIPTION = "a calm female voice, speaking slowly, in a quiet room."
+
+
+def write_t5(path, rng, *, n_layers, hidden, heads, ffn, vocab) -> None:
+    """A T5 encoder GGUF as `tts_tpu.convert.write_t5_gguf` lays one out:
+    Q4_0 projections, F32 norms and relative-attention bias (the first
+    layer's), F16 token embeddings, the unigram vocab of TOKENS."""
+    w = GGUFWriter(path, "t5encoder")
+    for key, v in (("embedding_length", hidden), ("block_count", n_layers),
+                   ("attention.head_count", heads), ("vocab_size", vocab),
+                   ("output_size", hidden), ("context_length", 512)):
+        w.add_u32(f"t5encoder.{key}", v)
+    w.add_str("tokenizer.ggml.model", "unigram")
+    w.add_array("tokenizer.ggml.tokens", TOKENS)
+    w.add_array("tokenizer.ggml.scores",
+                np.asarray([-10.0] + [-1.0] * (len(TOKENS) - 1), np.float32))
+    for key, v in (("unknown_token_id", 0), ("eos_token_id", 1),
+                   ("bos_token_id", 0)):
+        w.add_u32(f"tokenizer.ggml.{key}", v)
+
+    def q4(name, n, k):
+        w.add_raw_tensor(name, (n, k), quants.GGML_TYPE_Q4_0, rand_q4_raw(rng, n, k))
+
+    def f32(name, *shape, scale=0.1, one=False):
+        w.add_tensor(name, rng.standard_normal(shape, dtype=np.float32) * scale
+                     + (1.0 if one else 0.0))
+
+    for l in range(n_layers):
+        b = f"t5encoder.enc.blk.{l}."
+        f32(b + "attn_norm", hidden, one=True)
+        for n in ("attn_q", "attn_k", "attn_v", "attn_o"):
+            q4(b + n, hidden, hidden)
+        if l == 0:
+            f32(b + "attn_rel_b", 32, heads, scale=1.0)
+        f32(b + "ffn_norm", hidden, one=True)
+        q4(b + "ffn_up", ffn, hidden)
+        q4(b + "ffn_gate", ffn, hidden)
+        q4(b + "ffn_down", hidden, ffn)
+    w.add_tensor("t5encoder.token_embd", rng.standard_normal(
+        (vocab, hidden), dtype=np.float32), quants.GGML_TYPE_F16)
+    f32("t5encoder.enc.final_layer_norm", hidden, one=True)
+    w.write()
+
+
+def t5_bucket() -> int:
+    """The T5 runner's rows for DESCRIPTION: its tokens (and the EOS)
+    padded to the first length bucket that holds them."""
+    from tts_tpu_torch.models.t5.model import length_bucket
+    from tts_tpu_torch.text import UnigramTokenizer
+    tok = UnigramTokenizer({t: i for i, t in enumerate(TOKENS)}, 0,
+                           [-10.0] + [-1.0] * (len(TOKENS) - 1), 1)
+    return length_bucket(len(tok.tokenize(DESCRIPTION)) + 1)
+
+
+def dense_t5(w):
+    """The T5 weights with every projection dequantized to float32 (the
+    plain version of K1's products: dequant + torch.matmul)."""
+    from tts_tpu_torch.models.t5.model import T5LayerWeights
+    deq = [f.dense() if isinstance(f, qm.QuantTensor) else f for f in w.layers]
+    return w._replace(layers=T5LayerWeights(*deq))
+
+
+def check_t5(t5_path, tokenizer) -> int:
+    """The T5 encoder at flan-t5-large width on the card (K1 in f32 mode at
+    M = the description's bucket) against its plain version (dequant +
+    float32 matmul), within 4x the plain version's own move between the
+    card and the host's CPU (or 1e-5 of the largest output); timed. Returns
+    the description's token count, Tc."""
+    from tts_tpu_torch.models.t5 import model as t5m
+    enc = t5m.text_encoder_from_file(t5_path, tokenizer)
+    ids = tokenizer.tokenize(DESCRIPTION) + [enc.cfg.eos_token_id]
+    plain = t5m.T5Runner(enc.cfg, dense_t5(enc.weights), tokenizer)
+    before = qm.KERNEL.launches
+    got = enc.encode_tokens(ids)
+    if qm.KERNEL.launches - before != 7 * enc.cfg.n_layers:
+        raise AssertionError(f"T5 encode launched K1 {qm.KERNEL.launches - before} "
+                             f"times, want 7 a layer")
+    ref = plain.encode_tokens(ids)
+    host_w = t5m.T5Weights(*[t.cpu() if torch.is_tensor(t) else
+                             (type(t)(*[f.cpu() for f in t]) if t is not None else None)
+                             for t in plain.weights])
+    host = t5m.T5Runner(enc.cfg, host_w, tokenizer).encode_tokens(ids).to(DEV)
+    scale = float(ref.abs().max())
+    yard = max_err(host, ref) / scale
+    tol = max(4 * yard, 1e-5)
+    err = max_err(got, ref) / scale
+    ms = cuda_ms(lambda: enc.encode_tokens(ids), iters=5, warmup=1)
+    dev = device_ms(lambda: enc.encode_tokens(ids), iters=3, warmup=1)
+    plain_ms = cuda_ms(lambda: plain.encode_tokens(ids), iters=3, warmup=1)
+    log(f"  T5 (flan-t5-large width, Q4_0) encode of {len(ids)} tokens (bucket "
+        f"{enc.bucket(len(ids))}): max |K1 - plain| / max {err:.3e} (tol "
+        f"{tol:.3e}: 4x the plain version's card-vs-CPU move {yard:.3e}); "
+        f"{ms:.4f} ms a call on the host clock, {dev.ms:.4f} ms of device "
+        f"time; plain (dequant + matmul) {plain_ms:.4f} ms")
+    if not bool(torch.isfinite(got).all()) or got.shape != (len(ids), enc.cfg.hidden_size) \
+            or err > tol:
+        raise AssertionError("T5 on the card disagrees with its plain version")
+    del enc, plain, host_w
+    torch.cuda.empty_cache()
+    return len(ids)
+
+
+def run_conditional_prompt(tmp, path) -> None:
+    """Conditional prompts on the Parler-Mini GGUF: a flan-t5-large-width
+    T5 GGUF written; T5 held to its plain version (check_t5); the CLI with
+    --conditional-prompt and --text-encoder-path (a valid WAV, Tc the
+    description's token count; K1's census kept); the server with
+    --text-encoder-path: POST /v1/audio/conditional-prompt on the K12
+    route, then greedy (top-k 1) requests through the batched engine equal
+    the runner's on both routes (K2, K12) at the new Tc; K2's and K12's
+    layer checks at that Tc."""
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.audio.wav import read_audio_file
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.parler import model as pmodel
+    t5_path = os.path.join(tmp, "flan-t5-large-q4.gguf")
+    t0 = time.perf_counter()
+    write_t5(t5_path, np.random.default_rng(SEED + 7), **T5_LARGE)
+    log(f"Conditional prompt: wrote {os.path.getsize(t5_path) / 1e6:.1f} MB "
+        f"T5 GGUF in {time.perf_counter() - t0:.1f} s; description "
+        f"{DESCRIPTION!r}")
+    from tts_tpu_torch.text import UnigramTokenizer
+    tok = UnigramTokenizer({t: i for i, t in enumerate(TOKENS)}, 0,
+                           [-10.0] + [-1.0] * (len(TOKENS) - 1), 1)
+    tc = check_t5(t5_path, tok)
+
+    made = []
+    load = cli.runner_from_file
+
+    def keep(*a, **k):
+        made.append(load(*a, **k))
+        return made[-1]
+
+    wav = os.path.join(tmp, "conditional.wav")
+    cli.runner_from_file = keep
+    try:
+        zero_counts()
+        rc = cli.main(["-mp", path, "-p", PROMPT, "-sp", wav, "--seed",
+                       str(SEED), "-cp", DESCRIPTION, "-tep", t5_path])
+        torch.cuda.synchronize()
+        launches = read_counts("Parler CLI, conditional prompt")
+    finally:
+        cli.runner_from_file = load
+    audio, rate = read_audio_file(wav)
+    got_tc = made[0].cfg.n_encode_length
+    log(f"  CLI with --conditional-prompt wrote {audio.size} samples at {rate} "
+        f"Hz; Tc {got_tc} (the description's {tc} tokens); launches {launches}")
+    if rc != 0 or rate != 44100 or audio.size == 0 or audio.size % 512 or \
+            not np.all(np.isfinite(audio)) or np.abs(audio).max() > 1.0 or \
+            got_tc != tc or made[0].weights.layers.cross_k.shape[2] != tc:
+        raise AssertionError("the conditional-prompt CLI run failed")
+    r = made[0]
+    t0 = time.perf_counter()
+    r.update_conditional_prompt(t5_path, DESCRIPTION)
+    torch.cuda.synchronize()
+    log(f"  update_conditional_prompt: {(time.perf_counter() - t0) * 1e3:.1f} "
+        f"ms (the encoder's GGUF read, T5, every layer's cross K/V, K2's "
+        f"prep)")
+    del made, r
+    torch.cuda.empty_cache()
+
+    srv, httpd, base = start_server(path, GenerationConfig(top_k=50), 8,
+                                    text_encoder_path=t5_path)
+    try:
+        runner = srv.runners[srv.default_model]
+        runner.mega = pmodel.maybe_prep_parler_flat(runner.cfg, runner.weights)
+        t0 = time.perf_counter()
+        req = urllib.request.Request(
+            base + "/v1/audio/conditional-prompt",
+            data=json.dumps({"conditional_prompt": DESCRIPTION}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            code, body = resp.status, resp.read()
+        post_ms = (time.perf_counter() - t0) * 1e3
+        eng = srv.batched_workers[srv.default_model].engine
+        if code != 200 or json.loads(body) != {"success": True} or \
+                not isinstance(runner.mega, pf.ParlerFlat) or \
+                runner.cfg.n_encode_length != tc or eng.weights is not runner.weights \
+                or eng.mega.layers.cross_k.shape[2] != tc:
+            raise AssertionError(f"POST /v1/audio/conditional-prompt: {code} "
+                                 f"{body[:200]!r}")
+        log(f"  server: POST /v1/audio/conditional-prompt answered 200 in "
+            f"{post_ms:.1f} ms (loading the encoder, T5, cross K/V, the K12 "
+            f"route's prep, the engine's K5 prep between two chunks); Tc {tc}")
+        prompts = serving_prompts(runner.tokenizer, n=4, lo=5, hi=40)
+        results = [None] * len(prompts)
+
+        def one(i):
+            results[i] = _post(base, dict(input=prompts[i], top_k=1, seed=i))
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for route in ("K12", "K2"):
+            if route == "K2":
+                runner.mega = pmodel.maybe_prep_mega(runner.cfg, runner.weights)
+            for i, (code, body, _) in enumerate(results):
+                want = runner.generate(prompts[i], GenerationConfig(top_k=1, seed=i))
+                if code != 200 or not np.array_equal(
+                        wav_int16(body), (np.clip(want.audio, -1, 1) * 32767).astype(np.int16)):
+                    raise AssertionError(f"the engine's greedy answer {i} differs "
+                                         f"from the runner's on the {route} route")
+        log(f"  4 greedy (top-k 1) requests through the engine (K5, Tc {tc}) "
+            f"equal the runner's on the K12 and the K2 route: ok")
+        mega = runner.mega.layers
+    finally:
+        httpd.shutdown()
+    # K2's and K12's layer checks at the new Tc
+    L, H, heads, ctx = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["ctx"]
+    d = H // heads
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 13)
+    kc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn((L, heads, ctx, d), generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((1, H), generator=gen, device=DEV)
+    kw = dict(qtype=quants.GGML_TYPE_Q4_0, use_cross=True, n_heads=heads)
+    pos = torch.tensor([1000], dtype=torch.int32, device=DEV)
+    check_k2_layers(mega, x, kc, vc, pos, kw, layers=K12_LAYERS)
+    err, base = defaultdict(list), defaultdict(list)
+    layer_errors(lambda l: pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]),
+                                         mega.cross_pos),
+                 L, x, kc, vc, pos, kw, k12_step, k12_plain, "K12", err, base,
+                 layers=K12_LAYERS)
+    judge_layers(err, base, "K12", f"Tc {tc}, pos 1000, layers "
+                 f"{list(K12_LAYERS)} layer by layer, yardstick plain on the "
+                 f"CPU vs plain on the card")
+    del kc, vc, srv
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2879,6 +3305,20 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
         f"kernels a step in the device trace (at most "
         f"{ORPHEUS_KERNELS_PER_STEP}): ok")
 
+    # the runner's greedy stream (K6) over the whole window: its tokens
+    # equal generate_tokens', its waveform the SNAC decode of them
+    greedy = GenerationConfig(sample=False, seed=SEED, voice=VOICE)
+    g_out, g_n, _ = r.generate_tokens(PROMPT, greedy)
+    want = omodel.prepare_output_tokens(g_out, g_n)
+    full = r.vocode(g_out, g_n, SEED)
+    with recording(omodel, "prepare_output_tokens") as seen:
+        chunks, first_s, total_s = timed_stream(r.generate_stream(PROMPT, greedy))
+    if seen[-1] != want:
+        raise AssertionError("Orpheus stream: its tokens differ from "
+                             "generate_tokens'")
+    hold_stream(f"Orpheus runner, K6, {g_n} tokens", chunks, full, first_s,
+                total_s, 24000)
+
     # the K8 route: the same layers with an F16 head (as the quantizer leaves
     # it without -qh), through the runner's decode loop
     head = w.head.dense()[:cfg.vocab_size].to(torch.float16).float()
@@ -2953,7 +3393,7 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
 
 ORPHEUS_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                         "llama_flat_megastep_batched")
-GREEDY_TOKENS = 300   # the greedy parity check's generation window
+GREEDY_TOKENS = 200   # the greedy parity check's generation window
 
 
 def run_orpheus_serving(path) -> dict:
@@ -3641,6 +4081,19 @@ def run_dia_main_path(tmp) -> tuple[dict, str]:
     log(f"  Dia decode: {k10_per_step:.0f} K10 launch a step, "
         f"{last_trace['kernels']:.1f} kernels a step in the device trace "
         f"(at most {DIA_KERNELS_PER_STEP}): ok")
+    # the runner's greedy stream (K10): its codes equal generate_codes', its
+    # waveform the DAC's of them
+    from tts_tpu_torch.common import GenerationConfig
+    greedy = GenerationConfig(sample=False, seed=SEED)
+    want = r.generate_codes(DIA_PROMPT, greedy)
+    full = np.asarray(r.dac.decode(want), np.float32)
+    with recording(dmodel, "adjust_output_tokens") as seen:
+        chunks, first_s, total_s = timed_stream(r.generate_stream(DIA_PROMPT,
+                                                                  greedy))
+    if not np.array_equal(seen[-1], want):
+        raise AssertionError("Dia stream: its codes differ from generate_codes'")
+    hold_stream(f"Dia runner, K10, {want.shape[0]} frames", chunks, full,
+                first_s, total_s, 44100)
     del r, st
     torch.cuda.empty_cache()
     return launches, path
@@ -3767,7 +4220,7 @@ def check_head_sizes(tmp) -> None:
     for d, (hidden, heads, kv) in HEAD_SIZE_MODELS.items():
         # Parler: K2 and K5 with K3 / K4 at heads of d
         name = f"parler-d{d}.gguf"
-        check_small_reference(tmp, hidden, heads, name, n_steps=24)
+        check_small_reference(tmp, hidden, heads, name, n_steps=12)
         runner = runner_from_file(os.path.join(tmp, name))
         prompts = serving_prompts(runner.tokenizer, n=2, lo=3, hi=20)
         lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
@@ -3778,7 +4231,7 @@ def check_head_sizes(tmp) -> None:
             single.cfg, runner.weights, runner.tokenizer, n_slots=2, chunk=32),
             prompts, lambda p: single.generate_codes(p, greedy), same_codes)
         # Orpheus: K7 / K9 (the single stream at one slot)
-        check_small_orpheus(tmp, hidden, heads, kv, n_steps=24)
+        check_small_orpheus(tmp, hidden, heads, kv, n_steps=12)
         with small_orpheus_prompt_ids():
             runner = runner_from_file(os.path.join(tmp, f"orpheus-small-K6-d{d}.gguf"))
             single = copy.copy(runner)
@@ -4008,6 +4461,7 @@ def main() -> int:
         launches, k12_launches, path = phase(run_main_path, tmp)
         torch.cuda.empty_cache()
         served = phase(run_serving, path)
+        phase(run_conditional_prompt, tmp, path)
         os.remove(path)
         torch.cuda.empty_cache()
         phase(check_small_orpheus, tmp)
@@ -4038,6 +4492,8 @@ def main() -> int:
              "dia_megastep_batched": served_dia}
     for row in rows:
         row["launches"] = paths.get(row["name"], launches)[row["name"]]
+    log("streams, time to the first chunk (runners) or samples (servers) and "
+        f"their match: {json.dumps(STREAMS)}")
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -186,12 +186,23 @@ def test_cli_writes_wav(tmp_path):
 
 
 def test_cli_refuses_unported_flags(tmp_path, capsys):
+    """--conditional-prompt without --text-encoder-path is refused with the
+    JAX CLI's message; with one, a model without conditional prompts raises
+    (as in the JAX CLI); --play with no playback backend writes the file
+    (the conditional-prompt and playback paths themselves:
+    tests/test_torch_port_server_stream.py)."""
     from tts_tpu_torch.apps import cli
-    assert cli.main(["-mp", "test:dummy", "-p", "hi", "--play",
-                     "--device", "cpu"]) == 1
     assert cli.main(["-mp", "test:dummy", "-p", "hi", "-cp", "calm",
-                     "-tep", "t5.gguf", "--device", "cpu"]) == 1
-    assert "not supported" in capsys.readouterr().err
+                     "--device", "cpu"]) == 1
+    assert "'--text-encoder-path' must be specified" in capsys.readouterr().err
+    with pytest.raises(NotImplementedError):
+        cli.main(["-mp", "test:dummy", "-p", "hi", "-cp", "calm",
+                  "-tep", "t5.gguf", "--device", "cpu"])
+    played = str(tmp_path / "played.wav")
+    assert cli.main(["-mp", "test:dummy", "-p", "hi", "--play", "-sp", played,
+                     "--device", "cpu"]) == 0
+    assert "writing file instead" in capsys.readouterr().err
+    assert read_audio_file(played)[0].size == 2 * 44100
     wav = str(tmp_path / "dummy.wav")
     assert cli.main(["-mp", "test:dummy", "-p", "hi", "-sp", wav,
                      "--device", "cpu"]) == 0

@@ -1,7 +1,8 @@
 """PyTorch port: the OpenAI-style server over real HTTP on the CPU
 (device="cpu"), the port's counterpart of tests/test_server.py: routes,
-error JSON, /metrics, LOADING 503, the answers for what the port does not
-have yet (streaming, conditional prompts), concurrent requests, and
+error JSON (a stream's and the conditional-prompt route's too; their paths
+are tests/test_torch_port_server_stream.py's), /metrics, LOADING 503,
+`--text-encoder-path` reaching the server, concurrent requests, and
 `--batch-slots 2` against `--batch-slots 0` on a tiny Parler GGUF under a
 greedy default config: byte-identical WAVs, and the same for a tiny
 Orpheus GGUF (its batched engine against the worker pool)."""
@@ -96,10 +97,11 @@ def test_speech_formats(dummy, fmt, mime, magic):
      "not_supported_error"),
     ("/v1/audio/speech", {"input": "x", "model": "nope"}, 400,
      "invalid_request_error"),
-    ("/v1/audio/speech", {"input": "x", "stream": True}, 501,
-     "not_supported_error"),
-    ("/v1/audio/conditional-prompt", {"conditional_prompt": "calm"}, 501,
-     "not_supported_error"),
+    ("/v1/audio/speech", {"input": "", "stream": True}, 400,
+     "invalid_request_error"),
+    # the fixture's two workers: conditional prompts need one
+    ("/v1/audio/conditional-prompt", {"conditional_prompt": "calm"}, 400,
+     "invalid_request_error"),
     ("/v1/nope", {"input": "x"}, 404, "not_found_error")])
 def test_error_json(dummy, path, payload, code, etype):
     got, body, _ = _post(dummy + path, payload)
@@ -202,10 +204,24 @@ def test_top_k_cap_header(tmp_path):
         httpd.shutdown()
 
 
-def test_main_refuses_text_encoder(capsys):
+def test_main_refuses_text_encoder(capsys, monkeypatch):
+    """`--text-encoder-path` is no longer refused: main hands it to the
+    server (whose conditional-prompt route reads it) and serves."""
+    built = []
+
+    class Httpd:
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+    def fake_serve(server, host, port):
+        built.append(server)
+        return Httpd()
+
+    monkeypatch.setattr(srv_mod, "serve", fake_serve)
     assert srv_mod.main(["-mp", "test:dummy", "-tep", "t5.gguf",
-                         "--device", "cpu"]) == 1
-    assert "not supported" in capsys.readouterr().err
+                         "--device", "cpu"]) == 0
+    assert built[0].text_encoder_path == "t5.gguf"
+    assert "not supported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("slots", [0, 8])

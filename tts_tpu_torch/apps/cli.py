@@ -3,8 +3,10 @@
 Same flags as the JAX package's `apps/cli.py` (parity: reference
 examples/cli/cli.cpp; --n-threads / --use-metal are accepted and ignored),
 plus `--device` (default cuda; `--device cpu` runs the plain PyTorch
-versions). Flags whose paths the port does not have yet
-(--conditional-prompt, --play) fail with a message.
+versions). `--conditional-prompt` re-encodes a Parler model's voice
+description through the T5 encoder GGUF at `--text-encoder-path` before
+generating; `--play` plays the audio where a playback backend is installed
+and otherwise writes the file.
 
     python -m tts_tpu_torch.apps.cli -mp model.gguf -p "Hello" -sp out.wav
 """
@@ -42,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vad", "-va", action="store_true")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--play", action="store_true",
-                   help="play audio (not in the port yet)")
+                   help="play audio (requires a playback backend)")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")
     # accepted for reference-CLI compatibility; no-ops here
@@ -54,13 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     t0 = time.perf_counter()
     args = build_parser().parse_args(argv)
-    if args.conditional_prompt:
-        print("--conditional-prompt is not supported by the PyTorch port yet "
-              "(it needs the T5 encoder, a later slice).", file=sys.stderr)
-        return 1
-    if args.play:
-        print("--play is not supported by the PyTorch port yet; write a file "
-              "with --save-path.", file=sys.stderr)
+    if args.conditional_prompt and not args.text_encoder_path:
+        print("The '--text-encoder-path' must be specified when "
+              "'--conditional-prompt' is passed.", file=sys.stderr)
         return 1
     if not (0.0 < args.top_p <= 1.0):
         print(f"The '--top-p' value must be between 0.0 and 1.0. It was set "
@@ -75,6 +73,9 @@ def main(argv=None) -> int:
         top_p=args.top_p, seed=args.seed)
 
     runner = runner_from_file(args.model_path, config, device=args.device)
+    if args.conditional_prompt:
+        runner.update_conditional_prompt(args.text_encoder_path,
+                                         args.conditional_prompt)
     resp = runner.generate(args.prompt, config)
     if resp.n_outputs == 0:
         print(f"Got empty response for prompt, '{args.prompt}'.", file=sys.stderr)
@@ -83,7 +84,16 @@ def main(argv=None) -> int:
     if args.vad:
         audio = apply_energy_voice_inactivity_detection(
             audio, sample_rate=float(resp.sample_rate))
-    write_audio_file(audio, args.save_path, resp.sample_rate)
+    played = False
+    if args.play:
+        try:
+            from .playback import play_audio
+            played = play_audio(audio, resp.sample_rate)
+        except Exception as e:  # noqa: BLE001 — no playback backend
+            print(f"playback unavailable ({e}); writing file instead",
+                  file=sys.stderr)
+    if not played:
+        write_audio_file(audio, args.save_path, resp.sample_rate)
     total_ms = (time.perf_counter() - t0) * 1000.0
     print(f"Total time: {total_ms:.2f} ms  "
           f"(audio: {len(audio) / resp.sample_rate:.2f} s)")

@@ -209,3 +209,24 @@ class DACRunner:
     def decode(self, codes: np.ndarray) -> np.ndarray:
         c = torch.from_numpy(np.asarray(codes, np.int64)).to(self.device)
         return dac_decode(self.cfg, self.weights, c).cpu().numpy()
+
+
+def stream_segment(dac: DACRunner, codes: np.ndarray, emitted: int,
+                   done: bool, margin: int):
+    """Margin-overlap vocoding of a growing code sequence (the JAX
+    package's streaming scheme): the waveform of frames [emitted, ready)
+    of codes (T, n_heads), where ready is every frame once generation is
+    done and all but the last `margin` before (delay-undone frames near the
+    end may still change). The span is decoded with `margin` frames of
+    context on each side, so that the convolutions see their true
+    neighbourhood and the concatenated segments match one decode of the
+    whole away from the seams. Returns (waveform or None, ready)."""
+    total = codes.shape[0]
+    ready = total if done else max(0, total - margin)
+    if ready <= emitted:
+        return None, emitted
+    lo = max(0, emitted - margin)
+    hi = total if done else min(total, ready + margin)
+    up = dac.cfg.up_sampling_factor
+    seg = np.asarray(dac.decode(codes[lo:hi]), np.float32)
+    return seg[(emitted - lo) * up:(ready - lo) * up], ready

@@ -227,3 +227,33 @@ class SNACRunner:
                           torch.from_numpy(coarse).to(dev),
                           torch.from_numpy(noise).to(dev), t)
         return wav[: t * cfg.up_sampling_factor].cpu().numpy()
+
+
+def stream_segment(snac: SNACRunner, heads: list, emitted: int, done: bool,
+                   margin: int, noise_layers: list):
+    """`dac.stream_segment` for SNAC (the JAX Orpheus stream's scheme):
+    the waveform of fine frames [emitted, ready) of the 3 codebook head
+    lists, frame counts kept to whole coarse frames (4 fine), decoded with
+    `margin` frames of context at its frame offset in the position-stable
+    `noise_layers` (make_noise_layers), codebook ids clipped as the
+    runner's decode clips them. Returns (waveform or None, ready)."""
+    t = len(heads[2])
+    ready = t if done else max(0, t - margin)
+    ready -= ready % 4
+    if ready <= emitted:
+        return None, emitted
+    lo = max(0, emitted - margin)
+    lo -= lo % 4
+    hi = t if done else min(t, ready + margin)
+    hi -= hi % 4
+    cb = snac.weights.quantizers[0].codebook.shape[0]
+
+    def clip(h, a, b):
+        return np.clip(np.asarray(h[a:b], np.int64), 0, cb - 1).tolist()
+
+    seg = snac.decode([clip(heads[0], lo // 4, hi // 4),
+                       clip(heads[1], lo // 2, hi // 2), clip(heads[2], lo, hi)],
+                      noise_layers=noise_layers, frame_offset=lo)
+    up = snac.cfg.up_sampling_factor
+    return (np.asarray(seg[(emitted - lo) * up:(ready - lo) * up], np.float32),
+            ready)

@@ -634,23 +634,30 @@ class DiaRunner(TTSRunner):
             return DiaCross(ck, cv, None, 0)
         return DiaCross(*prep_dia_cross(ck, cv, len(ids)))
 
-    def generate_codes(self, text: str, config: GenerationConfig) -> np.ndarray:
-        """Text -> (frames, n_heads) int codes (delay-undone, filtered)."""
+    def _encoded(self, text: str, config: GenerationConfig):
+        """Tokenize and encode `text`: (the cross K/V of the decode route,
+        the generation window, the seeded generator, the step's keywords)."""
         cfg = self.cfg
-        ids = tokenize_sentence(text, cfg)
-        cross = self.encode(ids)
+        cross = self.encode(tokenize_sentence(text, cfg))
         max_steps = cfg.max_generation_size
         if config.max_tokens and config.max_tokens > cfg.max_delay:
             max_steps = config.max_tokens
         seed = config.seed if config.seed is not None else np.random.randint(2 ** 31)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        out, n_steps = dia_generate_tokens_chunked(
-            cfg, self.weights, cross, gen, max_steps=max_steps, mega=self.mega,
-            do_sample=config.sample, temperature=float(config.temperature),
-            top_k=int(config.top_k), top_p=float(config.top_p),
-            repetition_penalty=float(config.repetition_penalty))
-        return adjust_output_tokens(out.cpu().numpy(), n_steps, cfg)
+        step_kw = dict(max_steps=max_steps, mega=self.mega,
+                       do_sample=config.sample,
+                       temperature=float(config.temperature),
+                       top_k=int(config.top_k), top_p=float(config.top_p),
+                       repetition_penalty=float(config.repetition_penalty))
+        return cross, max_steps, gen, step_kw
+
+    def generate_codes(self, text: str, config: GenerationConfig) -> np.ndarray:
+        """Text -> (frames, n_heads) int codes (delay-undone, filtered)."""
+        cross, _, gen, step_kw = self._encoded(text, config)
+        out, n_steps = dia_generate_tokens_chunked(self.cfg, self.weights,
+                                                   cross, gen, **step_kw)
+        return adjust_output_tokens(out.cpu().numpy(), n_steps, self.cfg)
 
     def generate(self, text: str, config: GenerationConfig | None = None) -> TTSResponse:
         config = config or GenerationConfig()
@@ -659,3 +666,38 @@ class DiaRunner(TTSRunner):
             return TTSResponse(np.zeros(0, np.float32), SAMPLE_RATE_DAC)
         return TTSResponse(np.asarray(self.dac.decode(codes), np.float32),
                            SAMPLE_RATE_DAC)
+
+    @torch.no_grad()
+    def generate_stream(self, text: str, config: GenerationConfig | None = None,
+                        chunk: int = 64, margin: int = 16):
+        """Streaming generation (the JAX runner's `generate_stream`): the
+        encoder, then decode chunks of `chunk` steps, each vocoded through
+        the DAC with `margin` frames of overlap (`dac.stream_segment`;
+        delay-undone frames are append-only, so the stream matches
+        `generate` away from the seams). Each chunk reads the host one
+        tensor: [done, pos] over the output rows so far. The steps are
+        `generate_codes`'s (K10 on a quantized model), so greedy codes are
+        equal."""
+        from ..codec.dac import stream_segment
+        config = config or GenerationConfig()
+        cfg = self.cfg
+        cross, max_steps, gen, step_kw = self._encoded(text, config)
+        st = init_state(cfg, max_steps, self.device)
+        emitted = n = 0
+        while True:
+            c = min(chunk, max_steps - n)
+            if c > 0:
+                st = decode_chunk(cfg, self.weights, st, cross, c, gen, **step_kw)
+                n += c
+            packed = torch.cat([st.done.long(), st.pos.long(),
+                                st.out_tokens[:n].reshape(-1)]).cpu().numpy()
+            done = bool(packed[0]) or n >= max_steps
+            codes = adjust_output_tokens(
+                packed[2:].reshape(n, cfg.n_output_heads), int(packed[1]), cfg)
+            if self.dac is not None:
+                seg, emitted = stream_segment(self.dac, codes, emitted, done,
+                                              margin)
+                if seg is not None:
+                    yield seg
+            if done:
+                break

@@ -475,8 +475,10 @@ class OrpheusRunner(TTSRunner):
     def _prompt_ids(self, text: str, voice: str):
         return prompt_ids(self.tokenizer, text, voice)
 
-    def generate_tokens(self, text: str, config: GenerationConfig):
-        """Text -> (out_tokens numpy (max_generation,), n_out, seed)."""
+    def _prefilled(self, text: str, config: GenerationConfig):
+        """Prompt ids, prefill into a fresh cache and the first token
+        sampled from its logits: (prompt length, first token, caches, the
+        seeded generator, the sampling keywords, the seed)."""
         cfg = self.cfg
         check_voice(config.voice)
         ids = self._prompt_ids(text, config.voice)
@@ -497,10 +499,60 @@ class OrpheusRunner(TTSRunner):
                          repetition_penalty=float(config.repetition_penalty))
         first, _ = sampling.sample_or_greedy(
             gen, logits[None, :], sampling.init_state(1, dev), **sample_kw)
+        return len(ids), first, kv_k, kv_v, gen, sample_kw, seed
+
+    def generate_tokens(self, text: str, config: GenerationConfig):
+        """Text -> (out_tokens numpy (max_generation,), n_out, seed)."""
+        plen, first, kv_k, kv_v, gen, sample_kw, seed = self._prefilled(
+            text, config)
         out, n_out = orpheus_generate_tokens_chunked(
-            cfg, self.weights, self.inv_freq, first, len(ids), kv_k, kv_v, gen,
-            max_steps=cfg.max_generation_size, mega=self.mega, **sample_kw)
+            self.cfg, self.weights, self.inv_freq, first, plen, kv_k, kv_v,
+            gen, max_steps=self.cfg.max_generation_size, mega=self.mega,
+            **sample_kw)
         return out.cpu().numpy(), n_out, seed
+
+    @torch.no_grad()
+    def generate_stream(self, text: str, config: GenerationConfig | None = None,
+                        chunk: int = 56, margin: int = 16):
+        """Streaming generation (the JAX runner's `generate_stream`): yields
+        float32 waveform chunks as decode chunks of `chunk` tokens
+        complete, vocoded through SNAC with `margin` fine frames of context
+        at their frame offset (`snac.stream_segment`); the position-stable
+        noise of the seed makes the stream match `generate` away from the
+        seams. Each chunk reads the host one tensor: [finished, n_out] over
+        the tokens so far. The steps are `generate_tokens`'s (K6 on the
+        quantized head), so greedy tokens are equal."""
+        from ..codec.snac import make_noise_layers, stream_segment
+        config = config or GenerationConfig()
+        cfg = self.cfg
+        plen, first, kv_k, kv_v, gen, sample_kw, seed = self._prefilled(
+            text, config)
+        max_steps = cfg.max_generation_size
+        st = init_state(cfg, first, plen, kv_k, kv_v, max_steps)
+        noise = None
+        if self.snac is not None:
+            noise = make_noise_layers(self.snac.cfg, seed,
+                                      4 * (max_steps // 7 + 1))
+        mega = self.mega
+        emitted, left, run = 0, max_steps - 1, 1
+        while True:
+            c = min(chunk, left)
+            if c > 0:
+                st = decode_chunk(cfg, self.weights, self.inv_freq, st, c, gen,
+                                  mega=mega, max_steps=max_steps, **sample_kw)
+                left -= c
+                run += c
+            packed = torch.cat([finished(st, max_steps).long(), st.n_out.long(),
+                                st.out_tokens[:run]]).cpu().numpy()
+            done = bool(packed[0]) or left <= 0
+            heads = prepare_output_tokens(packed[2:], int(packed[1]))
+            if self.snac is not None and heads[2]:
+                seg, emitted = stream_segment(self.snac, heads, emitted, done,
+                                              margin, noise)
+                if seg is not None:
+                    yield seg
+            if done:
+                break
 
     def vocode(self, out: np.ndarray, n_out: int, seed) -> np.ndarray:
         """Tokens -> waveform through SNAC, with the position-stable noise of

@@ -17,11 +17,12 @@ def load_parler_runner(reader: GGUFReader, config: GenerationConfig,
         cfg = ParlerConfig.from_gguf(reader)
         cfg.use_cross_attn = config.use_cross_attn
         tokenizer = UnigramTokenizer.from_gguf(reader)
-        weights = load_parler_weights(reader, cfg, device=dev)
+        weights, k_ws, v_ws = load_parler_weights(reader, cfg, device=dev)
         dac = None
         if any(n.startswith("audio_encoder.") for n in reader.tensor_names()):
             dac_cfg = DACConfig.from_gguf(reader)
             dac = DACRunner(dac_cfg, load_dac_weights(reader, dac_cfg, device=dev))
     finally:
         reader.close()
-    return ParlerRunner(cfg, weights, tokenizer, dac)
+    projs = (k_ws, v_ws) if k_ws else None
+    return ParlerRunner(cfg, weights, tokenizer, dac, cross_kv_projs=projs)

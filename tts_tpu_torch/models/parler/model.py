@@ -31,6 +31,7 @@ plain PyTorch version.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -425,9 +426,11 @@ def precompute_cross_kv(cfg: ParlerConfig, text_encoding: torch.Tensor,
 
 @torch.no_grad()
 def load_parler_weights(r: GGUFReader, cfg: ParlerConfig, prefix: str = "decoder.",
-                        device=None) -> ParlerWeights:
-    """The decoder's weights on `device` (default cuda, see
-    common.default_device)."""
+                        device=None):
+    """(weights, k_ws, v_ws): the decoder's weights on `device` (default
+    cuda, see common.default_device) and each layer's cross-attention K / V
+    projection (None where a layer has none), which a conditional-prompt
+    update needs to rebuild the cross K/V."""
     device = default_device(device)
     names = set(r.tensor_names())
 
@@ -493,18 +496,21 @@ def load_parler_weights(r: GGUFReader, cfg: ParlerConfig, prefix: str = "decoder
         layers=layer_stack, embds=embds, prompt_embd=get("embed_prompts"),
         pos_embd=dense(get("positional_embed")),
         final_ln_w=get("layer_norm.weight"), final_ln_b=get("layer_norm.bias"),
-        heads=heads)
+        heads=heads), k_ws, v_ws
 
 
 class ParlerRunner(TTSRunner):
     arch = "parler-tts"
 
     def __init__(self, cfg: ParlerConfig, weights: ParlerWeights,
-                 tokenizer: UnigramTokenizer, dac_runner=None):
+                 tokenizer: UnigramTokenizer, dac_runner=None,
+                 cross_kv_projs=None):
         strict_fp32()
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.dac = dac_runner
+        # (k_ws, v_ws), the cross K / V projections, for re-encoding
+        self.cross_kv_projs = cross_kv_projs
         if isinstance(weights.heads, QuantTensor):
             # per-head vocab padding + bf16 scales (the `_dqdot` numerics of
             # the decode loop's LM-head matvec) + packed Q4 codes
@@ -514,6 +520,30 @@ class ParlerRunner(TTSRunner):
         self.device = weights.pos_embd.device
         self.mega = maybe_prep_mega(cfg, weights)
 
+    def update_conditional_prompt(self, file_path: str, prompt: str) -> None:
+        """Re-encode the voice-conditioning prompt through the T5 encoder
+        GGUF at `file_path` and rebuild the cross K/V (reference parler
+        update_conditional_prompt, model.cpp:510-518; the JAX runner's).
+        Tc becomes the prompt's token count; the decode route is prepared
+        again from the new cross K/V: K2's `Mega`, or K12's `ParlerFlat` if
+        the runner was on that route. The encoder is loaded from the file
+        each time, onto the runner's device."""
+        if not self.cfg.use_cross_attn or self.cross_kv_projs is None:
+            raise RuntimeError("cross-attention disabled; cannot set "
+                               "conditional prompt")
+        from ..t5.model import text_encoder_from_file
+        encoding = text_encoder_from_file(
+            file_path, self.tokenizer, device=self.device).generate(prompt)
+        self.cfg.n_encode_length = encoding.shape[0]
+        cross_k, cross_v = precompute_cross_kv(self.cfg, encoding,
+                                               *self.cross_kv_projs)
+        self.weights = self.weights._replace(layers=self.weights.layers._replace(
+            cross_k=cross_k, cross_v=cross_v))
+        if isinstance(self.mega, ParlerFlat):
+            self.mega = maybe_prep_parler_flat(self.cfg, self.weights)
+        elif self.mega is not None:
+            self.mega = maybe_prep_mega(self.cfg, self.weights)
+
     def _empty_kv(self):
         c = self.cfg
         shape = (c.n_layers, c.n_attn_heads, c.max_ctx_length, c.head_size)
@@ -521,8 +551,9 @@ class ParlerRunner(TTSRunner):
         return (torch.zeros(shape, dtype=dt, device=self.device),
                 torch.zeros(shape, dtype=dt, device=self.device))
 
-    def generate_codes(self, text: str, config: GenerationConfig) -> np.ndarray:
-        """Text -> (frames, n_heads) int codes (delay-undone, filtered)."""
+    def _prefilled(self, text: str, config: GenerationConfig):
+        """Tokenize and prefill `text` into a fresh cache: the prompt length,
+        the decode state, the seeded generator and the step's keywords."""
         cfg = self.cfg
         ids = self.tokenizer.tokenize(text)
         ids.append(self.tokenizer.eos_token)
@@ -533,14 +564,19 @@ class ParlerRunner(TTSRunner):
         seed = config.seed if config.seed is not None else np.random.randint(2**31)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(int(seed))
-        out, n_steps = generate_tokens_chunked(
-            cfg, self.weights, len(ids), kv_k, kv_v, gen,
-            use_cross=cfg.use_cross_attn, do_sample=config.sample,
-            temperature=float(config.temperature), top_k=int(config.top_k),
-            top_p=float(config.top_p),
-            repetition_penalty=float(config.repetition_penalty),
-            mega=self.mega)
-        return adjust_output_tokens(out.cpu().numpy(), n_steps, cfg)
+        step_kw = dict(use_cross=cfg.use_cross_attn, do_sample=config.sample,
+                       temperature=float(config.temperature),
+                       top_k=int(config.top_k), top_p=float(config.top_p),
+                       repetition_penalty=float(config.repetition_penalty),
+                       mega=self.mega)
+        return len(ids), kv_k, kv_v, gen, step_kw
+
+    def generate_codes(self, text: str, config: GenerationConfig) -> np.ndarray:
+        """Text -> (frames, n_heads) int codes (delay-undone, filtered)."""
+        plen, kv_k, kv_v, gen, step_kw = self._prefilled(text, config)
+        out, n_steps = generate_tokens_chunked(self.cfg, self.weights, plen,
+                                               kv_k, kv_v, gen, **step_kw)
+        return adjust_output_tokens(out.cpu().numpy(), n_steps, self.cfg)
 
     def generate(self, text: str, config: GenerationConfig | None = None) -> TTSResponse:
         config = config or GenerationConfig()
@@ -549,3 +585,46 @@ class ParlerRunner(TTSRunner):
             return TTSResponse(np.zeros(0, np.float32), SAMPLE_RATE_DAC)
         audio = self.dac.decode(codes)
         return TTSResponse(np.asarray(audio, np.float32), SAMPLE_RATE_DAC)
+
+    @torch.no_grad()
+    def generate_stream(self, text: str, config: GenerationConfig | None = None,
+                        chunk: int | None = None, margin: int = 16):
+        """Streaming generation (the JAX runner's `generate_stream`): yields
+        float32 waveform chunks as decode chunks complete, vocoded through
+        the DAC with `margin` frames of overlap (`dac.stream_segment`), so
+        that the concatenated stream matches `generate` away from the
+        seams. The first round is the prefill and a short first chunk
+        (`chunk` or 32 steps; time to first audio), later chunks follow
+        `chunk_schedule(first=64, cap=256)` unless `chunk` pins one. Each
+        round reads the host one tensor: [continue, step] over the output
+        rows decoded so far. The steps run on the route `self.mega` holds
+        (K2, or K12 after `maybe_prep_parler_flat`) and are the steps
+        `generate_codes` takes, so greedy codes are equal."""
+        from ..codec.dac import stream_segment
+        config = config or GenerationConfig()
+        cfg = self.cfg
+        plen, kv_k, kv_v, gen, step_kw = self._prefilled(text, config)
+        sched = iter(lambda: chunk, None) if chunk else \
+            itertools.chain([32], chunk_schedule(first=64, cap=256))
+        st = init_state(cfg, plen, kv_k, kv_v)
+        left = cfg.max_generation_size - max(plen, 0)
+        emitted = run = 0
+        for c in sched:
+            c = min(c, left)
+            if c > 0:
+                st = decode_chunk(cfg, self.weights, st, c, gen, **step_kw)
+                left -= c
+                run += c
+            status = torch.cat([not_done(cfg, st).long(), st.step.long()])
+            packed = torch.cat([
+                torch.nn.functional.pad(status, (0, cfg.n_output_heads - 2))[None],
+                st.out_tokens[:run]]).cpu().numpy()   # the round's one fetch
+            done = c <= 0 or not packed[0, 0]
+            codes = adjust_output_tokens(packed[1:], int(packed[0, 1]), cfg)
+            if self.dac is not None:
+                seg, emitted = stream_segment(self.dac, codes, emitted, done,
+                                              margin)
+                if seg is not None:
+                    yield seg
+            if done:
+                break

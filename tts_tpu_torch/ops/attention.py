@@ -1,9 +1,12 @@
 """Attention helpers in plain PyTorch: scaled dot-product attention (the JAX
 package's `ops/attention.sdpa`), NeoX RoPE (`rope_freqs`,
-`apply_rope_neox`) and the llama prefill's GQA attention. Used for prefill
-and the per-matmul paths; the decode steps' attention is kernel K3
-(ops/decode_attention.py)."""
+`apply_rope_neox`), the llama prefill's GQA attention and T5's relative
+position buckets (`t5_relative_buckets`, `t5_position_bias`). Used for
+prefill, the T5 encoder and the per-matmul paths; the decode steps'
+attention is kernel K3 (ops/decode_attention.py)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -66,3 +69,38 @@ def gqa_prefill(q: torch.Tensor, kv_k: torch.Tensor, kv_v: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     return torch.einsum("hgqk,hkd->hgqd", probs,
                         kv_v.float()).reshape(hq, t, d)
+
+
+def t5_relative_buckets(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        num_buckets: int = 32, max_distance: int = 128,
+                        bidirectional: bool = True) -> torch.Tensor:
+    """Log-binned relative-position bucket ids (Tq, Tk), HF T5's formula, as
+    the JAX package computes it: float32 logs, truncated to integers."""
+    rel = k_pos[None, :] - q_pos[:, None]
+    buckets = torch.zeros_like(rel)
+    n = num_buckets
+    if bidirectional:
+        n //= 2
+        buckets = torch.where(rel > 0, n, 0).to(rel.dtype)
+        rel = rel.abs()
+    else:
+        rel = -rel.clamp(max=0)
+    max_exact = n // 2
+    is_small = rel < max_exact
+    large = max_exact + (
+        torch.log(rel.float() / max_exact + 1e-9)
+        / math.log(max_distance / max_exact) * (n - max_exact)).to(rel.dtype)
+    large = large.clamp(max=n - 1)
+    return buckets + torch.where(is_small, rel, large)
+
+
+def t5_position_bias(embed: torch.Tensor, tq: int, tk: int,
+                     num_buckets: int = 32,
+                     max_distance: int = 128) -> torch.Tensor:
+    """(H, Tq, Tk) additive attention bias from the bucket embedding
+    (buckets, H)."""
+    dev = embed.device
+    b = t5_relative_buckets(torch.arange(tq, device=dev),
+                            torch.arange(tk, device=dev), num_buckets,
+                            max_distance)
+    return embed[b].permute(2, 0, 1)

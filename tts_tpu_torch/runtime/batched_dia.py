@@ -273,6 +273,17 @@ class BatchedDiaEngine:
             insert_dia_request(self.cfg, self.state, slot, ck, cv, vtail, config)
             self.slot_req[slot] = rid
 
+    def peek(self, rid: int):
+        """(progress, out_tokens row) of an in-flight request, else None:
+        the slot's own `pos` and output row, fetched whole to the host
+        (the server's streaming drain reads them after each chunk; worker
+        thread only)."""
+        for slot, r in enumerate(self.slot_req):
+            if r == rid:
+                return (int(self.state.pos.cpu()[slot]),
+                        self.state.out_tokens[slot].cpu().numpy())
+        return None
+
     def step(self) -> List[int]:
         """Run one decode chunk; returns the newly finished request ids."""
         self.state = batched_dia_decode_chunk(

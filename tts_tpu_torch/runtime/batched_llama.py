@@ -276,6 +276,17 @@ class BatchedLlamaEngine:
                                  config)
             self.slot_req[slot] = rid
 
+    def peek(self, rid: int):
+        """(progress, out_tokens row) of an in-flight request, else None:
+        the slot's own `n_out` and output row, fetched whole to the host
+        (the server's streaming drain reads them after each chunk; worker
+        thread only)."""
+        for slot, r in enumerate(self.slot_req):
+            if r == rid:
+                return (int(self.state.n_out.cpu()[slot]),
+                        self.state.out_tokens[slot].cpu().numpy())
+        return None
+
     def step(self) -> List[int]:
         """Run one decode chunk; returns the newly finished request ids."""
         self.state = batched_llama_decode_chunk(

@@ -216,12 +216,7 @@ class BatchedParlerEngine:
         self.n_slots = n_slots
         self.chunk = chunk
         self.device = weights.pos_embd.device
-        self.mega = maybe_prep_mega(cfg, weights)
-        self.scratch = None
-        if self.mega is not None and self.device.type == "cuda":
-            self.scratch = step_scratch(self.mega.layers, n_slots,
-                                        cfg.n_attn_heads, cfg.max_ctx_length,
-                                        self.device)
+        self.set_weights(weights)
         self.state = init_batched_state(cfg, n_slots, self.device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -230,6 +225,20 @@ class BatchedParlerEngine:
         self.results: Dict[int, Any] = {}
         self.errors: Dict[int, str] = {}
         self._next_id = 0
+
+    def set_weights(self, weights: ParlerWeights) -> None:
+        """Take `weights` and prep the step from them: K5's tiled weights
+        (which hold the cross K/V) and, on the card, its scratch, whose
+        attention partials are sized by the cross K/V's rows as well as the
+        context. A conditional-prompt update changes those rows; the server
+        calls this between two chunks."""
+        self.weights = weights
+        self.mega = maybe_prep_mega(self.cfg, weights)
+        self.scratch = None
+        if self.mega is not None and self.device.type == "cuda":
+            self.scratch = step_scratch(self.mega.layers, self.n_slots,
+                                        self.cfg.n_attn_heads,
+                                        self.cfg.max_ctx_length, self.device)
 
     def validate_prompt(self, text: str, config: GenerationConfig) -> None:
         """Raise ValueError if this engine cannot take the request (checked
@@ -271,6 +280,17 @@ class BatchedParlerEngine:
                 continue
             insert_request(self.cfg, self.state, slot, plen, config)
             self.slot_req[slot] = rid
+
+    def peek(self, rid: int):
+        """(progress, out_tokens row) of an in-flight request, else None:
+        the slot's own `step` and output row, fetched whole to the host
+        (the server's streaming drain reads them after each chunk; worker
+        thread only)."""
+        for slot, r in enumerate(self.slot_req):
+            if r == rid:
+                return (int(self.state.step.cpu()[slot]),
+                        self.state.out_tokens[slot].cpu().numpy())
+        return None
 
     def step(self) -> List[int]:
         """Run one decode chunk; returns the newly finished request ids."""

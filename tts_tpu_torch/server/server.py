@@ -2,10 +2,11 @@
 
 The port of the JAX package's `server/server.py` (parity: reference
 examples/server/server.cpp): routes GET /, /health, /metrics, /v1/models,
-/v1/audio/voices and POST /v1/audio/speech; multi-model directories with
-per-request `model` selection; per-request sampling overrides; WAV/AIFF
-responses; OpenAI-style error JSON; LOADING-state 503; a worker pool with a
-task queue.
+/v1/audio/voices and POST /v1/audio/speech and /v1/audio/conditional-prompt;
+multi-model directories with per-request `model` selection; per-request
+sampling overrides; WAV/AIFF responses; chunked 16-bit PCM streaming
+(`"stream": true`); OpenAI-style error JSON; LOADING-state 503; a worker
+pool with a task queue.
 
 Workers share one loaded model per model id, so N workers cost one copy of
 the weights and the pool size sets request-level concurrency (their work
@@ -17,10 +18,19 @@ the weights serving every slot. A request the engine does not take (a
 prompt longer than it takes: for Dia, more than 256 bytes) goes to the
 worker pool.
 
-Not in the port yet, each answered with a clear error: `"stream": true`
-(501, PCM streaming is a later slice) and conditional prompts (the route
-answers 501 and `--text-encoder-path` is refused at startup: they need the
-T5 encoder, a later slice).
+Streams: a model with a batched worker streams through it (the request
+holds a slot like any other; after each chunk the worker vocodes the
+slot's new frames and queues the PCM); other models run the runner's
+`generate_stream` on the HTTP thread, at most `--n-parallelism` streams at
+once (503 beyond). A stream segment that fails ends that stream and counts
+the request as failed (the JAX server marks it dead and still reports
+success); a client too slow to drain its queue loses the rest of its
+stream, as there.
+
+Conditional prompts (`--text-encoder-path`, a T5 GGUF): POST
+/v1/audio/conditional-prompt re-encodes a Parler model's voice prompt
+(`ParlerRunner.update_conditional_prompt`); its batched worker re-preps its
+engine between two chunks.
 
     python -m tts_tpu_torch.server.server -mp model.gguf --batch-slots 8
 """
@@ -103,7 +113,8 @@ def format_error(message: str, code: int) -> dict:
 
 
 class ServerTask:
-    def __init__(self, prompt: str, config: GenerationConfig, model: str):
+    def __init__(self, prompt: str, config: GenerationConfig, model: str,
+                 stream_q: "queue.Queue | None" = None):
         self.id = uuid.uuid4().hex
         self.prompt = prompt
         self.config = config
@@ -113,6 +124,18 @@ class ServerTask:
         self.message = ""
         self.audio: Optional[np.ndarray] = None
         self.sample_rate = 0
+        # a streaming request's PCM chunks (None ends the stream); None for
+        # a request answered whole
+        self.stream_q = stream_q
+
+
+class _Refresh:
+    """A request to the batched worker's thread to take the runner's new
+    weights between two chunks."""
+
+    def __init__(self):
+        self.event = threading.Event()
+        self.error = ""
 
 
 BATCHABLE_ARCHS = ("parler-tts", "orpheus", "dia")
@@ -123,8 +146,12 @@ class BatchedModelWorker:
 
     HTTP threads hand over ServerTasks through a queue; one worker thread
     owns the engine and its tensors, refills slots between chunks, vocodes
-    finished requests and wakes their HTTP threads.
+    finished requests and wakes their HTTP threads. For a streaming request
+    it vocodes the slot's new frames after every chunk (margin-overlap
+    segments, `STREAM_MARGIN` frames of context) into the task's queue.
     """
+
+    STREAM_MARGIN = 16  # the vocoders' receptive-field context, in frames
 
     def __init__(self, runner, n_slots: int, chunk: int = 32):
         self.runner = runner
@@ -138,14 +165,32 @@ class BatchedModelWorker:
             from ..runtime.batched_parler import BatchedParlerEngine as Engine
         self.engine = Engine(runner.cfg, runner.weights, runner.tokenizer,
                              n_slots=n_slots, chunk=chunk)
-        self.q: "queue.Queue[ServerTask]" = queue.Queue()
+        self.q: "queue.Queue" = queue.Queue()
         self.tasks: Dict[int, ServerTask] = {}
+        # streaming requests' vocode state (worker thread only): rid ->
+        # {"emitted": frames yielded, "noise": SNAC noise, "dead": the
+        # client stopped draining}
+        self.streams: Dict[int, dict] = {}
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="tts-batched-worker")
         self._thread.start()
 
     def submit(self, task: ServerTask) -> None:
         self.q.put(task)
+
+    def refresh_weights(self, timeout: float = 600.0) -> None:
+        """Take the runner's new weights (a conditional-prompt update): the
+        worker thread re-preps the engine's step between two chunks (K5's
+        weights and its attention scratch are sized by the cross K/V's
+        rows), never in the middle of one. Returns once it has; raises if
+        the re-prep failed."""
+        req = _Refresh()
+        self.q.put(req)
+        if not req.event.wait(timeout):
+            raise RuntimeError("the batched worker did not take the new "
+                               "weights in time")
+        if req.error:
+            raise RuntimeError(req.error)
 
     def _busy(self) -> bool:
         return bool(self.engine.pending) or bool(self.engine.errors) or any(
@@ -154,7 +199,27 @@ class BatchedModelWorker:
     def _finish(self, task: ServerTask, message: str = "") -> None:
         task.success = not message
         task.message = message
+        if task.stream_q is not None:
+            task.stream_q.put(None)
         task.event.set()
+
+    def _take(self, task) -> None:
+        """A task from the queue: a request into the engine, or a refresh."""
+        if isinstance(task, _Refresh):
+            try:
+                self.engine.set_weights(self.runner.weights)
+            except Exception as e:  # noqa: BLE001
+                task.error = f"{type(e).__name__}: {e}"
+            task.event.set()
+            return
+        try:
+            rid = self.engine.submit(task.prompt, task.config)
+        except Exception as e:  # noqa: BLE001
+            self._finish(task, str(e))
+            return
+        self.tasks[rid] = task
+        if task.stream_q is not None:
+            self.streams[rid] = {"emitted": 0, "noise": None, "dead": False}
 
     def _loop(self) -> None:
         while True:
@@ -164,10 +229,7 @@ class BatchedModelWorker:
             except queue.Empty:
                 task = None
             while task is not None:
-                try:
-                    self.tasks[self.engine.submit(task.prompt, task.config)] = task
-                except Exception as e:  # noqa: BLE001
-                    self._finish(task, str(e))
+                self._take(task)
                 try:
                     task = self.q.get(block=False)
                 except queue.Empty:
@@ -175,6 +237,7 @@ class BatchedModelWorker:
             # a request that failed in prefill fails alone
             for rid, msg in list(self.engine.errors.items()):
                 del self.engine.errors[rid]
+                self.streams.pop(rid, None)
                 t = self.tasks.pop(rid, None)
                 if t is not None:
                     self._finish(t, msg)
@@ -186,25 +249,110 @@ class BatchedModelWorker:
                 for t in self.tasks.values():
                     self._finish(t, str(e))
                 self.tasks.clear()
+                self.streams.clear()
                 continue
+            # streams: vocode each live slot's new frames
+            for rid, ss in list(self.streams.items()):
+                t = self.tasks.get(rid)
+                if rid in finished or ss["dead"] or t is None:
+                    continue
+                got = self.engine.peek(rid)
+                if got is None:
+                    continue
+                try:
+                    self._stream_segment(t, ss, got[0], got[1], done=False)
+                except Exception as e:  # noqa: BLE001
+                    # this stream ends, failed; its slot decodes on and its
+                    # result is dropped, the other slots go on
+                    del self.streams[rid], self.tasks[rid]
+                    self._finish(t, f"stream segment failed: "
+                                    f"{type(e).__name__}: {e}")
             for rid in finished:
                 t = self.tasks.pop(rid, None)
                 codes = self.engine.results.pop(rid, None)
+                ss = self.streams.pop(rid, None)
                 if t is None:
                     continue
                 try:
-                    t.audio, t.sample_rate = self._vocode(t, codes)
+                    if ss is not None:
+                        self._stream_final(t, ss, codes)
+                    else:
+                        t.audio, t.sample_rate = self._vocode(t, codes)
                     self._finish(t)
                 except Exception as e:  # noqa: BLE001
                     self._finish(t, str(e))
+
+    def _seed(self, task: ServerTask) -> int:
+        return task.config.seed if task.config.seed is not None else \
+            np.random.randint(2 ** 31)
+
+    def _stream_segment(self, task: ServerTask, ss: dict, n: int, out,
+                        done: bool) -> None:
+        """Vocode a streaming slot's newly decoded frames: `out` is its raw
+        out_tokens row and n its progress (engine.peek), delay-undone here
+        on the host."""
+        if self.arch == "orpheus":
+            from ..models.orpheus.model import prepare_output_tokens
+            self._stream_push_snac(task, ss, prepare_output_tokens(out, n), done)
+        else:
+            if self.arch == "dia":
+                from ..models.dia.model import adjust_output_tokens as adjust
+            else:
+                from ..models.parler.model import adjust_output_tokens as adjust
+            self._stream_push_dac(task, ss, adjust(out, n, self.runner.cfg),
+                                  done)
+
+    def _stream_final(self, task: ServerTask, ss: dict, codes) -> None:
+        """The rest of a finished streaming request, from its results."""
+        if codes is None:
+            return
+        if self.arch == "orpheus":
+            self._stream_push_snac(task, ss, codes, True)
+        else:
+            self._stream_push_dac(task, ss, codes, True)
+
+    def _stream_push_dac(self, task: ServerTask, ss: dict, codes,
+                         done: bool) -> None:
+        from ..models.codec.dac import stream_segment
+        task.sample_rate = SAMPLE_RATE_DAC
+        dac = self.runner.dac
+        if dac is None or codes is None or codes.shape[0] == 0:
+            return
+        seg, ss["emitted"] = stream_segment(dac, codes, ss["emitted"], done,
+                                            self.STREAM_MARGIN)
+        if seg is not None:
+            self._stream_push(task, ss, seg)
+
+    def _stream_push_snac(self, task: ServerTask, ss: dict, heads,
+                          done: bool) -> None:
+        from ..models.codec.snac import make_noise_layers, stream_segment
+        task.sample_rate = SAMPLE_RATE_SNAC
+        snac = self.runner.snac
+        if snac is None or heads is None or not heads[2]:
+            return
+        if ss["noise"] is None:   # the runner's position-stable noise
+            ss["noise"] = make_noise_layers(
+                snac.cfg, self._seed(task),
+                4 * (self.runner.cfg.max_generation_size // 7 + 1))
+        seg, ss["emitted"] = stream_segment(snac, heads, ss["emitted"], done,
+                                            self.STREAM_MARGIN, ss["noise"])
+        if seg is not None:
+            self._stream_push(task, ss, seg)
+
+    def _stream_push(self, task: ServerTask, ss: dict, chunk) -> None:
+        if chunk.size == 0 or ss["dead"]:
+            return
+        try:
+            task.stream_q.put_nowait(chunk)
+        except queue.Full:   # the client stopped draining: never block decode
+            ss["dead"] = True
 
     def _vocode(self, task: ServerTask, codes):
         if self.arch == "orpheus":
             # the runner's SNAC path: codebook ids clipped, position-stable
             # noise keyed by the request's seed
-            seed = task.config.seed if task.config.seed is not None else \
-                np.random.randint(2 ** 31)
-            return self.runner.vocode_heads(codes, seed), SAMPLE_RATE_SNAC
+            return (self.runner.vocode_heads(codes, self._seed(task)),
+                    SAMPLE_RATE_SNAC)
         dac = self.runner.dac
         if dac is not None and codes is not None and codes.shape[0] > 0:
             return np.asarray(dac.decode(codes), np.float32), SAMPLE_RATE_DAC
@@ -218,7 +366,8 @@ class TTSServer:
 
     def __init__(self, model_map: Dict[str, str], default_model: str,
                  default_config: GenerationConfig, n_parallel: int = 1,
-                 timeout: float = 300.0, batch_slots: int = 0, device=None):
+                 text_encoder_path: str = "", timeout: float = 300.0,
+                 batch_slots: int = 0, device=None):
         self.device = default_device(device)
         self.model_map = model_map
         self.default_model = default_model
@@ -226,6 +375,7 @@ class TTSServer:
         self.n_parallel = max(1, n_parallel)
         self.batch_slots = batch_slots
         self.batched_workers: Dict[str, BatchedModelWorker] = {}
+        self.text_encoder_path = text_encoder_path
         self.timeout = timeout
         self.state = "LOADING"
         self.load_error = ""
@@ -234,8 +384,12 @@ class TTSServer:
         self.workers = []
         self.created = int(time.time())
         self._lock = threading.Lock()
+        # admission control for single-stream streams: they run on their
+        # HTTP thread, at most n_parallel at once
+        self.stream_slots = threading.Semaphore(self.n_parallel)
         self.metrics = {
             "requests_total": 0, "requests_failed": 0,
+            "streams_total": 0, "streams_rejected": 0,
             "audio_seconds_total": 0.0, "wall_seconds_total": 0.0,
         }
 
@@ -248,6 +402,17 @@ class TTSServer:
                 self.metrics["audio_seconds_total"] += (
                     len(task.audio) / task.sample_rate)
             self.metrics["wall_seconds_total"] += wall_s
+
+    def record_stream(self, ok: bool, samples: int, rate: int,
+                      wall_s: float) -> None:
+        with self._lock:
+            m = self.metrics
+            m["streams_total"] += 1
+            m["requests_total"] += 1
+            if not ok:
+                m["requests_failed"] += 1
+            m["audio_seconds_total"] += samples / rate
+            m["wall_seconds_total"] += wall_s
 
     def metrics_json(self) -> dict:
         with self._lock:
@@ -412,8 +577,7 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path == "/v1/audio/speech":
             self._handle_tts(data)
         elif self.path == "/v1/audio/conditional-prompt":
-            self._error("conditional prompts are not supported by the PyTorch "
-                        "port yet (they need the T5 encoder)", 501)
+            self._handle_conditional(data)
         else:
             self._error("File Not Found", 404)
 
@@ -450,8 +614,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(f"Invalid Model: {model}", 400)
             return
         if data.get("stream") is True:
-            self._error("streaming ('stream': true) is not supported by the "
-                        "PyTorch port yet", 501)
+            self._handle_tts_stream(prompt, conf, model)
             return
         task = srv.submit(ServerTask(prompt, conf, model))
         if not task.success:
@@ -474,10 +637,133 @@ class _Handler(BaseHTTPRequestHandler):
                        MIMETYPE_WAV, extra)
 
 
+    def _start_pcm(self, rate: int) -> None:
+        self.send_response(200)
+        self.send_header("Content-Type",
+                         f"audio/pcm;rate={rate};encoding=signed-integer;bits=16")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+
+    def _send_pcm(self, chunk) -> int:
+        """One chunk of the chunked body: the waveform as 16-bit PCM.
+        Returns the samples written."""
+        pcm = (np.clip(chunk, -1, 1) * 32767).astype("<i2").tobytes()
+        if pcm:
+            self.wfile.write(f"{len(pcm):X}\r\n".encode() + pcm + b"\r\n")
+        return len(pcm) // 2
+
+    def _handle_tts_stream(self, prompt: str, conf, model: str) -> None:
+        """Chunked 16-bit PCM (the time-to-first-audio path). A model with
+        a batched worker streams through its engine; otherwise the runner's
+        `generate_stream` runs on this thread under admission control (at
+        most n_parallel streams, 503 beyond). The generator is suspended
+        while each chunk is written, so a slow client holds no work on the
+        card. Both paths count in /metrics."""
+        srv = self.server_obj
+        bw = srv.batched_workers.get(model)
+        if bw is not None:
+            try:
+                bw.engine.validate_prompt(prompt, conf)
+            except ValueError:
+                bw = None   # too large for the engine: the single-stream path
+        if bw is not None:
+            self._handle_tts_stream_batched(bw, prompt, conf, model)
+            return
+        runner = srv.runners[model]
+        if not srv.stream_slots.acquire(timeout=min(srv.timeout, 30.0)):
+            with srv._lock:
+                srv.metrics["streams_rejected"] += 1
+            self._error("too many concurrent streams", 503)
+            return
+        t0 = time.perf_counter()
+        samples, ok, started = 0, False, False
+        rate = int(getattr(runner, "sample_rate", SAMPLE_RATE_DAC))
+        try:
+            gen = runner.generate_stream(prompt, conf)
+            for chunk in gen:
+                if not started:
+                    self._start_pcm(rate)
+                    started = True
+                samples += self._send_pcm(chunk)
+            if not started:
+                self._start_pcm(rate)
+            self.wfile.write(b"0\r\n\r\n")
+            ok = True
+        except BrokenPipeError:
+            pass
+        except Exception as e:  # noqa: BLE001
+            if not started:
+                self._error(str(e), 500)
+        finally:
+            srv.stream_slots.release()
+            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+
+    def _handle_tts_stream_batched(self, bw, prompt: str, conf,
+                                   model: str) -> None:
+        """Stream PCM out of the continuous-batching engine: the request
+        holds a batch slot like any other, and the worker thread pushes
+        the vocoded segments of its slot into the task's queue after each
+        chunk. A failed segment ends the stream and the request counts as
+        failed."""
+        srv = self.server_obj
+        t0 = time.perf_counter()
+        samples, ok = 0, False
+        task = ServerTask(prompt, conf, model, stream_q=queue.Queue(maxsize=256))
+        rate = int(getattr(srv.runners[model], "sample_rate", SAMPLE_RATE_DAC))
+        try:
+            bw.submit(task)
+            self._start_pcm(rate)
+            while True:
+                chunk = task.stream_q.get(timeout=srv.timeout)
+                if chunk is None:
+                    break
+                samples += self._send_pcm(chunk)
+            self.wfile.write(b"0\r\n\r\n")
+            task.event.wait(srv.timeout)
+            ok = task.success
+        except (BrokenPipeError, queue.Empty):
+            pass
+        finally:
+            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+
+    def _handle_conditional(self, data: dict) -> None:
+        """Re-encode a model's voice prompt through the T5 encoder at
+        --text-encoder-path and rebuild its cross K/V (Parler)."""
+        srv = self.server_obj
+        if srv.n_parallel > 1:
+            self._error("conditional prompts cannot be updated with "
+                        "parallelism greater than 1", 400)
+            return
+        if not srv.text_encoder_path:
+            self._error("the server was started without a text encoder "
+                        "path; conditional prompts are unsupported", 501)
+            return
+        prompt = data.get("conditional_prompt")
+        if not isinstance(prompt, str) or not prompt:
+            self._error("the 'conditional_prompt' field is required and must "
+                        "be a non empty string", 400)
+            return
+        model = data.get("model", srv.default_model)
+        if model not in srv.model_map:
+            self._error(f"Invalid Model: {model}", 400)
+            return
+        try:
+            srv.runners[model].update_conditional_prompt(
+                srv.text_encoder_path, prompt)
+            bw = srv.batched_workers.get(model)
+            if bw is not None:
+                bw.refresh_weights()
+        except Exception as e:  # noqa: BLE001
+            self._error(str(e), 500)
+            return
+        self._send_json(200, {"success": True})
+
+
 def build_server(model_path: str, default_model: str = "",
                  config: Optional[GenerationConfig] = None,
-                 n_parallel: int = 1, timeout: float = 300.0,
-                 batch_slots: int = 0, device=None) -> TTSServer:
+                 n_parallel: int = 1, text_encoder_path: str = "",
+                 timeout: float = 300.0, batch_slots: int = 0,
+                 device=None) -> TTSServer:
     """A TTSServer over one GGUF file or every .gguf in a directory (or a
     `test:` model)."""
     model_map: Dict[str, str] = {}
@@ -498,8 +784,8 @@ def build_server(model_path: str, default_model: str = "",
     else:
         default = sorted(model_map)[0]
     return TTSServer(model_map, default, config or GenerationConfig(),
-                     n_parallel=n_parallel, timeout=timeout,
-                     batch_slots=batch_slots, device=device)
+                     n_parallel=n_parallel, text_encoder_path=text_encoder_path,
+                     timeout=timeout, batch_slots=batch_slots, device=device)
 
 
 def serve(server: TTSServer, host: str = "127.0.0.1", port: int = 8080):
@@ -541,11 +827,6 @@ def main(argv=None) -> int:
     p.add_argument("--ssl-file-cert", "-sfc", default="")
     p.add_argument("--ssl-file-key", "-sfk", default="")
     args = p.parse_args(argv)
-    if args.text_encoder_path:
-        print("--text-encoder-path is not supported by the PyTorch port yet "
-              "(conditional prompts need the T5 encoder, a later slice).",
-              file=sys.stderr)
-        return 1
     if not (0.0 < args.top_p <= 1.0):
         print("The '--top-p' value must be between 0.0 and 1.0.", file=sys.stderr)
         return 1
@@ -555,8 +836,10 @@ def main(argv=None) -> int:
         use_cross_attn=not args.no_cross_attn,
         espeak_voice_id=args.espeak_voice_id, top_p=args.top_p)
     server = build_server(args.model_path, args.default_model, config,
-                          n_parallel=args.n_parallelism, timeout=args.timeout,
-                          batch_slots=args.batch_slots, device=args.device)
+                          n_parallel=args.n_parallelism,
+                          text_encoder_path=args.text_encoder_path,
+                          timeout=args.timeout, batch_slots=args.batch_slots,
+                          device=args.device)
     httpd = serve(server, args.host, args.port)
     if args.ssl_file_cert and args.ssl_file_key:
         import ssl
