@@ -116,6 +116,22 @@ Phases, in order; any failure exits non-zero without the final line:
    torch.matmul (device time of back-to-back calls from CUDA events, the
    calls queued behind a spin kernel: queued_ms). Each CLI path also logs
    its prefill's (Dia: encoder's) device time and K1's part of it.
+15. Kokoro (run last; plain PyTorch: its JAX path reaches no Pallas kernel,
+   and the phase fails if any K1-K12 counter rises on it): a
+   Kokoro-82M-shaped F32 GGUF (hexgrad/Kokoro-82M widths; random weights
+   from the phase's own seed, the duration head's bias set for ~3 frames a
+   token and the F0 head's for voiced speech; two voices and a rule-based
+   phonemizer) turned into 24 kHz WAVs by the port's CLI (one sentence, and
+   a prompt of several chunks: 600 samples a frame of every chunk); the
+   duration graph card vs CPU on 18 tokens (hidden states within 1e-4 of
+   their largest, durations equal) and the generation graph on the card
+   from the CPU's durations and noise (99.9% of samples within 1e-3 of the
+   CPU's peak; the STFT's real-bin angles equal); the runner's stream on
+   the long prompt against its `generate`; the stages timed (duration
+   graph, generation graph, the LSTM scans' share, a request traced); the
+   server with batch slots 8 (Kokoro takes the worker pool) answering 12
+   concurrent requests, 2 streamed, each stream within 1 LSB of the same
+   request sent whole.
 
 Phase 2 holds K1 at 1-256 rows (each warp layout: 1-8, 9-16, 17-32,
 33-64, 65-128, 129-256 rows; both numeric modes, every quant type, K
@@ -4349,6 +4365,633 @@ def check_slot_groups(tmp) -> None:
         f"request answered with {secs:.3f} s of audio: ok")
 
 
+# ---------------------------------------------------------------------------
+# Kokoro (phase 15): Kokoro-82M text -> WAV, plain PyTorch on the card
+# ---------------------------------------------------------------------------
+
+# Kokoro-82M (hexgrad/Kokoro-82M config.json): plbert hidden 768, 12 heads,
+# FFN 2048, 512 positions, embedding 128, one shared layer run 12 times;
+# vocab 178, hidden_dim 512, style_dim 128 (voice rows 256), 3 text-encoder
+# convs of kernel 5, max_dur 50; iSTFTNet: upsample rates 10 / 6, kernels
+# 20 / 12, initial channel 512, res-block kernels 3 / 7 / 11 with dilations
+# (1, 3, 5), n_fft 20, hop 5, 8 harmonics; decoder blocks 1024 wide, the
+# last 512 with a pool.
+KOKORO = dict(vocab=178, ctx=512, emb=128, hidden=768, heads=12, ffn=2048,
+              recurrence=12, dur_hidden=512, style=128, max_dur=50,
+              te_kernel=5, n_conv=3, dec_hidden=1024, gen_ch=512,
+              up_rates=(10, 6), up_kernels=(20, 12), res_kernels=(3, 7, 11),
+              n_fft=20, hop=5, harmonics=8, voice_rows=510)
+KOKORO_SEED = SEED + 14           # the phase's own draws: no earlier one moves
+KOKORO_FRAMES_PER_TOKEN = 3.5     # the head's bias: ~3-4 frames a token at 40 frames a second
+KOKORO_F0_HZ = 120.0              # the F0 head's bias: voiced speech
+KOKORO_VOICES = ("af_heart", "bm_lewis")
+KOKORO_SHORT = "hello, the world."
+KOKORO_SENTENCE = "Hello world, the quick brown fox jumps over the lazy dog."
+KOKORO_LONG = " ".join(
+    ["The quick brown fox jumps over the lazy dog and the world says hello."] * 9)
+KOKORO_RULES = dict(a="æ", b="b", c="k", d="d", e="ɛ", f="f", g="ɡ", h="h",
+                    i="ɪ", j="ʤ", k="k", l="l", m="m", n="n", o="ɑ", p="p",
+                    q="k", r="ɹ", s="s", t="t", u="ʌ", v="v", w="w", x="ks",
+                    y="j", z="z")
+KOKORO_DICT = {"the": "ðə", "hello": "həlˈoʊ", "world": "wˈɜːld", "a": "ɐ",
+               "and": "ænd", "says": "sˈɛz", "quick": "kwˈɪk", "fox": "fˈɑks",
+               "dog": "dˈɔɡ", "over": "ˈoʊvɚ", "lazy": "lˈeɪzi"}
+KOKORO_CARD_TOL = 1e-3            # card vs CPU: of max(|CPU peak|, 1)
+KOKORO_CARD_SHARE = 0.999         # ... for at least this share of samples
+
+
+def kokoro_vocab() -> list[str]:
+    """178 tokens as Kokoro's: '$' at 0 (BOS / EOS), the space at 16."""
+    head = list("$;:,.!?¡¿—…\"«»“”") + [" "]
+    ipa = ("ɑɐɒæβɔɕçɖðʤəɚɛɜɟɡɥɨɪʝɯɰŋɳɲɴøɸθœɹɾɻʁɽʂʃʈʧʊʋʌɣɤχʎʒʔˈˌːʰʲ↓→↗↘ᵻ"
+           "ᵊɝʉʏ")
+    out = head + [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz"]
+    out += [c for c in dict.fromkeys(ipa) if c not in out]
+    out += [chr(0x2c60 + i) for i in range(KOKORO["vocab"] - len(out))]
+    assert len(out) == KOKORO["vocab"] == len(set(out)) and out.index(" ") == 16
+    return out
+
+
+def kokoro_tensors(rng) -> dict:
+    """Every tensor load_kokoro_weights reads, at Kokoro-82M width, random
+    from `rng`: products scaled by 1/sqrt(fan-in), norms near identity, the
+    style affines small; the duration head's bias set so that a token lasts
+    KOKORO_FRAMES_PER_TOKEN frames on average, the F0 head's to
+    KOKORO_F0_HZ."""
+    K = KOKORO
+    t = {}
+
+    def mat(name, *shape, fan=None):
+        fan = fan or int(np.prod(shape[1:]))
+        t[name] = (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    def vec(name, n, scale=0.02, base=0.0):
+        t[name] = (base + rng.standard_normal(n) * scale).astype(np.float32)
+
+    def lstm(base, inp, hid):
+        for kind in ("", "reverse_"):
+            for g in range(4):
+                mat(f"{base}.0.{kind}weights.{2 * g}", hid, inp)
+                mat(f"{base}.0.{kind}weights.{2 * g + 1}", hid, hid)
+                vec(f"{base}.0.{kind}biases.{2 * g}", hid)
+                vec(f"{base}.0.{kind}biases.{2 * g + 1}", hid)
+
+    def ada_ln(base, c, g="gamma_", b="beta_"):
+        mat(f"{base}{g}weight", c, K["style"], fan=K["style"] * 25)
+        vec(f"{base}{g}bias", c)
+        mat(f"{base}{b}weight", c, K["style"], fan=K["style"] * 25)
+        vec(f"{base}{b}bias", c)
+
+    def ada_block(base, cin, cout, pool=False):
+        ada_ln(f"{base}.norm1_", cin)
+        mat(f"{base}.conv1_weight", cout, cin, 3)
+        vec(f"{base}.conv1_bias", cout)
+        ada_ln(f"{base}.norm2_", cout)
+        mat(f"{base}.conv2_weight", cout, cout, 3)
+        vec(f"{base}.conv2_bias", cout)
+        if pool:
+            mat(f"{base}.pool_weight", cin, 1, 3)
+            vec(f"{base}.pool_bias", cin)
+        if pool or cin != cout:
+            mat(f"{base}.conv1x1_weight", cout, cin, 1)
+
+    def gen_block(base, ch, k):
+        for i in range(3):
+            ada_ln(f"{base}.{i}.", ch, "gamma1_", "beta1_")
+            ada_ln(f"{base}.{i}.", ch, "gamma2_", "beta2_")
+            t[f"{base}.{i}.alpha1"] = np.ones((1, ch, 1), np.float32)
+            t[f"{base}.{i}.alpha2"] = np.ones((1, ch, 1), np.float32)
+            mat(f"{base}.{i}.convs1_weight", ch, ch, k)
+            vec(f"{base}.{i}.convs1_bias", ch)
+            mat(f"{base}.{i}.convs2_weight", ch, ch, k)
+            vec(f"{base}.{i}.convs2_bias", ch)
+
+    a = "kokoro.albert."
+    mat(a + "token_embd", K["vocab"], K["emb"], fan=1)
+    mat(a + "position_embd", K["ctx"], K["emb"], fan=1)
+    vec(a + "token_type_embd", K["emb"], 1.0)
+    vec(a + "norm", K["emb"], base=1.0)
+    vec(a + "norm_bias", K["emb"])
+    mat(a + "embd", K["hidden"], K["emb"])
+    vec(a + "embd_bias", K["hidden"])
+    b, H = a + "layer.0.", K["hidden"]
+    for n in ("q", "k", "v", "o"):
+        mat(b + n, H, H)
+        vec(b + n + "_bias", H)
+    for n in ("ffn_norm", "attn_norm"):
+        vec(b + n, H, base=1.0)
+        vec(b + n + "_bias", H)
+    mat(b + "ffn", K["ffn"], H)
+    vec(b + "ffn_bias", K["ffn"])
+    mat(b + "ffn_out", H, K["ffn"])
+    vec(b + "ffn_out_bias", H)
+
+    d, dh, st = "kokoro.duration_predictor.", K["dur_hidden"], K["style"]
+    mat(d + "encode", dh, H)
+    vec(d + "encode_bias", dh)
+    for i in range(3):
+        lstm(f"{d}layers.{2 * i}.lstm", dh + st, dh // 2)
+        ada_ln(f"{d}layers.{2 * i + 1}.", dh)
+    lstm(d + "duration_lstm", dh + st, dh // 2)
+    lstm(d + "shared_lstm", dh + st, dh // 2)
+    mat(d + "duration_proj", K["max_dur"], dh)
+    # a direction shared by the 50 outputs, so that tokens differ in length
+    t[d + "duration_proj"] += (rng.standard_normal(dh) * 1.5 / np.sqrt(dh)
+                               ).astype(np.float32)
+    p = KOKORO_FRAMES_PER_TOKEN / K["max_dur"]
+    vec(d + "duration_proj_bias", K["max_dur"], base=float(np.log(p / (1 - p))))
+    for blocks in ("f0_blocks", "n_blocks"):
+        ada_block(f"{d}{blocks}.0", dh, dh)
+        ada_block(f"{d}{blocks}.1", dh, dh // 2, pool=True)
+        ada_block(f"{d}{blocks}.2", dh // 2, dh // 2)
+    mat(d + "f0_proj_kernel", 1, dh // 2, 1)
+    vec(d + "f0_proj_bias", 1, 0.0, KOKORO_F0_HZ)
+    mat(d + "n_proj_kernel", 1, dh // 2, 1)
+    vec(d + "n_proj_bias", 1)
+
+    te = "kokoro.text_encoder."
+    mat(te + "embedding_weight", K["vocab"], dh, fan=1)
+    for i in range(K["n_conv"]):
+        vec(f"{te}layers.{i}.gamma", dh, base=1.0)
+        vec(f"{te}layers.{i}.beta", dh)
+        mat(f"{te}layers.{i}.weight", dh, dh, K["te_kernel"])
+        vec(f"{te}layers.{i}.bias", dh)
+    lstm(te + "lstm", dh, dh // 2)
+
+    dd, dc, gc = "kokoro.decoder.", K["dec_hidden"], K["gen_ch"]
+    mat(dd + "f0_conv_weight", 1, 1, 3)
+    vec(dd + "f0_conv_bias", 1)
+    mat(dd + "n_conv_weight", 1, 1, 3)
+    vec(dd + "n_conv_bias", 1)
+    mat(dd + "asr_conv_weight", 64, dh, 1)
+    vec(dd + "asr_conv_bias", 64)
+    ada_block(dd + "encoder_block", dh + 2, dc)
+    for i in range(4):
+        ada_block(f"{dd}decoder_blocks.{i}", dc + 66, dc if i < 3 else gc,
+                  pool=i == 3)
+    g = dd + "generator."
+    mat(g + "m_source_weight", 1, K["harmonics"] + 1)
+    vec(g + "m_source_bias", 1)
+    bins = K["n_fft"] + 2
+    for i, (r, k) in enumerate(zip(K["up_rates"], K["up_kernels"])):
+        cin, cout = gc >> i, gc >> (i + 1)
+        mat(f"{g}ups.{i}.weight", cin, cout, k, fan=cin * k // r)
+        vec(f"{g}ups.{i}.bias", cout)
+        nk = 2 * K["up_rates"][1] if i == 0 else 1
+        mat(f"{g}noise_blocks.{i}.conv_weight", cout, bins, nk)
+        vec(f"{g}noise_blocks.{i}.conv_bias", cout)
+        gen_block(f"{g}noise_blocks.{i}.resblock", cout, 7 if i == 0 else 11)
+        for j, rk in enumerate(K["res_kernels"]):
+            gen_block(f"{g}resblocks.{3 * i + j}", cout, rk)
+    mat(g + "conv_post_weight", bins, gc >> 2, 7)
+    vec(g + "conv_post_bias", bins)
+    return t
+
+
+def write_kokoro(path, rng) -> int:
+    """A Kokoro-82M-shaped F32 GGUF (the JAX package's converter layout and
+    metadata) with two voices and a small rule-based phonemizer, written
+    with the port's GGUF writer. Returns its parameter count (voices
+    apart)."""
+    K = KOKORO
+    tensors = kokoro_tensors(rng)
+    w = GGUFWriter(path, "kokoro")
+    a = "kokoro.duration_predictor.albert"
+    for key, v in (("context_length", K["ctx"]), ("hidden_size", K["hidden"]),
+                   ("layers", 1), ("attn_heads", K["heads"]),
+                   ("recurrence", K["recurrence"])):
+        w.add_u32(f"{a}.{key}", v)
+    w.add_u32("kokoro.duration_predictor.hidden_size", K["dur_hidden"])
+    w.add_u32("kokoro.duration_predictor.f0_n_blocks", 3)
+    w.add_u32("kokoro.duration_predictor.layers", 3)
+    w.add_u32("kokoro.text_encoder.layers", K["n_conv"])
+    g = "kokoro.decoder.generator"
+    for key, v in (("kernels", 3), ("upsamples", 2), ("layers", 4),
+                   ("padding", 3), ("n_fft", K["n_fft"]), ("hop", K["hop"]),
+                   ("up_sampling_factor", 600)):
+        w.add_u32(f"{g}.{key}", v)
+    for i, (r, k) in enumerate(zip(K["up_rates"], K["up_kernels"])):
+        w.add_u32(f"{g}.up_convs.{i}.stride", r)
+        w.add_u32(f"{g}.up_convs.{i}.padding", (k - r) // 2)
+    for i, (s, p, k) in enumerate(((6, 3, 7), (1, 0, 11))):
+        w.add_u32(f"{g}.noise_blocks.{i}.stride", s)
+        w.add_u32(f"{g}.noise_blocks.{i}.padding", p)
+        for j, dil in enumerate((1, 3, 5)):
+            w.add_u32(f"{g}.noise_blocks.{i}.res_block.{j}.dilation", dil)
+            w.add_u32(f"{g}.noise_blocks.{i}.res_block.{j}.padding",
+                      (k * dil - dil) // 2)
+    for i in range(6):
+        k = K["res_kernels"][i % 3]
+        for j, dil in enumerate((1, 3, 5)):
+            w.add_u32(f"{g}.res_blocks.{i}.{j}.dilation", dil)
+            w.add_u32(f"{g}.res_blocks.{i}.{j}.padding", (k * dil - dil) // 2)
+    w.add_array("tokenizer.ggml.tokens", kokoro_vocab())
+    w.add_array("kokoro.voices", list(KOKORO_VOICES))
+    w.add_u32("phonemizer.type", 0)
+    w.add_array("phonemizer.graphemes", ["<unk>"] + sorted(KOKORO_RULES))
+    w.add_array("phonemizer.rules.keys", sorted(KOKORO_RULES))
+    w.add_array("phonemizer.rules.phonemes", [KOKORO_RULES[k] for k in sorted(KOKORO_RULES)])
+    w.add_array("phonemizer.dictionary.keys", sorted(KOKORO_DICT))
+    w.add_array("phonemizer.dictionary.values", [KOKORO_DICT[k] for k in sorted(KOKORO_DICT)])
+    for name, arr in tensors.items():
+        w.add_tensor(name, arr)
+    for v in KOKORO_VOICES:
+        w.add_tensor(f"kokoro.voice_tensors.{v}",
+                     (rng.standard_normal((K["voice_rows"], 1, 2 * K["style"]))
+                      * 0.3).astype(np.float32))
+    w.write()
+    return sum(a.size for a in tensors.values())
+
+
+def duration_sums(r, hidden, n) -> torch.Tensor:
+    """The duration head's sums before rounding (kokoro_duration's last
+    lines), from the hidden states."""
+    from tts_tpu_torch.models.kokoro import model as km
+    pw = r.weights.prosody
+    d = km.masked_bilstm(hidden, n, *pw.duration_lstm)
+    return torch.sigmoid(d @ pw.duration_proj_w.T + pw.duration_proj_b).sum(-1)[:n]
+
+
+def kokoro_tokens(r, text) -> list[int]:
+    cfg = r.cfg
+    ph = r.phonemizer.text_to_phonemes(text)
+    missing = sorted(set(ph) - set(r.tokenizer.tokens))
+    if missing:
+        raise AssertionError(f"phonemes outside the vocab: {missing}")
+    stripped = ph
+    for ch in ".!?":
+        stripped = stripped.replace(ch, "")
+    return [cfg.bos_token_id] + r.tokenizer.tokenize(stripped.strip()) + \
+        [cfg.eos_token_id]
+
+
+def kokoro_generate_on(r, dev_in, n, dur, noise, f, f0=None):
+    """The generation graph on runner `r` from `dev_in` = (tokens, style,
+    style2, durations, hidden) with the given durations and noise; with
+    `f0`, the generator takes that F0 curve in place of r's own. Returns
+    (waveform, {"f0": r's F0 curve, "har": the STFT's input (the harmonic
+    source), "spec": its output}), all on the host."""
+    from tts_tpu_torch.models.kokoro import model as km
+    from tts_tpu_torch.ops import dsp
+    tt, s1, s2, _, hid = dev_in
+    seen = {}
+    stft, gen = dsp.stft, km._generator
+
+    def kept_stft(x, *a, **k):
+        seen["har"], seen["spec"] = x, stft(x, *a, **k)
+        return seen["spec"]
+
+    def kept_gen(cfg, gw, x, style, f0_curve, *a):
+        seen["f0"] = f0_curve
+        return gen(cfg, gw, x, style,
+                   f0_curve if f0 is None else f0.to(f0_curve.device), *a)
+
+    dsp.stft, km._generator = kept_stft, kept_gen
+    try:
+        wav, tot = km.kokoro_generate(r.cfg, r.weights, tt, n, dur.to(r.device),
+                                      hid, s1, s2, noise.to(r.device), n_frames=f)
+    finally:
+        dsp.stft, km._generator = stft, gen
+    if tot != int(dur.sum()):
+        raise AssertionError(f"{tot} frames, want {int(dur.sum())}")
+    return wav.cpu(), {k: v.cpu() for k, v in seen.items()}
+
+
+def kokoro_share(got, ref) -> tuple[float, float, int]:
+    """(share of samples within KOKORO_CARD_TOL of max(|ref peak|, 1), the
+    largest error, the count outside)."""
+    tol = KOKORO_CARD_TOL * max(float(ref.abs().max()), 1.0)
+    err = (got - ref).abs()
+    return float((err <= tol).float().mean()), float(err.max()), int((err > tol).sum())
+
+
+def kokoro_card_vs_cpu(card, cpu) -> dict:
+    """The duration graph and the generation graph on the card against the
+    port's plain path on the CPU, on KOKORO_SHORT: hidden states within 1e-4
+    of their largest magnitude, durations equal (a token whose CPU sum lies
+    within 1e-3 of a half-integer is counted, not failed). The generation
+    graph on the card from the CPU's durations and noise, KOKORO_CARD_SHARE
+    of its samples within KOKORO_CARD_TOL of max(|CPU peak|, 1): with the
+    F0 head's bias at 0 on both (unvoiced: the source is the noise), and
+    with the file's voiced F0 head given the CPU's F0 curve. The harmonic
+    source integrates F0 into its phase (2 pi x 300 x k a curve step), so
+    the ulps by which the card's F0 curve differs drift the phase over the
+    utterance: the voiced run from the card's own F0 curve is measured and
+    logged, and its F0 curve held within 1e-4 of the CPU's. The STFT's
+    angles at the real bins (DC, Nyquist, frame 0) equal the CPU's."""
+    from tts_tpu_torch.models.kokoro import model as km
+    from tts_tpu_torch.ops import dsp
+    toks = kokoro_tokens(cpu, KOKORO_SHORT.replace(",", "--"))
+    n = len(toks)
+    if not 10 <= n <= 20:
+        raise AssertionError(f"the short prompt has {n} tokens, not 10-20")
+    p = cpu._bucket(n, cpu.token_buckets)
+    t = torch.zeros(p, dtype=torch.long)
+    t[:n] = torch.tensor(toks)
+    voice = KOKORO_VOICES[0]
+    out = {}
+    for dev, r in (("cpu", cpu), ("card", card)):
+        s1, s2 = r._style(voice, n)
+        tt = t.to(r.device)
+        dur, hid = km.kokoro_duration(r.cfg, r.weights, tt, n, s1)
+        out[dev] = (tt, s1, s2, dur, hid)
+    _, _, _, dur_c, hid_c = out["cpu"]
+    _, _, _, dur_g, hid_g = out["card"]
+    scale = float(hid_c[:n].abs().max())
+    herr = float((hid_g[:n].cpu() - hid_c[:n]).abs().max())
+    sums = duration_sums(cpu, hid_c, n)
+    near = int(((sums - sums.floor() - 0.5).abs() <= 1e-3).sum())
+    differ = torch.nonzero(dur_g[:n].cpu() != dur_c[:n]).flatten().tolist()
+    log(f"  card vs CPU, duration graph on {n} tokens: hidden max error "
+        f"{herr:.3e} of {scale:.3e} (bound 1e-4 relative), durations "
+        f"{dur_c[:n].int().tolist()} ({int(dur_c.sum())} frames), differ at "
+        f"{differ}; tokens within 1e-3 of a half-integer: {near}")
+    if herr > 1e-4 * scale:
+        raise AssertionError("card vs CPU: the duration graph's hidden states differ")
+    bad = [i for i in differ if abs(float(sums[i] - sums[i].floor()) - 0.5) > 1e-3]
+    if bad:
+        raise AssertionError(f"card vs CPU: durations differ at tokens {bad}")
+    total = int(dur_c.sum())
+    f = cpu._bucket(total, cpu.frame_buckets)
+    noise = cpu.noise((cpu.cfg.harmonic_num + 1, int(2 * f * cpu.cfg.upsample_scale)),
+                      seed=KOKORO_SEED)
+    args = (n, dur_c, noise, f)
+    stats = dict(tokens=n, frames=total, frame_bucket=f, hidden_err=herr)
+    # voiced: the file's F0 head
+    ref, seen_c = kokoro_generate_on(cpu, out["cpu"], *args)
+    own, seen_g = kokoro_generate_on(card, out["card"], *args)
+    fed, _ = kokoro_generate_on(card, out["card"], *args, f0=seen_c["f0"])
+    f0_err = float((seen_g["f0"] - seen_c["f0"]).abs().max())
+    f0_peak = float(seen_c["f0"].abs().max())
+    stats.update(voiced_peak=float(ref.abs().max()), f0_peak=f0_peak,
+                 f0_err=f0_err, voiced_from_cpu_f0=kokoro_share(fed, ref),
+                 voiced_own_f0=kokoro_share(own, ref))
+    # unvoiced: the F0 head's bias at 0 on both runners
+    biases = [r.weights.prosody.f0_proj_b.clone() for r in (cpu, card)]
+    try:
+        for r in (cpu, card):
+            r.weights.prosody.f0_proj_b.zero_()
+        uref, useen = kokoro_generate_on(cpu, out["cpu"], *args)
+        uown, _ = kokoro_generate_on(card, out["card"], *args)
+    finally:
+        for r, b in zip((cpu, card), biases):
+            r.weights.prosody.f0_proj_b.copy_(b)
+    stats.update(unvoiced_peak=float(uref.abs().max()),
+                 unvoiced_f0_peak=float(useen["f0"].abs().max()),
+                 unvoiced_own_f0=kokoro_share(uown, uref))
+    log(f"  card vs CPU, generation graph ({total} frames, bucket {f}; share "
+        f"within {KOKORO_CARD_TOL} of the peak, max error, count outside): "
+        f"{json.dumps(stats)}")
+    for dev, w in (("unvoiced", uown), ("voiced", own), ("voiced, CPU F0", fed)):
+        if not torch.isfinite(w).all():
+            raise AssertionError(f"card: the {dev} waveform is not finite")
+    if stats["unvoiced_own_f0"][0] < KOKORO_CARD_SHARE or \
+            stats["voiced_from_cpu_f0"][0] < KOKORO_CARD_SHARE:
+        raise AssertionError("card vs CPU: the generation graph's waveform differs")
+    if f0_err > 1e-4 * f0_peak or stats["unvoiced_f0_peak"] >= cpu.cfg.voice_threshold:
+        raise AssertionError("card vs CPU: the F0 curves differ, or the unvoiced "
+                             "run is voiced")
+    # the STFT on the card from the CPU's harmonic source: the real bins'
+    # angles equal the CPU's (0 or +pi), where the real part is not ~0
+    har, spec_c = seen_c["har"], seen_c["spec"]
+    n_fft, hop = cpu.cfg.true_n_fft, cpu.cfg.stft_hop
+    spec_g = dsp.stft(har.to(DEV), dsp.hann_window(n_fft, device=DEV), n_fft,
+                      hop).cpu()
+    real = torch.zeros(spec_c.shape[1:], dtype=torch.bool)
+    real[0] = True
+    real[:, 0] = real[:, n_fft // 2] = True
+    re = dsp.stft(har, dsp.hann_window(n_fft), n_fft, hop, abs_and_angle=False)[0]
+    firm = real & (re.abs() > 1e-6 * float(re.abs().max()))
+    same = bool((spec_g[1][firm] == spec_c[1][firm]).all())
+    log(f"  STFT on the card of the CPU's voiced source: {int(firm.sum())} "
+        f"real-bin angles compared ({int((real & ~firm).sum())} with a real "
+        f"part ~0, the masked tail's zero frames among them), equal {same}; "
+        f"harmonic source card vs CPU max error "
+        f"{float((seen_g['har'] - har).abs().max()):.3e}")
+    if not same:
+        raise AssertionError("card vs CPU: the STFT's DC / Nyquist / frame-0 "
+                             "angles differ")
+    return stats
+
+
+def kokoro_timed(r) -> dict:
+    """KOKORO_SENTENCE through the runner on the card: the duration graph,
+    the generation graph and the LSTM scans by the host's clock
+    (synchronized; the LSTMs timed inside both), the whole request traced
+    (kernels and busy share)."""
+    from tts_tpu_torch.models.kokoro import model as km
+    toks = kokoro_tokens(r, KOKORO_SENTENCE.replace(",", "--"))
+    n = len(toks)
+    t = torch.zeros(r._bucket(n, r.token_buckets), dtype=torch.long)
+    t[:n] = torch.tensor(toks)
+    t = t.to(r.device)
+    s1, s2 = r._style(KOKORO_VOICES[0], n)
+    spent = {"lstm": 0.0}
+    orig = km.masked_bilstm
+
+    def timed_lstm(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*a, **k)
+        torch.cuda.synchronize()
+        spent["lstm"] += time.perf_counter() - t0
+        return out
+
+    rows = []
+    for _ in range(4):
+        spent["lstm"] = 0.0
+        km.masked_bilstm = timed_lstm
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dur, hid = km.kokoro_duration(r.cfg, r.weights, t, n, s1)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            lstm_dur = spent["lstm"]
+            total = int(dur.sum())
+            f = r._bucket(total, r.frame_buckets)
+            noise = r.noise((r.cfg.harmonic_num + 1, int(2 * f * r.cfg.upsample_scale)),
+                            seed=KOKORO_SEED)
+            wav, _ = km.kokoro_generate(r.cfg, r.weights, t, n, dur, hid, s1, s2,
+                                        noise, n_frames=f)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        finally:
+            km.masked_bilstm = orig
+        rows.append((t1 - t0, t2 - t1, lstm_dur, spent["lstm"] - lstm_dur))
+    d_s, g_s, l_d, l_g = (float(np.median([row[i] for row in rows[1:]]))
+                          for i in range(4))
+    audio_s = total * 600 / 24000
+    # without the LSTM timer's synchronizations, and traced
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.run_tokens(toks, KOKORO_VOICES[0], seed=KOKORO_SEED)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    device_trace(lambda: r.run_tokens(toks, KOKORO_VOICES[0], seed=KOKORO_SEED),
+                 f"Kokoro-82M request ({n} tokens, {total} frames)", 1)
+    stats = dict(tokens=n, frames=total, frame_bucket=f, audio_s=audio_s,
+                 duration_graph_ms=d_s * 1e3, generation_graph_ms=g_s * 1e3,
+                 lstm_ms_in_duration=l_d * 1e3, lstm_ms_in_generation=l_g * 1e3,
+                 lstm_share=(l_d + l_g) / (d_s + g_s), request_ms=plain_s * 1e3,
+                 audio_s_per_wall_s=audio_s / plain_s, trace=last_trace)
+    log(f"  timed (median of 3 after a warm-up; the LSTMs timed inside with a "
+        f"synchronization each): {json.dumps(stats)}")
+    return stats
+
+
+def kokoro_serving(path) -> dict:
+    """The port's server in this process on the Kokoro GGUF with batch
+    slots 8 (Kokoro takes the worker pool: no batched engine) answers 12
+    concurrent requests (two voices, each its own seed), 2 of them
+    streamed; each stream equal to the same request sent whole within 1
+    LSB. Returns the aggregate audio-s per wall-s and the latencies."""
+    from tts_tpu_torch.common import GenerationConfig
+    srv, httpd, base = start_server(path, GenerationConfig(), 8)
+    try:
+        if srv.batched_workers:
+            raise AssertionError("Kokoro got a batched worker")
+        with urllib.request.urlopen(base + "/v1/audio/voices", timeout=60) as resp:
+            voices = json.loads(resp.read())["voices"]
+        if voices != {srv.default_model: list(KOKORO_VOICES)}:
+            raise AssertionError(f"/v1/audio/voices: {voices}")
+        words = KOKORO_LONG.split()
+        prompts = [" ".join(words[: 4 + 3 * i]) + "." for i in range(12)]
+        payloads = [dict(input=p, voice=KOKORO_VOICES[i % 2], seed=100 + i)
+                    for i, p in enumerate(prompts)]
+        streamed = (4, 9)
+        results = [None] * 12
+
+        def req(i):
+            t0 = time.perf_counter()
+            r = post_stream(base, payloads[i]) if i in streamed \
+                else _post(base, payloads[i])
+            results[i] = (r, time.perf_counter() - t0)
+
+        threads = [threading.Thread(target=req, args=(i,)) for i in range(12)]
+        zero_counts()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        secs = []
+        for i, (res, _) in enumerate(results):
+            if res[0] != 200:
+                raise AssertionError(f"Kokoro request {i} answered {res[0]}")
+            if i in streamed:
+                if res[1] != "audio/pcm;rate=24000;encoding=signed-integer;bits=16":
+                    raise AssertionError(f"Kokoro stream {i}: {res[1]!r}")
+                secs.append(res[2].size / 24000)
+            else:
+                secs.append(check_wav(res[1], 24000, 600))
+        stream_stats = {}
+        for i in streamed:
+            code, body, _ = _post(base, payloads[i])
+            whole = wav_int16(body)
+            pcm = results[i][0][2]
+            if code != 200 or whole.shape != pcm.shape:
+                raise AssertionError(f"Kokoro stream {i}: {pcm.size} samples, "
+                                     f"whole {whole.size} ({code})")
+            diff = np.abs(pcm.astype(np.int32) - whole.astype(np.int32))
+            stream_stats[i] = dict(first_samples_s=results[i][0][3],
+                                   latency_s=results[i][1],
+                                   audio_s=whole.size / 24000,
+                                   max_lsb=int(diff.max()))
+            if diff.max() > 1:
+                raise AssertionError(f"Kokoro stream {i} differs from the same "
+                                     f"request sent whole: {stream_stats[i]}")
+        STREAMS["Kokoro server"] = stream_stats
+        m = srv.metrics_json()
+    finally:
+        httpd.shutdown()
+    if any(launches.values()):
+        raise AssertionError(f"a K1-K12 kernel was launched on Kokoro's path: "
+                             f"{launches}")
+    lat = sorted(t for _, t in results)
+    stats = dict(requests=12, wall_s=wall, audio_s=sum(secs),
+                 audio_s_per_wall_s=sum(secs) / wall,
+                 latency_p50_s=lat[len(lat) // 2], latency_max_s=lat[-1],
+                 metrics_requests=m["requests_total"],
+                 metrics_failed=m["requests_failed"])
+    log(f"  Kokoro serving (worker pool, batch_slots 8): {json.dumps(stats)}; "
+        f"streams against the same request sent whole: {json.dumps(stream_stats)}")
+    if m["requests_failed"] or m["streams_total"] < len(streamed):
+        raise AssertionError("/metrics counts failed Kokoro requests or misses "
+                             "the streams")
+    return stats
+
+
+def run_kokoro(tmp) -> None:
+    """Phase 15: a Kokoro-82M GGUF (random weights from the phase's own
+    seed) text -> WAV through the port's CLI (one sentence; a prompt of
+    more than 510 phoneme characters, several chunks), no K1-K12 kernel
+    launched; the graphs card vs CPU; the runner's stream against its
+    generate; the stage timings; the server."""
+    from tts_tpu_torch.apps import cli
+    from tts_tpu_torch.audio.wav import read_audio_file
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.kokoro import model as km
+    from tts_tpu_torch.models.registry import runner_from_file
+    path = os.path.join(tmp, "kokoro-82m.gguf")
+    t0 = time.perf_counter()
+    n_params = write_kokoro(path, np.random.default_rng(KOKORO_SEED))
+    log(f"Kokoro-82M: wrote {path} ({n_params / 1e6:.1f} M parameters, "
+        f"{os.path.getsize(path) / 1e6:.0f} MB) in {time.perf_counter() - t0:.1f} s")
+    for label, prompt in (("sentence", KOKORO_SENTENCE), ("long", KOKORO_LONG)):
+        wav = os.path.join(tmp, f"kokoro-{label}.wav")
+        zero_counts()
+        with recording(km, "kokoro_generate") as chunks:
+            t0 = time.perf_counter()
+            rc = cli.main(["-mp", path, "-p", prompt, "-sp", wav, "-v",
+                           KOKORO_VOICES[1], "--seed", str(KOKORO_SEED)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts()
+        audio, rate = read_audio_file(wav)
+        totals = [tot for _, tot in chunks]
+        log(f"  CLI, {label} prompt ({len(prompt)} characters): {len(chunks)} "
+            f"chunk(s) of {totals} frames, {audio.size} samples at {rate} Hz in "
+            f"{wall:.2f} s with the model's load ({audio.size / rate / wall:.3f} "
+            f"audio-s per wall-s)")
+        if rc != 0 or rate != 24000 or audio.size != 600 * sum(totals) or \
+                not np.all(np.isfinite(audio)) or not audio.any():
+            raise AssertionError(f"Kokoro CLI ({label}) did not write a valid "
+                                 f"24 kHz WAV of 600 samples a frame")
+        if label == "long" and len(chunks) < 2:
+            raise AssertionError("the long prompt did not split into chunks")
+        if any(launches.values()):
+            raise AssertionError(f"a K1-K12 kernel was launched on Kokoro's "
+                                 f"path: {launches}")
+    card = runner_from_file(path, device=DEV)
+    cpu = runner_from_file(path, device="cpu")
+    kokoro_card_vs_cpu(card, cpu)
+    del cpu
+    conf = GenerationConfig(voice=KOKORO_VOICES[0], seed=KOKORO_SEED)
+    whole = card.generate(KOKORO_LONG, conf).audio
+    with recording(km, "kokoro_generate") as chunks:
+        parts, first, total = timed_stream(card.generate_stream(KOKORO_LONG, conf))
+    sizes = [600 * tot for _, tot in chunks]
+    stream = np.concatenate(parts)
+    stats = dict(chunks=len(parts), first_chunk_s=first, total_s=total,
+                 audio_s=stream.size / 24000,
+                 bit_equal=bool(np.array_equal(stream, whole)),
+                 max_abs_err=float(np.abs(stream - whole).max()) if
+                 stream.shape == whole.shape else None)
+    STREAMS["Kokoro runner"] = stats
+    log(f"  Kokoro runner stream, long prompt: {json.dumps(stats)}")
+    if [p.size for p in parts] != sizes or stream.shape != whole.shape or \
+            stats["max_abs_err"] > 1e-5 * max(float(np.abs(whole).max()), 1.0):
+        raise AssertionError("Kokoro's stream differs from its generate")
+    kokoro_timed(card)
+    del card
+    torch.cuda.empty_cache()
+    kokoro_serving(path)
+    os.remove(path)
+
+
 def kernel_name(mangled: str) -> str:
     """The unqualified name in a mangled kernel symbol: the last
     length-prefixed identifier before the template arguments."""
@@ -4478,6 +5121,8 @@ def main() -> int:
         served_dia = phase(run_dia_serving, dia_path)
     torch.cuda.empty_cache()
     phase(time_k1_census)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase(run_kokoro, tmp)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
     # CLI's single stream, K12 on its K12 route, K4 and K5 on the server's
     # batched engine, K6 on

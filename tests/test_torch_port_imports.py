@@ -38,7 +38,12 @@ assert {"tts_tpu_torch.runtime.batched_parler",
         "tts_tpu_torch.runtime.batched_dia",
         "tts_tpu_torch.ops.parler_flat",
         "tts_tpu_torch.ops.dia_flat",
-        "tts_tpu_torch.ops.llama_persistent"} <= set(names), names
+        "tts_tpu_torch.ops.llama_persistent",
+        "tts_tpu_torch.models.kokoro.model",
+        "tts_tpu_torch.models.kokoro.loader",
+        "tts_tpu_torch.models.kokoro.convert", "tts_tpu_torch.ops.rnn",
+        "tts_tpu_torch.text.phonemizer", "tts_tpu_torch.text.phonemizer_data",
+        "tts_tpu_torch.apps.phonemize"} <= set(names), names
 print(len(names), bad)
 """
 

@@ -6,7 +6,9 @@ plus `--device` (default cuda; `--device cpu` runs the plain PyTorch
 versions). `--conditional-prompt` re-encodes a Parler model's voice
 description through the T5 encoder GGUF at `--text-encoder-path` before
 generating; `--play` plays the audio where a playback backend is installed
-and otherwise writes the file.
+and otherwise writes the file. A Kokoro model takes `-v` for its voice pack
+(the default af_heart falls back to the file's first voice) and
+`--espeak-voice-id` for an espeak phonemizer, and writes 24 kHz audio.
 
     python -m tts_tpu_torch.apps.cli -mp model.gguf -p "Hello" -sp out.wav
 """
@@ -26,7 +28,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="tts-cli",
                                 description="TTS generation (PyTorch/CUDA port)")
     p.add_argument("--model-path", "-mp", required=True,
-                   help="Parler, Orpheus or Dia GGUF model file, or test:dummy")
+                   help="Parler, Kokoro, Orpheus or Dia GGUF model file, "
+                        "or test:dummy")
     p.add_argument("--prompt", "-p", required=True,
                    help="text prompt to synthesize")
     p.add_argument("--save-path", "-sp", default="TTS.cpp.wav",

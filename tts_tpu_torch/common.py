@@ -1,7 +1,8 @@
 """Common types shared across the port.
 
-`GenerationConfig`, `TTSResponse`, `SAMPLE_RATE_DAC`, `SAMPLE_RATE_SNAC` and
-`chunk_schedule` are copies of the JAX package's `common.py` (parity:
+`GenerationConfig`, `TTSResponse`, `SAMPLE_RATE_DAC`, `SAMPLE_RATE_SNAC`,
+`SAMPLE_RATE_KOKORO`, `KOKORO_SAMPLES_PER_FRAME` and `chunk_schedule` are
+copies of the JAX package's `common.py` (parity:
 reference include/common.h:45-74). `kv_cache_dtype` and `default_device`
 are the port's own: they key on the torch device instead of the JAX
 platform.
@@ -18,6 +19,9 @@ import torch
 # snac_model.h).
 SAMPLE_RATE_DAC = 44_100
 SAMPLE_RATE_SNAC = 24_000
+SAMPLE_RATE_KOKORO = 24_000
+# Kokoro: audio samples per duration frame (reference kokoro/model.h)
+KOKORO_SAMPLES_PER_FRAME = 600
 
 
 @dataclasses.dataclass

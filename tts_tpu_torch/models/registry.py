@@ -2,8 +2,8 @@
 
 Parity: reference src/models/loaders.{h,cpp} (`runner_from_file`). The
 `test:` filename prefix instantiates weight-free test runners
-(loaders.cpp:37-44). The port supports `parler-tts`, `orpheus`, `dia` and
-`test:dummy`.
+(loaders.cpp:37-44). The port supports every family the JAX package
+serves: `parler-tts`, `kokoro`, `orpheus`, `dia`, and `test:dummy`.
 """
 from __future__ import annotations
 
@@ -38,6 +38,9 @@ def runner_from_file(fname: str, config: Optional[GenerationConfig] = None,
     if arch == "dia":
         from .dia.loader import load_dia_runner
         return load_dia_runner(reader, config, device=dev, **kw)
+    if arch == "kokoro":
+        from .kokoro.loader import load_kokoro_runner
+        return load_kokoro_runner(reader, config, device=dev, **kw)
     reader.close()
     raise ValueError(f"unsupported architecture {arch!r} in {fname} "
-                     "(the port runs parler-tts, orpheus and dia so far)")
+                     "(the port runs parler-tts, kokoro, orpheus and dia)")

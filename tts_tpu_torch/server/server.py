@@ -16,7 +16,8 @@ Orpheus and Dia requests go to a continuous-batching engine instead
 runtime/batched_dia.py): concurrent requests decode together, one read of
 the weights serving every slot. A request the engine does not take (a
 prompt longer than it takes: for Dia, more than 256 bytes) goes to the
-worker pool.
+worker pool. Kokoro has no decode loop to batch: its requests always go to
+the worker pool.
 
 Streams: a model with a batched worker streams through it (the request
 holds a slot like any other; after each chunk the worker vocodes the
@@ -816,7 +817,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch-slots", "-bs", type=int, default=0,
                    help="continuous-batching slots for Parler, Orpheus "
                         "and Dia models (0 = off); requests decode together "
-                        "on the card")
+                        "on the card. Kokoro is feed-forward and is served "
+                        "by the worker pool")
     p.add_argument("--timeout", type=int, default=300)
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default) or cpu")

@@ -1,7 +1,8 @@
-"""Text tokenizers: SentencePiece-unigram (Parler/T5) and BPE (Orpheus).
+"""Text tokenizers: SentencePiece-unigram (Parler/T5), BPE (Orpheus) and
+single-pass greedy (Kokoro IPA / phonemizer graphemes).
 
-Copies of the JAX package's `UnigramTokenizer` and `BPETokenizer` (parity:
-reference src/tokenizer.cpp):
+Copies of the JAX package's `UnigramTokenizer`, `BPETokenizer` and
+`SinglePassTokenizer` (parity: reference src/tokenizer.cpp):
 
   * unigram: whitespace-run collapse + leading-space normalize, Viterbi
     max-score over a trie, unknown-token fallback per utf-8 step,
@@ -11,6 +12,8 @@ reference src/tokenizer.cpp):
   * BPE: rank-based merges with a priority queue keyed on (rank, left
     position) and stale-entry checks; text pre-split on spaces, 'Ġ' prefix
     for space-preceded chunks (tokenizer.cpp:209-289).
+  * single-pass: greedy matching that tries shorter matches first, used
+    both for ids and for plain splitting (tokenizer.cpp:159-194).
 """
 from __future__ import annotations
 
@@ -194,3 +197,57 @@ class BPETokenizer:
             a, b = m.split(" ")
             ranks[(a, b)] = i
         return cls(vocab, ranks, bos, eos)
+
+
+class SinglePassTokenizer:
+    """Greedy tokenizer over a token set (Kokoro char-IPA / phonemizer
+    graphemes)."""
+
+    def __init__(self, tokens: List[str], unknown_id: int = 0):
+        self.tokens = tokens
+        # parity: the reference uses std::find, which returns the FIRST
+        # occurrence, so a duplicated token keeps its lowest id
+        self.index: Dict[str, int] = {}
+        for i, t in enumerate(tokens):
+            self.index.setdefault(t, i)
+        self.vocab = set(tokens)
+        self.max_size = max((len(t) for t in tokens), default=0)
+        self.unknown_id = unknown_id
+
+    def tokenize(self, text: str) -> List[int]:
+        """Ids of `text`: at each position the SHORTEST token that matches
+        (tokenizer.cpp:159-177); an unmatched character gives the unknown
+        id and is skipped."""
+        out: List[int] = []
+        remaining = text
+        while remaining:
+            tid = self.unknown_id
+            matched = 0
+            for i in range(1, min(len(remaining), self.max_size) + 1):
+                part = remaining[:i]
+                if part in self.index:
+                    tid = self.index[part]
+                    matched = i
+                    break
+            remaining = remaining[matched or 1:]
+            out.append(tid)
+        return out
+
+    def token_split(self, text: str) -> List[str]:
+        """Greedy LONGEST-match split (tokenizer.cpp:179-194)."""
+        out: List[str] = []
+        remaining = text
+        while remaining:
+            token = remaining[:1]
+            for i in range(1, len(remaining)):
+                part = remaining[: i + 1]
+                if part not in self.vocab:
+                    break
+                token = part
+            out.append(token)
+            remaining = remaining[len(token):]
+        return out
+
+    @classmethod
+    def from_gguf(cls, reader, key: str = "phonemizer.graphemes") -> "SinglePassTokenizer":
+        return cls(list(reader.metadata[key]))
