@@ -73,7 +73,8 @@ Phases, in order; any failure exits non-zero without the final line:
    the K9 route (the batched engine on those weights,
    8 slots, 64 batched steps): K9 must have risen, K7 not.
 8. Orpheus serving: the port's HTTP server in this process (batch_slots 8,
-   the Orpheus-3B GGUF) answers 12 concurrent requests with a voice and
+   the Orpheus-3B GGUF, its `orpheus.max_generation_size` rewritten to
+   1050 tokens before the server loads it: ORPHEUS_SERVING_TOKENS) answers 12 concurrent requests with a voice and
    mixed sampling parameters; counters set to 0 just before, read just
    after; K1, K4 and K7 must have risen. Then the batched step timed and
    traced, one request through batch_slots 0, and the engine's greedy
@@ -111,8 +112,9 @@ Phases, in order; any failure exits non-zero without the final line:
    K9 at one slot there, Dia's K11 at one pair).
 
 14. K1's census: each main path's K1 calls by shape (qm.SHAPES, counted
-   over the same windows as the launch counters), and K1 timed at every
-   shape of it beside its bound, its plain version and dequant +
+   over the same windows as the launch counters), and K1 held against its
+   plain version at every shape of it (within 1e-5 of the largest output)
+   and timed there beside its bound, its plain version and dequant +
    torch.matmul (device time of back-to-back calls from CUDA events, the
    calls queued behind a spin kernel: queued_ms). Each CLI path also logs
    its prefill's (Dia: encoder's) device time and K1's part of it.
@@ -132,6 +134,33 @@ Phases, in order; any failure exits non-zero without the final line:
    server with batch slots 8 (Kokoro takes the worker pool) answering 12
    concurrent requests, 2 streamed, each stream within 1 LSB of the same
    request sent whole.
+16. Parallelism (tts_tpu_torch/parallel; its own seeded generators, run
+   after phase 15): each model's Megatron TP step (Parler-Mini, Orpheus-3B
+   and the Dia-1.6B decoder at full width, random Q4_0, 8 steps with cache
+   writes at positions 1000-1007) at tp=1 under NCCL in this process (a
+   world of one), then 4 spawned ranks over gloo sharing cuda:0 (named by
+   the caller: NCCL refuses two ranks on one card), each with a timeout: a
+   rank that fails or hangs fails the run. Ranks 0 and 1: (a) tp=2, each
+   step fed tp=1's input and cache rows, x_out / k_new / v_new within
+   TP_REL of tp=1's peak, K1 risen in every rank, each step on the host
+   clock; (b) the weight-gather mode at tp=2, bit for bit against K2 on
+   the unsharded Parler-Mini weights; (c) sharded_dac_decode of DAC-44k
+   over 256 frames at sp=2 against the card's unsharded decode (bit
+   equality reported; the streams' criterion held). All four: (d) dp x tp
+   2 x 2, the batched Parler chunk at Parler-Mini width with 8 slots at
+   positions across the 256- and 512-row pages, 16 steps: teacher-forced
+   logits within TP_REL of the unsharded chunk's, greedy tokens equal
+   wherever the top-2 gap exceeds that bound. gloo's times go through the
+   host: correctness and each shard's K1, not scaling. Then K4 at the dp x
+   tp shard (4 slots, 8 heads of 64, at the 16 steps' positions) against
+   its plain version.
+17. The perf battery (apps/perf_battery.py): main() on the Kokoro-82M GGUF
+   (30 sentences and the warm-up; no K1-K12 counter may rise) and
+   run_battery on a Parler-Mini GGUF (8 sentences, 64 decode steps or
+   more; K1-K3 must rise), both JSON blobs logged; one sentence under
+   utils.profiling.trace, whose file must name K1's kernel. Then K1 is
+   held against its plain version and timed at the shapes phases 16-17
+   added to the census (the shards, the battery's prefills).
 
 Phase 2 holds K1 at 1-256 rows (each warp layout: 1-8, 9-16, 17-32,
 33-64, 65-128, 129-256 rows; both numeric modes, every quant type, K
@@ -626,22 +655,33 @@ def k1_inputs(gen, shape) -> tuple[list, torch.Tensor]:
     return ws, torch.randn((m, k), generator=gen, device=DEV)
 
 
-def time_k1_census() -> None:
-    """K1 at every shape of the census, by device time (queued_ms), beside
-    its bound (k1_bound), its plain version and dequant + torch.matmul on
-    the same inputs, timed alike, with the launches of each main path;
-    weights taken in turn from copies that exceed the L2 cache together."""
+def time_k1_census(paths=None) -> float:
+    """K1 at every shape of the census, held against its plain version on
+    the same inputs (within 1e-5 of the largest output, as check_k1) and
+    timed by device time (queued_ms) beside its bound (k1_bound), its plain
+    version and dequant + torch.matmul, timed alike, with the launches of
+    each main path; weights taken in turn from copies that exceed the L2
+    cache together. With `paths`, the shapes of those main paths that no
+    other path has (phase 16's shards, after phase 14 took the rest).
+    Returns the largest error."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(SEED + 12)
-    shapes = sorted({s for c in K1_CENSUS.values() for s in c},
-                    key=lambda s: (s[4], s[0], s[1], s[2]))
+    shapes = {s for p in (paths or K1_CENSUS) for s in K1_CENSUS[p]}
+    if paths:
+        shapes -= {s for p, c in K1_CENSUS.items() if p not in paths for s in c}
+    shapes = sorted(shapes, key=lambda s: (s[4], s[0], s[1], s[2]))
     log(f"K1 census: {len(shapes)} shapes over {len(K1_CENSUS)} main paths, "
         f"{sum(s in K1_SHAPES for s in shapes)} of them in K1_SHAPES")
     log(f"K1 census shapes: {json.dumps([list(s) for s in shapes])}")
+    errs = [0.0]
     for shape in shapes:
         m, n, k, qt, sd, packed = shape
         ws, x = k1_inputs(gen, shape)
         one = ws[0]
+        errs.append(check_close(
+            f"K1 {m}x{n}x{k} {QNAME[qt]} {sd}{' packed' if packed else ''}",
+            qm.quant_matmul_cuda(x, one), qm.quant_matmul_plain(x, one), 1e-5,
+            "same rounding, f32 sums in another order"))
         nbytes = tensor_bytes((one.codes, one.scales))
         it = iter(range(1 << 30))
 
@@ -659,6 +699,7 @@ def time_k1_census() -> None:
             f"{b_ms:.4f} ({b_by}); launches {per_path}")
         del ws
         torch.cuda.empty_cache()
+    return max(errs)
 
 
 def prefill_device(label, fn) -> None:
@@ -2066,11 +2107,11 @@ def write_parler(path, rng, *, n_layers, hidden, heads, ffn, n_out, vocab,
     w.write()
 
 
-def prompt_len() -> int:
+def prompt_len(text: str = PROMPT) -> int:
     from tts_tpu_torch.text import UnigramTokenizer
     tok = UnigramTokenizer({t: i for i, t in enumerate(TOKENS)}, 0,
                            [-10.0] + [-1.0] * (len(TOKENS) - 1), 1)
-    return len(tok.tokenize(PROMPT)) + 1   # + EOS
+    return len(tok.tokenize(text)) + 1   # + EOS
 
 
 # ---------------------------------------------------------------------------
@@ -3001,13 +3042,16 @@ def orpheus_vocab(n: int) -> list[str]:
 
 
 def write_orpheus(path, rng, *, n_layers, hidden, heads, kv_heads, ffn,
-                  vocab, q4_head, snac_dims, snac_latent):
+                  vocab, q4_head, snac_dims, snac_latent, max_generation=None):
     """An Orpheus GGUF as `tts_tpu.apps.quantize -qt Q4_0` leaves one:
     Q4_0 projections (and with q4_head, as -qh gives it, a Q4_0 LM head;
     else F16), an F16 embed_tokens, F32 norms and llama3 RoPE factors, and
-    a SNAC decoder in F32 under `snac.` (residual units depthwise)."""
+    a SNAC decoder in F32 under `snac.` (residual units depthwise). With
+    `max_generation`, `orpheus.max_generation_size` states the window."""
     d = hidden // heads
     w = GGUFWriter(path, "orpheus")
+    if max_generation is not None:
+        w.add_u32("orpheus.max_generation_size", max_generation)
     for key, v in (("orpheus.vocab_size", vocab), ("orpheus.attn_heads", heads),
                    ("orpheus.kv_attn_heads", kv_heads), ("orpheus.head_dim", d),
                    ("orpheus.hidden_size", hidden), ("orpheus.layers", n_layers),
@@ -3220,7 +3264,8 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
                   hidden=ORPHEUS["hidden"], heads=ORPHEUS["heads"],
                   kv_heads=ORPHEUS["kv_heads"], ffn=ORPHEUS["ffn"],
                   vocab=ORPHEUS["vocab"], q4_head=True,
-                  snac_dims=SNAC_24K["dims"], snac_latent=SNAC_24K["latent"])
+                  snac_dims=SNAC_24K["dims"], snac_latent=SNAC_24K["latent"],
+                  max_generation=omodel.OrpheusConfig().max_generation_size)
     log(f"Orpheus main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
         f"{time.perf_counter() - t0:.1f} s; voice {VOICE!r}, prompt {PROMPT!r}")
     wav = os.path.join(tmp, "orpheus.wav")
@@ -3410,6 +3455,28 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
 ORPHEUS_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                         "llama_flat_megastep_batched")
 GREEDY_TOKENS = 200   # the greedy parity check's generation window
+# Orpheus serving's generation window, half the model's 2100 tokens: a depth
+# cut that keeps the whole script in its time with phases 16-17
+ORPHEUS_SERVING_TOKENS = 1050
+
+
+def set_gguf_u32(path, key: str, value: int) -> None:
+    """Rewrite one u32 metadata value of a GGUF in place (same width:
+    nothing after it moves), then read it back."""
+    from tts_tpu_torch.gguf import GGUFReader
+    from tts_tpu_torch.gguf.reader import T_U32
+    name = key.encode()
+    tag = len(name).to_bytes(8, "little") + name + T_U32.to_bytes(4, "little")
+    with open(path, "r+b") as f:
+        head = f.read(1 << 20)       # the keys written before the vocab
+        at = head.find(tag)
+        if at < 0 or head.find(tag, at + 1) >= 0:
+            raise ValueError(f"{path}: no single u32 {key!r} in the header")
+        f.seek(at + len(tag))
+        f.write(value.to_bytes(4, "little"))
+    got = GGUFReader(path).metadata[key]
+    if got != value:
+        raise AssertionError(f"{path}: {key} reads {got} after writing {value}")
 
 
 def run_orpheus_serving(path) -> dict:
@@ -4989,6 +5056,657 @@ def run_kokoro(tmp) -> None:
     del card
     torch.cuda.empty_cache()
     kokoro_serving(path)
+
+
+# ---------------------------------------------------------------------------
+# phase 16: parallelism on torch.distributed
+# ---------------------------------------------------------------------------
+
+TP_SEED = SEED + 16          # the phase's own generators: no earlier draw moves
+TP_MODELS = ("parler", "orpheus", "dia")
+TP_STEPS = 8
+TP_POS = 1000                # the TP steps' positions: 1000-1007
+TP_CTX = 2048                # the TP steps' cache rows
+# Megatron TP against tp=1: f32 math (K1's f32 mode) in another order of
+# partial sums (another K split per shard, the all-reduce), so each output
+# is held within this share of its peak
+TP_REL = 1e-4
+RANK_TIMEOUT = 420           # seconds for the 4 ranks' whole run
+DAC_FRAMES = 256
+DPTP_SLOTS = (200, 250, 253, 255, 256, 300, 505, 700)   # prompt lengths: the 16
+DPTP_STEPS = 16              # steps take slots across rows 256 and 512
+DPTP_CTX = 1024
+
+
+def tp_inputs(name):
+    """One model's random weights and its TP steps' inputs, from a generator
+    seeded for that model alone, so that every process (the NCCL world of
+    one and each gloo rank) draws the same bits: (source layers, step
+    keywords, TP_STEPS input rows (steps, rows, H), kv_k, kv_v (L, [2,] kv
+    heads, TP_CTX, D) bf16, Dia's bucketed cross (ck, cv, vtail, n_tail) or
+    None)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TP_SEED + TP_MODELS.index(name))
+    cross, lead = None, ()
+    if name == "parler":
+        lw = mini_layers(gen)
+        L, H, nh, kvh = MINI["n_layers"], MINI["hidden"], MINI["heads"], MINI["heads"]
+        kw = dict(n_heads=nh)
+    elif name == "orpheus":
+        lw, _, _, d, okw = orpheus_source_weights(gen)
+        L, H, nh, kvh = (ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["heads"],
+                         ORPHEUS["kv_heads"])
+        kw = dict(n_heads=nh, n_kv=kvh, head_d=d, inv=okw["inv_freq"])
+    else:
+        lw, d = dia_source_weights(gen)
+        L, H, nh, kvh = DIA["n_layers"], DIA["hidden"], DIA["heads"], DIA["kv_heads"]
+        kw = dict(n_heads=nh, n_kv=kvh, head_d=d)
+        ck, cv, vt = dia_cross(gen, (2,), 256)
+        cross = (ck.flatten(1, 2), cv.flatten(1, 2), vt.flatten(1, 2),
+                 DIA["tc"] - 256)
+        lead = (2,)
+    d = H // nh
+    kv = [(torch.randn((L, *lead, kvh, TP_CTX, d), generator=gen, device=DEV)
+           * 0.5).to(torch.bfloat16) for _ in range(2)]
+    xs = torch.randn((TP_STEPS, 2 if name == "dia" else 1, H), generator=gen,
+                     device=DEV)
+    return lw, kw, xs, kv[0], kv[1], cross
+
+
+def tp_prep(name, lw, kw, i, tp):
+    """Rank i's (of tp) Megatron layers of one model."""
+    from tts_tpu_torch.parallel import dia_tp, llama_tp, tp_megastep
+    if name == "parler":
+        return tp_megastep.shard_tp_layers(
+            tp_megastep.prep_tp_layers(lw, tp)[0], i, tp)
+    mod, prep, shard = ((llama_tp, "prep_llama_tp", "shard_llama_tp")
+                        if name == "orpheus" else
+                        (dia_tp, "prep_dia_tp", "shard_dia_tp"))
+    tpl, _ = getattr(mod, prep)(lw, tp, n_heads=kw["n_heads"],
+                                n_kv=kw["n_kv"], head_d=kw["head_d"])
+    return getattr(mod, shard)(tpl, i, tp)
+
+
+def kv_axis(name) -> int:
+    return 2 if name == "dia" else 1
+
+
+def tp_step(name, sh, kw, x, kk, vv, pos, cross, group):
+    from tts_tpu_torch.parallel import dia_tp, llama_tp, tp_megastep
+    if name == "parler":
+        return tp_megastep.megastep_tp(sh, x, kk, vv, pos, group=group,
+                                       use_cross=True, n_heads=kw["n_heads"])
+    if name == "orpheus":
+        return llama_tp.llama_megastep_tp(sh, x, kk, vv, pos, kw["inv"],
+                                          group=group, n_heads=kw["n_heads"],
+                                          n_kv=kw["n_kv"])
+    return dia_tp.dia_megastep_tp(sh, x, kk, vv, pos, *cross, group=group,
+                                  n_heads=kw["n_heads"], n_kv=kw["n_kv"])
+
+
+def write_kv_rows(name, kk, vv, pos, k_rows, v_rows) -> None:
+    """A TP step's k / v rows (L, [2,] kv heads * D) into cache row pos."""
+    ax = kv_axis(name)
+    for c, rows in ((kk, k_rows), (vv, v_rows)):
+        idx = (slice(None),) * (ax + 1) + (pos,)
+        c[idx] = rows.reshape(*c.shape[:ax + 1], c.shape[-1]).to(c.dtype)
+
+
+def tp_run(name, i, tp, group, ref=None) -> dict:
+    """TP_STEPS steps of one model on rank i of tp, each fed step s's input
+    rows, run layer by layer: with `ref` (tp=1's run) each layer is fed
+    tp=1's input to it and, after each step, cache row pos holds tp=1's k /
+    v rows (this rank's heads), so that a layer's error is its own (on the
+    card K1's f32 mode is within ~1e-5 of exact f32 a call, and a stack of
+    18 layers carries that on); without `ref` each layer takes the one
+    before's output (the whole step) and the step's own rows are written.
+    Returns each layer's input, output and k / v rows by step, and the
+    host-clock time of each step (synchronized around it)."""
+    from tts_tpu_torch.parallel.dia_tp import shard_dia_cross
+    from tts_tpu_torch.parallel.sharding import split_axis
+    lw, kw, xs, kv_k, kv_v, cross = tp_inputs(name)
+    sh = tp_prep(name, lw, kw, i, tp)
+    del lw
+    ax = kv_axis(name)
+    kk, vv = split_axis(kv_k, ax, i, tp), split_axis(kv_v, ax, i, tp)
+    del kv_k, kv_v
+    if cross is not None:
+        cross = (*shard_dia_cross(*cross[:3], i, tp), cross[3])
+    n_layers = kk.shape[0]
+    out = dict(x_in=[], x=[], k=[], v=[], ms=[])
+    for s in range(TP_STEPS):
+        pos = TP_POS + s
+        x = xs[s]
+        rows = dict(x_in=[], x=[], k=[], v=[])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for l in range(n_layers):
+            if ref is not None:
+                x = ref["x_in"][s][l]
+            one = type(sh)(*[f[l:l + 1] for f in sh])
+            cl = None if cross is None else (*[c[l:l + 1] for c in cross[:3]],
+                                             cross[3])
+            rows["x_in"].append(x)
+            x, kn, vn = tp_step(name, one, kw, x, kk[l:l + 1], vv[l:l + 1],
+                                pos, cl, group)
+            for key, t in (("x", x), ("k", kn[0]), ("v", vn[0])):
+                rows[key].append(t)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        kn, vn = torch.stack(rows["k"]), torch.stack(rows["v"])
+        if ref is None:
+            write_kv_rows(name, kk, vv, pos, kn, vn)
+        else:
+            nk = ref["k"][s][0].shape[-1] // tp
+            write_kv_rows(name, kk, vv, pos,
+                          torch.stack(ref["k"][s])[..., i * nk:(i + 1) * nk],
+                          torch.stack(ref["v"][s])[..., i * nk:(i + 1) * nk])
+        for key in rows:
+            out[key].append(rows[key])
+    return out
+
+
+def dac44k_weights(gen):
+    """A random DAC-44k decoder (latent 1024, 9 codebooks of dim 8,
+    channels 1536 / 768 / 384 / 192 / 96, strides 8, 8, 4, 2), as add_dac
+    writes one, straight on the card."""
+    from tts_tpu_torch.models.codec.dac import (CodecLayerWeights,
+                                                DACWeights,
+                                                QuantizeLayerWeights,
+                                                ResidualUnitWeights)
+    chans = (1536, 768, 384, 192, 96)
+
+    def r(*shape, scale=0.05):
+        return torch.randn(shape, generator=gen, device=DEV) * scale
+
+    def alpha(c):
+        return r(c, 1).abs() + 0.5
+
+    layers = []
+    for i, s in enumerate((8, 8, 4, 2)):
+        cin, cout = chans[i], chans[i + 1]
+        units = [ResidualUnitWeights(alpha(cout), r(cout, cout, 7), r(cout),
+                                     alpha(cout), r(cout, cout, 1), r(cout))
+                 for _ in range(3)]
+        layers.append(CodecLayerWeights(alpha(cin), r(cin, cout, 2 * s),
+                                        r(cout), units))
+    return DACWeights(
+        quantizers=[QuantizeLayerWeights(r(1024, 8), r(1024, 8, 1), r(1024))
+                    for _ in range(9)],
+        in_w=r(chans[0], 1024, 7), in_b=r(chans[0]), layers=layers,
+        final_alpha=alpha(chans[-1]), out_w=r(1, chans[-1], 7, scale=0.001),
+        out_b=r(1))
+
+
+def dptp_model():
+    """The dp x tp check's Parler-Mini-width weights (Q4_0 projections and
+    stacked heads with f32 scales: K1's f32 mode, so that the check's bound
+    measures the order of sums alone), config and 8-slot state (bf16
+    caches of DPTP_CTX rows, random up to each slot's prompt length), from
+    a generator seeded for it."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.parler.model import ParlerConfig, ParlerWeights
+    from tts_tpu_torch.runtime import batched_parler as pbp
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TP_SEED + len(TP_MODELS))
+    H, n_out, vocab = MINI["hidden"], MINI["n_out"], MINI["vocab"]
+    cfg = ParlerConfig(
+        n_output_heads=n_out, n_encode_length=MINI["enc_len"], hidden_size=H,
+        max_ctx_length=DPTP_CTX, n_attn_heads=MINI["heads"],
+        output_vocab_size=vocab, max_generation_size=DPTP_CTX,
+        n_layers=MINI["n_layers"])
+    lw = mini_layers(gen)
+    lw = lw._replace(**{f: qm.QuantTensor(m.codes, m.scales.float(), m.qtype)
+                        for f, m in lw._asdict().items()
+                        if isinstance(m, qm.QuantTensor)})
+    w = ParlerWeights(
+        layers=lw,
+        embds=torch.randn((n_out, 1090, H), generator=gen, device=DEV) * 0.05,
+        prompt_embd=torch.randn((len(TOKENS), H), generator=gen, device=DEV),
+        pos_embd=torch.randn((DPTP_CTX, H), generator=gen, device=DEV) * 0.1,
+        final_ln_w=torch.randn((H,), generator=gen, device=DEV) * 0.1 + 1.0,
+        final_ln_b=torch.randn((H,), generator=gen, device=DEV) * 0.1,
+        heads=rand_quant(gen, n_out * vocab, H, quants.GGML_TYPE_Q4_0,
+                         torch.float32))
+    st = pbp.init_batched_state(cfg, len(DPTP_SLOTS), DEV)
+    for c in (st.kv_k, st.kv_v):
+        c.copy_(torch.randn(c.shape, generator=gen, device=DEV) * 0.5)
+    for s, p in enumerate(DPTP_SLOTS):
+        pbp.insert_request(cfg, st, s, p, GenerationConfig(sample=False))
+    return cfg, w, st
+
+
+def dptp_steps(cfg, w, st, steps, tp_group=None, forced=None):
+    """`steps` greedy batched steps through the per-matmul path, one at a
+    time: (the state after them, each step's logits (B, 9, vocab), each
+    step's state before it). With `forced` (such a list of states, whole
+    or this rank's slots), every step starts from the forced state's feed,
+    positions and sampler state (teacher forcing)."""
+    from tts_tpu_torch.runtime import batched_parler as pbp
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    logits, before = [], []
+    with recording(pbp, "_logits_last") as seen:
+        for s in range(steps):
+            if forced is not None:
+                f = forced[s]
+                st = st._replace(pos=f.pos.clone(), step=f.step.clone(),
+                                 tokens_in=f.tokens_in.clone(),
+                                 eos_seen=f.eos_seen.clone(),
+                                 sampler_state=type(f.sampler_state)(
+                                     *[t.clone() for t in f.sampler_state]))
+            before.append(st._replace(kv_k=None, kv_v=None, out_tokens=None))
+            st = pbp.batched_decode_step(cfg, w, st, gen, use_cross=True,
+                                         tp_group=tp_group)
+            logits.append(seen[-1])
+    return st, logits, before
+
+
+def parallel_reference(tmp) -> dict:
+    """Phase 16's unsharded references in this process: each model's TP
+    steps at tp=1 under NCCL (a world of one, the production backend) and
+    the dp x tp check's unsharded per-matmul chunk; K1 must have risen on
+    each TP model's steps. Saved for the ranks."""
+    import torch.distributed as dist
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl-world",
+                            world_size=1, rank=0)
+    ref = {}
+    try:
+        for name in TP_MODELS:
+            zero_counts()
+            out = tp_run(name, 0, 1, None)
+            counts = read_counts(f"tp=1 {name}")
+            if not counts["quant_matmul"]:
+                raise AssertionError(f"tp=1 {name}: K1 was not launched")
+            log(f"  {name} tp=1 (nccl, a world of one): {TP_STEPS} steps, "
+                f"{np.mean(out['ms'][1:]):.3f} ms a step on the host clock "
+                f"(steps 2-{TP_STEPS}; the first {out['ms'][0]:.1f} ms), "
+                f"K1 {counts['quant_matmul']} launches")
+            ref[name] = to_dev(out, "cpu")
+            torch.cuda.empty_cache()
+        cfg, w, st = dptp_model()
+        zero_counts()
+        st, logits, before = dptp_steps(cfg, w, st, DPTP_STEPS)
+        read_counts("dp x tp unsharded")
+        ref["dptp"] = to_dev(dict(tokens=st.out_tokens[:, :DPTP_STEPS],
+                                  logits=torch.stack(logits), before=before),
+                             "cpu")
+    finally:
+        dist.destroy_process_group()
+    torch.save(ref, os.path.join(tmp, "parallel-ref.pt"))
+    return ref
+
+
+def to_dev(x, dev=None):
+    """x's tensors (in lists, dicts and named tuples) on `dev` (DEV)."""
+    dev = DEV if dev is None else dev
+    if torch.is_tensor(x):
+        return x.to(dev)
+    if isinstance(x, dict):
+        return {k: to_dev(v, dev) for k, v in x.items()}
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[to_dev(t, dev) for t in x])
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_dev(t, dev) for t in x)
+    return x
+
+
+def rank_log(*a) -> None:
+    import torch.distributed as dist
+    print(f"[{dist.get_rank()}]", *a, flush=True)
+
+
+def rank_tp(tmp, ref, mesh) -> dict:
+    """16a: each model's TP steps at tp=2 against tp=1's, step by step."""
+    import torch.distributed as dist
+    g, i = mesh.get_group("tp"), mesh.get_local_rank("tp")
+    res = {}
+    for name in TP_MODELS:
+        r1 = to_dev(ref[name])
+        k1 = qm.KERNEL.launches
+        out = tp_run(name, i, 2, g, r1)
+        worst = {}
+        for key in ("x", "k", "v"):
+            errs = []
+            for s in range(TP_STEPS):
+                for l, got in enumerate(out[key][s]):
+                    want = r1[key][s][l]
+                    peak = float(want.abs().max())
+                    if key != "x":
+                        n = want.shape[-1] // 2
+                        want = want[..., i * n:(i + 1) * n]
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"{name} tp=2: {key} not finite")
+                    errs.append(max_err(got, want) / peak)
+            worst[key] = max(errs)
+            if worst[key] > TP_REL:
+                raise AssertionError(f"{name} tp=2 rank {dist.get_rank()}: "
+                                     f"{key} off tp=1's by {worst[key]:.3e} of "
+                                     f"its peak (bound {TP_REL})")
+        launches = qm.KERNEL.launches - k1
+        if not launches:
+            raise AssertionError(f"{name} tp=2: K1 not launched in this rank")
+        res[name] = dict(worst_rel=worst, ms=out["ms"], k1=launches)
+        rank_log(f"{name} tp=2 (gloo, shared cuda:0): worst layer of "
+                 f"{TP_STEPS} steps, share of tp=1's peak: x {worst['x']:.2e}, k "
+                 f"{worst['k']:.2e}, v {worst['v']:.2e} (bound {TP_REL}); "
+                 f"{np.mean(out['ms'][1:]):.3f} ms a step on the host clock; "
+                 f"K1 {launches} launches")
+        del out
+        torch.cuda.empty_cache()
+    return res
+
+
+def rank_gather(mesh) -> dict:
+    """16b: the weight-gather mode at tp=2 on Parler-Mini, bit for bit
+    against K2 on the unsharded weights (cache writes too)."""
+    from tts_tpu_torch.parallel.tp_megastep import (megastep_weight_gather,
+                                                    shard_mega_gather)
+    g, i = mesh.get_group("tp"), mesh.get_local_rank("tp")
+    lw, kw, xs, kv_k, kv_v, _ = tp_inputs("parler")
+    mega, qtype = pm.prep_mega_layers(lw)
+    del lw
+    shards = shard_mega_gather(mega, i, 2)
+    step = dict(qtype=qtype, use_cross=True, n_heads=kw["n_heads"])
+    pos = torch.tensor([TP_POS], dtype=torch.int32, device=DEV)
+    ka, va, kb, vb = kv_k.clone(), kv_v.clone(), kv_k, kv_v
+    k2 = pm.KERNEL.launches
+    want = pm.parler_megastep(mega, xs[0], ka, va, pos, **step)
+    got = megastep_weight_gather(shards, xs[0], kb, vb, pos, group=g, **step)
+    equal = all(torch.equal(a, b) for a, b in zip((*got, kb, vb), (*want, ka, va)))
+    if not equal or pm.KERNEL.launches - k2 <= 0:
+        raise AssertionError("the gather mode is not bit-equal to K2 on the "
+                             "unsharded weights")
+    ms = {}
+    for label, fn in (("K2 unsharded", lambda: pm.parler_megastep(
+            mega, xs[0], ka, va, pos, **step)),
+            ("gather tp=2", lambda: megastep_weight_gather(
+                shards, xs[0], kb, vb, pos, group=g, **step))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3 / 5
+    held = tensor_bytes([getattr(shards, f) for f in
+                         ("qkv_codes", "qkv_scales", "occ_codes", "occ_scales",
+                          "fc1_codes", "fc1_scales", "fc2_codes", "fc2_scales")])
+    rank_log(f"gather mode tp=2: bit-equal to K2 on the unsharded weights "
+             f"(x, k, v, caches); this rank holds {held / 1e6:.1f} MB of the "
+             f"{2 * held / 1e6:.1f} MB of tiles; host clock a step: "
+             + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return dict(ms=ms, bytes=held)
+
+
+def rank_dac(mesh) -> dict:
+    """16c: sharded_dac_decode of DAC_FRAMES frames over the tp axis (sp=2)
+    against the card's unsharded decode."""
+    from tts_tpu_torch.models.codec.dac import DACConfig, dac_decode
+    from tts_tpu_torch.parallel.seq_vocoder import sharded_dac_decode
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TP_SEED + len(TP_MODELS) + 1)
+    cfg, w = DACConfig(), dac44k_weights(gen)
+    codes = torch.randint(0, 1024, (DAC_FRAMES, cfg.n_heads), generator=gen,
+                          device=DEV)
+    ms = {}
+    outs = {}
+    for label, fn in (("unsharded", lambda: dac_decode(cfg, w, codes)),
+                      ("sp=2", lambda: sharded_dac_decode(cfg, w, codes, mesh,
+                                                          axis="tp"))):
+        outs[label] = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3
+    full, got = outs["unsharded"], outs["sp=2"]
+    diff = (got - full).abs()
+    stats = dict(bit_equal=bool(torch.equal(got, full)),
+                 within_1e_4=float((diff <= 1e-4).float().mean()),
+                 max_abs_err=float(diff.max()), samples=full.numel(), ms=ms)
+    rank_log(f"sharded_dac_decode, DAC-44k, {DAC_FRAMES} frames over sp=2 "
+             f"(margin 16): {json.dumps(stats)}")
+    if got.shape != full.shape or not torch.isfinite(got).all() or \
+            stats["within_1e_4"] < STREAM_CLOSE or stats["max_abs_err"] > STREAM_SEAM:
+        raise AssertionError("the sequence-parallel DAC decode does not meet "
+                             "the streams' criterion")
+    return stats
+
+
+def rank_dptp(ref, mesh) -> dict:
+    """16d: the batched Parler chunk over the 2 x 2 mesh (this rank's slots
+    and heads): teacher-forced logits against the unsharded chunk's within
+    TP_REL of their peak, then a free greedy run whose tokens equal the
+    unsharded ones wherever the unsharded logits' top-2 gap exceeds that
+    bound (a slot whose tokens part at a closer call is not compared
+    after it)."""
+    import torch.distributed as dist
+    from tts_tpu_torch.parallel.sharding import (shard_batched_state,
+                                                 shard_parler_weights)
+    g = mesh.get_group("tp")
+    di = mesh.get_local_rank("dp")
+    cfg, w, st0 = dptp_model()
+    ws = shard_parler_weights(w, mesh)
+    del w
+    b = len(DPTP_SLOTS) // 2
+    mine = slice(di * b, (di + 1) * b)
+    u = to_dev(ref["dptp"])
+    forced = [type(f)(*[t[mine] if torch.is_tensor(t) else
+                        type(t)(*[x[mine] for x in t]) if isinstance(t, tuple)
+                        else t for t in f]) for f in u["before"]]
+    k1 = qm.KERNEL.launches
+    _, logits, _ = dptp_steps(cfg, ws, shard_batched_state(st0, mesh),
+                              DPTP_STEPS, g, forced)
+    want = u["logits"][:, mine]
+    got = torch.stack(logits)
+    rel = max_err(got, want) / float(want.abs().max())
+    if not torch.isfinite(got).all() or rel > TP_REL:
+        raise AssertionError(f"dp x tp rank {dist.get_rank()}: teacher-forced "
+                             f"logits off by {rel:.3e} of their peak")
+    st, _, _ = dptp_steps(cfg, ws, shard_batched_state(st0, mesh), DPTP_STEPS, g)
+    toks, ref_toks = st.out_tokens[:, :DPTP_STEPS], u["tokens"][mine]
+    top2 = want.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).permute(1, 0, 2)     # (B, steps, 9)
+    bound = TP_REL * float(want.abs().max())
+    parted = 0
+    for s in range(b):
+        diff = (toks[s] != ref_toks[s]).nonzero()
+        if len(diff):
+            step, head = (int(t) for t in diff[0])
+            if gap[s, step, head] > bound:
+                raise AssertionError(f"dp x tp: slot {di * b + s} step {step} "
+                                     f"head {head} took another token with a "
+                                     f"top-2 gap of {float(gap[s, step, head]):.3e}")
+            parted += 1
+    launches = qm.KERNEL.launches - k1
+    if not launches:
+        raise AssertionError("dp x tp: K1 not launched in this rank")
+    rank_log(f"dp x tp 2 x 2 (gloo, shared cuda:0), Parler-Mini width, slots "
+             f"{list(DPTP_SLOTS[mine])}: teacher-forced logits within "
+             f"{rel:.2e} of their peak over {DPTP_STEPS} steps (bound "
+             f"{TP_REL}); greedy tokens equal the unsharded chunk's "
+             f"({parted} slot(s) parted at a top-2 gap under the bound); K1 "
+             f"{launches} launches")
+    return dict(rel=rel, parted=parted, k1=launches)
+
+
+def parallel_rank(tmp) -> None:
+    """Phase 16 on one of 4 gloo ranks sharing cuda:0 (spawned by
+    run_parallel). Ranks 0 and 1 (the mesh's first dp row) run 16a-16c
+    while ranks 2 and 3 wait; all four run 16d. Every rank's launch
+    counters and K1 shapes go to parallel-rank<r>.pt."""
+    import torch.distributed as dist
+    from tts_tpu_torch.parallel.mesh import make_mesh
+    missing = [s for s in _build.SOURCES if not _build._lib_path(s).exists()]
+    if missing:   # the parent builds every kernel in phase 1
+        raise AssertionError(f"kernels not built before the ranks: {missing}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ref = torch.load(os.path.join(tmp, "parallel-ref.pt"), weights_only=False)
+    mesh = make_mesh(tp=2, dp=2)
+    zero_counts()
+    res = {}
+    if mesh.get_local_rank("dp") == 0:
+        res["tp"] = rank_tp(tmp, ref, mesh)
+        res["tp_shapes"] = dict(qm.SHAPES)
+        res["gather"] = rank_gather(mesh)
+        res["dac"] = rank_dac(mesh)
+    dist.barrier()
+    qm.SHAPES.clear()
+    res["dptp"] = rank_dptp(ref, mesh)
+    res["dptp_shapes"] = dict(qm.SHAPES)
+    res["counts"] = {n: k.launches for n, k in KERNELS.items()}
+    torch.save(res, os.path.join(tmp, f"parallel-rank{dist.get_rank()}.pt"))
+
+
+def run_parallel(tmp) -> None:
+    """Phase 16: tp=1 under NCCL here, then 4 ranks over gloo on cuda:0
+    (parallel_rank): 16a Megatron TP at tp=2 for Parler-Mini, Orpheus-3B and
+    the Dia-1.6B decoder at full width against tp=1, 16b the gather mode,
+    16c the sequence-parallel DAC, 16d dp x tp 2 x 2. A rank that fails or
+    hangs fails the phase. Times on gloo go through the host and are not
+    scaling figures; one card measures correctness and each shard's K1."""
+    from tts_tpu_torch.parallel.spawn import run_ranks
+    parallel_reference(tmp)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        logs = run_ranks("chip_smoke:parallel_rank", 4, args=(tmp,),
+                         timeout=RANK_TIMEOUT, backend="gloo", device="cuda:0")
+    except RuntimeError as e:
+        log(str(e))
+        raise
+    log(f"  4 ranks, gloo on cuda:0 (named by the caller; NCCL refuses two "
+        f"ranks on one card): {time.perf_counter() - t0:.1f} s with their start")
+    for text in logs:
+        for line in text.splitlines():
+            if line.startswith("["):
+                log(f"  rank {line}")
+    res = [torch.load(os.path.join(tmp, f"parallel-rank{r}.pt"),
+                      weights_only=False) for r in range(4)]
+    for r in (0, 1):
+        for name in TP_MODELS:
+            if not res[r]["tp"][name]["k1"]:
+                raise AssertionError(f"rank {r}: K1 did not rise on {name} tp=2")
+    if not all(x["dptp"]["k1"] for x in res):
+        raise AssertionError("dp x tp: K1 did not rise in every rank")
+    merge = collections.Counter()
+    for r in (0, 1):
+        merge.update(res[r]["tp_shapes"])
+    K1_CENSUS["tp=2 ranks"] = dict(merge)
+    merge = collections.Counter()
+    for x in res:
+        merge.update(x["dptp_shapes"])
+    K1_CENSUS["dp x tp ranks"] = dict(merge)
+    for name in TP_MODELS:
+        ms = [np.mean(res[r]["tp"][name]["ms"][1:]) for r in (0, 1)]
+        log(f"  {name}: tp=2 {max(ms):.3f} ms a step (slower rank, host "
+            f"clock, gloo through the host on one card: not a scaling figure)")
+
+
+def check_k4_shards() -> None:
+    """K4 at the dp x tp chunk's shapes (16d) against its plain version:
+    one dp rank's 4 slots, one tp rank's 8 of 16 heads of 64, a bf16 cache
+    of DPTP_CTX rows, at every position the 16 steps take in either dp
+    rank (across rows 256 and 512); from a generator of its own."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TP_SEED + len(TP_MODELS) + 2)
+    b, heads = len(DPTP_SLOTS) // 2, MINI["heads"] // 2
+    d = MINI["hidden"] // MINI["heads"]
+    kc, vc = (torch.randn((b, heads, DPTP_CTX, d), generator=gen, device=DEV)
+              .to(torch.bfloat16) for _ in range(2))
+    q = torch.randn((b, heads, d), generator=gen, device=DEV)
+    worst = 0.0
+    for half in range(2):
+        for s in range(DPTP_STEPS):
+            pos = torch.tensor([p + s for p in DPTP_SLOTS[half * b:(half + 1) * b]],
+                               dtype=torch.int32, device=DEV)
+            got = da.decode_attention_batched_cuda(q, kc, vc, pos)
+            want = da.decode_attention_batched_plain(q, kc, vc, pos)
+            rel = max_err(got, want) / float(want.abs().max())
+            if not torch.isfinite(got).all() or rel > 1e-5:
+                raise AssertionError(f"K4 at the dp x tp shard, pos "
+                                     f"{pos.tolist()}: off its plain version "
+                                     f"by {rel:.3e} of the largest output")
+            worst = max(worst, rel)
+    log(f"K4 at the dp x tp shard (B {b}, {heads} heads of {d}, bf16 cache of "
+        f"{DPTP_CTX} rows, {2 * DPTP_STEPS} position sets from "
+        f"{list(DPTP_SLOTS)}): within {worst:.2e} of the largest output of "
+        f"its plain version (bound 1e-5): ok")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the perf battery and the trace
+# ---------------------------------------------------------------------------
+
+BATTERY_SENTENCES = 8     # Parler-Mini's battery: the first 8 sentences,
+BATTERY_STEPS = 64        # each decoding at least this many steps
+
+
+def run_batteries(tmp) -> None:
+    """Phase 17: the port's perf battery (apps/perf_battery.py) as a user
+    runs it on the Kokoro-82M GGUF of phase 15 (main: the 30 Harvard
+    sentences after a warm-up; no K1-K12 kernel may rise), then run_battery
+    on a Parler-Mini GGUF (8 sentences, K1-K3 must rise), both JSON blobs
+    logged; one sentence under utils.profiling.trace, whose file must name
+    K1's kernel."""
+    import io
+    from tts_tpu_torch.apps import perf_battery as pb
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.utils.profiling import trace
+    out = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = pb.main(["-mp", os.path.join(tmp, "kokoro-82m.gguf"), "-v",
+                      KOKORO_VOICES[0]])
+    counts = read_counts()
+    lines = out.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  Kokoro-82M battery: {line}")
+    blob = json.loads(lines[-1])
+    log(f"  Kokoro-82M battery: {time.perf_counter() - t0:.1f} s with the load")
+    if rc or blob["sentences"] != 30 or not blob["mean_generation_rtf"] > 0:
+        raise AssertionError(f"the Kokoro battery failed: {blob}")
+    if any(counts.values()):
+        raise AssertionError(f"a K1-K12 kernel rose on Kokoro's battery: {counts}")
+    sentences = pb.TEST_SENTENCES[:BATTERY_SENTENCES]
+    longest = max(prompt_len(s) for s in sentences)
+    path = os.path.join(tmp, "parler-mini-q4.gguf")
+    write_parler(path, np.random.default_rng(SEED), n_layers=MINI["n_layers"],
+                 hidden=MINI["hidden"], heads=MINI["heads"], ffn=MINI["ffn"],
+                 n_out=MINI["n_out"], vocab=MINI["vocab"], ctx=MINI["ctx"],
+                 enc_len=MINI["enc_len"],
+                 max_generation=longest + BATTERY_STEPS,
+                 dac_chans=(1536, 768, 384, 192, 96))
+    runner = runner_from_file(path, device=DEV)
+    config = GenerationConfig(top_k=50, seed=SEED)
+    zero_counts()
+    gen_ms, audio_ms = pb.run_battery(runner, config, sentences)
+    counts = read_counts("battery parler")
+    text, blob = pb.printout(runner.arch, gen_ms, audio_ms)
+    for line in text.strip().splitlines():
+        log(f"  Parler-Mini battery: {line}")
+    log(f"  Parler-Mini battery: {json.dumps(blob)} ({BATTERY_SENTENCES} "
+        f"sentences, at least {BATTERY_STEPS} decode steps each; per sentence "
+        f"ms {[round(g, 1) for g in gen_ms]})")
+    for n in SINGLE_PATH:
+        if not counts[n]:
+            raise AssertionError(f"kernel {n} did not rise on the Parler battery")
+    if not blob["mean_generation_rtf"] > 0:
+        raise AssertionError(f"the Parler battery made no audio: {blob}")
+    where = os.path.join(tmp, "trace")
+    with trace(where):
+        runner.generate(sentences[0], config)
+    files = os.listdir(where)
+    with open(os.path.join(where, files[0])) as f:
+        body = f.read()
+    log(f"  trace of one sentence: {files[0]} ({len(body) / 1e6:.1f} MB), "
+        f"{body.count('qmm_kernel')} mentions of K1's qmm_kernel")
+    if "qmm_kernel" not in body:
+        raise AssertionError("the trace does not name K1's kernel")
     os.remove(path)
 
 
@@ -5110,6 +5828,8 @@ def main() -> int:
         phase(check_small_orpheus, tmp)
         orpheus, k8_route, k9_route = phase(run_orpheus_main_path, tmp)
         torch.cuda.empty_cache()
+        set_gguf_u32(os.path.join(tmp, "orpheus-3b-q4.gguf"),
+                     "orpheus.max_generation_size", ORPHEUS_SERVING_TOKENS)
         served_orpheus = phase(run_orpheus_serving,
                                os.path.join(tmp, "orpheus-3b-q4.gguf"))
         os.remove(os.path.join(tmp, "orpheus-3b-q4.gguf"))
@@ -5120,9 +5840,17 @@ def main() -> int:
         dia, dia_path = phase(run_dia_main_path, tmp)
         served_dia = phase(run_dia_serving, dia_path)
     torch.cuda.empty_cache()
-    phase(time_k1_census)
+    k1_errs = [phase(time_k1_census)]
     with tempfile.TemporaryDirectory() as tmp:
         phase(run_kokoro, tmp)
+        timed = set(K1_CENSUS)
+        torch.cuda.empty_cache()
+        phase(run_parallel, tmp)
+        phase(check_k4_shards)
+        phase(run_batteries, tmp)
+    k1_errs.append(phase(time_k1_census, [p for p in K1_CENSUS if p not in timed]))
+    # K1's error over check_k1's cases and every census shape
+    rows[0]["max_abs_err"] = max(rows[0]["max_abs_err"], *k1_errs)
     # each kernel's launches on the path it belongs to: K1-K3 on the Parler
     # CLI's single stream, K12 on its K12 route, K4 and K5 on the server's
     # batched engine, K6 on

@@ -12,7 +12,9 @@ the CLI, over real HTTP on the CPU (device="cpu").
   gets 503 while the first holds the slot; /metrics counts streams_total
   and streams_rejected.
 - A failing stream segment ends that stream and counts the request as
-  failed; a request in the other slot still succeeds.
+  failed; a request in the other slot still succeeds. A stream whose
+  end-of-stream chunk does not reach the client counts as failed, through
+  the single-stream path and the batched worker.
 - /v1/audio/conditional-prompt: 501 without --text-encoder-path, 400 for an
   empty prompt or n_parallel > 1, 200 with one, after which the batched
   engine's greedy answer equals the runner's on the new cross K/V.
@@ -20,6 +22,7 @@ the CLI, over real HTTP on the CPU (device="cpu").
   WAV with one, Tc the prompt's token count) and --play with no playback
   backend (the file is written).
 """
+import http.client
 import json
 import threading
 import urllib.error
@@ -201,6 +204,53 @@ def test_failing_segment_fails_its_stream_only(parler, monkeypatch):
         m = json.loads(_get(base + "/metrics")[1])
         assert m["streams_total"] == 1 and m["requests_failed"] == 1
         assert m["requests_total"] == 2
+    finally:
+        httpd.shutdown()
+
+
+class _CutAtEnd:
+    """A response stream whose end-of-stream chunk fails as a write to a
+    client that has gone does."""
+
+    def __init__(self, f):
+        self._f = f
+
+    def write(self, b):
+        if bytes(b) == b"0\r\n\r\n":
+            raise BrokenPipeError("the client has gone")
+        return self._f.write(b)
+
+    def __getattr__(self, name):
+        return getattr(self._f, name)
+
+
+@pytest.mark.parametrize("path", ["single-stream", "batched"])
+def test_stream_cut_at_its_last_chunk_counts_as_failed(path, request,
+                                                       monkeypatch):
+    """The stream is recorded before its last chunk; when that chunk's
+    write fails, /metrics counts the request as failed."""
+    setup = srv_mod._Handler.setup
+
+    def cut_setup(self):
+        setup(self)
+        self.wfile = _CutAtEnd(self.wfile)
+
+    monkeypatch.setattr(srv_mod._Handler, "setup", cut_setup)
+    if path == "batched":
+        srv = build_server(request.getfixturevalue("parler"), config=GREEDY,
+                           batch_slots=2, device="cpu")
+    else:
+        srv = TTSServer({"dummy": "test:dummy"}, "dummy", GenerationConfig(),
+                        device="cpu")
+    httpd, base = _start(srv)
+    small_chunks(srv)
+    try:
+        assert bool(srv.batched_workers) == (path == "batched")
+        with pytest.raises(http.client.IncompleteRead):
+            stream(base, {"input": "hello"})
+        m = json.loads(_get(base + "/metrics")[1])
+        assert m["streams_total"] == 1 and m["requests_failed"] == 1
+        assert m["audio_seconds_total"] > 0
     finally:
         httpd.shutdown()
 

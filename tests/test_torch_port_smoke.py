@@ -1,6 +1,8 @@
 """chip_smoke.py's layer-by-layer check of the Parler decode step (K2), on
 the CPU: it passes the plain version and fails a step that skips a bf16
-rounding or drops the current K/V row.
+rounding or drops the current K/V row. And its in-place rewrite of an
+Orpheus GGUF's generation window (Orpheus serving's depth cut), which the
+port's loader reads.
 
 On the CPU the "kernel" is a (possibly broken) plain version and the
 yardstick pair (plain on the CPU vs plain on DEV) is one version run twice,
@@ -86,3 +88,37 @@ def test_k2_layer_check(small_step, monkeypatch, step, p, ok):
     else:
         with pytest.raises(AssertionError, match="layer by layer"):
             cs.check_k2_layers(mega, x, kc, vc, pos, kw)
+
+
+def test_orpheus_window_rewritten_in_place(tmp_path):
+    """`set_gguf_u32` rewrites `orpheus.max_generation_size` in place and
+    the port's OrpheusConfig takes the window from it; a GGUF without the
+    key keeps the default window, as the JAX package's config does."""
+    from tts_tpu.gguf import GGUFReader as JReader
+    from tts_tpu.models.orpheus.model import OrpheusConfig as JConfig
+    from tts_tpu_torch.gguf import GGUFReader, GGUFWriter
+    from tts_tpu_torch.models.orpheus.model import OrpheusConfig
+
+    def write(path, window=None):
+        w = GGUFWriter(str(path), "orpheus")
+        if window is not None:
+            w.add_u32("orpheus.max_generation_size", window)
+        w.add_u32("orpheus.layers", 2)
+        w.add_array("tokenizer.ggml.tokens", ["a", "b"])
+        w.add_tensor("orpheus.norm", torch.ones(8).numpy())
+        w.write()
+
+    bare, stated = tmp_path / "bare.gguf", tmp_path / "stated.gguf"
+    write(bare)
+    write(stated, 2100)
+    before = stated.read_bytes()
+    assert OrpheusConfig.from_gguf(GGUFReader(str(bare))).max_generation_size == \
+        JConfig.from_gguf(JReader(str(bare))).max_generation_size == 2100
+    cs.set_gguf_u32(str(stated), "orpheus.max_generation_size", 1050)
+    after = stated.read_bytes()
+    assert len(after) == len(before)
+    assert sum(a != b for a, b in zip(after, before)) == 2   # 2100 -> 1050
+    cfg = OrpheusConfig.from_gguf(GGUFReader(str(stated)))
+    assert (cfg.max_generation_size, cfg.n_layers) == (1050, 2)
+    with pytest.raises(ValueError, match="no single u32"):
+        cs.set_gguf_u32(str(bare), "orpheus.max_generation_size", 1050)

@@ -116,7 +116,7 @@ def codec_layer(x, lw: CodecLayerWeights, stride: int, padding: int,
     `noise` is given) -> residual units (general_neural_audio_codec.cpp:
     151-164). `valid` is the input's valid length; returns (h, the output's
     valid length valid * stride), as the codec kernels have k = 2s, p = s/2.
-    DAC passes neither noise nor valid."""
+    DAC passes no noise, and `valid` only for a padded decode."""
     h = snake_1d(x, lw.alpha)
     h = conv_transpose_1d(h, lw.up_w, lw.up_b, stride=stride, padding=padding)
     v_out = None if valid is None else valid * stride
@@ -130,18 +130,26 @@ def codec_layer(x, lw: CodecLayerWeights, stride: int, padding: int,
 
 
 @torch.no_grad()
-def dac_decode(cfg: DACConfig, w: DACWeights, codes: torch.Tensor) -> torch.Tensor:
-    """codes (T, n_heads) integer -> waveform (T * up_sampling_factor,)."""
+def dac_decode(cfg: DACConfig, w: DACWeights, codes: torch.Tensor,
+               valid=None) -> torch.Tensor:
+    """codes (T, n_heads) integer -> waveform (T * up_sampling_factor,).
+
+    With `valid` (the true frame count, an int), frames past it are padding:
+    the decode masks them after the quantizers' sum, the in-conv, each codec
+    layer and the out-conv, so the first valid * up samples equal an
+    unpadded decode of the first `valid` frames (the JAX package's
+    `dac_decode(..., valid=...)`)."""
     codes = codes.long()
     x = 0
     for i, q in enumerate(w.quantizers):
         z = q.codebook[codes[:, i]]                    # (T, dim)
         x = x + conv1d(z.T, q.out_w, q.out_b)          # 1x1 -> (latent, T)
-    x = conv1d(x, w.in_w, w.in_b, padding=3)
+    x = _mask(x, valid)
+    x = _mask(conv1d(x, w.in_w, w.in_b, padding=3), valid)
     for lw, s, p in zip(w.layers, cfg.strides, cfg.paddings):
-        x, _ = codec_layer(x, lw, s, p)
+        x, valid = codec_layer(x, lw, s, p, valid=valid)
     x = snake_1d(x, w.final_alpha)
-    x = conv1d(x, w.out_w, w.out_b, padding=3)
+    x = _mask(conv1d(x, w.out_w, w.out_b, padding=3), valid)
     return torch.tanh(x)[0]
 
 

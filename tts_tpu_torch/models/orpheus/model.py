@@ -94,6 +94,10 @@ class OrpheusConfig:
         c.bos_token_id = int(g("tokenizer.ggml.bos_token_id", c.bos_token_id))
         c.hidden_size = int(g("orpheus.hidden_size", c.hidden_size))
         c.n_layers = int(g("orpheus.layers", c.n_layers))
+        # optional: the generation window (absent from converted checkpoints,
+        # whose window is the default above)
+        c.max_generation_size = int(g("orpheus.max_generation_size",
+                                      c.max_generation_size))
         return c
 
 

@@ -91,11 +91,17 @@ def _not_done(cfg: ParlerConfig, st: BatchedParlerState) -> torch.Tensor:
         (st.pos < m) & (st.step < m)
 
 
-def _batched_layer(cfg: ParlerConfig, x, lw, kv_k, kv_v, pos, use_cross: bool):
+def _batched_layer(cfg: ParlerConfig, x, lw, kv_k, kv_v, pos, use_cross: bool,
+                   tp_group=None):
     """The per-matmul path's layer: x (B, H); kv_k/kv_v (B, heads, ctx, D)
     this layer's caches, each slot's row pos[s] written in place (inactive
-    slots too, at their frozen pos: nothing reads that row); pos (B,)."""
-    b, nh = x.shape[0], cfg.n_attn_heads
+    slots too, at their frozen pos: nothing reads that row); pos (B,).
+
+    With `tp_group`, lw is this rank's tensor-parallel shard
+    (parallel/sharding.shard_parler_weights) and the caches hold its heads:
+    the layer runs those heads and sums the row-sharded products of o,
+    cross-o and fc2 over the group."""
+    b, nh = x.shape[0], kv_k.shape[1]
     h = layer_norm(x, lw.ln1_w, lw.ln1_b)
     q = matmul(h, lw.q_w).reshape(b, nh, -1)
     k = matmul(h, lw.k_w).reshape(b, nh, -1)
@@ -105,26 +111,41 @@ def _batched_layer(cfg: ParlerConfig, x, lw, kv_k, kv_v, pos, use_cross: bool):
     kv_k[slots, :, p] = k.to(kv_k.dtype)
     kv_v[slots, :, p] = v.to(kv_v.dtype)
     attn = decode_attention_batched(q, kv_k, kv_v, pos)          # (B, nh, D)
-    x = x + matmul(attn.reshape(b, cfg.hidden_size), lw.o_w)
+    x = x + _tp_sum(matmul(attn.reshape(b, -1), lw.o_w), tp_group)
     if use_cross:
         h = layer_norm(x, lw.lnc_w, lw.lnc_b)
         cq = matmul(h, lw.cq_w).reshape(b, nh, 1, -1)
         ca = sdpa(cq, lw.cross_k, lw.cross_v)                   # (B, nh, 1, D)
-        x = x + matmul(ca.reshape(b, cfg.hidden_size), lw.co_w)
+        x = x + _tp_sum(matmul(ca.reshape(b, -1), lw.co_w), tp_group)
     h = layer_norm(x, lw.ln2_w, lw.ln2_b)
     h = torch.nn.functional.gelu(matmul(h, lw.fc1), approximate="tanh")
-    return x + matmul(h, lw.fc2)
+    return x + _tp_sum(matmul(h, lw.fc2), tp_group)
+
+
+def _tp_sum(y, tp_group):
+    """y summed over the tensor-parallel group (in place), or y."""
+    if tp_group is not None:
+        torch.distributed.all_reduce(y, group=tp_group)
+    return y
 
 
 def batched_decode_step(cfg: ParlerConfig, w: ParlerWeights,
                         st: BatchedParlerState, generator, *, use_cross: bool,
-                        mega: Mega | None = None,
-                        scratch=None) -> BatchedParlerState:
+                        mega: Mega | None = None, scratch=None,
+                        tp_group=None) -> BatchedParlerState:
     """One decode step for every slot. Slots that are not live leave their
-    state as it was (their cache row at the frozen pos aside)."""
+    state as it was (their cache row at the frozen pos aside).
+
+    With `tp_group` (a tensor-parallel process group), w and st are this
+    rank's shards (parallel/sharding: heads over tp, slots over dp) and the
+    step runs the per-matmul path; the group's ranks draw from identically
+    seeded generators, so they sample alike."""
     b, nh = st.tokens_in.shape
     cont = _not_done(cfg, st)
     x = embed_step(cfg, w, st.tokens_in, st.pos)
+    if tp_group is not None and mega is not None:
+        raise ValueError("the tensor-parallel step takes the per-matmul path "
+                         "(mega=None)")
     if mega is not None:
         x, _, _ = parler_megastep_batched(
             mega.layers, x, st.kv_k, st.kv_v, st.pos, qtype=mega.qtype,
@@ -132,7 +153,7 @@ def batched_decode_step(cfg: ParlerConfig, w: ParlerWeights,
     else:
         for i in range(cfg.n_layers):
             x = _batched_layer(cfg, x, _layer(w.layers, i), st.kv_k[i],
-                               st.kv_v[i], st.pos, use_cross)
+                               st.kv_v[i], st.pos, use_cross, tp_group)
     logits = _logits_last(cfg, w, final_norm(w, x))            # (B, nh, V)
     u = sampling.draw_u(generator, (b, nh), x.device)
     toks, s_state = sampling.select_batched(

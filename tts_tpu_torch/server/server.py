@@ -415,6 +415,13 @@ class TTSServer:
             m["audio_seconds_total"] += samples / rate
             m["wall_seconds_total"] += wall_s
 
+    def record_stream_cut(self) -> None:
+        """A stream recorded as done whose end-of-stream chunk did not reach
+        the client (record_stream runs before that write, so that a client
+        that has read the whole stream finds it in /metrics): failed."""
+        with self._lock:
+            self.metrics["requests_failed"] += 1
+
     def metrics_json(self) -> dict:
         with self._lock:
             m = dict(self.metrics)
@@ -677,7 +684,7 @@ class _Handler(BaseHTTPRequestHandler):
             self._error("too many concurrent streams", 503)
             return
         t0 = time.perf_counter()
-        samples, ok, started = 0, False, False
+        samples, ok, started, recorded = 0, False, False, False
         rate = int(getattr(runner, "sample_rate", SAMPLE_RATE_DAC))
         try:
             gen = runner.generate_stream(prompt, conf)
@@ -688,8 +695,11 @@ class _Handler(BaseHTTPRequestHandler):
                 samples += self._send_pcm(chunk)
             if not started:
                 self._start_pcm(rate)
-            self.wfile.write(b"0\r\n\r\n")
-            ok = True
+            ok = recorded = True
+            # counted before the last chunk: a client that has read the
+            # whole stream finds it in /metrics
+            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+            self._end_stream()
         except BrokenPipeError:
             pass
         except Exception as e:  # noqa: BLE001
@@ -697,7 +707,18 @@ class _Handler(BaseHTTPRequestHandler):
                 self._error(str(e), 500)
         finally:
             srv.stream_slots.release()
-            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+            if not recorded:
+                srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+
+    def _end_stream(self, ok: bool = True) -> None:
+        """The chunked stream's last chunk, after the stream was recorded:
+        if it does not reach the client, a stream recorded as done is
+        counted as failed."""
+        try:
+            self.wfile.write(b"0\r\n\r\n")
+        except OSError:
+            if ok:
+                self.server_obj.record_stream_cut()
 
     def _handle_tts_stream_batched(self, bw, prompt: str, conf,
                                    model: str) -> None:
@@ -708,7 +729,7 @@ class _Handler(BaseHTTPRequestHandler):
         failed."""
         srv = self.server_obj
         t0 = time.perf_counter()
-        samples, ok = 0, False
+        samples, ok, recorded = 0, False, False
         task = ServerTask(prompt, conf, model, stream_q=queue.Queue(maxsize=256))
         rate = int(getattr(srv.runners[model], "sample_rate", SAMPLE_RATE_DAC))
         try:
@@ -719,13 +740,19 @@ class _Handler(BaseHTTPRequestHandler):
                 if chunk is None:
                     break
                 samples += self._send_pcm(chunk)
-            self.wfile.write(b"0\r\n\r\n")
+            # the worker sets the event just after the None above
             task.event.wait(srv.timeout)
             ok = task.success
+            recorded = True
+            # counted before the last chunk: a client that has read the
+            # whole stream finds it in /metrics
+            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+            self._end_stream(ok)
         except (BrokenPipeError, queue.Empty):
             pass
         finally:
-            srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
+            if not recorded:
+                srv.record_stream(ok, samples, rate, time.perf_counter() - t0)
 
     def _handle_conditional(self, data: dict) -> None:
         """Re-encode a model's voice prompt through the T5 encoder at
