@@ -38,6 +38,19 @@ Phases, in order; any failure exits non-zero without the final line:
    runner's greedy stream (generate_stream) on each route: its codes equal
    those, its waveform the DAC's of them (95% of samples within 1e-4, all
    within 0.2); time to the first chunk and the chunk count logged.
+4b. Quantize tool (run after phase 4): a Parler-TTS Mini f32 GGUF (full
+   width and depth, DAC-44k; random from its own seed) written by the
+   port's convert.write_parler_gguf, quantized by the port's
+   `apps.quantize -qt Q4_0 -qh` on the card (the GGUF block-quantization
+   kernel, csrc/quantize.cu; one launch a quantized tensor), every tensor
+   byte for byte against the kernel's plain version on the card, and the
+   output decoded by the port's CLI to a WAV (K1-K3 must rise); Q5_0,
+   Q8_0 and F16 with -qh -qe -qkv -df on a 2-layer copy at full width; the
+   kernel against its plain version and numpy on edge blocks (ties of |x|
+   with opposite signs, +-0, Q8_0's half-way block, subnormal and
+   overflowing fp16 scales); the tool's wall time by stage (read, host ->
+   device, kernel, device -> host, write) and the kernel timed at each
+   shape it quantized, beside its bound.
 5. Serving path: the port's HTTP server in this process (batch_slots 8,
    the same GGUF) answers 12 concurrent requests with mixed sampling
    parameters, 2 of them streamed (`"stream": true`, top-k 1); counters
@@ -74,7 +87,7 @@ Phases, in order; any failure exits non-zero without the final line:
    8 slots, 64 batched steps): K9 must have risen, K7 not.
 8. Orpheus serving: the port's HTTP server in this process (batch_slots 8,
    the Orpheus-3B GGUF, its `orpheus.max_generation_size` rewritten to
-   1050 tokens before the server loads it: ORPHEUS_SERVING_TOKENS) answers 12 concurrent requests with a voice and
+   700 tokens before the server loads it: ORPHEUS_SERVING_TOKENS) answers 12 concurrent requests with a voice and
    mixed sampling parameters; counters set to 0 just before, read just
    after; K1, K4 and K7 must have risen. Then the batched step timed and
    traced, one request through batch_slots 0, and the engine's greedy
@@ -175,7 +188,13 @@ cq, co, fc1, fc2 at 1, 8 and 16 rows) beside its weight bytes. It holds K8
 and K6 (the persistent llama step, one cooperative launch) at Orpheus-3B
 width bit for bit against the launch sequence (K9 / K7 at one slot) at
 positions 0-3583, Q4_0 on 28 layers and Q5_0 / Q8_0 on 2, layer by layer
-against their plain versions at positions around the pages, and times
+against their plain versions at positions around the pages (every layer
+a case; each case's yardstick the larger of two pairs, plain summed in
+another order and, on 4 layers, plain on the CPU, each against plain on
+the card; three seeded defects in the
+kernel's place, the normed x rounded toward zero, a lost K row and slot
+0's position read for every slot, must each fail that judge:
+check_yardstick_defects), and times
 them beside the launch sequence in turns (at pos 1000, and K6 at the
 cache's first and last rows); K1 also at the T5 encoder's shapes (64 rows, 1024 x 1024, 2816 x
 1024, 1024 x 2816, f32 mode);
@@ -205,6 +224,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -233,6 +253,7 @@ from tts_tpu_torch.ops import llama_persistent as lp
 from tts_tpu_torch.ops import parler_flat as pf
 from tts_tpu_torch.ops import parler_megastep as pm
 from tts_tpu_torch.ops import quant_matmul as qm
+from tts_tpu_torch.ops import quantize as oq
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"f32": 67e12, "bf16": 989e12}   # dense, CUDA cores / tensor cores
@@ -858,7 +879,8 @@ def mini_layers(gen):
 
 
 def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
-                 err, base, layers=None, alt=None) -> list[float]:
+                 err, base, layers=None, alt=None, slots=False,
+                 every_layer=False) -> list[float]:
     """Layer by layer at full width: each layer's kernels and its plain
     version take the same input (the kernels' output of the layer before)
     and fresh copies of that layer's cache, and each layer's update of x
@@ -872,13 +894,22 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
     layer's relative error and yardstick to `err` / `base` (defaultdicts of
     lists, by output name) and returns the absolute errors.
 
-    With `alt` (a batched step's plain version summed in another order, on
-    the card), each slot of the batch is a case of its own, and its
-    yardstick is the larger of the two pairs' differences: a case shows
-    a flipped bf16 rounding or none, so the pair of one case often shows
-    none, and 8 slots of 4 layers give the yardstick 64 chances to show
-    one."""
+    With `alt` (the step's plain version summed in another order, on the
+    card; or several such versions), a case's yardstick is the largest of
+    the pairs' differences:
+    a case shows a flipped bf16 rounding or none, so the pair of one case
+    often shows none where the kernel shows one, and two pairs give the
+    yardstick twice the chances to show one. With `every_layer` (and
+    `alt`), every layer is a case: the layers outside `layers` are held
+    against plain on the card with the other-order pair alone (the CPU
+    pair, slow at full width, stays on `layers`), so that the kernel and
+    the yardstick are sampled over the same many cases and the largest
+    flip of each is seen. With `slots` (a batched step), each slot of the
+    batch is a case of its own: 8 slots of 4 layers give the yardstick 64
+    cases."""
     names = ("x_out - x_in", "k_new", "v_new")
+    alts = () if alt is None else tuple(alt) if isinstance(alt, (list, tuple)) \
+        else (alt,)
     abs_errs, xin = [], x
     for l in range(n_layers):
         w = one(l)
@@ -892,13 +923,15 @@ def layer_errors(one, n_layers, x, kc, vc, pos, kw, kernel, plain, label,
             return [t.to(DEV) for t in (xo - xl, k, v)]
 
         got = run(kernel, DEV)
-        if layers is None or l in layers:
+        cpu_pair = layers is None or l in layers
+        if cpu_pair or (every_layer and alts):
             ref = run(plain, DEV)
-            with dequant_once():
-                host = run(plain, torch.device("cpu"))
-            pairs = [host] + ([run(alt, DEV)] if alt is not None else [])
+            pairs = [run(a, DEV) for a in alts]
+            if cpu_pair:
+                with dequant_once():
+                    pairs.append(run(plain, torch.device("cpu")))
             for i, nm in enumerate(names):
-                if alt is None:
+                if not slots:
                     cases = [(got[i], ref[i], [p[i] for p in pairs])]
                 else:   # (x_out - x_in) is (B, H), k_new / v_new (1, B, KV)
                     def take(t, s, i=i):
@@ -1628,14 +1661,64 @@ def other_order():
             m.dqdot, m.rms_norm = d, r
 
 
+@contextlib.contextmanager
+def kernel_order():
+    """The plain llama step with the RMS prologue's arithmetic that
+    csrc/gemv.cuh documents for the kernels (the squares rounded to f32,
+    summed in f64, rounded once to f32, times f32 1 / K, plus eps, rsqrt;
+    then x * rstd * w) and the attention in float64: another correct
+    version. The plain version's f32 mean parts from the kernels' rstd by
+    an ulp now and then, which flips the bf16 rounding of a normed input
+    (a jump of one k_new entry by ~3e-5 of the largest); this version
+    flips where the kernels do, and its attention where the kernels' other
+    order of sums may."""
+    def rms_norm(x, w, eps=lm.RMS_EPS):
+        ss = x.square().double().sum(dim=-1, keepdim=True).float()
+        return x * torch.rsqrt(ss * (1.0 / x.shape[-1]) + eps) * w
+
+    def attention(q, kv_k, kv_v, pos, scale=None):
+        n_rep = q.shape[0] // kv_k.shape[0]
+        kk = kv_k.double().repeat_interleave(n_rep, dim=0)
+        vv = kv_v.double().repeat_interleave(n_rep, dim=0)
+        logits = torch.einsum("hd,hkd->hk", q.double(), kk) * da._scale(q, scale)
+        mask = torch.arange(kv_k.shape[1], device=q.device) <= pos
+        probs = torch.softmax(logits.masked_fill(~mask[None, :], float("-inf")),
+                              dim=-1)
+        return torch.einsum("hk,hkd->hd", probs, vv).float()
+
+    saved = lm.rms_norm, lm.decode_attention_plain
+    lm.rms_norm, lm.decode_attention_plain = rms_norm, attention
+    try:
+        yield
+    finally:
+        lm.rms_norm, lm.decode_attention_plain = saved
+
+
+def other_order_plain(*a, **k):
+    """K8's plain version summed in another order (other_order)."""
+    with other_order():
+        return lm.llama_megastep_plain(*a, **k)
+
+
+def kernel_order_plain(*a, **k):
+    """K8's plain version in the kernels' RMS order (kernel_order)."""
+    with kernel_order():
+        return lm.llama_megastep_plain(*a, **k)
+
+
+LLAMA_ALTS = (other_order_plain, kernel_order_plain)   # K8 / K6's yardstick pairs
+
+
 def check_llama(gen, mega, flat, kw) -> list[dict]:
     """K8 and K6, the persistent llama step (one cooperative launch of
     csrc/llama_flat.cu; K6 with its head phase), at Orpheus-3B width: bit
     for bit against the launch sequence (K9 / K7 at one slot) at
     LLAMA_POS, Q4_0 on 28 layers and Q5_0 / Q8_0 on 2; layer by layer
-    against the plain version at LLAMA_LAYER_POS (the yardstick of
-    layer_errors), the whole step against the plain version summed in
-    another order; then timed at pos 1000 beside the launch sequence in
+    against the plain version at LLAMA_LAYER_POS, every layer a case (each
+    case's yardstick the larger of layer_errors' two pairs, plain summed
+    in another order and, at LLAMA_LAYERS, plain on the CPU, each against
+    plain on the card), the whole step
+    against the plain version summed in another order; then timed at pos 1000 beside the launch sequence in
     turns (sequence, step, step, sequence), with the grid it launched."""
     log("K8 llama_megastep and K6 llama_flat_megastep (csrc/llama_flat.cu: "
         "one cooperative launch a step) vs the launch sequence (K9 / K7 at one "
@@ -1676,7 +1759,8 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
             errs[label] += layer_errors(
                 lambda l: lm.LlamaMegaLayers(*(t[l:l + 1] for t in layers)),
                 L, x, kc, vc, pos, kw, layer_kern, lm.llama_megastep_plain,
-                label, *pooled[label], layers=LLAMA_LAYERS)
+                label, *pooled[label], layers=LLAMA_LAYERS, alt=LLAMA_ALTS,
+                every_layer=True)
             # the whole step, pooled over the positions: 28 random layers
             # are chaotic at the bf16 roundings (as 24 Parler layers are,
             # K2), so it is held to the plain version summed in another
@@ -1703,10 +1787,12 @@ def check_llama(gen, mega, flat, kw) -> list[dict]:
         f"{agree}/{len(LLAMA_LAYER_POS)} positions (a near-tie among 156,940 "
         f"random logits may part them)")
     for label in steps:
-        judge_layers(*pooled[label], label, f"{label} layers "
-                     f"{list(LLAMA_LAYERS)} at positions {list(LLAMA_LAYER_POS)}, "
-                     f"layer by layer, yardstick plain on the CPU vs plain "
-                     f"on the card")
+        judge_layers(*pooled[label], label, f"{label} all {L} layers at "
+                     f"positions {list(LLAMA_LAYER_POS)}, layer by layer, "
+                     f"yardstick the largest of plain summed in another order, "
+                     f"plain in the kernels' RMS order and (layers "
+                     f"{list(LLAMA_LAYERS)}) plain on the CPU, vs plain on the "
+                     f"card")
         judge_layers(*whole[label], label, f"{label} whole 28-layer step at "
                      f"positions {list(LLAMA_LAYER_POS)}, yardstick plain vs "
                      f"plain summed in another order")
@@ -1904,7 +1990,8 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
         errs[label] = layer_errors(
             lambda l: lm.LlamaMegaLayers(*(t[l:l + 1] for t in layers)),
             L, x, kc, vc, pos, kw, layer_kern, lm.llama_megastep_batched_plain,
-            label, err, base, layers=LLAMA_LAYERS, alt=other_order_batched_plain)
+            label, err, base, layers=LLAMA_LAYERS, alt=other_order_batched_plain,
+            slots=True)
         judge_layers(err, base, label, f"{label} layers {list(LLAMA_LAYERS)} x "
                      f"8 slots, layer by layer, yardstick the larger of plain "
                      f"on the CPU and plain summed in another order vs plain on the "
@@ -1996,6 +2083,103 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
+# the layer checks' yardstick against seeded defects
+# ---------------------------------------------------------------------------
+
+DEFECT_SEED = SEED + 17   # the phase's own draws: no earlier one moves
+DEFECT_LAYERS = 2         # the first layers of the Orpheus-3B stack
+DEFECT_POS = 1000
+
+
+def defect_rounds_toward_zero(*a, **k):
+    """K8's plain version with its prologues' normed x rounded toward zero
+    (the low 16 bits cleared) instead of to nearest on its way to bf16."""
+    real = lm.rms_norm
+
+    def rms_norm(x, w, eps=lm.RMS_EPS):
+        return (real(x, w, eps).view(torch.int32) & -65536).view(torch.float32)
+
+    lm.rms_norm = rms_norm
+    try:
+        return lm.llama_megastep_plain(*a, **k)
+    finally:
+        lm.rms_norm = real
+
+
+def defect_lost_k_row(*a, **k):
+    """K8's plain version that never writes the new K row: the cache keeps
+    its old row at pos, which the attention reads, and k_new comes back 0."""
+    real, calls = lm._write_row, [0]
+
+    def write_row(cache, p, rows, n_heads):
+        calls[0] += 1
+        if calls[0] % 2 == 0:   # each layer writes its K row, then its V row
+            real(cache, p, rows, n_heads)
+
+    lm._write_row = write_row
+    try:
+        xo, kn, vn = lm.llama_megastep_plain(*a, **k)
+    finally:
+        lm._write_row = real
+    return xo, torch.zeros_like(kn), vn
+
+
+def defect_slot0_position(w, x, kc, vc, pos, **kw):
+    """K9's plain version reading slot 0's position for every slot (the
+    batched TPU kernels' old fault)."""
+    return lm.llama_megastep_batched_plain(
+        w, x, kc, vc, pos[:1].expand(pos.shape[0]).contiguous(), **kw)
+
+
+def check_yardstick_defects(mega, kw) -> None:
+    """The llama layer checks' judge (layer_errors with its two-pair
+    yardstick, then judge_layers) on three seeded defects in the place of
+    the kernel, at Orpheus-3B width on the stack's first DEFECT_LAYERS
+    layers: the normed x rounded toward zero and a lost K row on the
+    single step at pos DEFECT_POS, slot 0's position read for every slot
+    on the batched step at LLAMA_SLOTS. judge_layers must fail each one;
+    its log line gives each output's error against its tolerance."""
+    log("The llama layer checks' yardstick (the larger of plain on the CPU "
+        "and plain summed in another order, each vs plain on the card) "
+        f"against seeded defects, Orpheus-3B width, layers 0-{DEFECT_LAYERS - 1}:")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(DEFECT_SEED)
+    H, nkv = ORPHEUS["hidden"], ORPHEUS["kv_heads"]
+    d, ctx, b = H // ORPHEUS["heads"], ORPHEUS["ctx"], len(LLAMA_SLOTS)
+
+    def one(l):
+        return lm.LlamaMegaLayers(*(t[l:l + 1] for t in mega))
+
+    def cache(*lead):
+        return (torch.randn((DEFECT_LAYERS, *lead, nkv, ctx, d), generator=gen,
+                            device=DEV) * 0.5).to(torch.bfloat16)
+
+    single = (torch.randn((1, H), generator=gen, device=DEV), cache(), cache(),
+              torch.tensor([DEFECT_POS], dtype=torch.int32, device=DEV))
+    batched = (torch.randn((b, H), generator=gen, device=DEV), cache(b),
+               cache(b), torch.tensor(LLAMA_SLOTS, dtype=torch.int32, device=DEV))
+    cases = (("normed x rounded toward zero", defect_rounds_toward_zero, single,
+              lm.llama_megastep_plain, LLAMA_ALTS, False),
+             ("lost K row", defect_lost_k_row, single, lm.llama_megastep_plain,
+              LLAMA_ALTS, False),
+             ("slot 0's position for every slot", defect_slot0_position,
+              batched, lm.llama_megastep_batched_plain,
+              other_order_batched_plain, True))
+    for name, defect, (x, kc, vc, pos), plain, alt, slots in cases:
+        err, base = defaultdict(list), defaultdict(list)
+        layer_errors(one, DEFECT_LAYERS, x, kc, vc, pos, kw, defect, plain,
+                     name, err, base, alt=alt, slots=slots)
+        try:
+            judge_layers(err, base, "defect", name)
+        except AssertionError as e:
+            log(f"  caught: {e}")
+            continue
+        raise AssertionError(f"the layer check passed a seeded defect: {name}")
+    del single, batched
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # Parler GGUFs written with the port's writer
 # ---------------------------------------------------------------------------
 
@@ -2008,39 +2192,49 @@ def rand_q4_raw(rng, n, k) -> bytes:
     return blk.tobytes()
 
 
-def add_dac(w, rng, dac_chans, n_q) -> None:
-    """A DAC decoder under `audio_encoder.` (tts_tpu bench.py build_dac_44k
-    shapes when dac_chans is the 44 kHz model's 1536/768/384/192/96),
-    latent 1024, n_q codebooks of dim 8, random from rng."""
-    def f32(name, *shape, scale=0.02):
-        w.add_tensor(name, rng.standard_normal(shape, dtype=np.float32) * scale)
+def dac_tensors(rng, dac_chans, n_q) -> dict:
+    """A DAC decoder's tensors, named as under `audio_encoder.` (tts_tpu
+    bench.py build_dac_44k shapes when dac_chans is the 44 kHz model's
+    1536/768/384/192/96), latent 1024, n_q codebooks of dim 8, random from
+    rng."""
+    t = {}
 
-    a = "audio_encoder."
-    f32(a + "initial.weight", dac_chans[0], 1024, 7, scale=0.05)
-    f32(a + "initial.bias", dac_chans[0], scale=0.05)
+    def f32(name, *shape, scale=0.02):
+        t[name] = rng.standard_normal(shape, dtype=np.float32) * scale
+
+    def alpha(name, ch):
+        t[name] = np.abs(rng.standard_normal((1, ch, 1), dtype=np.float32)
+                         * 0.05) + 0.5
+
+    f32("initial.weight", dac_chans[0], 1024, 7, scale=0.05)
+    f32("initial.bias", dac_chans[0], scale=0.05)
     for i, s in enumerate((8, 8, 4, 2)):
         cin, cout = dac_chans[i], dac_chans[i + 1]
-        b = f"{a}decoder_block.{i + 1}."
-        w.add_tensor(b + "final.alpha", np.abs(rng.standard_normal(
-            (1, cin, 1), dtype=np.float32) * 0.05) + 0.5)
+        b = f"decoder_block.{i + 1}."
+        alpha(b + "final.alpha", cin)
         f32(b + "final.weight", cin, cout, 2 * s, scale=0.05)
         f32(b + "final.bias", cout, scale=0.05)
         for j in range(3):
             ub = f"{b}residual_unit.{j}.res."
             for part, kk in (("initial", 7), ("final", 1)):
-                w.add_tensor(ub + part + ".alpha", np.abs(rng.standard_normal(
-                    (1, cout, 1), dtype=np.float32) * 0.05) + 0.5)
+                alpha(ub + part + ".alpha", cout)
                 f32(ub + part + ".weight", cout, cout, kk, scale=0.05)
                 f32(ub + part + ".bias", cout, scale=0.05)
-    w.add_tensor(a + "final.alpha", np.abs(rng.standard_normal(
-        (1, dac_chans[-1], 1), dtype=np.float32) * 0.05) + 0.5)
-    f32(a + "final.weight", 1, dac_chans[-1], 7, scale=0.001)
-    f32(a + "final.bias", 1, scale=0.05)
+    alpha("final.alpha", dac_chans[-1])
+    f32("final.weight", 1, dac_chans[-1], 7, scale=0.001)
+    f32("final.bias", 1, scale=0.05)
     for i in range(n_q):
-        b = f"{a}quantizers.{i}."
+        b = f"quantizers.{i}."
         f32(b + "codebook.weight", 1024, 8, scale=0.05)
         f32(b + "out_proj.weight", 1024, 8, 1, scale=0.05)
         f32(b + "out_proj.bias", 1024, scale=0.05)
+    return t
+
+
+def add_dac(w, rng, dac_chans, n_q) -> None:
+    """dac_tensors' decoder added to the GGUF writer w under `audio_encoder.`."""
+    for name, arr in dac_tensors(rng, dac_chans, n_q).items():
+        w.add_tensor("audio_encoder." + name, arr)
 
 
 def write_parler(path, rng, *, n_layers, hidden, heads, ffn, n_out, vocab,
@@ -2212,7 +2406,7 @@ KERNELS = {"quant_matmul": qm.KERNEL, "parler_megastep": pm.KERNEL,
            "dia_megastep": dm.KERNEL, "dia_cross_attention": dm.CROSS,
            "dia_megastep_batched": dm.KERNEL_BATCHED,
            "dia_cross_attention_batched": dm.CROSS_BATCHED,
-           "parler_flat_megastep": pf.KERNEL}
+           "parler_flat_megastep": pf.KERNEL, "quantize": oq.KERNEL}
 SINGLE_PATH = ("quant_matmul", "parler_megastep", "decode_attention")
 SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                 "parler_megastep_batched")
@@ -2520,6 +2714,286 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
     log(f"  greedy codes of the two routes equal over {n2} steps: ok")
     parler_streams(r, ((k2, "K2 route"), (flat, "K12 route")), o2, n2)
     return launches, k12_launches, path
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the quantize tool on the card
+# ---------------------------------------------------------------------------
+
+TOOL_SEED = SEED + 18     # the phase's own draws: no earlier one moves
+TOOL_STEPS = 64           # decode steps of the CLI on the tool's Q4_0 output
+TOOL_SMALL_LAYERS = 2     # the copy the other formats are held on
+TOOL_FLAGS = ("-qh", "-qe", "-qkv", "-df")
+
+
+def quant_edge_blocks() -> np.ndarray:
+    """The blocks where a quantizer most easily parts from numpy's: ties of
+    |x| with opposite signs (the scale's sign), +-0 and all-zero blocks,
+    Q8_0's half-way block (0.49999997 + 0.5 rounds to 1.0 in f32), a block
+    whose fp16 scale is subnormal (|m| ~ 1e-6) and one whose fp16 scale
+    overflows (|m| > 65504 x 8)."""
+    rng = np.random.default_rng(7)
+    b = np.zeros((9, 32), np.float32)
+    b[1, 0] = -0.0                                   # -0 among zeros
+    b[2, :] = -0.0                                   # all -0
+    b[3, [3, 7, 9]] = [0.5, -0.5, 0.1]               # |x| tie, + first
+    b[4, [3, 7, 9]] = [-0.5, 0.5, 0.1]               # |x| tie, - first
+    b[5, :3] = [127.0, 0.49999997, -0.49999997]      # Q8_0's half-way block
+    b[6] = rng.standard_normal(32).astype(np.float32) * 1e-6   # fp16 subnormal d
+    b[7] = rng.standard_normal(32).astype(np.float32)
+    b[7, 5] = -7e5                                   # fp16 d overflows to inf
+    b[8] = np.repeat(np.float32([1.0, -1.0]), 16)    # every |x| tied
+    return b
+
+
+def parler_f32(gen, n_layers: int) -> tuple[dict, np.ndarray]:
+    """Parler-TTS Mini's decoder in float32 at full width (MINI), under the
+    names write_parler_gguf takes, and a text encoding, drawn on the card
+    from `gen` and brought to the host as numpy: projections, audio
+    embeddings and heads N(0, 0.02), norms 1 + N(0, 0.02), the prompt
+    embeddings and text encoding N(0, 1), the positions N(0, 0.1)."""
+    H, F = MINI["hidden"], MINI["ffn"]
+    t = {}
+
+    def f32(name, *shape, scale=0.02, one=False):
+        a = torch.randn(shape, generator=gen, device=DEV) * scale
+        t[name] = (a + 1.0 if one else a).cpu().numpy()
+
+    for l in range(n_layers):
+        b = f"layers.{l}."
+        for ln in ("self_attn_layer_norm", "encoder_attn_layer_norm",
+                   "final_layer_norm"):
+            f32(f"{b}{ln}.weight", H, one=True)
+            f32(f"{b}{ln}.bias", H)
+        for n in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                  "self_attn.out_proj", "encoder_attn.q_proj",
+                  "encoder_attn.k_proj", "encoder_attn.v_proj",
+                  "encoder_attn.out_proj"):
+            f32(f"{b}{n}.weight", H, H)
+        f32(f"{b}fc1.weight", F, H)
+        f32(f"{b}fc2.weight", H, F)
+    f32("layer_norm.weight", H, one=True)
+    f32("layer_norm.bias", H)
+    f32("embed_prompts", len(TOKENS), H, scale=1.0)
+    f32("positional_embed", MINI["ctx"], H, scale=0.1)
+    for i in range(MINI["n_out"]):
+        f32(f"embed_tokens.{i}.weight", 1090, H)
+        f32(f"lm_heads.{i}.weight.head", MINI["vocab"], H)
+    f32("text_encoding", MINI["enc_len"], H, scale=1.0)
+    return t, t.pop("text_encoding")
+
+
+def write_parler_f32(path, n_layers, decoder, text_encoding, dac) -> None:
+    """A Parler-TTS Mini f32 GGUF through the port's convert writer."""
+    from tts_tpu_torch.convert import write_parler_gguf
+    write_parler_gguf(
+        path, hidden_size=MINI["hidden"], n_layers=n_layers,
+        n_attn_heads=MINI["heads"], n_output_heads=MINI["n_out"],
+        output_vocab_size=MINI["vocab"],
+        max_generation=prompt_len() + TOOL_STEPS, max_ctx=MINI["ctx"],
+        bos_token_id=1025, eos_token_id=1024, decoder_tensors=decoder,
+        tokenizer_tokens=TOKENS,
+        tokenizer_scores=[-10.0] + [-1.0] * (len(TOKENS) - 1),
+        text_encoding=text_encoding, dac_tensors=dac)
+
+
+def quantize_tool(src, dst, argv):
+    """`python -m tts_tpu_torch.apps.quantize -mp src -qp dst *argv`, run in
+    this process (so that its launches count): (wall s, its stage timer,
+    tensors it quantized, tensors it converted to F16)."""
+    import io
+    from tts_tpu_torch.apps import quantize as pquantize
+    out = io.StringIO()
+    with recording(pquantize, "StageTimer") as timers, \
+            contextlib.redirect_stdout(out):
+        t0 = time.perf_counter()
+        rc = pquantize.main(["-mp", src, "-qp", dst, *argv])
+        wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"the quantize tool returned {rc}")
+    lines = out.getvalue().splitlines()
+    return (wall, timers[0], sum(ln.startswith("quantized ") for ln in lines),
+            sum(ln.startswith("converted ") for ln in lines))
+
+
+def differing(a, b) -> int:
+    """Bytes that differ between two uint8 arrays or tensors (every byte
+    of the longer one when their sizes differ)."""
+    if a.shape != b.shape:
+        return max(a.numel() if torch.is_tensor(a) else a.size,
+                   b.numel() if torch.is_tensor(b) else b.size)
+    return int((a != b).sum())
+
+
+def hold_tool_output(src, dst) -> tuple[int, dict]:
+    """Every tensor of the tool's output `dst` against the f32 input `src`:
+    a block-quantized one byte for byte against quantize_blocks_plain of the
+    same f32 tensor on the card, an F16 one against the numpy cast
+    (gguf.quants), any other against the input's bytes. Returns (differing
+    bytes, tensors by type)."""
+    from tts_tpu_torch.gguf import GGUFReader
+    rs, rd = GGUFReader(src), GGUFReader(dst)
+    bad, types = 0, collections.Counter()
+    try:
+        if rd.tensor_names() != rs.tensor_names():
+            raise AssertionError("the tool's output lost or reordered tensors")
+        for name in rd.tensor_names():
+            qt, got = rd.tensors[name].ggml_type, rd.raw(name)
+            types[quants.TYPE_NAMES[qt]] += 1
+            if rd.tensors[name].shape != rs.tensors[name].shape:
+                raise AssertionError(f"{name}: the tool changed its shape")
+            if quants.is_quantized(qt):
+                x = torch.from_numpy(np.array(rs.array(name), np.float32)).to(DEV)
+                bad += differing(torch.from_numpy(np.array(got)).to(DEV),
+                                 oq.quantize_blocks_plain(x, qt))
+            elif qt == quants.GGML_TYPE_F16 and \
+                    rs.tensors[name].ggml_type == quants.GGML_TYPE_F32:
+                bad += differing(got, quants.quantize(rs.array(name), qt))
+            else:
+                bad += differing(got, rs.raw(name))
+    finally:
+        rs.close()
+        rd.close()
+    return bad, dict(types)
+
+
+def quantize_bound(n_values: int, qtype: int) -> tuple[float, str]:
+    """The kernel's bound: each f32 value read once, each block written
+    once; 4 operations a value (a product, a sum and the two clamps) at
+    the f32 rate."""
+    return bound(4 * n_values + n_values // 32 * quants.block_info(qtype)[1],
+                 4 * n_values, "f32")
+
+
+def run_quantize_tool(tmp) -> dict:
+    """The quantize tool on the card: a Parler-TTS Mini f32 GGUF (full
+    width and depth, DAC-44k; random from TOOL_SEED) written by the port's
+    convert writer, quantized by `python -m tts_tpu_torch.apps.quantize -qt
+    Q4_0 -qh` (run in this process, its launches counted), every tensor
+    held byte for byte against its plain version (hold_tool_output), the
+    output decoded by the port's CLI to a WAV (K1-K3 must rise); then Q5_0,
+    Q8_0 and F16 with -qh -qe -qkv -df on a copy of TOOL_SMALL_LAYERS
+    layers, the edge blocks against the plain version and numpy, and the
+    kernel timed at the shapes of the tensors it quantized (the embeddings'
+    1090 rows time as the heads' 1088). Returns the kernels line's row."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(TOOL_SEED)
+    decoder, text_encoding = parler_f32(gen, MINI["n_layers"])
+    dac = dac_tensors(np.random.default_rng(TOOL_SEED),
+                      (1536, 768, 384, 192, 96), MINI["n_out"])
+    t_draw = time.perf_counter() - t0
+    f32_path = os.path.join(tmp, "parler-mini-f32.gguf")
+    write_parler_f32(f32_path, MINI["n_layers"], decoder, text_encoding, dac)
+    n_params = sum(a.size for a in decoder.values())
+    log(f"Quantize tool: Parler-TTS Mini f32 GGUF ({n_params / 1e6:.1f} M "
+        f"decoder parameters, DAC-44k {sum(a.size for a in dac.values()) / 1e6:.1f} "
+        f"M), {os.path.getsize(f32_path) / 1e9:.3f} GB, drawn in {t_draw:.1f} s "
+        f"and written in {time.perf_counter() - t0 - t_draw:.1f} s")
+    small = {k: v for k, v in decoder.items() if not k.startswith("layers.") or
+             int(k.split(".")[1]) < TOOL_SMALL_LAYERS}
+    del decoder
+    q4_path = os.path.join(tmp, "parler-mini-tool-q4.gguf")
+    zero_counts()
+    wall, timer, n_q, n_f16 = quantize_tool(f32_path, q4_path, ["-qt", "Q4_0", "-qh"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["quantize"] != n_q or n_q == 0 or any(
+            v for k, v in launches.items() if k != "quantize"):
+        raise AssertionError(f"the tool's launches {launches} are not one a "
+                             f"quantized tensor ({n_q})")
+    split = ", ".join(f"{k} {timer.totals.get(k, 0.0):.3f} s" for k in
+                      ("read", "host->device", "kernel", "device->host", "write"))
+    log(f"  -qt Q4_0 -qh: {wall:.3f} s wall ({split}); {n_q} tensors "
+        f"quantized, {n_f16} converted to F16, {launches['quantize']} kernel "
+        f"launches; {os.path.getsize(q4_path) / 1e6:.1f} MB")
+    t1 = time.perf_counter()
+    bad, types = hold_tool_output(f32_path, q4_path)
+    log(f"  every tensor of the Q4_0 output against its plain version (or the "
+        f"input's bytes): {bad} bytes differ, tensors by type {types} "
+        f"({time.perf_counter() - t1:.1f} s){'' if bad == 0 else ': FAIL'}")
+    want_q4 = 8 * MINI["n_layers"] + 2 * MINI["n_out"]
+    if bad or types.get("Q4_0") != want_q4:
+        raise AssertionError(f"the tool's Q4_0 output: {bad} bytes differ, "
+                             f"{types.get('Q4_0')} Q4_0 tensors (want {want_q4})")
+    os.remove(f32_path)
+    cli, _ = cli_wav(q4_path, os.path.join(tmp, "tool-q4.wav"),
+                     "Parler CLI on the quantize tool's output")
+    if any(cli[n] == 0 for n in SINGLE_PATH):
+        raise AssertionError("the CLI on the tool's output did not run K1-K3")
+    os.remove(q4_path)
+
+    small_path = os.path.join(tmp, "parler-mini-2l-f32.gguf")
+    write_parler_f32(small_path, TOOL_SMALL_LAYERS, small, text_encoding, dac)
+    for qt in ("Q5_0", "Q8_0", "F16"):
+        dst = os.path.join(tmp, f"parler-mini-2l-{qt}.gguf")
+        wall, _, n_q, n_f16 = quantize_tool(small_path, dst, ["-qt", qt, *TOOL_FLAGS])
+        b, types = hold_tool_output(small_path, dst)
+        bad += b
+        log(f"  {TOOL_SMALL_LAYERS} layers, -qt {qt} {' '.join(TOOL_FLAGS)}: "
+            f"{wall:.3f} s, {n_q} quantized, {n_f16} converted to F16; {b} "
+            f"bytes differ; tensors by type {types}{'' if b == 0 else ': FAIL'}")
+        if b or (qt != "F16" and n_q != types.get(qt)) or not n_f16:
+            raise AssertionError(f"the tool's {qt} output disagrees")
+        os.remove(dst)
+    os.remove(small_path)
+
+    edge = torch.from_numpy(quant_edge_blocks())
+    for qt in QNAME:
+        got = oq.quantize_blocks_cuda(edge.to(DEV), qt)
+        with np.errstate(over="ignore"):   # the overflowing fp16 scale
+            want = quants.quantize(edge.numpy(), qt)
+        b = differing(got, oq.quantize_blocks_plain(edge.to(DEV), qt)) + \
+            differing(got.cpu().numpy(), want)
+        bad += b
+        if b:
+            raise AssertionError(f"{QNAME[qt]} edge blocks: {b} bytes differ")
+    log(f"  edge blocks ({edge.shape[0]}: ties of |x| with opposite signs, +-0, "
+        f"all zero, Q8_0's half-way block, subnormal and overflowing fp16 "
+        f"scales): the kernel equals its plain version on the card and numpy, "
+        f"Q4_0 / Q5_0 / Q8_0: ok")
+
+    H, F = MINI["hidden"], MINI["ffn"]
+    row = None
+    for qt, shapes in ((quants.GGML_TYPE_Q4_0, ((H, H), (F, H), (H, F),
+                                                (MINI["vocab"], H))),
+                       (quants.GGML_TYPE_Q5_0, ((F, H),)),
+                       (quants.GGML_TYPE_Q8_0, ((F, H),))):
+        for shape in shapes:
+            # copies that exceed the 50 MB L2 together, taken in turn: the
+            # tool finds each tensor cold
+            n = shape[0] * shape[1]
+            xs = [torch.randn(shape, generator=gen, device=DEV) * 0.02
+                  for _ in range(min(16, -(-120_000_000 // (4 * n))))]
+            turn = itertools.cycle(xs)
+
+            def launch():
+                return oq.quantize_blocks_cuda(next(turn), qt)
+
+            # CUDA events over back-to-back launches (queued_ms): a long run's
+            # profiler sessions can lose a window's events, which would read
+            # as a faster kernel; the profiler's time, its events all there
+            # (whole_trace), is logged beside
+            ms = queued_ms(launch, iters=64)
+            prof_ms = whole_trace(launch, lambda dt: dt.counts.get(
+                "quantize_kernel", 0) >= 1, "the quantize kernel").ms
+            x = xs[0]
+            plain_ms = queued_ms(lambda: oq.quantize_blocks_plain(x, qt), iters=8)
+            b_ms, b_by = quantize_bound(x.numel(), qt)
+            log(f"  kernel {QNAME[qt]} {shape[0]}x{shape[1]}: {ms:.4f} ms a launch "
+                f"(CUDA events, 64 back-to-back launches; torch.profiler "
+                f"{prof_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by}; {x.numel() * 4 / 1e6:.2f} MB read, {len(xs)} copies "
+                f"taken in turn): the bound is {b_ms / ms:.0%} of the kernel's time")
+            if row is None and shape == (F, H):   # the largest Q4_0 tensors
+                row = dict(name="quantize", route="cuda",
+                           source="tts_tpu_torch/csrc/quantize.cu",
+                           replaces="tts_tpu/native.py quantize (host C++)",
+                           max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    row["max_abs_err"] = bad
+    row["launches"] = launches["quantize"]
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3455,9 +3929,10 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
 ORPHEUS_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                         "llama_flat_megastep_batched")
 GREEDY_TOKENS = 200   # the greedy parity check's generation window
-# Orpheus serving's generation window, half the model's 2100 tokens: a depth
-# cut that keeps the whole script in its time with phases 16-17
-ORPHEUS_SERVING_TOKENS = 1050
+# Orpheus serving's generation window, a third of the model's 2100 tokens:
+# a depth cut that keeps the whole script in its time with phases 16-17 and
+# the quantize tool's phase 4b
+ORPHEUS_SERVING_TOKENS = 700
 
 
 def set_gguf_u32(path, key: str, value: int) -> None:
@@ -3704,7 +4179,7 @@ def check_dia(gen, mega, kw) -> dict:
                                  dia_step(dm.dia_megastep_cuda),
                                  dia_step(dm.dia_megastep_plain), "K10", err,
                                  base, layers=DIA_YARDSTICK,
-                                 alt=dia_step(other_order_dia_plain))
+                                 alt=dia_step(other_order_dia_plain), slots=True)
     judge_layers(err, base, "K10", f"K10 layers {list(DIA_YARDSTICK)} x 2 rows "
                  f"at positions {list(DIA_POS)} x buckets {list(DIA_BUCKETS)}, "
                  f"layer by layer, yardstick the larger of plain on the CPU "
@@ -3833,7 +4308,7 @@ def check_dia_batched(gen, mega, kw) -> dict:
                             dia_step(dm.dia_megastep_batched_cuda),
                             dia_step(dm.dia_megastep_batched_plain), "K11", err,
                             base, layers=DIA_YARDSTICK,
-                            alt=dia_step(other_order_dia_batched_plain))
+                            alt=dia_step(other_order_dia_batched_plain), slots=True)
         judge_layers(err, base, "K11", f"K11 layers {list(DIA_YARDSTICK)} x 16 "
                      f"rows, layer by layer, yardstick the larger of plain on "
                      f"the CPU and plain summed in another order vs plain on the card")
@@ -5810,6 +6285,7 @@ def main() -> int:
     lmega, flat, lkw = orpheus_kernel_weights(gen)
     rows += phase(check_llama, gen, lmega, flat, lkw)
     rows += phase(check_llama_batched, gen, lmega, flat, lkw)
+    phase(check_yardstick_defects, lmega, lkw)
     del lmega, flat, lkw
     torch.cuda.empty_cache()
     dmega, dkw = dia_kernel_weights(gen)
@@ -5820,6 +6296,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         phase(check_small_reference, tmp)
         launches, k12_launches, path = phase(run_main_path, tmp)
+        torch.cuda.empty_cache()
+        tool_row = phase(run_quantize_tool, tmp)
         torch.cuda.empty_cache()
         served = phase(run_serving, path)
         phase(run_conditional_prompt, tmp, path)
@@ -5865,6 +6343,7 @@ def main() -> int:
              "dia_megastep_batched": served_dia}
     for row in rows:
         row["launches"] = paths.get(row["name"], launches)[row["name"]]
+    rows.append(tool_row)   # its launches: the tool's Q4_0 run (phase 4b)
     log("streams, time to the first chunk (runners) or samples (servers) and "
         f"their match: {json.dumps(STREAMS)}")
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")

@@ -48,7 +48,10 @@ head sizes they refuse. K1 at every row count from 1 to 256 that changes
 its warp layout, K 1024-8192 (split over 1-8 cluster ranks and not), both
 numeric modes and every quant type, against its plain version; each row of
 a call equal to that row's call alone bit for bit; its counters and
-refusals.
+refusals. The GGUF quantize kernel (csrc/quantize.cu, no TPU counterpart)
+byte for byte against its plain version on the card and on the CPU, on
+seeded draws (past its grid's cap too) and on chip_smoke's edge blocks;
+its counter and refusals.
 """
 import pytest
 import torch
@@ -1451,3 +1454,75 @@ def test_k12_launch_counter(dev):
     assert [k.launches - b for k, b in zip(counters, before)] == [3, 0, 0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert pf.launched_blocks % sms == 0 and pf.launched_blocks >= sms
+
+
+# the GGUF quantize kernel (csrc/quantize.cu; no TPU kernel: the JAX
+# quantizer's host path, tts_tpu/native.py quantize)
+
+QUANT_TYPES = [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q5_0, quants.GGML_TYPE_Q8_0]
+
+
+@pytest.mark.parametrize("qtype", QUANT_TYPES)
+@pytest.mark.parametrize("n,k,scale", [(1, 32, 1.0), (3, 224, 1.0), (48, 96, 1.0),
+                                       (256, 1024, 0.02), (1000, 4096, 0.02)])
+def test_quantize_matches_plain(dev, qtype, n, k, scale):
+    """Byte-equal to the plain version on the card and on the CPU; 1000 x
+    4096 (128,000 blocks) passes the grid's cap, so warps stride."""
+    from tts_tpu_torch.ops import quantize as oq
+    torch.manual_seed(n + qtype)
+    x = torch.randn((n, k), device=dev) * scale
+    got = oq.quantize_blocks_cuda(x, qtype)
+    assert torch.equal(got, oq.quantize_blocks_plain(x, qtype))
+    assert torch.equal(got.cpu(), oq.quantize_blocks_plain(x.cpu(), qtype))
+
+
+@pytest.mark.parametrize("qtype", QUANT_TYPES)
+def test_quantize_plain_same_on_card_and_cpu(dev, qtype):
+    """The plain version gives the CPU's bytes on the card at a million
+    blocks: its scale is one IEEE division (torch divides a CUDA tensor by
+    a Python scalar as a product with the reciprocal, which parted Q8_0's
+    scale from numpy's in ~4 blocks a million)."""
+    from tts_tpu_torch.ops import quantize as oq
+    torch.manual_seed(qtype)
+    x = torch.randn((8192, 4096), device=dev) * 0.02
+    got = oq.quantize_blocks_plain(x, qtype).cpu()
+    assert torch.equal(got, oq.quantize_blocks_plain(x.cpu(), qtype))
+    assert torch.equal(oq.quantize_blocks_cuda(x, qtype).cpu(), got)
+
+
+@pytest.mark.parametrize("qtype", QUANT_TYPES)
+def test_quantize_edge_blocks(dev, qtype):
+    """Ties of |x| with opposite signs, +-0, all-zero blocks, Q8_0's half-way
+    block, fp16 scales subnormal and overflowing; and a block read from a
+    base that is 4 but not 16 bytes aligned."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from tts_tpu_torch.ops import quantize as oq
+    b = torch.from_numpy(chip_smoke.quant_edge_blocks())
+    got = oq.quantize_blocks_cuda(b.to(dev), qtype)
+    assert torch.equal(got.cpu(), oq.quantize_blocks_plain(b, qtype))
+    flat = torch.randn(65, device=dev)
+    assert torch.equal(oq.quantize_blocks_cuda(flat[1:33], qtype),
+                       oq.quantize_blocks_plain(flat[1:33], qtype))
+
+
+def test_quantize_counter_and_refusals(dev):
+    """One launch a call on its counter (the dispatcher's CPU path launches
+    nothing); F16 / F32 are casts, not launches; partial blocks and other
+    types are refused."""
+    from tts_tpu_torch.ops import quantize as oq
+    x = torch.randn((4, 64), device=dev)
+    before = oq.KERNEL.launches
+    oq.quantize_blocks(x, quants.GGML_TYPE_Q4_0)
+    oq.quantize_blocks(x, quants.GGML_TYPE_Q8_0)
+    oq.quantize_blocks(x.cpu(), quants.GGML_TYPE_Q5_0)
+    f16 = oq.quantize_blocks(x, quants.GGML_TYPE_F16)
+    assert torch.equal(f16, x.half().reshape(-1).view(torch.uint8))
+    torch.cuda.synchronize()
+    assert oq.KERNEL.launches - before == 2
+    with pytest.raises(ValueError, match="whole blocks"):
+        oq.quantize_blocks_cuda(torch.randn(48, device=dev), quants.GGML_TYPE_Q4_0)
+    with pytest.raises(ValueError, match="no block format"):
+        oq.quantize_blocks_cuda(x, quants.GGML_TYPE_F16)

@@ -1,8 +1,8 @@
 """PyTorch port: import hygiene and the device rule, on the CPU.
 
 Every module of tts_tpu_torch, and the root scripts that drive the port
-(chip_smoke.py, gemv_ab.py), import without JAX and without the JAX
-package; entry points never fall back to the CPU unasked.
+(chip_smoke.py, gemv_ab.py, yardstick_draws.py), import without JAX and
+without the JAX package; entry points never fall back to the CPU unasked.
 """
 import os
 import subprocess
@@ -23,6 +23,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 import gemv_ab
+import yardstick_draws
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.") or k == "tts_tpu"
              or k.startswith("tts_tpu."))
@@ -50,7 +51,9 @@ assert {"tts_tpu_torch.runtime.batched_parler",
         "tts_tpu_torch.parallel.tp_megastep",
         "tts_tpu_torch.parallel.llama_tp", "tts_tpu_torch.parallel.dia_tp",
         "tts_tpu_torch.parallel.seq_vocoder",
-        "tts_tpu_torch.parallel.spawn"} <= set(names), names
+        "tts_tpu_torch.parallel.spawn", "tts_tpu_torch.ops.quantize",
+        "tts_tpu_torch.apps.quantize", "tts_tpu_torch.apps.train_phonemizer",
+        "tts_tpu_torch.convert", "tts_tpu_torch.convert.writers"} <= set(names), names
 print(len(names), bad)
 """
 
@@ -150,6 +153,32 @@ def test_no_hidden_cpu_fallback(tmp_path):
                 make()
     finally:
         r.close()
+
+
+def test_quantize_tool_needs_a_card_unless_asked(tmp_path):
+    """The quantize tool runs on the card unless given device="cpu" (or
+    --device cpu), and its kernel's launch path refuses CPU tensors: it
+    never quantizes on the host unasked."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: there is nothing to refuse")
+    from tts_tpu_torch.apps import quantize as pq
+    from tts_tpu_torch.gguf import GGUFWriter
+    from tts_tpu_torch.ops import quantize as oq
+    src, out = str(tmp_path / "x.gguf"), str(tmp_path / "q.gguf")
+    w = GGUFWriter(src, "parler-tts")
+    w.add_tensor("decoder.layers.0.fc1.weight", np.ones((2, 32), np.float32))
+    w.write()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pq.quantize_gguf(src, out, pq.QuantizationParams(2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pq.main(["-mp", src, "-qp", out])
+    assert not os.path.exists(out)
+    before = oq.KERNEL.launches
+    with pytest.raises(ValueError, match="not on the card"):
+        oq.quantize_blocks_cuda(torch.zeros(64), 2)
+    assert oq.quantize_blocks(torch.zeros(64), 2).shape == (36,)
+    assert oq.KERNEL.launches == before
+    assert pq.main(["-mp", src, "-qp", out, "--device", "cpu"]) == 0
 
 
 def test_server_module_raises_without_a_card():
