@@ -19,9 +19,14 @@ Phases, in order; any failure exits non-zero without the final line:
    positions across page boundaries, and each of their slots against K3 /
    K2 on that slot's state, bit for bit; K3 / K4 and the cross-attention
    entry at heads of 80, 192 and 256 (the generic path), bf16 and f32
-   caches, timed beside SDPA. K7's check prints the L2 bytes
-   its GEMVs read to stage their input rows beside its weight bytes (and
-   fails unless they are fewer).
+   caches, timed beside SDPA. K7's check prints the L2 bytes its launch
+   sequence's GEMVs read to stage their input rows beside its weight bytes
+   (and fails unless they are fewer). K12 (one cooperative launch) against
+   K2 bit for bit, with the grid barriers its kernel counted equal to its
+   plan (6 a layer with the cross block, 4 without); K9 / K7 (the batched
+   persistent step, one launch a group of at most 8 slots) each slot bit
+   for bit against K8 / K6 and the step against its launch sequence, one
+   launch a group on the counters, timed beside the sequence.
 3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
    (plain versions), float32 caches on both; the card follows the CPU's
    greedy token history and its logits must match at every step.
@@ -84,14 +89,15 @@ Phases, in order; any failure exits non-zero without the final line:
    over the whole window against generate_tokens and its SNAC decode; the K8 route (the head
    swapped for an F16 one, 64 decode steps): one K8 launch a step, and
    the K9 route (the batched engine on those weights,
-   8 slots, 64 batched steps): K9 must have risen, K7 not.
+   8 slots, 64 batched steps): one K9 launch a step, K7 and K4 none.
 8. Orpheus serving: the port's HTTP server in this process (batch_slots 8,
    the Orpheus-3B GGUF, its `orpheus.max_generation_size` rewritten to
    700 tokens before the server loads it: ORPHEUS_SERVING_TOKENS) answers 12 concurrent requests with a voice and
    mixed sampling parameters; counters set to 0 just before, read just
-   after; K1, K4 and K7 must have risen. Then the batched step timed and
-   traced, one request through batch_slots 0, and the engine's greedy
-   tokens against the single-stream runner's (K6's; equal).
+   after; K1 and K7 must have risen. Then the batched step timed and
+   traced (2 K7 launches a step, the persistent layer stack's and the head
+   GEMV's, no K4), one request through batch_slots 0, and the engine's
+   greedy tokens against the single-stream runner's (K6's; equal).
 
 9. Dia reference: a small Q4_0 Dia's encoder on the card against the CPU's,
    then its teacher-forced CFG-merged logits (K10) card vs CPU from the
@@ -106,7 +112,8 @@ Phases, in order; any failure exits non-zero without the final line:
    of 32 decode steps: one K10 launch a step, at most 95 kernels a step;
    the runner's greedy stream against generate_codes and the DAC.
 11. Dia serving: the port's HTTP server in this process (batch_slots 8, the
-   Dia-1.6B GGUF) answers 12 concurrent dialogue requests of 20-200 bytes
+   Dia-1.6B GGUF, its generation window rewritten to DIA_SERVING_STEPS)
+   answers 12 concurrent dialogue requests of 20-200 bytes
    with mixed sampling parameters; K1, K4, K11 and its cross-attention
    must have risen. Then the batched step timed and traced, one request
    through batch slots 0, and the engine's greedy codes against the
@@ -149,8 +156,8 @@ Phases, in order; any failure exits non-zero without the final line:
    request sent whole.
 16. Parallelism (tts_tpu_torch/parallel; its own seeded generators, run
    after phase 15): each model's Megatron TP step (Parler-Mini, Orpheus-3B
-   and the Dia-1.6B decoder at full width, random Q4_0, 8 steps with cache
-   writes at positions 1000-1007) at tp=1 under NCCL in this process (a
+   and the Dia-1.6B decoder at full width, random Q4_0, 4 steps with cache
+   writes at positions 1000-1003) at tp=1 under NCCL in this process (a
    world of one), then 4 spawned ranks over gloo sharing cuda:0 (named by
    the caller: NCCL refuses two ranks on one card), each with a timeout: a
    rank that fails or hangs fails the run. Ranks 0 and 1: (a) tp=2, each
@@ -161,11 +168,11 @@ Phases, in order; any failure exits non-zero without the final line:
    over 256 frames at sp=2 against the card's unsharded decode (bit
    equality reported; the streams' criterion held). All four: (d) dp x tp
    2 x 2, the batched Parler chunk at Parler-Mini width with 8 slots at
-   positions across the 256- and 512-row pages, 16 steps: teacher-forced
+   positions across the 256- and 512-row pages, 8 steps: teacher-forced
    logits within TP_REL of the unsharded chunk's, greedy tokens equal
    wherever the top-2 gap exceeds that bound. gloo's times go through the
    host: correctness and each shard's K1, not scaling. Then K4 at the dp x
-   tp shard (4 slots, 8 heads of 64, at the 16 steps' positions) against
+   tp shard (4 slots, 8 heads of 64, at the 8 steps' positions) against
    its plain version.
 17. The perf battery (apps/perf_battery.py): main() on the Kokoro-82M GGUF
    (30 sentences and the warm-up; no K1-K12 counter may rise) and
@@ -1442,6 +1449,11 @@ def check_k12(gen, mega, qtype) -> dict:
                     and torch.equal(k12, k2) and torch.equal(v12, v2)):
                 raise AssertionError(f"K12 differs from K2 at pos {p}, "
                                      f"use_cross {use_cross}")
+            passed = pf.barriers_passed()
+            if passed != pf.barriers(L, use_cross):
+                raise AssertionError(f"K12 passed {passed} grid barriers at pos "
+                                     f"{p}, use_cross {use_cross}; its plan "
+                                     f"has {pf.barriers(L, use_cross)}")
             del k12, v12, k2, v2
             errs += layer_errors(
                 lambda l: pm.MegaLayers(*(t[l:l + 1] for t in mega[:-1]),
@@ -1449,7 +1461,9 @@ def check_k12(gen, mega, qtype) -> dict:
                 L, x, kc, vc, pos, kw, k12_step, k12_plain, "K12", err, base,
                 layers=K12_LAYERS)
         log(f"  use_cross {use_cross}: x_out, k_new, v_new and both caches "
-            f"equal K2's bit for bit at pos {list(K12_POS)} (max_abs_err 0): ok")
+            f"equal K2's bit for bit at pos {list(K12_POS)} (max_abs_err 0); "
+            f"the kernel counted {pf.barriers(L, use_cross)} grid barriers a "
+            f"step at each, its plan's ({6 if use_cross else 4} a layer): ok")
         judge_layers(err, base, "K12", f"use_cross {use_cross}, pos "
                      f"{list(K12_POS)}, layers {list(K12_LAYERS)} layer by "
                      f"layer, yardstick plain on the CPU vs plain on the card")
@@ -1479,7 +1493,7 @@ def check_k12(gen, mega, qtype) -> dict:
     b_ms, b_by = bound(wbytes + kv_bytes + 2 * L * H * 2 + 2 * H * 4, flops, "bf16")
     log(f"  {L} layers, pos {p}: K12 {times[1]:.4f} / {times[2]:.4f} ms/step "
         f"(1 launch of {pf.launched_blocks} blocks of 256 threads; "
-        f"{9 * L - 1} grid barriers), K2 {times[0]:.4f} / {times[3]:.4f} ms/step "
+        f"{pf.barriers(L, True)} grid barriers), K2 {times[0]:.4f} / {times[3]:.4f} ms/step "
         f"({8 * L} launches), with the host's launch path; device time K12 "
         f"{dtimes[1]:.4f} / {dtimes[2]:.4f}, K2 {dtimes[0]:.4f} / "
         f"{dtimes[3]:.4f} ms/step, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -1582,10 +1596,10 @@ def k6_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
 
 def llama_sequence(w, x, kc, vc, pos, **kw):
     """K8's (K6's) function through the launch sequence (4 GEMV and 1 K4
-    launch a layer, K6's head GEMV after them): K9 (K7) at one slot, on
+    launch a layer, K6's head GEMV after them): K9's (K7's) at one slot, on
     views of the same caches (written in place)."""
-    fn = (lf.llama_flat_megastep_batched_cuda if isinstance(w, lf.LlamaFlat)
-          else lm.llama_megastep_batched_cuda)
+    fn = (lf.llama_flat_megastep_batched_sequence if isinstance(w, lf.LlamaFlat)
+          else lm.llama_megastep_batched_sequence)
     out, kn, vn = fn(w, x, kc[:, None], vc[:, None], pos, **kw)
     return out, kn[:, 0], vn[:, 0]
 
@@ -1626,9 +1640,11 @@ def persistent_ms(fn, prefix: str, label: str) -> float:
 
 
 def k7_layers(m, x, kc, vc, pos, *, qtype, n_heads, n_kv, inv_freq):
-    """K7's batched layer sequence alone (its launch counter, no head)."""
-    return lm.layers_cuda(lf.KERNEL_BATCHED, da.KERNEL_BATCHED, m, x, kc, vc,
-                          pos, qtype=qtype, n_heads=n_heads, inv_freq=inv_freq)
+    """K7's layer stack alone (the batched persistent step on K7's counter,
+    no head)."""
+    return lm.persistent_batched(lf.KERNEL_BATCHED, m, x, kc, vc, pos,
+                                 qtype=qtype, n_heads=n_heads, n_kv=n_kv,
+                                 inv_freq=inv_freq)
 
 
 @contextlib.contextmanager
@@ -1920,6 +1936,78 @@ def llama_slots_equal_single(mega, flat, kw, pos, layers_note) -> None:
     torch.cuda.empty_cache()
 
 
+def batched_equal_sequence(mega, flat, kw, pos, layers_note) -> None:
+    """K9 and K7 (the batched persistent step, one launch a group of at most
+    R slots; K7's head GEMV after it) equal their launch sequences
+    (layers_cuda, K7's head GEMV) bit for bit: x_out (logits), k_new, v_new
+    and every cache; the counters show one K9 launch a group (K7: and its
+    head), no K4."""
+    L, H = mega.norms.shape[0], ORPHEUS["hidden"]
+    nkv, d, ctx = ORPHEUS["kv_heads"], H // ORPHEUS["heads"], ORPHEUS["ctx"]
+    b = pos.numel()
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 100 + b)
+    shape = (L, b, nkv, ctx, d)
+    kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    vc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
+    x = torch.randn((b, H), generator=gen, device=DEV)
+    r = lp.max_rows(H, ORPHEUS["ffn"], lm.tiles_packed(mega.qkv_codes),
+                    mega.qkv_scales.dtype == torch.bfloat16)
+    groups = len(_build.slot_groups(b, r))
+    heads = len(_build.slot_groups(b, lm.MAX_BATCH))
+    for label, w, kern, seq, counter, want in (
+            ("K9", mega, lm.llama_megastep_batched_cuda,
+             lm.llama_megastep_batched_sequence, lm.KERNEL_BATCHED, groups),
+            ("K7", flat, lf.llama_flat_megastep_batched_cuda,
+             lf.llama_flat_megastep_batched_sequence, lf.KERNEL_BATCHED,
+             groups + heads)):
+        k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+        torch.cuda.synchronize()
+        before = (counter.launches, da.KERNEL_BATCHED.launches)
+        got = kern(w, x, k1, v1, pos, **kw)
+        torch.cuda.synchronize()
+        n = (counter.launches - before[0], da.KERNEL_BATCHED.launches - before[1])
+        ref = seq(w, x, k2, v2, pos, **kw)
+        if not (all(torch.equal(a, c) for a, c in zip(got, ref))
+                and torch.equal(k1, k2) and torch.equal(v1, v2)):
+            raise AssertionError(f"{label} at {b} slots differs from its "
+                                 f"launch sequence")
+        if n != (want, 0):
+            raise AssertionError(f"{label} at {b} slots: {n[0]} launches on "
+                                 f"its counter and {n[1]} K4, expected "
+                                 f"{want} and 0")
+        del k1, v1, k2, v2
+        log(f"  {label} at {b} slots ({layers_note}): {n[0]} launch"
+            f"{'es' if n[0] > 1 else ''} on its counter ({groups} group"
+            f"{'s' if groups > 1 else ''} of at most R = {r} rows, "
+            f"{lp.launched_blocks} blocks, {lp.blocks_per_sm} an SM"
+            f"{', and its head GEMV' if label == 'K7' else ''}), no K4; "
+            f"x_out / logits, k_new, v_new and every cache equal the launch "
+            f"sequence's (layers_cuda) bit for bit: ok")
+    del kc, vc
+    torch.cuda.empty_cache()
+
+
+def batched_step_ms(fn, launches: int, label: str) -> float:
+    """Device time of one batched step whose persistent launches
+    (`launches` a call of llama_batched_kernel) torch.profiler may drop from
+    a trace: their time per recorded launch times `launches`, plus the
+    call's other device work (K7's head GEMV, the copies), from the same
+    trace."""
+    for _ in range(3):
+        dt = device_ms(fn)
+        name = next((k for k in dt.by_name
+                     if k.startswith("llama_batched_kernel")), None)
+        if name is not None:
+            other = sum(v for k, v in dt.by_name.items() if k != name)
+            per = dt.by_name[name] / dt.counts[name]
+            log(f"  {label}: {dt.counts[name] * 20:.0f} of {20 * launches} "
+                f"persistent launches in the trace, {per:.4f} ms a launch, "
+                f"{other:.4f} ms of other device work a call")
+            return launches * per + other
+    raise RuntimeError("torch.profiler recorded no llama_batched_kernel launch")
+
+
 def other_order_batched_plain(*a, **k):
     """K9's plain version summed in another order (other_order)."""
     with other_order():
@@ -1944,13 +2032,18 @@ def k7_staging(flat, b: int, sms: int) -> tuple[int, int]:
 
 
 def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
-    """K9 and K7 at Orpheus-3B width, 8 slots at LLAMA_SLOTS: each slot bit
-    for bit against K8 / K6 on its state (and at 16 slots on the
-    LLAMA_LAYERS stack), layer by layer against the plain version (the
-    yardstick of check_llama), K7's whole-step logits against the plain
-    version's per slot, then timed."""
+    """K9 and K7 (the batched persistent step, csrc/llama_flat_batched.cu)
+    at Orpheus-3B width, 8 slots at LLAMA_SLOTS: each slot bit for bit
+    against K8 / K6 on its state (and at 16 slots, two groups, on the
+    LLAMA_LAYERS stack), the step bit for bit against its launch sequence
+    (layers_cuda) with one launch a group on the counters, layer by layer
+    against the plain version (the yardstick of check_llama), K7's
+    whole-step logits against the plain version's per slot, then timed
+    beside the launch sequence in turns."""
     log("K9 llama_megastep_batched and K7 llama_flat_megastep_batched "
-        "(csrc/llama_megastep.cu + K4) vs K8 / K6 and their plain versions, "
+        "(csrc/llama_flat_batched.cu, one cooperative launch a group of slots; "
+        "K7's head GEMV after it) vs K8 / K6, the launch sequence "
+        "(csrc/llama_megastep.cu + K4) and their plain versions, "
         f"Orpheus-3B width, bf16 cache of {ORPHEUS['ctx']} rows, 8 slots at "
         f"positions {list(LLAMA_SLOTS)}:")
     L, H, vocab = ORPHEUS["n_layers"], ORPHEUS["hidden"], ORPHEUS["vocab"]
@@ -1960,19 +2053,21 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     staged, wbytes = k7_staging(flat, b, sms)
     ok = staged < wbytes
-    log(f"  K7 at {b} slots, reckoned L2 reads to stage the GEMVs' input rows: "
-        f"{staged / 1e9:.3f} GB per batched step against "
+    log(f"  K7's launch sequence at {b} slots, reckoned L2 reads to stage the "
+        f"GEMVs' input rows: {staged / 1e9:.3f} GB per batched step against "
         f"{wbytes / 1e9:.3f} GB of weights: {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K7 stages more bytes than its weights")
     llama_slots_equal_single(mega, flat, kw, pos, "28 layers")
+    batched_equal_sequence(mega, flat, kw, pos, "28 layers")
     sub = list(LLAMA_LAYERS)
     mega4 = lm.LlamaMegaLayers(*(t[sub] for t in mega))
     flat4 = lf.LlamaFlat(lm.LlamaMegaLayers(*(t[sub] for t in flat.layers)),
                          flat.head, flat.out_norm)
-    llama_slots_equal_single(mega4, flat4, kw, torch.tensor(
-        LLAMA_SLOTS_16, dtype=torch.int32, device=DEV),
-        f"layers {list(LLAMA_LAYERS)}")
+    pos16 = torch.tensor(LLAMA_SLOTS_16, dtype=torch.int32, device=DEV)
+    llama_slots_equal_single(mega4, flat4, kw, pos16,
+                             f"layers {list(LLAMA_LAYERS)}")
+    batched_equal_sequence(mega4, flat4, kw, pos16, f"layers {list(LLAMA_LAYERS)}")
     del mega4, flat4
     shape = (L, b, nkv, ctx, d)
     kc = (torch.randn(shape, generator=gen, device=DEV) * 0.5).to(torch.bfloat16)
@@ -2045,9 +2140,30 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
     rows = []
     kv_bytes = 2 * L * nkv * sum(p + 1 for p in LLAMA_SLOTS) * d * 2
     scratch = lm.step_scratch(mega, b, ORPHEUS["heads"], ctx, DEV)
+    seqs = {"K9": lm.llama_megastep_batched_sequence,
+            "K7": lf.llama_flat_megastep_batched_sequence}
     for label, (w, kern, plain, _) in steps.items():
-        ms = step_ms(lambda: kern(w, x, kc, vc, pos, scratch=scratch, **kw),
-                     f"{label} step at {b} slots")
+        def step():
+            return kern(w, x, kc, vc, pos, **kw)
+
+        def seq():
+            return seqs[label](w, x, kc, vc, pos, scratch=scratch, **kw)
+
+        # in turns: sequence, step, step, sequence; device and host time
+        host = [cuda_ms(fn, iters=20) for fn in (seq, step, step, seq)]
+        dev_ms = [device_ms(seq).ms,
+                  batched_step_ms(step, 1, f"{label} step at {b} slots"),
+                  batched_step_ms(step, 1, f"{label} step at {b} slots"),
+                  device_ms(seq).ms]
+        ms = min(dev_ms[1:3])
+        log(f"  {label} at {b} slots: step {host[1]:.4f} / {host[2]:.4f} ms "
+            f"(1 launch of {lp.launched_blocks} blocks, "
+            f"{lp.barriers(L, False)} grid barriers"
+            f"{', then the head GEMV' if label == 'K7' else ''}), launch "
+            f"sequence {host[0]:.4f} / {host[3]:.4f} ms ({4 * L + (label == 'K7')} "
+            f"gemv + {L} K4 launches), with the host's launch path; device "
+            f"time step {dev_ms[1]:.4f} / {dev_ms[2]:.4f}, launch sequence "
+            f"{dev_ms[0]:.4f} / {dev_ms[3]:.4f} ms")
         plain_ms = device_ms(lambda: plain(w, x, kc, vc, pos, **kw), iters=1,
                              warmup=0).ms
         if label == "K9":
@@ -2060,19 +2176,22 @@ def check_llama_batched(gen, mega, flat, kw) -> list[dict]:
                          2 * L * nkv * d * 4)
         b_ms, b_by = bound(wbytes + kv_bytes + b * H * 4 + out_bytes,
                            2 * b * n_weights, "bf16")
-        gemv = 4 * L + (label == "K7")
+        g, items = lp.batched_attention_items(ORPHEUS["heads"], LLAMA_SLOTS,
+                                              ctx, lp.launched_blocks)
         log(f"  {label} 28 layers{' + head' if label == 'K7' else ''}, 8 slots "
-            f"at {list(LLAMA_SLOTS)}: kernels (device time) {ms:.4f} ms per batched step "
-            f"({gemv} gemv + {L} K4 launches), plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
+            f"at {list(LLAMA_SLOTS)}: kernels (device time) {ms:.4f} ms per "
+            f"batched step ({1 + (label == 'K7')} launch"
+            f"{'es' if label == 'K7' else ''}; attention items a layer "
+            f"{sum(items)}, {g} q heads a page block), plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {wbytes / 1e6:.1f} MB weights + "
             f"{kv_bytes / 1e6:.1f} MB KV), library none")
         if label == "K7":
-            device_trace(lambda: [kern(w, x, kc, vc, pos, scratch=scratch, **kw)
+            device_trace(lambda: [kern(w, x, kc, vc, pos, **kw)
                                   for _ in range(5)], "K7 step alone, 8 slots", 5)
         rows.append(dict(
             name="llama_megastep_batched" if label == "K9"
             else "llama_flat_megastep_batched",
-            route="cuda", source="tts_tpu_torch/csrc/llama_megastep.cu",
+            route="cuda", source="tts_tpu_torch/csrc/llama_flat_batched.cu",
             replaces="tts_tpu/ops/llama_megastep.py:395" if label == "K9"
             else "tts_tpu/ops/llama_flat.py:381",
             max_abs_err=max(errs[label]), ms=ms, plain_ms=plain_ms,
@@ -3916,9 +4035,11 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
                 bool((t < 0).any()) or bool((t >= cfg.vocab_size).any()):
             raise AssertionError(f"K9 route slot {s}: {n} tokens, out of "
                                  f"range or stopped early")
-    if k9_launches["llama_megastep_batched"] == 0 or \
-            k9_launches["llama_flat_megastep_batched"]:
-        raise AssertionError("the K9 route did not decode through K9")
+    if k9_launches["llama_megastep_batched"] != K9_ROUTE_STEPS or \
+            k9_launches["llama_flat_megastep_batched"] or \
+            k9_launches["decode_attention_batched"]:
+        raise AssertionError("the K9 route did not decode through K9, one "
+                             "launch a batched step")
     return launches, k8_launches, k9_launches
 
 
@@ -3926,8 +4047,7 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
 # phase 8: serving Orpheus-3B, continuous batching through the HTTP server
 # ---------------------------------------------------------------------------
 
-ORPHEUS_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
-                        "llama_flat_megastep_batched")
+ORPHEUS_SERVING_PATH = ("quant_matmul", "llama_flat_megastep_batched")
 GREEDY_TOKENS = 200   # the greedy parity check's generation window
 # Orpheus serving's generation window, a third of the model's 2100 tokens:
 # a depth cut that keeps the whole script in its time with phases 16-17 and
@@ -3956,9 +4076,10 @@ def set_gguf_u32(path, key: str, value: int) -> None:
 
 def run_orpheus_serving(path) -> dict:
     """The Orpheus serving path (`serving_burst` with a voice on every
-    request: K1, K4 and K7 must have been launched), then the engine's
-    greedy tokens against the single-stream runner's (K6). Returns the
-    launch counts of the 12 requests."""
+    request: K1 and K7 must have been launched; K7's batched step is 2
+    launches a step at 8 slots, its layer stack's and its head's, with no
+    K4), then the engine's greedy tokens against the single-stream
+    runner's (K6). Returns the launch counts of the 12 requests."""
     from tts_tpu_torch.common import GenerationConfig
     from tts_tpu_torch.models.orpheus import model as omodel
     from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
@@ -3966,6 +4087,13 @@ def run_orpheus_serving(path) -> dict:
     runner, prompts, stats, launches = serving_burst(
         path, BatchedLlamaEngine, params, 24000, 2048, ORPHEUS_SERVING_PATH,
         "Orpheus")
+    per = stats["launches_per_batched_step"]
+    log(f"  Orpheus batched step at 8 slots: {per['llama_flat_megastep_batched']} "
+        f"K7 launches a step (the batched persistent step and the head GEMV), "
+        f"{per['decode_attention_batched']} K4")
+    if per["llama_flat_megastep_batched"] != 2 or per["decode_attention_batched"]:
+        raise AssertionError("the Orpheus batched step is not K7's 2 launches "
+                             "a step")
     lens = [len(runner._prompt_ids(p, VOICE)) for p in prompts]
     log(f"  Orpheus prompt tokens {lens}; tokens per request (whole 7-token "
         f"groups, from the audio): {round(stats['audio_s'] / 12 / TOKEN_AUDIO_S)}"
@@ -4538,6 +4666,9 @@ DIA_KERNELS_PER_STEP = 95   # the Dia CLI's device trace may show at most
 DIA_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                     "dia_megastep_batched", "dia_cross_attention_batched")
 DIA_GREEDY_STEPS = 300   # the greedy parity check's generation window
+# Dia serving's generation window, half the GGUF's 1024 steps: a depth cut
+# that keeps the whole script in its time on slower hosts
+DIA_SERVING_STEPS = 512
 DIA_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=1.0,
                   repetition_penalty=1.0)
 
@@ -5539,8 +5670,8 @@ def run_kokoro(tmp) -> None:
 
 TP_SEED = SEED + 16          # the phase's own generators: no earlier draw moves
 TP_MODELS = ("parler", "orpheus", "dia")
-TP_STEPS = 8
-TP_POS = 1000                # the TP steps' positions: 1000-1007
+TP_STEPS = 4
+TP_POS = 1000                # the TP steps' positions: 1000-1003
 TP_CTX = 2048                # the TP steps' cache rows
 # Megatron TP against tp=1: f32 math (K1's f32 mode) in another order of
 # partial sums (another K split per shard, the all-reduce), so each output
@@ -5548,8 +5679,8 @@ TP_CTX = 2048                # the TP steps' cache rows
 TP_REL = 1e-4
 RANK_TIMEOUT = 420           # seconds for the 4 ranks' whole run
 DAC_FRAMES = 256
-DPTP_SLOTS = (200, 250, 253, 255, 256, 300, 505, 700)   # prompt lengths: the 16
-DPTP_STEPS = 16              # steps take slots across rows 256 and 512
+DPTP_SLOTS = (200, 250, 253, 255, 256, 300, 505, 700)   # prompt lengths: the 8
+DPTP_STEPS = 8               # steps take slots across rows 256 and 512
 DPTP_CTX = 1024
 
 
@@ -6083,7 +6214,7 @@ def run_parallel(tmp) -> None:
 def check_k4_shards() -> None:
     """K4 at the dp x tp chunk's shapes (16d) against its plain version:
     one dp rank's 4 slots, one tp rank's 8 of 16 heads of 64, a bf16 cache
-    of DPTP_CTX rows, at every position the 16 steps take in either dp
+    of DPTP_CTX rows, at every position the 8 steps take in either dp
     rank (across rows 256 and 512); from a generator of its own."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(TP_SEED + len(TP_MODELS) + 2)
@@ -6316,6 +6447,8 @@ def main() -> int:
         phase(check_slot_groups, tmp)
         phase(check_head_sizes, tmp)
         dia, dia_path = phase(run_dia_main_path, tmp)
+        set_gguf_u32(dia_path, "dia.decoder.max_generation_size",
+                     DIA_SERVING_STEPS)
         served_dia = phase(run_dia_serving, dia_path)
     torch.cuda.empty_cache()
     k1_errs = [phase(time_k1_census)]

@@ -29,7 +29,11 @@ at 20 slots and K11 at 12 pairs, slots at positions across the pages, each
 slot against its one-sequence kernel bit for bit. K12, the one-launch
 Parler step, against its plain version and K2 bit for bit, at positions
 across the pages, with and without the cross-attention, and one launch
-on its own counter per step. K3 / K4 at heads of 128 with 3 and 4 q heads
+on its own counter per step; on 2 layers it equals K2 at pos 0 / 256 /
+300 and its kernel counts the barriers of its plan. The batched
+persistent llama step (K9 / K7's layer stack, csrc/llama_flat_batched.cu)
+at 3 slots across the pages equals the launch sequence bit for bit, one
+launch a step. K3 / K4 at heads of 128 with 3 and 4 q heads
 a kv head; K3's pages merged by its last block in one launch at 1, 2 and
 16 pages, the arrival counters left at 0; the llama GEMV's rows each equal
 a one-row launch at 1, 8, 9 and 16 rows over K 3072 and 8192, and a row in
@@ -38,7 +42,7 @@ epilogue, quant type and scale type; 100 iterations of dependent GEMV
 launches with K3 between them, enqueued without a sync, each held to the
 plain version (the programmatic dependent launch's wait). The persistent
 llama step (K8 and K6, one cooperative launch of csrc/llama_flat.cu)
-bit for bit against the launch sequence (K9 / K7 at one slot) for every
+bit for bit against the launch sequence (K9's / K7's at one slot) for every
 qtype, both cache dtypes and heads of 64 and 128 at positions across the
 pages, the same bits over 1,000 launches, one launch a step on its own
 counter, and its refusals (heads of 256, two positions, f32 scales past
@@ -569,10 +573,10 @@ def test_llama_launch_counters(dev):
 
 
 def _llama_sequence(w, x, kc, vc, p, kw):
-    """K8's (K6's) function through the launch sequence: K9 (K7) at one
+    """K8's (K6's) function through the launch sequence: K9's (K7's) at one
     slot, on views of the same caches (written in place)."""
-    fn = (lf.llama_flat_megastep_batched_cuda if isinstance(w, lf.LlamaFlat)
-          else lm.llama_megastep_batched_cuda)
+    fn = (lf.llama_flat_megastep_batched_sequence if isinstance(w, lf.LlamaFlat)
+          else lm.llama_megastep_batched_sequence)
     out, kn, vn = fn(w, x, kc[:, None], vc[:, None], p, **kw)
     return out, kn[:, 0], vn[:, 0]
 
@@ -715,8 +719,8 @@ def _llama_batch(dev, b):
 @pytest.mark.parametrize("b", [1, 5, 8, 16])
 @pytest.mark.parametrize("qtype", [quants.GGML_TYPE_Q4_0, quants.GGML_TYPE_Q8_0])
 def test_k9_matches_k8_and_plain(dev, qtype, b):
-    """B slots at mixed positions (B = 5 and 8 take the 8-row GEMV, 16 the
-    16-row one): each slot's x_out, k_new, v_new and cache equal a K8 step
+    """B slots at mixed positions (B up to 8 one batched persistent launch,
+    16 two groups of 8): each slot's x_out, k_new, v_new and cache equal a K8 step
     on that slot's state bit for bit; against the plain version, LLAMA_TOL
     of the largest value."""
     torch.manual_seed(0)
@@ -766,9 +770,9 @@ def test_k7_matches_k6_and_plain(dev, qtype, b):
 
 
 def test_batched_llama_launch_counters(dev):
-    """K9 and K7 count their own launches: per layer 4 GEMVs on K9's or
-    K7's counter and 1 K4, and K7's head GEMV on K7's; K6, K8 and K3 stay
-    where they were."""
+    """K9 and K7 count their own launches: 5 slots of heads of 64 are one
+    batched persistent launch on K9's or K7's counter, and K7's head GEMV
+    one more on K7's; no K4, K6, K8 or K3 launch."""
     torch.manual_seed(0)
     mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
     x, kc, vc, pos = _llama_batch(dev, 5)
@@ -780,7 +784,7 @@ def test_batched_llama_launch_counters(dev):
     lf.llama_flat_megastep_batched(flat, x, kc, vc, pos, scratch=scratch, **kw)
     torch.cuda.synchronize()
     after = [k.launches for k in counters]
-    assert [a - b for a, b in zip(after, before)] == [8, 9, 4, 0, 0, 0]
+    assert [a - b for a, b in zip(after, before)] == [1, 2, 0, 0, 0, 0]
 
 
 # The norm's statistics are summed in another order than the plain
@@ -1436,6 +1440,34 @@ def test_k12_matches_plain_and_k2(dev, qtype, pos, use_cross, cache_dtype):
     assert torch.equal(k12[:, :, pos], got[1].reshape(L, heads, 64).to(cache_dtype))
 
 
+@pytest.mark.parametrize("use_cross", [True, False])
+@pytest.mark.parametrize("pos", [0, 256, 300])
+def test_k12_equals_k2_with_its_barrier_plan(dev, pos, use_cross):
+    """K12 on 2 layers equals K2 bit for bit (x_out, k_new, v_new and both
+    caches) at pos 0 / 256 / 300 with and without the cross block (a
+    300-row cross K/V: two pages merged by arrival), and its block 0 counts
+    the grid barriers of the plan: 6 a layer with the cross block, 4
+    without, none after the last fc2."""
+    torch.manual_seed(0)
+    mega, qt = _tiny_mega(dev, quants.GGML_TYPE_Q4_0, tc=300)
+    L, heads, ctx = 2, 4, 640
+    flat = pf.prep_parler_flat(mega, qt, ctx, use_cross=use_cross)
+    x = torch.randn((1, 256), device=dev)
+    kc = torch.randn((L, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    vc = torch.randn((L, heads, ctx, 64), device=dev).to(torch.bfloat16)
+    p = torch.tensor([pos], dtype=torch.int32, device=dev)
+    k12, v12, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    got = pf.parler_flat_megastep_cuda(flat, x, k12, v12, p, qtype=qt,
+                                       n_heads=heads)
+    assert pf.barriers_passed() == pf.barriers(L, use_cross) == \
+        (11 if use_cross else 7)
+    two = pm.parler_megastep_cuda(mega, x, k2, v2, p, qtype=qt,
+                                  use_cross=use_cross, n_heads=heads)
+    for a, b in zip(got, two):
+        assert torch.equal(a, b)
+    assert torch.equal(k12, k2) and torch.equal(v12, v2)
+
+
 def test_k12_launch_counter(dev):
     """One K12 launch per step on K12's own counter, over a grid of whole
     SMs; K2's GEMV and K3 are not launched."""
@@ -1454,6 +1486,41 @@ def test_k12_launch_counter(dev):
     assert [k.launches - b for k, b in zip(counters, before)] == [3, 0, 0]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     assert pf.launched_blocks % sms == 0 and pf.launched_blocks >= sms
+
+
+# ---------------------------------------------------------------------------
+# K9 / K7's batched persistent step (csrc/llama_flat_batched.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("route", ["k9", "k7"])
+def test_persistent_k9_equals_layers_cuda(dev, route, cache_dtype):
+    """3 slots at positions 255, 256 and 600 (one, two and three pages) in
+    one batched persistent launch equal the launch sequence
+    (`layers_cuda`, and K7's head GEMV after it) bit for bit: x_out (the
+    logits), k_new, v_new and every cache; one launch on K9's counter (K7:
+    the step and its head), no K4."""
+    torch.manual_seed(0)
+    mega, flat, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+    w, step, seq, counter = (
+        (mega, lm.llama_megastep_batched_cuda, lm.llama_megastep_batched_sequence,
+         lm.KERNEL_BATCHED) if route == "k9" else
+        (flat, lf.llama_flat_megastep_batched_cuda,
+         lf.llama_flat_megastep_batched_sequence, lf.KERNEL_BATCHED))
+    kc = torch.randn((2, 3, 2, 640, 64), device=dev).to(cache_dtype)
+    vc = torch.randn((2, 3, 2, 640, 64), device=dev).to(cache_dtype)
+    x = torch.randn((3, 256), device=dev)
+    pos = torch.tensor([255, 256, 600], dtype=torch.int32, device=dev)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = (counter.launches, da.KERNEL_BATCHED.launches)
+    got = step(w, x, k1, v1, pos, **kw)
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0], da.KERNEL_BATCHED.launches - before[1]) \
+        == ((1 if route == "k9" else 2), 0)
+    ref = seq(w, x, k2, v2, pos, **kw)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)
 
 
 # the GGUF quantize kernel (csrc/quantize.cu; no TPU kernel: the JAX

@@ -321,5 +321,38 @@ __device__ __forceinline__ void attn_finish(
   }
 }
 
+// attn_finish for the persistent steps K12 and K9 / K7's layer stack: one
+// add a block, with acquire-release semantics at device scope by thread 0
+// after a block barrier, which orders the block's partials before it (as
+// grid_sync.cuh orders a phase's writes), where attn_finish fences every
+// thread before its add and again after it. The same merge, so the same
+// bits; it ran faster inside K12's launch than attn_finish (an A/B of the
+// two on the H100).
+template <int D, int G>
+__device__ __forceinline__ void attn_finish_acq_rel(
+    const float* part_ml, const float* part_acc, unsigned int* arrivals,
+    int pos, float* out, int bg, int n_pages, int hq, int d = D) {
+  __shared__ bool is_last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned int old;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(old)
+                 : "l"(arrivals + bg)
+                 : "memory");
+    is_last = old + 1u == (unsigned int)(last_page(pos) + 1);
+    if (is_last) arrivals[bg] = 0u;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  const int groups = hq / G;
+  const int s = bg / groups, h0 = (bg % groups) * G;
+  const int dd = D > 0 ? D : d;
+  for (int e = threadIdx.x; e < G * dd; e += blockDim.x) {
+    attn_combine(part_ml, part_acc, last_page(pos), out, s * hq + h0 + e / dd,
+                 n_pages, dd, nullptr, 0.f, e % dd);
+  }
+}
+
 }  // namespace attn
 }  // namespace tts

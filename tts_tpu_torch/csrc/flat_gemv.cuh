@@ -1,6 +1,7 @@
 // The GEMV phases of the persistent decode steps, each one cooperative
 // launch whose phases a grid barrier separates: K10 (dia_flat.cu, the Dia
-// CFG pair's two rows) and K8 / K6 (llama_flat.cu, one Orpheus row). A
+// CFG pair's two rows), K8 / K6 (llama_flat.cu, one Orpheus row) and K9 /
+// K7's layer stack (llama_flat_batched.cu, up to 8 Orpheus slots). A
 // phase runs gemv.cuh's per-item device code (the weight stream, the mma
 // over a stage, the RMS sums, the epilogues), so that each output has the
 // launch sequence's order of sums:
@@ -84,21 +85,73 @@ __device__ __forceinline__ void gemv_begin(WeightStream<PACKED, SBF16>& ws,
   for (int f = 0; f < STAGES; ++f) ws.next(ring + f * S::BYTES, lane);
 }
 
+// The warp's items of a GEMV phase over `rows` staged input rows (the
+// staging done, after a block barrier): each tile's ranges added in order
+// by its first warp (partial sums double-buffered in shared memory, the ks
+// warps of a tile meeting at a named barrier), then the epilogue.
+template <int QT, bool PACKED, bool SBF16, int STAGES>
+__device__ __forceinline__ void gemv_items(WeightStream<PACKED, SBF16>& ws,
+                                           const Gemv& gv, const Smem& sm,
+                                           int rows) {
+  using S = Stage<PACKED, SBF16>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ks = k_split(gv.K), range = warp % ks;
+  const int xstride = xs_stride(gv.K);
+  int u = 0;   // the stage being computed, counted over the items
+#pragma unroll 1
+  for (int item = 0; item < ws.n_items; ++item) {
+    float acc[FLAT_NT][4] = {{0.f, 0.f, 0.f, 0.f}};
+#pragma unroll 1
+    for (int s = 0; s < ws.per_item; ++s, ++u) {
+      cp_async_wait<STAGES - 1>();
+      __syncwarp();
+      uint8_t* st = sm.ring + (u % STAGES) * S::BYTES;
+      stage_mma<QT, PACKED, SBF16, FLAT_NT>(st, sm.xs, xstride, rows,
+                                            (ws.first_stage + s) * UNIT_K, g, t, acc);
+      __syncwarp();   // every lane is done with the stage before it is refilled
+      ws.next(st, lane);
+    }
+    if (ks > 1) {   // the tile's range sums meet in its first warp, in order
+      float4* buf = sm.slots + (item & 1) * WARPS * 32;
+      if (range != 0) {
+        buf[warp * 32 + lane] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
+      }
+      named_sync(1 + warp / ks, 32 * ks);
+      if (range == 0) {
+        for (int q = 1; q < ks; ++q) {
+          const float4 v = buf[(warp + q) * 32 + lane];
+          acc[0][0] += v.x;
+          acc[0][1] += v.y;
+          acc[0][2] += v.z;
+          acc[0][3] += v.w;
+        }
+      }
+    }
+    if (range == 0) {
+      tile_epilogue<FLAT_NT>(acc, (ws.first + ws.stride * item) * TILE_PAIRS + g,
+                             gv.P, t, rows, gv.epi, gv.N, gv.res, gv.out, gv.ra);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Whether this block has a tile in the phase.
+__device__ __forceinline__ bool has_tile(const Gemv& gv) {
+  return (int)blockIdx.x < (gv.P + TILE_PAIRS - 1) / TILE_PAIRS;
+}
+
 // The rest of a GEMV phase over ROWS input rows, after gemv_begin and the
 // barrier: the staging of the rows (every block with a tile), then the
-// warp's items, each tile's ranges added in order by its first warp
-// (partial sums double-buffered in shared memory, the ks warps of a tile
-// meeting at a named barrier), then the epilogue.
+// warp's items (gemv_items).
 template <int QT, bool PACKED, bool SBF16, int ROWS, int STAGES>
 __device__ __forceinline__ void gemv_run(WeightStream<PACKED, SBF16>& ws,
                                          const Gemv& gv, const Smem& sm,
                                          double (*rms_part)[MAX_ROWS],
                                          float* rstd) {
-  using S = Stage<PACKED, SBF16>;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int K = gv.K, ks = k_split(K), kr = K / ks, range = warp % ks;
-  if ((int)blockIdx.x >= (gv.P + TILE_PAIRS - 1) / TILE_PAIRS) {
+  const int K = gv.K, ks = k_split(K), kr = K / ks;
+  if (!has_tile(gv)) {
     cp_async_wait<0>();   // no tile in this block
     return;
   }
@@ -157,43 +210,61 @@ __device__ __forceinline__ void gemv_run(WeightStream<PACKED, SBF16>& ws,
     }
   }
   __syncthreads();
+  gemv_items<QT, PACKED, SBF16, STAGES>(ws, gv, sm, ROWS);
+}
 
-  int u = 0;   // the stage being computed, counted over the items
-#pragma unroll 1
-  for (int item = 0; item < ws.n_items; ++item) {
-    float acc[FLAT_NT][4] = {{0.f, 0.f, 0.f, 0.f}};
-#pragma unroll 1
-    for (int s = 0; s < ws.per_item; ++s, ++u) {
-      cp_async_wait<STAGES - 1>();
-      __syncwarp();
-      uint8_t* st = sm.ring + (u % STAGES) * S::BYTES;
-      stage_mma<QT, PACKED, SBF16, FLAT_NT>(st, xs, xstride, ROWS,
-                                            (ws.first_stage + s) * UNIT_K, g, t, acc);
-      __syncwarp();   // every lane is done with the stage before it is refilled
-      ws.next(st, lane);
+// gemv_run for `rows` input rows without the f32 copy of the rows in shared
+// memory (the batched llama step, whose 8 rows at K 8192 leave it no room):
+// the RMS sums taken from loads of x in device memory, a warp a (row, K
+// range) in rms_sum's lane order, the ranges added in order, then each
+// element loaded again, normalized and staged: the same operations on the
+// same values as gemv_run's, so the same bf16 rows.
+template <int QT, bool PACKED, bool SBF16, int STAGES>
+__device__ __forceinline__ void gemv_run_rows(WeightStream<PACKED, SBF16>& ws,
+                                              const Gemv& gv, const Smem& sm,
+                                              int rows,
+                                              double (*rms_part)[MAX_ROWS],
+                                              float* rstd) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int K = gv.K, ks = k_split(K), kr = K / ks;
+  if (!has_tile(gv)) {
+    cp_async_wait<0>();   // no tile in this block
+    return;
+  }
+  const int xstride = xs_stride(K);
+  const int n4 = rows * K / 4, per_row = K / 4;
+  const float4* x4 = reinterpret_cast<const float4*>(gv.x);
+  const float4* w4 = reinterpret_cast<const float4*>(gv.norm_w);
+  if (gv.norm_w != nullptr) {
+    for (int c = warp; c < rows * ks; c += WARPS) {   // (row, range) a warp
+      const int r = c / ks, q = c % ks;
+      const double s = rms_sum(gv.x + (size_t)r * K + q * kr, kr / 4, lane);
+      if (lane == 0) rms_part[q][r] = s;
     }
-    if (ks > 1) {   // the tile's range sums meet in its first warp, in order
-      float4* buf = sm.slots + (item & 1) * WARPS * 32;
-      if (range != 0) {
-        buf[warp * 32 + lane] = make_float4(acc[0][0], acc[0][1], acc[0][2], acc[0][3]);
-      }
-      named_sync(1 + warp / ks, 32 * ks);
-      if (range == 0) {
-        for (int q = 1; q < ks; ++q) {
-          const float4 v = buf[(warp + q) * 32 + lane];
-          acc[0][0] += v.x;
-          acc[0][1] += v.y;
-          acc[0][2] += v.z;
-          acc[0][3] += v.w;
-        }
-      }
+    __syncthreads();
+    if (threadIdx.x < rows) {
+      rstd[threadIdx.x] = rms_rstd(&rms_part[0][threadIdx.x], MAX_ROWS, ks, K);
     }
-    if (range == 0) {
-      tile_epilogue<FLAT_NT>(acc, (ws.first + ws.stride * item) * TILE_PAIRS + g,
-                             gv.P, t, ROWS, gv.epi, gv.N, gv.res, gv.out, gv.ra);
+    __syncthreads();
+  }
+  for (int base = threadIdx.x; base < n4; base += STAGE_BATCH * THREADS) {
+    float4 v[STAGE_BATCH];
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH; ++j) {
+      if (base + j * THREADS < n4) v[j] = x4[base + j * THREADS];
+    }
+#pragma unroll
+    for (int j = 0; j < STAGE_BATCH; ++j) {
+      const int idx = base + j * THREADS;
+      if (idx < n4) {
+        const int r = idx / per_row, i = idx - r * per_row;
+        const float4 y = w4 != nullptr ? norm4(v[j], w4[i], rstd[r]) : v[j];
+        reinterpret_cast<uint2*>(sm.xs + (size_t)r * xstride)[i] = pack4(y);
+      }
     }
   }
-  cp_async_wait<0>();
+  __syncthreads();
+  gemv_items<QT, PACKED, SBF16, STAGES>(ws, gv, sm, rows);
 }
 
 // An L2 prefetch of n_runs runs of `bytes` each (16-byte multiples, 16-byte

@@ -4,8 +4,8 @@
 // after it (RoPE + KV-row write, SiLU(gate) * up, residual add, store).
 // Each source that launches it (llama_megastep.cu, dia_megastep.cu)
 // instantiates the types and n-tile counts it needs, so the sources build
-// in parallel. Its per-item device code (WeightStream, stage_mma, rms_sum /
-// rms_rstd / norm4 / pack4, tile_epilogue) also runs inside the persistent
+// in parallel. Its per-item device code (gemv_tiles.cuh's WeightStream,
+// stage_mma, rms_sum / rms_rstd / norm4 / pack4, tile_epilogue) also runs inside the persistent
 // Dia step (dia_flat.cu), so that a row's sums have one order on both. The
 // design notes are in llama_megastep.cu's header; the stage layout, its copier and the dequantization into A fragments are
 // gemv_tiles.cuh's, shared with the Parler GEMV (parler_gemv.cuh).
@@ -232,49 +232,6 @@ __device__ __forceinline__ void tile_epilogue(float acc[NT][4], int p,
 // persistent Dia step (dia_flat.cu), so that a row's sums run in one order
 // on both
 // ---------------------------------------------------------------------------
-
-// A warp's weight stream: the K range [first_stage, first_stage +
-// per_item) of tiles first, first + stride, ... (n_items of them), stage
-// after stage, each copied into a ring slot as one commit group.
-template <bool PACKED, bool SBF16>
-struct WeightStream {
-  Copier<PACKED, SBF16> cp;
-  const uint8_t* codes;
-  const void* scales;
-  int first, stride, n_items, per_item, stages, first_stage;
-  int c_item, c_stage;   // the next stage to copy
-
-  __device__ __forceinline__ void init(const uint8_t* codes_t, const void* scales_t,
-                                       int first_tile, int tile_stride, int items,
-                                       int item_stages, int tile_stages,
-                                       int range_stage) {
-    codes = codes_t;
-    scales = scales_t;
-    first = first_tile;
-    stride = tile_stride;
-    n_items = items;
-    per_item = item_stages;
-    stages = tile_stages;
-    first_stage = range_stage;
-    c_item = c_stage = 0;
-    if (n_items > 0) cp.set_tile(first, codes, scales, stages, first_stage);
-  }
-
-  // The copies of the next stage (if any) into st; always one commit group,
-  // so that cp_async_wait counts stages.
-  __device__ __forceinline__ void next(uint8_t* st, int lane) {
-    if (c_item < n_items) {
-      cp.issue(st, c_stage, lane);
-      if (++c_stage == per_item) {
-        c_stage = 0;
-        if (++c_item < n_items) {
-          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
-        }
-      }
-    }
-    cp_async_commit();
-  }
-};
 
 // One ring stage's products into acc: its UNIT_BLOCKS 32-weight blocks in
 // order, each block's two mma products summed apart (d) and then added into

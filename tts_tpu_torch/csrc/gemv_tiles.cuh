@@ -7,7 +7,7 @@
 // out), and read the input rows, staged once per block as bf16, as the B
 // operand. Here: the stage layout and its copier, the dequantization into
 // A fragments with the `_dqdot` rounding, the staged rows' stride, the
-// PTX wrappers and the SM count.
+// PTX wrappers, a warp's weight stream and the SM count.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -199,6 +199,49 @@ struct Copier {
     if (lane < SCALES / 16) {
       cp_async16(st + S::CODES + 16 * lane, scales + (size_t)c * SCALES + 16 * lane);
     }
+  }
+};
+
+// A warp's weight stream: the K range [first_stage, first_stage +
+// per_item) of tiles first, first + stride, ... (n_items of them), stage
+// after stage, each copied into a ring slot as one commit group.
+template <bool PACKED, bool SBF16>
+struct WeightStream {
+  Copier<PACKED, SBF16> cp;
+  const uint8_t* codes;
+  const void* scales;
+  int first, stride, n_items, per_item, stages, first_stage;
+  int c_item, c_stage;   // the next stage to copy
+
+  __device__ __forceinline__ void init(const uint8_t* codes_t, const void* scales_t,
+                                       int first_tile, int tile_stride, int items,
+                                       int item_stages, int tile_stages,
+                                       int range_stage) {
+    codes = codes_t;
+    scales = scales_t;
+    first = first_tile;
+    stride = tile_stride;
+    n_items = items;
+    per_item = item_stages;
+    stages = tile_stages;
+    first_stage = range_stage;
+    c_item = c_stage = 0;
+    if (n_items > 0) cp.set_tile(first, codes, scales, stages, first_stage);
+  }
+
+  // The copies of the next stage (if any) into st; always one commit group,
+  // so that cp_async_wait counts stages.
+  __device__ __forceinline__ void next(uint8_t* st, int lane) {
+    if (c_item < n_items) {
+      cp.issue(st, c_stage, lane);
+      if (++c_stage == per_item) {
+        c_stage = 0;
+        if (++c_item < n_items) {
+          cp.set_tile(first + stride * c_item, codes, scales, stages, first_stage);
+        }
+      }
+    }
+    cp_async_commit();
   }
 };
 

@@ -1,6 +1,7 @@
 // The grid-wide barrier of the persistent decode steps: K12
-// (parler_flat.cu) and K10 (dia_flat.cu), each one cooperative launch
-// whose phases are separated by it. A cooperative launch refuses a grid
+// (parler_flat.cu), K10 (dia_flat.cu) and the llama steps (llama_flat.cu,
+// llama_flat_batched.cu), each one cooperative launch whose phases are
+// separated by it. A cooperative launch refuses a grid
 // that cannot be resident at once, so every block reaches every barrier.
 //
 // bar[0] counts arrivals over the whole launch and must be 0 when the
@@ -41,6 +42,27 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
                    : "=r"(seen)
                    : "l"(bar)
                    : "memory");
+      if (clock64() - t0 > GRID_SPIN_LIMIT) __trap();
+    }
+  }
+  __syncthreads();
+}
+
+// Until *count reaches target (thread 0 polls with acquire loads, giving up
+// with a trap after about ten seconds), then a block barrier: what the
+// writers fenced before they counted is visible to the whole block. K12
+// waits so for the tiles of one head instead of a grid barrier.
+__device__ __forceinline__ void wait_count(const unsigned int* count,
+                                           unsigned int target) {
+  if (threadIdx.x == 0) {
+    unsigned int seen;
+    const long long t0 = clock64();
+    while (true) {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen)
+                   : "l"(count)
+                   : "memory");
+      if (seen >= target) break;
       if (clock64() - t0 > GRID_SPIN_LIMIT) __trap();
     }
   }

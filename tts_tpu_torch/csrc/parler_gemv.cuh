@@ -1,8 +1,10 @@
 // The Parler decode step's GEMV, shared by the launch sequence of K2 / K5
-// (parler_megastep.cu, one launch per projection) and the persistent K12
-// (parler_flat.cu, every projection of the step inside one launch). Both
-// run the same device function, `gemv`, so a feature's sum runs in the same
-// order on either route and K12 equals K2 bit for bit.
+// (parler_megastep.cu, one launch per projection: `gemv`) and the
+// persistent K12 (parler_flat.cu, every projection of the step inside one
+// launch: `gemv_begin` / `gemv_run`, the same work split where K12 issues
+// the next phase's weights early). Both run the same staging, products,
+// range sums and epilogues in the same order, so a feature's sum is the
+// same on either route and K12 equals K2 bit for bit.
 //
 // out (B, N) = epilogue(LN?(x) @ dequant(W)^T) for 1 <= B <= 16 input rows:
 //  * Tensor cores. A warp's tile is 16 weight rows, the M operand of
@@ -22,7 +24,10 @@
 //  * The weight stream. Each warp keeps a ring of RING stages (4 blocks of
 //    K of its 16 rows a stage, 1152 bytes for Q4_0) fed by 16-byte
 //    cp.async copies, stage u + RING copied while stage u is computed,
-//    across the warp's tiles.
+//    across the warp's tiles. The first RING stages are issued by
+//    gemv_begin, before anything the phase reads is ready: K2 / K5 before
+//    griddepcontrol.wait, K12 as soon as a warp is done with the phase
+//    before, ahead of the barrier or the attention between them.
 //  * K split over the warps of one block. ks = k_split(K) warps share a
 //    tile, each summing one contiguous K range of whole stages; the block
 //    takes WARPS / ks tiles at a time, and each tile's ks partial sums
@@ -252,14 +257,191 @@ __device__ __forceinline__ void epilogue(int f, int row, float va, float vb,
   }
 }
 
-// out (B, N) = epilogue(LN?(x) @ dequant(W)^T) over the whole grid, W the
-// layer's tiled codes / bf16 scales (N / 16 tiles of K / 128 stages), B <=
-// NT * 8. Tile group q (the WARPS / ks tiles WARPS / ks * q ...) runs on
-// block q mod gridDim.x, warp w taking range w % ks of tile w / ks of the
-// group; the block's groups follow one another, the ring running ahead
-// across them. With PDL (a launch of its own) a block issues its first
-// weight copies, lets the next launch start and waits for the kernel
-// before it; only then does it read x, res or pos or write. Every thread
+// The tile groups of a GEMV over N features and K that this block takes:
+// tile group q (the WARPS / ks tiles WARPS / ks * q ...) runs on block q mod
+// gridDim.x, the block's groups one after another.
+__device__ __forceinline__ int block_groups(int N, int K) {
+  const int tpb = WARPS / k_split(K);
+  const int groups = (N / TILE + tpb - 1) / tpb;
+  const int blk = blockIdx.x, nblk = gridDim.x;
+  return blk < groups ? (groups - 1 - blk) / nblk + 1 : 0;
+}
+
+// The start of a GEMV over the whole grid (out (B, N) = epilogue(LN?(x) @
+// dequant(W)^T), W the layer's tiled codes / bf16 scales, N / 16 tiles of
+// K / 128 stages): sets up this warp's weight stream, warp w taking range
+// w % ks of tile w / ks of each of its block's tile groups, and issues its
+// first RING stages into `ring`. It reads nothing a kernel writes (weights
+// are never written during a launch), so it may run before the barrier or
+// the wait that ends the phase before: K12 issues a phase's first weights
+// as soon as a warp is done with the phase before.
+template <bool PACKED>
+__device__ __forceinline__ void gemv_begin(WeightStream<PACKED, true>& ws,
+                                           const uint8_t* __restrict__ codes,
+                                           const __nv_bfloat16* __restrict__ scales,
+                                           int N, int K, uint8_t* ring) {
+  using S = Stage<PACKED, true>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int ks = k_split(K), tpb = WARPS / ks;
+  const int j = warp / ks, range = warp % ks;
+  const int stages = K / UNIT_K, per_item = stages / ks;
+  const int tiles = N / TILE, n_groups = block_groups(N, K);
+  const int blk = blockIdx.x, nblk = gridDim.x;
+  // only the last group can fall short of tiles
+  const int n_items =
+      n_groups > 0 && (blk + nblk * (n_groups - 1)) * tpb + j >= tiles
+          ? n_groups - 1 : n_groups;
+  ws.init(codes, scales, blk * tpb + j, nblk * tpb, n_items, per_item, stages,
+          range * per_item);
+#pragma unroll
+  for (int f = 0; f < RING; ++f) ws.next(ring + f * S::BYTES, lane);
+}
+
+// The rest of the GEMV after gemv_begin, for B <= NT * 8 rows: the rows
+// staged (stage_rows), then the warp's items, each stage's mma products in
+// K order, each tile's ks range sums added in range order by its first
+// warp, then the epilogue. With `ready` (K12), each
+// tile's first warp then counts its tiles on ready[head], the head of the 64
+// features a tile wrote (the q, k or v of head (16 T mod hidden) / d for
+// tile T), after its last tile of the phase: lane 0 fences at device scope
+// after a warp barrier, then adds, so a block that sees the count with an
+// acquire (grid_sync.cuh wait_count) reads the lanes' stores.
+// Every thread of the block calls it; smem is the block's dynamic shared
+// memory (smem_bytes). Returns with no copy in flight; a caller that runs
+// it again on the same shared memory separates the two by a block barrier.
+template <int QT, bool PACKED, int NT, bool LN, int EPI>
+__device__ __forceinline__ void gemv_run(WeightStream<PACKED, true>& ws,
+                                         const float* x, const float* ln_w,
+                                         const float* ln_b, int B, int N, int K,
+                                         const float* res, float* out,
+                                         const CacheArgs& c, uint8_t* smem,
+                                         unsigned int* ready = nullptr) {
+  using S = Stage<PACKED, true>;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int ks = k_split(K), range = warp % ks;
+  const int n_groups = block_groups(N, K);
+  if (n_groups == 0) return;   // the whole block: no tile (a K12 grid past them)
+  uint8_t* ring = smem + warp * RING * S::BYTES;
+  float4* part = reinterpret_cast<float4*>(smem + WARPS * RING * S::BYTES);
+  uint8_t* xs = smem + WARPS * RING * S::BYTES + WARPS * NT * 32 * 16;
+  const int xstride = xs_stride(K);
+  stage_rows<LN, NT * 8>(x, ln_w, ln_b, B, K, xs, xstride);
+
+  int u = 0;   // the stage being computed, counted over the items
+#pragma unroll 1
+  for (int i = 0; i < n_groups; ++i) {
+    float acc[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    if (i < ws.n_items) {
+#pragma unroll 1
+      for (int st = 0; st < ws.per_item; ++st, ++u) {
+        cp_async_wait<RING - 1>();
+        __syncwarp();
+        uint8_t* sp = ring + (u % RING) * S::BYTES;
+        const int kl = (ws.first_stage + st) * UNIT_K;
+#pragma unroll
+        for (int jb = 0; jb < UNIT_BLOCKS; ++jb) {
+          uint32_t a[2][4];
+          a_frags<QT, PACKED, true>(sp, jb, g, t, a);
+          float d[NT][4];
+#pragma unroll
+          for (int n = 0; n < NT; ++n) d[n][0] = d[n][1] = d[n][2] = d[n][3] = 0.f;
+#pragma unroll
+          for (int s = 0; s < 2; ++s) {
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const int col = n * 8 + g;
+              uint2 b = make_uint2(0u, 0u);
+              if (col < B) {
+                b = *reinterpret_cast<const uint2*>(
+                    xs + (size_t)col * xstride + (kl + jb * QK + 16 * s + 4 * t) * 2);
+              }
+              mma_bf16(d[n], a[s], b.x, b.y);
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) acc[n][q] += d[n][q];
+          }
+        }
+        __syncwarp();   // every lane is done with the stage before it is refilled
+        ws.next(sp, lane);
+      }
+    }
+    // the tile's ks range sums meet in its first warp, added in range order
+    if (ks > 1) {
+      if (i < ws.n_items && range != 0) {
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          part[(warp * NT + n) * 32 + lane] =
+              make_float4(acc[n][0], acc[n][1], acc[n][2], acc[n][3]);
+        }
+      }
+      __syncthreads();
+      if (i < ws.n_items && range == 0) {
+        for (int q = 1; q < ks; ++q) {
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            const float4 v = part[((warp + q) * NT + n) * 32 + lane];
+            acc[n][0] += v.x;
+            acc[n][1] += v.y;
+            acc[n][2] += v.z;
+            acc[n][3] += v.w;
+          }
+        }
+      }
+    }
+    if (i < ws.n_items && range == 0) {
+      const int tile = ws.first + ws.stride * i;
+      const int p = tile * 8 + g;   // features 2p, 2p + 1
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = n * 8 + 2 * t + h;
+          if (row < B) {
+            epilogue<EPI>(2 * p, row, acc[n][h], acc[n][2 + h], N, res, out, c);
+          }
+        }
+      }
+
+    }
+    if (ks > 1) __syncthreads();   // the partial slots are free again
+  }
+  if (ready != nullptr && range == 0 && ws.n_items > 0) {
+    // the lanes' outputs (and cache rows) ordered before lane 0's fence at
+    // device scope by the warp barrier; then a count for each tile, on its
+    // head. Once a phase, not a tile: a fence waits for the warp's stores,
+    // and a warp's second tile ran later behind it (K12 ran slower with a
+    // fence a tile, in an A/B of the two on the H100).
+    __syncwarp();
+    if (lane == 0) {
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+      for (int i = 0; i < ws.n_items; ++i) {
+        asm volatile("red.relaxed.gpu.global.add.u32 [%0], 1;\n" ::"l"(
+                         ready + ((ws.first + ws.stride * i) * TILE) % c.hidden / c.d)
+                     : "memory");
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// One GEMV launch of its own (K2, K5): out (B, N) = epilogue(LN?(x) @
+// dequant(W)^T) over the whole grid, W the layer's tiled codes / bf16 scales
+// (N / 16 tiles of K / 128 stages), B <= NT * 8: gemv_begin and gemv_run's
+// work in one function, the same sums in the same order. Kept whole: with
+// its stream state split across gemv_begin / gemv_run, K2 and K5 ran 4-6%
+// slower (gemv_ab.py against this whole version on the H100). Tile group
+// q (the WARPS / ks tiles WARPS / ks * q ...) runs on block q mod
+// gridDim.x, warp w taking range w % ks of tile w / ks of the group; the
+// block's groups follow one another, the ring running ahead across them.
+// With PDL (a launch of its own) a block issues its first weight copies,
+// lets the next launch start and waits for the kernel before it; only
+// then does it read x, res or pos or write. Every thread
 // of the block calls it; smem is the block's dynamic shared memory
 // (smem_bytes). Returns with no copy in flight; a caller that runs it again
 // on the same shared memory separates the two by a block barrier.

@@ -30,7 +30,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("quant_matmul", "decode_attention", "parler_megastep",
            "llama_megastep", "dia_megastep", "parler_flat",
-           "dia_flat", "llama_flat",  # K1; K3/K4; K2/K5; K7/K9; K11; K12; K10; K6/K8
+           "dia_flat", "llama_flat",  # K1; K3/K4; K2/K5; K7/K9's GEMV; K11; K12; K10; K6/K8
+           "llama_flat_batched",      # K9 and K7's layer stack
            "quantize")                # GGUF block quantization (no TPU kernel)
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
@@ -144,7 +145,13 @@ class Kernel:
 
     def __call__(self, *args) -> None:
         """Launch through the C entry; raise on a CUDA error."""
-        check(self.entry()(*args), self.symbol)
+        self.through(self, *args)
+
+    def through(self, entry: "Kernel", *args) -> None:
+        """Launch through `entry`'s C entry and count the launch here: K9
+        and K7 run their layer stack through one entry
+        (llama_flat_batched.cu), each on its own counter."""
+        check(entry.entry()(*args), entry.symbol)
         with self._count_lock:
             self.launches += 1
 

@@ -18,10 +18,13 @@ the same in plain PyTorch.
 As K8, the step writes the current token's k/v into cache row `pos` in
 place before it attends rows [0, pos].
 
-K7 computes `llama_flat_megastep_batched`: K9's batched layer sequence
-(one row per slot, K4 for attention) on the bf16-scale layers, then one
+K7 computes `llama_flat_megastep_batched`: K9's layer stack on the
+bf16-scale layers (one row per slot: for heads of 64 / 128 one launch of
+the batched persistent step, csrc/llama_flat_batched.cu, for each group of
+at most R slots, else the launch sequence with K4 for attention), then one
 B-row head GEMV launch (csrc/llama_megastep.cu), logits (B, vocab_pad)
-with the padded rows exactly 0.
+with the padded rows exactly 0: 2 launches a step of up to R slots, both on
+K7's counter.
 Each slot equals K6 on that slot's state bit for bit; like K9 it keeps
 K3's f32 softmax where the TPU batched kernel rounds its page dots to bf16
 (ops/llama_megastep.py). Plain version: `llama_flat_megastep_batched_plain`.
@@ -40,13 +43,15 @@ from .llama_megastep import (ARGS, EPI_STORE, GEMV_TILE_PAIRS, GEMV_UNIT_K,
                              StepScratch, dqdot, gemv_pair_rows, gemv_tile,
                              group_scratch, layers_cuda,
                              llama_megastep_batched_plain,
-                             llama_megastep_plain, persistent_step,
+                             llama_megastep_plain, persistent_batched,
+                             persistent_step, takes_persistent_batched,
                              require_tiles, rms_norm, tiles_packed,
                              weight_rows)
 from .quant_matmul import QuantTensor
 
-# K6 is one persistent launch a step (the head its last phase); K7's launch
-# sequence counts its GEMV launches, the head's among them.
+# K6 is one persistent launch a step (the head its last phase); K7 counts its
+# layer stack's launches (the batched persistent step's, or the launch
+# sequence's GEMVs) and its head GEMV's.
 KERNEL = _build.Kernel("llama_flat", "tts_llama_flat", STEP_ARGS)          # K6
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K7
 
@@ -178,16 +183,16 @@ def llama_flat_megastep_batched_plain(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
     return head_logits(flat, xo, qtype), kn, vn
 
 
-def llama_flat_megastep_batched_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
-                                     qtype: int, n_heads: int, n_kv: int,
-                                     inv_freq, scratch: StepScratch | None = None):
-    """K7 on the card: 4 batched GEMV launches and 1 K4 launch per layer,
-    then one head GEMV, for each group of at most 16 slots
-    (`_build.slot_groups`), one group after another, on the current stream;
-    every slot still equals K6 on its state bit for bit. Same contract as
-    `llama_flat_megastep_batched_plain`, with pos a (B,) int32 CUDA tensor;
-    `scratch` (llama_megastep.step_scratch for B slots) is allocated when
-    not given."""
+def llama_flat_megastep_batched_sequence(flat: LlamaFlat, x, kv_k, kv_v, pos,
+                                         *, qtype: int, n_heads: int, n_kv: int,
+                                         inv_freq,
+                                         scratch: StepScratch | None = None):
+    """K7's launch sequence: 4 batched GEMV launches and 1 K4 launch per
+    layer, then one head GEMV, for each group of at most 16 slots
+    (`_build.slot_groups`), one group after another, on the current stream
+    and K7's counter: the route for heads of other sizes than 64 / 128, and
+    the yardstick the persistent steps equal bit for bit. Same contract as
+    `llama_flat_megastep_batched_cuda`."""
     if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
         raise ValueError(f"llama_flat_megastep_batched: kv "
                          f"{tuple(kv_k.shape)}, n_kv {n_kv}")
@@ -202,6 +207,34 @@ def llama_flat_megastep_batched_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
                                  scratch=group_scratch(scratch, g))
         outs.append((_head_cuda(KERNEL_BATCHED, flat, xo, qtype), kn, vn))
     return _build.cat_groups(outs)
+
+
+def llama_flat_megastep_batched_cuda(flat: LlamaFlat, x, kv_k, kv_v, pos, *,
+                                     qtype: int, n_heads: int, n_kv: int,
+                                     inv_freq, scratch: StepScratch | None = None):
+    """K7 on the card, on the current stream: for heads of 64 / 128 the
+    batched persistent step (one launch for each group of at most R slots,
+    `llama_megastep.persistent_batched`) and then the head GEMV (one
+    launch for each group of at most 16 slots), all on K7's counter; for
+    other head sizes the launch sequence
+    (`llama_flat_megastep_batched_sequence`, which alone uses `scratch`). The gate is applied before any launch, and a launch the
+    card refuses raises. Every slot equals K6 on its state bit for bit.
+    Same contract as `llama_flat_megastep_batched_plain`, with pos a (B,)
+    int32 CUDA tensor."""
+    if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
+        raise ValueError(f"llama_flat_megastep_batched: kv "
+                         f"{tuple(kv_k.shape)}, n_kv {n_kv}")
+    kw = dict(qtype=qtype, n_heads=n_heads, n_kv=n_kv, inv_freq=inv_freq)
+    if not takes_persistent_batched(flat.layers, kv_k.shape[4]):
+        return llama_flat_megastep_batched_sequence(flat, x, kv_k, kv_v, pos,
+                                                    scratch=scratch, **kw)
+    _require_head(flat, x.device)
+    xo, kn, vn = persistent_batched(KERNEL_BATCHED, flat.layers,
+                                    x.float().contiguous(), kv_k, kv_v, pos,
+                                    **kw)
+    logits = [_head_cuda(KERNEL_BATCHED, flat, xo[g], qtype)
+              for g in _build.slot_groups(xo.shape[0], MAX_BATCH)]
+    return (logits[0] if len(logits) == 1 else torch.cat(logits)), kn, vn
 
 
 def llama_flat_megastep_batched(flat: LlamaFlat, x, kv_k, kv_v, pos, *,

@@ -14,15 +14,18 @@ position with its own cache.
 
 On the card K8 is one cooperative launch of a persistent kernel a step
 (csrc/llama_flat.cu, its header says why; ops/llama_persistent.py reckons
-its plan): per layer five phases with a grid barrier after each. K9 is a
-sequence of hand-written kernels on one stream (`layers_cuda`,
-csrc/llama_megastep.cu): per layer 4 launches of the dequant GEMV, which
-fuses the RMS norm before it and the RoPE + KV-row write, SiLU(gate) * up
-or residual add after it, and 1 launch of the decode attention (K4,
-ops/decode_attention.py), one weight read for every slot. The persistent
-step's phases run the same per-item device code, so each K9 slot equals
-K8 on that slot's state bit for bit. K6 and K7 (ops/llama_flat.py) run the
-same layers and add the LM head. On CPU tensors `llama_megastep_plain` and
+its plan): per layer five phases with a grid barrier after each. K9 is the
+same step over a group of at most R slot rows (csrc/llama_flat_batched.cu,
+`persistent_batched`): one cooperative launch a group, one weight read
+for every slot of it. For heads of other sizes than 64 / 128 K9 runs the
+launch sequence (`layers_cuda`, csrc/llama_megastep.cu): per layer 4
+launches of the dequant GEMV, which fuses the RMS norm before it and the
+RoPE + KV-row write, SiLU(gate) * up or residual add after it, and 1
+launch of the decode attention (K4, ops/decode_attention.py); it stays the
+yardstick the persistent steps equal bit for bit
+(`llama_megastep_batched_sequence`). Every route runs the same per-item
+device code, so each K9 slot equals K8 on that slot's state bit for bit.
+K6 and K7 (ops/llama_flat.py) run the same layers and add the LM head. On CPU tensors `llama_megastep_plain` and
 `llama_megastep_batched_plain` compute the same in plain PyTorch.
 
 The prep (`prep_llama_mega`) lays each projection out in the order the
@@ -66,8 +69,10 @@ ARGS = [_vp, _vp, _i32, _vp, _vp, _vp, _vp, _i32, _i32, _i32, _i32, _i32, _i32,
 STEP_ARGS = ([_vp, _vp, _vp, _vp, _i32] + [_vp] * 6 + [_vp, _vp, _vp, _vp, _i32]
              + [_vp, _vp, _i64, _vp, _vp, ctypes.c_float, _vp, _vp, _i64, _vp,
                 _i32] + [_i32] * 11 + [_vp, _vp, _vp])
-# K8 is one persistent launch a step; K9's launch sequence counts its GEMV
-# launches (its attention launches count on K4's).
+# K8 is one persistent launch a step. K9's counter counts its batched
+# persistent launches (ops/llama_persistent.py STEP_BATCHED's entry) and, on
+# the launch sequence, its GEMV launches (whose attention launches count on
+# K4's); KERNEL_BATCHED's own entry is the launch sequence's GEMV.
 KERNEL = _build.Kernel("llama_flat", "tts_llama_flat", STEP_ARGS)          # K8
 KERNEL_BATCHED = _build.Kernel("llama_megastep", "tts_llama_gemv", ARGS)   # K9
 EPI_STORE, EPI_RESIDUAL, EPI_SILU_MUL, EPI_ROPE_QKV = 0, 1, 2, 3
@@ -608,14 +613,51 @@ def llama_megastep(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *, qtype: int,
               n_kv=n_kv, inv_freq=inv_freq)
 
 
-def llama_megastep_batched_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
-                                qtype: int, n_heads: int, n_kv: int, inv_freq,
-                                scratch: StepScratch | None = None):
-    """K9 on the card: 4 batched GEMV launches and 1 K4 launch per layer for
-    each group of at most 16 slots (`_build.slot_groups`), one group after
-    another, on the current stream; every slot still equals K8 on its state
-    bit for bit. Same contract as `llama_megastep_batched_plain`, with pos
-    a (B,) int32 CUDA tensor."""
+def persistent_batched(counter, layers: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                       qtype: int, n_heads: int, n_kv: int, inv_freq):
+    """The L layers for B slots through the batched persistent step
+    (csrc/llama_flat_batched.cu), one launch on `counter` (K9's or K7's) for
+    each group of at most `llama_persistent.max_rows` slots
+    (`_build.slot_groups`), validated as `layers_cuda` validates a group.
+    x (B, H); kv_k / kv_v (L, B, n_kv, CTX, D), each slot's row pos[s]
+    written in place; pos (B,) int32. Returns (x_out (B, H), k_new (L, B,
+    KV), v_new (L, B, KV)). Raises where the card refuses a launch."""
+    from . import llama_persistent as lp
+    hidden, kvh = layers.norms.shape[2], n_kv * kv_k.shape[4]
+    ffn = layers.gate_up_codes.shape[1] * GEMV_TILE_PAIRS
+    cap = lp.max_rows(hidden, ffn, tiles_packed(layers.qkv_codes),
+                      layers.qkv_scales.dtype == torch.bfloat16)
+    outs = []
+    for g in _build.slot_groups(x.shape[0], cap):
+        xg = x[g].clone()
+        require_step(layers, xg, kv_k[:, g], kv_v[:, g], pos[g], inv_freq,
+                     n_heads=n_heads)
+        qkv = lp.launch_batched(counter, layers, xg, kv_k[:, g], kv_v[:, g],
+                                pos[g], inv_freq, qtype=qtype, n_heads=n_heads)
+        outs.append((xg, qkv[:, :, hidden:hidden + kvh], qkv[:, :, hidden + kvh:]))
+    return _build.cat_groups(outs)
+
+
+def takes_persistent_batched(layers: LlamaMegaLayers, d: int) -> bool:
+    """The route gate of K9 and K7's layer stack, before any launch: the
+    batched persistent step for heads of 64 / 128 (at widths where a row
+    fits its shared memory), else the launch sequence."""
+    from . import llama_persistent as lp
+    return d in da.STEP_HEAD_SIZES and lp.max_rows(
+        layers.norms.shape[2], layers.gate_up_codes.shape[1] * GEMV_TILE_PAIRS,
+        tiles_packed(layers.qkv_codes),
+        layers.qkv_scales.dtype == torch.bfloat16) > 0
+
+
+def llama_megastep_batched_sequence(mega: LlamaMegaLayers, x, kv_k, kv_v, pos,
+                                    *, qtype: int, n_heads: int, n_kv: int,
+                                    inv_freq, scratch: StepScratch | None = None):
+    """K9's launch sequence: 4 batched GEMV launches and 1 K4 launch per
+    layer for each group of at most 16 slots (`_build.slot_groups`), one
+    group after another, on the current stream and K9's counter: the route
+    for heads of other sizes than 64 / 128, and the yardstick the
+    persistent steps equal bit for bit. Same contract as
+    `llama_megastep_batched_cuda`."""
     if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
         raise ValueError(f"llama_megastep_batched: kv {tuple(kv_k.shape)}, "
                          f"n_kv {n_kv}")
@@ -625,6 +667,28 @@ def llama_megastep_batched_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
                     kv_v[:, g], pos[g], qtype=qtype, n_heads=n_heads,
                     inv_freq=inv_freq, scratch=group_scratch(scratch, g))
         for g in _build.slot_groups(x.shape[0], MAX_BATCH)])
+
+
+def llama_megastep_batched_cuda(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,
+                                qtype: int, n_heads: int, n_kv: int, inv_freq,
+                                scratch: StepScratch | None = None):
+    """K9 on the card, on the current stream: for heads of 64 / 128 one
+    cooperative launch of the batched persistent step for each group of at
+    most R slots (`persistent_batched`); for other head sizes the launch
+    sequence (`llama_megastep_batched_sequence`, which alone uses
+    `scratch`). The gate is applied before any launch, and a launch the
+    card refuses raises. Every slot equals K8 on its state bit for bit.
+    Same contract as `llama_megastep_batched_plain`, with pos a (B,) int32
+    CUDA tensor."""
+    if kv_k.dim() != 5 or kv_k.shape[2] != n_kv:
+        raise ValueError(f"llama_megastep_batched: kv {tuple(kv_k.shape)}, "
+                         f"n_kv {n_kv}")
+    kw = dict(qtype=qtype, n_heads=n_heads, n_kv=n_kv, inv_freq=inv_freq)
+    if takes_persistent_batched(mega, kv_k.shape[4]):
+        return persistent_batched(KERNEL_BATCHED, mega, x.float().contiguous(),
+                                  kv_k, kv_v, pos, **kw)
+    return llama_megastep_batched_sequence(mega, x, kv_k, kv_v, pos,
+                                           scratch=scratch, **kw)
 
 
 def llama_megastep_batched(mega: LlamaMegaLayers, x, kv_k, kv_v, pos, *,

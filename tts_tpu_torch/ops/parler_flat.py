@@ -11,9 +11,16 @@ pre-final-norm x and each layer's k_new / v_new; the LM heads stay outside.
 
 On the card it is one cooperative launch of a persistent kernel
 (csrc/parler_flat.cu, its header says why) that runs K2's eight phases per
-layer with grid-wide barriers between them, through the same device code
-as K2 and K3 (the tensor-core GEMV of csrc/parler_gemv.cuh, the page
-attention), so K12 equals K2 bit for bit. The JAX kernel's flat tile
+layer through the same device code as K2 and K3 (the tensor-core GEMV of
+csrc/parler_gemv.cuh, the page attention), so K12 equals K2 bit for bit.
+A grid barrier stays only where a layer norm or a GEMV reads a whole
+vector (`barriers`: 6 a layer with the cross block, 4 without); an
+attention head starts once the GEMV tiles that write its q, k and v (or
+its cross query) have arrived (`head_tiles`), a head's pages are merged by
+the last page block to finish, and a warp issues the next GEMV phase's
+first weights before it waits. This module reckons that plan, which the
+CPU tests check and chip_smoke holds against the barriers the kernel
+counts (`barriers_passed`). The JAX kernel's flat tile
 stream, half-split nibble packing and schedule fed the TPU's VMEM pipeline
 and have no counterpart: K12 reads K2's tiled `MegaLayers` as they are. Its
 contract is the port's K2 contract, not the TPU kernel's: the step writes
@@ -47,7 +54,10 @@ _ARGS = [_vp] * 16 + [ctypes.c_longlong] + [_i32] * 10 + [ctypes.c_float,
 KERNEL = _build.Kernel("parler_flat", "tts_parler_flat", _ARGS)   # K12
 HEAD_D = 64   # the head size the kernel is built for (Parler's)
 PAGE = 256    # the attention's page, as in ops/decode_attention.py
+TILE = 16     # output features of a GEMV tile (csrc/parler_gemv.cuh)
+BAR_WORDS = 4   # the grid barrier's 2 words, the barriers passed, a pad
 launched_blocks = 0   # the grid of the last launch (SMs x blocks per SM)
+_last_words = None    # the last launch's scratch words (barriers_passed)
 
 
 class ParlerFlat(NamedTuple):
@@ -95,15 +105,51 @@ def parler_flat_megastep_plain(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
                                  use_cross=flat.use_cross, n_heads=n_heads)
 
 
+def barriers(n_layers: int, use_cross: bool) -> int:
+    """Grid barriers a K12 step passes: per layer one after the
+    self-attention, the o projection, the cross-attention and co (with the
+    cross block), fc1 and fc2, none after the last layer's fc2 (6 L - 1 or
+    4 L - 1), whatever pos is: the qkv -> self-attention and cross-q ->
+    cross-attention hand-offs wait per head (`head_tiles`) and the pages
+    merge by arrival."""
+    return (6 if use_cross else 4) * n_layers - 1
+
+
+def head_tiles(cross: bool = False) -> int:
+    """GEMV tiles of 16 features a head's attention waits for: q, k and v
+    (3 D / 16, 12 at D 64), or the cross query (D / 16)."""
+    return (1 if cross else 3) * HEAD_D // TILE
+
+
+def scratch_words(heads: int) -> int:
+    """uint32 words a step zeroes before its launch: the grid barrier's 2,
+    the barriers passed, a pad word, then per head the qkv and cross-q
+    readiness counters and the pages' arrival counter."""
+    return BAR_WORDS + 3 * heads
+
+
 def scratch_floats(n_layers: int, hidden: int, ffn: int, heads: int,
                    ctx: int, tc: int) -> int:
     """Floats of scratch one step needs, laid out as
     csrc/parler_flat.cu:tts_parler_flat_scratch says: qkv (L, 3H) first,
     then the attention output, cross q, GELU output, page partials and the
-    barrier words."""
+    words (`scratch_words`)."""
+    return words_at(n_layers, hidden, ffn, heads, ctx, tc) + scratch_words(heads)
+
+
+def words_at(n_layers: int, hidden: int, ffn: int, heads: int, ctx: int,
+             tc: int) -> int:
+    """The offset of the scratch words, in floats."""
     pages = -(-max(ctx, tc) // PAGE)
-    return n_layers * 3 * hidden + 2 * hidden + ffn + \
-        heads * pages * (2 + HEAD_D) + 4
+    return n_layers * 3 * hidden + 2 * hidden + ffn + heads * pages * (2 + HEAD_D)
+
+
+def barriers_passed() -> int:
+    """The grid barriers the last K12 launch passed, as its block 0
+    counted them (synchronizes with the card)."""
+    if _last_words is None:
+        raise RuntimeError("no K12 launch yet")
+    return int(_last_words[2])
 
 
 def parler_flat_megastep_cuda(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
@@ -111,7 +157,7 @@ def parler_flat_megastep_cuda(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
     """K12 on the card: one cooperative launch on the current stream. Same
     contract as `parler_flat_megastep_plain`, with pos a one-element int32
     CUDA tensor."""
-    global launched_blocks
+    global launched_blocks, _last_words
     m = flat.layers
     dev = x.device
     n_layers, hidden, ffn = mega_dims(m)
@@ -148,6 +194,8 @@ def parler_flat_megastep_cuda(flat: ParlerFlat, x, kv_k, kv_v, pos, *,
            int(flat.use_cross), float(HEAD_D ** -0.5), ctypes.byref(grid),
            _build.stream_ptr(dev))
     launched_blocks = grid.value
+    at = words_at(n_layers, hidden, ffn, n_heads, ctx, tc)
+    _last_words = scratch[at:].view(torch.int32)
     qkv = scratch[:n_layers * 3 * hidden].view(n_layers, 3 * hidden)
     return xw, qkv[:, hidden:2 * hidden], qkv[:, 2 * hidden:]
 

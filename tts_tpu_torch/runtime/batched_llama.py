@@ -179,7 +179,8 @@ class BatchedLlamaEngine:
 
     The state is sized to exactly `n_slots` (the JAX engine pads it to a
     multiple of 8 for its TPU kernels' sublanes; K7 and K9 take any count,
-    running it in groups of at most 16 slots). The caches have
+    running it in groups of at most R = 8 slots on the batched
+    persistent step, 16 on the launch sequence). The caches have
     `cache_ctx(cfg)` rows, the runner's, and the kernels read that count
     from the cache tensor. The route's weights are prepared once, here.
 
