@@ -18,8 +18,10 @@ Phases, in order; any failure exits non-zero without the final line:
    heads a kv head (one launch a K3 call); K4 and K5 at 8 slots at mixed
    positions across page boundaries, and each of their slots against K3 /
    K2 on that slot's state, bit for bit; K3 / K4 and the cross-attention
-   entry at heads of 80, 192 and 256 (the generic path), bf16 and f32
-   caches, timed beside SDPA. K7's check prints the L2 bytes its launch
+   entry at heads of 1, 36, 80, 100, 192, 200, 256, 320 and 512 (the
+   generic path, which takes 1-1024), bf16 and f32 caches, timed at 80,
+   100, 192, 256 and 320 beside their plain versions and SDPA. K7's check
+   prints the L2 bytes its launch
    sequence's GEMVs read to stage their input rows beside its weight bytes
    (and fails unless they are fewer). K12 (one cooperative launch) against
    K2 bit for bit, with the grid barriers its kernel counted equal to its
@@ -29,7 +31,15 @@ Phases, in order; any failure exits non-zero without the final line:
    launch a group on the counters, timed beside the sequence.
 3. Reference: a small Q4_0 Parler on the card (kernels) and on the CPU
    (plain versions), float32 caches on both; the card follows the CPU's
-   greedy token history and its logits must match at every step.
+   greedy token history and its logits must match at every step. Then the
+   JAX package's runtime switches on it (phases 6 and 9 do the same for
+   Orpheus and Dia), counters zeroed before and read after each run:
+   TTS_TPU_KV_DTYPE=float32 (the runner's caches float32 on its default
+   and persistent routes, the engine's state float32, greedy codes equal
+   across them) and TTS_TPU_MEGAKERNEL=0 (the per-matmul route: the
+   runner teacher-forced against the CPU, K1 and K3 / K4 risen and no step
+   kernel, the engine's codes equal to the runner's; Dia's engine, which
+   reads the bucketed bf16 cross K/V, held to the CPU engine's).
 4. Main path: a Parler-Mini-shaped Q4_0 GGUF (24 layers, H 1024, 16 heads,
    F 4096, 9 heads x vocab 1088, DAC-44k vocoder; random weights from a
    seed) written with the port's GGUF writer, turned into a WAV by the
@@ -42,7 +52,11 @@ Phases, in order; any failure exits non-zero without the final line:
    kernel), and their greedy codes over the 256 steps (equal). Then the
    runner's greedy stream (generate_stream) on each route: its codes equal
    those, its waveform the DAC's of them (95% of samples within 1e-4, all
-   within 0.2); time to the first chunk and the chunk count logged.
+   within 0.2); time to the first chunk and the chunk count logged. Then
+   TTS_TPU_DAC_DTYPE=bfloat16 on the DAC-44k decoder: bf16 convolution
+   weights, the card's bf16 decode against the CPU's (no farther from it
+   than bf16 is from f32 on the CPU), and the bf16 vocode timed beside the
+   f32 one.
 4b. Quantize tool (run after phase 4): a Parler-TTS Mini f32 GGUF (full
    width and depth, DAC-44k; random from its own seed) written by the
    port's convert.write_parler_gguf, quantized by the port's
@@ -81,7 +95,8 @@ Phases, in order; any failure exits non-zero without the final line:
 7. Orpheus main path: an Orpheus-3B-shaped Q4_0 GGUF (28 layers, H 3072,
    24/8 heads of 128, F 8192, vocab 156,940, Q4_0 head, F16 embeddings,
    SNAC-24k; random weights from a seed) turned into a WAV by the port's
-   CLI with a voice (sampled, fixed seed, up to 2100 tokens); counters set
+   CLI with a voice (sampled, fixed seed, up to ORPHEUS_CLI_TOKENS = 1024
+   tokens); counters set
    to 0 just before, read just after; K1 and K6 must have risen, K3 and
    the launch sequences' GEMV not (K6 is one launch a step). Then the path
    timed stage by stage and a device trace of 32 decode steps: one K6
@@ -105,7 +120,7 @@ Phases, in order; any failure exits non-zero without the final line:
 10. Dia main path: a Dia-1.6B-shaped Q4_0 GGUF (encoder 12 layers of H
    1024, decoder 18 layers of H 2048, 16 q / 4 kv heads of 128, F 8192, 9
    codebooks of vocab 1028, DAC-44k; random weights from a seed; the
-   generation window cut to 1024 steps) turned into a WAV by the port's
+   generation window cut to 512 steps) turned into a WAV by the port's
    CLI; counters set to 0 just before, read just after; K1 and K10 must
    have risen, K4 and the cross-attention entry not (K10 runs both inside
    its one launch). Then the path timed stage by stage and a device trace
@@ -124,12 +139,14 @@ Phases, in order; any failure exits non-zero without the final line:
    request: each request's codes equal the single-stream runner's. Then
    the server with batch_slots 12 on the small Dia GGUF reaches READY and
    answers a request.
-13. Head sizes past 64 / 128, on small models (run before phases 10-11):
-   Parler, Orpheus and Dia GGUFs with heads of 256 and 192, each runner on
-   the card teacher-forced against the CPU's plain versions, and each
-   engine's greedy codes (tokens) against its runner's on the card (the
-   persistent steps take 64 / 128 only: Orpheus's single stream runs K7 /
-   K9 at one slot there, Dia's K11 at one pair).
+13. Head sizes other than 64 / 128, on small models (run before phases
+   10-11): Parler, Orpheus and Dia GGUFs with heads of 256, 192 and 100,
+   each runner on the card teacher-forced against the CPU's plain
+   versions, and each engine's greedy codes (tokens) against its runner's
+   on the card (the persistent steps take 64 / 128 only: Orpheus's single
+   stream runs K7 / K9 at one slot there, Dia's K11 at one pair; heads of
+   100 take the per-matmul route, K1 and K3 / K4, as the JAX gates send
+   them, and Dia's engine there is held to the CPU engine's).
 
 14. K1's census: each main path's K1 calls by shape (qm.SHAPES, counted
    over the same windows as the launch counters), and K1 held against its
@@ -220,9 +237,11 @@ yardsticks of the layer checks compare a few layers of each step (K5 6 of
 and Dia steps' dequantization done once per layer for all slots), to keep
 the run in its time.
 
-The last three lines of standard output are the card's name and power
-limit, one JSON object describing each kernel, and
-{"ok": true, "device": {...}}.
+The run logs each phase's seconds and, at its end, the phases' total
+against PHASE_BUDGET_S (700 s) and the build's and phases' against
+TOTAL_BUDGET_S (900 s) of its 1200 s limit. The last three lines of
+standard output are the card's name and power limit, one JSON object
+describing each kernel, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1180,20 +1199,26 @@ def check_k4(gen) -> dict:
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-OTHER_HEADS = (80, 192, 256)   # the generic path's head sizes checked
+# the generic path's head sizes checked, at each of its widths (256, 512;
+# K3's limit of 1024 in tests/test_torch_port_cuda.py)
+OTHER_HEADS = (1, 36, 80, 100, 192, 200, 256, 320, 512)
+OTHER_TIMED = (80, 100, 192, 256, 320)   # timed beside SDPA (bf16)
 OTHER_POS = (0, 255, 256, 257, 1000, 2047, 3000, 3583)   # its slots / positions
 
 
 def check_other_head_sizes() -> None:
-    """K3 and K4 at head sizes past 64 / 128 (the generic path): rows whose
-    16-byte chunks do not divide a warp (80, 192) and rows wider than a
-    warp's lanes (bf16 and f32 256, f32 192), over bf16 and f32 caches of
+    """K3 and K4 at head sizes other than 64 / 128 (the generic path, which
+    takes 1 to 1024): rows that are not whole 16-byte chunks, read element
+    by element (1, 36 and 100 in bf16, 1 in f32), rows whose 16-byte chunks
+    do not divide a warp (80, 100, 192) and rows wider than a warp's lanes
+    (bf16 256 / 320 / 512, f32 192 and up), over bf16 and f32 caches of
     3584 rows with Orpheus's 24 / 8 heads. K3 at OTHER_POS and K4 with 8
     slots at those positions against the plain versions (1e-5 of the
     largest output), each K4 slot equal to K3 bit for bit, and the
     cross-attention entry over a 256-row bucket with a 768-row tail; then
-    K3 and K4 timed (bf16) beside SDPA and their bounds. Its own generator,
-    so that the later checks' inputs stay as they were."""
+    K3 and K4 timed (bf16, OTHER_TIMED) beside their plain versions, SDPA
+    and their bounds. Its own generator, so that the later checks' inputs
+    stay as they were."""
     log("K3 / K4 at other head sizes (csrc/decode_attention.cu's generic path) "
         "vs their plain versions, 24 / 8 heads, caches of 3584 rows:")
     gen = torch.Generator(device=DEV)
@@ -1227,12 +1252,16 @@ def check_other_head_sizes() -> None:
                         dm.cross_attention_cuda(qc, ck.contiguous(),
                                                 cv.contiguous(), vt, 768),
                         dm.cross_attention_plain(qc, ck, cv, vt, 768), 1e-5, why)
-            if dt == torch.bfloat16:
+            if dt == torch.bfloat16 and d in OTHER_TIMED:
                 p = 1000
                 p1 = torch.tensor([p], dtype=torch.int32, device=DEV)
                 qb = q.to(torch.bfloat16)[:, :, None, :]
                 k3 = device_ms(lambda: da.decode_attention_cuda(
                     q[4], kc[4], vc[4], p1)).ms
+                k3_plain = cuda_ms(lambda: da.decode_attention_plain(
+                    q[4], kc[4], vc[4], p), iters=10)
+                k4_plain = cuda_ms(lambda: da.decode_attention_batched_plain(
+                    q, kc, vc, pos), iters=3, warmup=1)
                 k3_lib = device_ms(lambda: sdpa(qb[4:5], kc[4:5, :, :p + 1],
                                                 vc[4:5, :, :p + 1])).ms
                 k3_bound = bound(2 * hkv * (p + 1) * d * 2 + 2 * hq * d * 4,
@@ -1248,9 +1277,10 @@ def check_other_head_sizes() -> None:
                 k4_bound = bound(2 * hkv * rows * d * 2 + 2 * b * hq * d * 4
                                  + b * 4, 4 * hq * rows * d, "f32")[0]
                 log(f"  heads of {d}, bf16, device time: K3 at pos {p} "
-                    f"{k3:.4f} ms (sdpa {k3_lib:.4f}, bound {k3_bound:.4f}); "
-                    f"K4 at 8 slots {k4:.4f} ms (masked sdpa {k4_lib:.4f}, "
-                    f"bound {k4_bound:.4f})")
+                    f"{k3:.4f} ms (plain {k3_plain:.4f}, sdpa {k3_lib:.4f}, "
+                    f"bound {k3_bound:.4f}); K4 at 8 slots {k4:.4f} ms "
+                    f"(plain {k4_plain:.4f}, masked sdpa {k4_lib:.4f}, bound "
+                    f"{k4_bound:.4f})")
             del kc, vc
     torch.cuda.empty_cache()
 
@@ -2432,7 +2462,7 @@ def prompt_len(text: str = PROMPT) -> int:
 # ---------------------------------------------------------------------------
 
 def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
-                          n_steps=48) -> None:
+                          n_steps=48, per_matmul=False) -> None:
     """A small Q4_0 Parler (written to tmp/name) decoded greedily on the CPU
     (plain versions); the card (kernels) follows the same token history
     (teacher forcing) and its logits must match at every step.
@@ -2440,12 +2470,17 @@ def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
     match: with 9 x 1088 random logits a near-tie flips on a last-bit
     difference, and the history then parts. The tolerance comes from the
     CPU's own sensitivity, measured alongside on a run whose positional
-    embeddings moved by one ulp."""
+    embeddings moved by one ulp. The runners take K2's route, or with
+    `per_matmul` (TTS_TPU_MEGAKERNEL=0, or heads that are not a multiple
+    of 64) the per-matmul route, whose card steps must launch K1 and K3
+    and no step kernel. On the default GGUF, the runtime switches follow
+    (parler_switches)."""
     from tts_tpu_torch.models.parler import model as pmodel
     from tts_tpu_torch.models.registry import runner_from_file
     log(f"Reference: small Q4_0 Parler (L=2, H={hidden}, {heads} heads of "
-        f"{hidden // heads}, {n_steps} steps), f32 caches, card kernels vs CPU "
-        f"plain versions:")
+        f"{hidden // heads}, {n_steps} steps, "
+        f"{'per matmul' if per_matmul else 'K2'}), f32 caches, card kernels vs "
+        f"CPU plain versions:")
     path = os.path.join(tmp, name)
     write_parler(path, np.random.default_rng(SEED + 1), n_layers=2,
                  hidden=hidden, heads=heads, ffn=1024, n_out=9, vocab=1088,
@@ -2458,8 +2493,10 @@ def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
     for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
                          (torch.device("cpu"), True)):
         r = runner_from_file(path, device=dev)
-        if r.mega is None:
-            raise AssertionError("small model must take the megastep path")
+        if (r.mega is None) != per_matmul:
+            raise AssertionError("small model must take the "
+                                 f"{'per-matmul' if per_matmul else 'megastep'} "
+                                 f"path")
         if perturb:   # every positional embedding moved by one ulp, +-
             pe = r.weights.pos_embd
             pe.mul_(1 + (torch.randint(0, 2, pe.shape, generator=gen) * 2 - 1)
@@ -2473,6 +2510,7 @@ def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
         states.append(pmodel.init_state(cfg, len(ids), kk, vv))
     (rg, rc, rp), (sg, sc, sp) = runners, states
     worst, sens, first, agree, n = 0.0, 0.0, None, 0, 0
+    zero_counts()
     with torch.no_grad():
         for _ in range(n_steps):
             lg, lc, lp = (pmodel.step_logits(r.cfg, r.weights, s, use_cross=True,
@@ -2496,9 +2534,13 @@ def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
     # 2^-9 jump); the CPU's own logits move by `sens` when its inputs move
     # by one ulp. The card must stay within 4x that, or 1e-3.
     tol = max(4 * sens, 1e-3)
+    launched = route_counts(("quant_matmul", "decode_attention")
+                            if per_matmul else ("parler_megastep",
+                                                "decode_attention"))
     log(f"  teacher-forced logits, max |card - cpu| / max|logit|: {worst:.3e} "
         f"(step 0: {first:.3e}); the CPU's own change under 1-ulp input "
-        f"changes: {sens:.3e}; tol {tol:.3e}; argmax agreement {agree}/{n}")
+        f"changes: {sens:.3e}; tol {tol:.3e}; argmax agreement {agree}/{n}; "
+        f"launches {launched}")
     if worst > tol:
         raise AssertionError("small-model logits differ between card and CPU")
     steps = int(sc.step)
@@ -2509,6 +2551,119 @@ def check_small_reference(tmp, hidden=256, heads=4, name="parler-small.gguf",
         f"{err:.3e} (tol 1e-3: f32 convolutions, TF32 off, other sum order)")
     if wa.shape != (codes.shape[0] * 512,) or wa.shape != wb.shape or err > 1e-3:
         raise AssertionError("small-model waveform differs between card and CPU")
+    if name == "parler-small.gguf" and not per_matmul:
+        parler_switches(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's runtime switches on the card (phases 3, 6 and 10)
+# ---------------------------------------------------------------------------
+
+SWITCH_STEPS = 24   # greedy steps (tokens) of the switch checks' generations
+# the kernels a route must not launch: every step kernel (K2, K5-K12)
+STEP_KERNELS = ("parler_megastep", "parler_megastep_batched",
+                "parler_flat_megastep", "llama_flat_megastep", "llama_megastep",
+                "llama_flat_megastep_batched", "llama_megastep_batched",
+                "dia_megastep", "dia_megastep_batched")
+
+
+@contextlib.contextmanager
+def env_set(name: str, value: str):
+    """os.environ[name] = value inside the block, restored after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[name]
+        else:
+            os.environ[name] = old
+
+
+def route_counts(must, must_not=()) -> dict:
+    """The launches since zero_counts of the kernels that launched: each of
+    `must` must have launched and none of `must_not`."""
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in read_counts().items() if c}
+    missing = [n for n in must if not launched.get(n)]
+    stray = [n for n in must_not if launched.get(n)]
+    if missing or stray:
+        raise AssertionError(f"route: {missing} not launched, {stray} launched "
+                             f"({launched})")
+    return launched
+
+
+def want_f32(seen, label) -> None:
+    """`seen`: the dtypes a model module's kv_cache_dtype gave (recording)."""
+    if not seen or any(dt != torch.float32 for dt in seen):
+        raise AssertionError(f"{label}: caches {seen}, not float32")
+
+
+def parler_switches(tmp, path) -> None:
+    """The small Parler (K2's route by default) under the JAX package's
+    switches, on the card. TTS_TPU_KV_DTYPE=float32: the runner's caches
+    are float32, and its greedy codes on K2's route equal those on K12's
+    (K12 = K2 bit for bit) and the engine's (K5, its state float32: each
+    slot = K2). TTS_TPU_MEGAKERNEL=0: the gates give the per-matmul route;
+    the runner teacher-forced against the CPU (check_small_reference, K1 and
+    K3 on the card, no step kernel) and the engine's codes equal to the
+    runner's (K1 and K4, no step kernel)."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.parler import model as pmodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.batched_parler import BatchedParlerEngine
+    greedy = GenerationConfig(sample=False)
+    same = (lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+
+    def runner():
+        r = runner_from_file(path)
+        prompts = serving_prompts(r.tokenizer, n=2, lo=3, hi=20)
+        lens = [len(r.tokenizer.tokenize(p)) + 1 for p in prompts]
+        r.cfg = dataclasses.replace(r.cfg, max_generation_size=max(lens) +
+                                    SWITCH_STEPS)
+        return r, prompts
+
+    log("Switches, small Parler: TTS_TPU_KV_DTYPE=float32")
+    with env_set("TTS_TPU_KV_DTYPE", "float32"):
+        r, prompts = runner()
+        zero_counts()
+        with recording(pmodel, "kv_cache_dtype") as seen:
+            want = {p: r.generate_codes(p, greedy) for p in prompts}
+        want_f32(seen, "Parler runner")
+        k2 = route_counts(("parler_megastep", "decode_attention"),
+                          ("parler_flat_megastep",))
+        r.mega = pmodel.maybe_prep_parler_flat(r.cfg, r.weights)
+        zero_counts()
+        for p in prompts:
+            if not same(r.generate_codes(p, greedy), want[p]):
+                raise AssertionError("Parler f32 caches: the K12 route's codes "
+                                     "differ from K2's")
+        k12 = route_counts(("parler_flat_megastep",), ("parler_megastep",))
+        log(f"  runner, f32 caches: K2 route {k2}, K12 route {k12}, greedy "
+            f"codes equal")
+        eng = BatchedParlerEngine(r.cfg, r.weights, r.tokenizer, n_slots=2,
+                                  chunk=32)
+        if eng.state.kv_k.dtype != torch.float32:
+            raise AssertionError("Parler engine: caches not float32")
+        engine_parity("Parler f32 caches, K5", eng, prompts, want.get, same)
+    log("Switches, small Parler: TTS_TPU_MEGAKERNEL=0")
+    with env_set("TTS_TPU_MEGAKERNEL", "0"):
+        check_small_reference(tmp, name="parler-small-pm.gguf", n_steps=12,
+                              per_matmul=True)
+        r, prompts = runner()
+        zero_counts()
+        want = {p: r.generate_codes(p, greedy) for p in prompts}
+        one = route_counts(("quant_matmul", "decode_attention"), STEP_KERNELS)
+        eng = BatchedParlerEngine(r.cfg, r.weights, r.tokenizer, n_slots=2,
+                                  chunk=32)
+        if r.mega is not None or eng.mega is not None:
+            raise AssertionError("TTS_TPU_MEGAKERNEL=0 left a fused route")
+        zero_counts()
+        engine_parity("Parler per matmul, K4", eng, prompts, want.get, same)
+        many = route_counts(("quant_matmul", "decode_attention_batched"),
+                            STEP_KERNELS)
+        log(f"  runner {one}, engine {many}")
 
 
 # ---------------------------------------------------------------------------
@@ -2832,7 +2987,74 @@ def run_main_path(tmp) -> tuple[dict, dict, str]:
                              "K2 route's")
     log(f"  greedy codes of the two routes equal over {n2} steps: ok")
     parler_streams(r, ((k2, "K2 route"), (flat, "K12 route")), o2, n2)
+    check_dac_bf16(r.dac)
     return launches, k12_launches, path
+
+
+DAC_BF16_FRAMES = 16    # frames of the card-vs-CPU bf16 check (the CPU's share)
+DAC_TIMED_FRAMES = 256  # frames of the timed vocodes
+DAC_OUT_SCALE = 0.005   # the check's final convolution, scaled into tanh's linear range
+
+
+def check_dac_bf16(dac) -> None:
+    """TTS_TPU_DAC_DTYPE=bfloat16 at DAC-44k width (the main path's random
+    decoder), on seeded random codes. A DACRunner built under the variable
+    holds its convolution weights in bf16 (codebooks, biases and alphas
+    float32), and compute_dtype="float32" overrides it. The card's bf16
+    decode of DAC_BF16_FRAMES frames against the CPU's (torch's bf16
+    convolutions there), with the final convolution scaled by
+    DAC_OUT_SCALE: the random decoder drives tanh into saturation, where a
+    last-bit change flips a sample across 0 by ~2, and scaled the waveform
+    measures the convolutions' roundings. Each side rounds activations and
+    outputs to bf16 in its own sum order, so the card's may sit as far
+    from the CPU's as bf16 sits from f32 on the CPU, and no farther
+    (relative RMS, or 1e-2). Then the bf16 vocode timed beside the f32 one
+    (unscaled), DAC_TIMED_FRAMES frames, in turns (f32, bf16, bf16, f32;
+    host clock around decodes that end on the host)."""
+    from tts_tpu_torch.models.codec import dac as pdac
+    with env_set("TTS_TPU_DAC_DTYPE", "bfloat16"):
+        bf16 = pdac.DACRunner(dac.cfg, dac.weights)
+        kept = pdac.DACRunner(dac.cfg, dac.weights, compute_dtype="float32")
+    w = bf16.weights
+    if (w.in_w.dtype, w.layers[0].up_w.dtype, w.in_b.dtype,
+            w.quantizers[0].codebook.dtype, kept.weights.in_w.dtype) != (
+            torch.bfloat16, torch.bfloat16, torch.float32, torch.float32,
+            torch.float32):
+        raise AssertionError("TTS_TPU_DAC_DTYPE=bfloat16: wrong weight dtypes")
+    rng = np.random.default_rng(SEED + 19)
+    codes = rng.integers(0, 1024, (DAC_TIMED_FRAMES, dac.cfg.n_heads))
+    short = codes[:DAC_BF16_FRAMES]
+    scaled = dac.weights._replace(out_w=dac.weights.out_w * DAC_OUT_SCALE,
+                                  out_b=dac.weights.out_b * DAC_OUT_SCALE)
+    card = pdac.DACRunner(dac.cfg, scaled, compute_dtype="bfloat16")
+    cpu_f32 = pdac.DACRunner(dac.cfg, to_dev(scaled, torch.device("cpu")))
+    cpu_bf16 = pdac.DACRunner(dac.cfg, cpu_f32.weights, compute_dtype="bfloat16")
+    ref, base, got = (x.decode(short) for x in (cpu_bf16, cpu_f32, card))
+
+    def rms(a, b):
+        return float(np.sqrt(np.mean((a - b) ** 2)) /
+                     max(np.sqrt(np.mean(b ** 2)), 1e-12))
+
+    tol = max(rms(ref, base), 1e-2)
+    err = rms(got, ref)
+    log(f"DAC-44k in bf16 (TTS_TPU_DAC_DTYPE=bfloat16), {short.shape[0]} "
+        f"frames, final conv x {DAC_OUT_SCALE}: card vs CPU relative RMS "
+        f"{err:.3e}, max |diff| {float(np.abs(got - ref).max()):.3e} (peak "
+        f"{float(np.abs(ref).max()):.3e}); the CPU's bf16 vs its f32: "
+        f"{rms(ref, base):.3e}; tol {tol:.3e}")
+    if got.shape != ref.shape or not np.isfinite(got).all() or err > tol:
+        raise AssertionError("the card's bf16 DAC differs from the CPU's")
+    secs = {"f32": [], "bf16": []}
+    for name in ("f32", "bf16", "f32", "bf16", "bf16", "f32"):
+        run = dac if name == "f32" else bf16
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run.decode(codes)
+        secs[name].append(time.perf_counter() - t)
+    f32_ms, bf16_ms = (1e3 * min(secs[k][1:]) for k in ("f32", "bf16"))
+    log(f"  vocode of {codes.shape[0]} frames on the card: f32 {f32_ms:.2f} ms, "
+        f"bf16 {bf16_ms:.2f} ms ({f32_ms / bf16_ms:.2f}x; host clock, the "
+        f"best of two after a warm-up each)")
 
 
 # ---------------------------------------------------------------------------
@@ -3733,26 +3955,33 @@ def write_orpheus(path, rng, *, n_layers, hidden, heads, kv_heads, ffn,
 # ---------------------------------------------------------------------------
 
 def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
-                        n_steps=48) -> None:
+                        n_steps=48, per_matmul=False) -> None:
     """A small Q4_0 Orpheus on both decode routes (Q4_0 head: K6; F16 head:
     K8; for heads other than 64 / 128, K7 / K9 at one slot), decoded
     greedily on the CPU (plain versions); the card (kernels) follows the
     same token history (teacher forcing) and its logits must match at
     every step, within 4x the CPU's own change when every embedding moves
     by one ulp, or 1e-3 (the Parler check's rule). Then the CPU's tokens
-    are vocoded on both (SNAC, 4 channel widths)."""
+    are vocoded on both (SNAC, 4 channel widths). With `per_matmul`
+    (TTS_TPU_MEGAKERNEL=0, or heads that are not a multiple of 64) the
+    Q4_0-head model alone, on the per-matmul route: K1 and K4 on the card,
+    no step kernel. At the default widths the runtime switches follow
+    (orpheus_switches)."""
     from tts_tpu_torch.models.orpheus import model as omodel
     from tts_tpu_torch.models.registry import runner_from_file
     from tts_tpu_torch.ops.llama_flat import LlamaFlat
     d = hidden // heads
     kw = dict(do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
               repetition_penalty=1.0, max_steps=n_steps + 1)
-    for q4_head, route in ((True, "K6"), (False, "K8")):
+    routes = (((True, "per matmul"),) if per_matmul else
+              ((True, "K6"), (False, "K8")))
+    for q4_head, route in routes:
         log(f"Reference: small Q4_0 Orpheus (L=2, H={hidden}, {heads}/"
             f"{kv_heads} heads of {d}, F 1024, "
             f"{'Q4_0' if q4_head else 'F16'} head: {route}), f32 caches, "
             f"{n_steps} steps, card kernels vs CPU plain versions:")
-        path = os.path.join(tmp, f"orpheus-small-{route}-d{d}.gguf")
+        path = os.path.join(tmp, f"orpheus-small-{route.replace(' ', '-')}"
+                                 f"-d{d}.gguf")
         write_orpheus(path, np.random.default_rng(SEED + 2), n_layers=2,
                       hidden=hidden, heads=heads, kv_heads=kv_heads, ffn=1024,
                       vocab=1000, q4_head=q4_head, snac_dims=(64, 32, 16, 8, 4),
@@ -3762,8 +3991,9 @@ def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
         for dev, perturb in ((DEV, False), (torch.device("cpu"), False),
                              (torch.device("cpu"), True)):
             r = runner_from_file(path, device=dev)
-            if (route == "K6") != isinstance(r.mega.step, LlamaFlat) or \
-                    r.mega.persistent != (d in da.STEP_HEAD_SIZES):
+            if (r.mega is None) != per_matmul or (not per_matmul and (
+                    (route == "K6") != isinstance(r.mega.step, LlamaFlat) or
+                    r.mega.persistent != (d in da.STEP_HEAD_SIZES))):
                 raise AssertionError(f"small model did not take the {route} "
                                      f"route")
             if perturb:   # every embedding moved by one ulp, +-
@@ -3782,6 +4012,7 @@ def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
         states = [omodel.init_state(r.cfg, first.to(kk.device), n, kk, vv,
                                     n_steps + 1) for r, _, kk, vv, n in runs]
         worst, sens, agree = 0.0, 0.0, 0
+        zero_counts()
         with torch.no_grad():
             for _ in range(n_steps):
                 lg, lc, lp = (omodel.step_logits(r.cfg, r.weights, r.inv_freq, s,
@@ -3799,10 +4030,13 @@ def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
                           for (r, *_), s, l in zip(runs, states, (lg, lc, lp))]
                 states[1] = sc
         tol = max(4 * sens, 1e-3)
+        launched = route_counts(("quant_matmul", "decode_attention_batched"),
+                                STEP_KERNELS) if per_matmul else \
+            {n: c for n, c in read_counts().items() if c}
         log(f"  prefill logits (K1) max |card - cpu| / max|logit| {pre:.3e}; "
             f"teacher-forced decode logits ({route}): {worst:.3e}; the CPU's own "
             f"change under 1-ulp embedding changes: {sens:.3e}; tol {tol:.3e}; "
-            f"argmax agreement {agree}/{n_steps}")
+            f"argmax agreement {agree}/{n_steps}; launches {launched}")
         if worst > tol or pre > tol:
             raise AssertionError(f"small-model {route} logits differ between "
                                  f"card and CPU")
@@ -3816,6 +4050,78 @@ def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
             f"other sum order)")
         if wa.size != 4 * (n_out // 7) * 512 or wa.shape != wb.shape or err > 1e-3:
             raise AssertionError("small-model waveform differs between card and CPU")
+    if (hidden, heads, kv_heads) == (256, 4, 2) and not per_matmul:
+        orpheus_switches(tmp)
+
+
+def orpheus_switches(tmp) -> None:
+    """The small Orpheus (heads of 64; Q4_0 head: K6) under the JAX
+    package's switches, on the card, greedy over SWITCH_STEPS tokens.
+    TTS_TPU_KV_DTYPE=float32: the runner's caches are float32 on K6's
+    route; the engine (K9, the batched persistent step, its state float32)
+    gives the runner's tokens on the engine's route (K8, persistent).
+    TTS_TPU_MEGAKERNEL=0: the runner teacher-forced against the CPU on the
+    per-matmul route (check_small_orpheus: K1 and K4 on the card, no step
+    kernel), and the engine's tokens equal to the runner's (K1 and K4)."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.orpheus import model as omodel
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.batched_llama import BatchedLlamaEngine
+    greedy = GenerationConfig(sample=False)
+    prompts = ["hey?", "how are you doing?"]
+    path = os.path.join(tmp, "orpheus-small-K6-d64.gguf")
+
+    def runner():
+        r = runner_from_file(path)
+        r.cfg = dataclasses.replace(r.cfg, max_generation_size=SWITCH_STEPS)
+        return r
+
+    def tokens(r, p):
+        out, n_out, _ = r.generate_tokens(p, greedy)
+        return omodel.prepare_output_tokens(out, n_out)
+
+    with small_orpheus_prompt_ids():
+        log("Switches, small Orpheus: TTS_TPU_KV_DTYPE=float32")
+        with env_set("TTS_TPU_KV_DTYPE", "float32"):
+            r = runner()
+            zero_counts()
+            with recording(omodel, "kv_cache_dtype") as seen:
+                k6 = {p: tokens(r, p) for p in prompts}
+            want_f32(seen, "Orpheus runner")
+            one = route_counts(("llama_flat_megastep",), ("decode_attention",
+                                                          "llama_megastep"))
+            eng = BatchedLlamaEngine(r.cfg, r.weights, r.tokenizer, n_slots=2,
+                                     chunk=32)
+            if eng.state.kv_k.dtype != torch.float32:
+                raise AssertionError("Orpheus engine: caches not float32")
+            r._mega, r._mega_ready = eng.mega, True
+            zero_counts()
+            k8 = {p: tokens(r, p) for p in prompts}
+            route = route_counts(("llama_megastep",), ("llama_flat_megastep",))
+            zero_counts()
+            engine_parity("Orpheus f32 caches, K9", eng, prompts, k8.get,
+                          lambda a, b: a == b)
+            route_counts(("llama_megastep_batched",))
+            log(f"  runner, f32 caches: K6 route {one} ({len(k6[prompts[1]][0])} "
+                f"frames), the engine's route {route}")
+        log("Switches, small Orpheus: TTS_TPU_MEGAKERNEL=0")
+        with env_set("TTS_TPU_MEGAKERNEL", "0"):
+            check_small_orpheus(tmp, n_steps=12, per_matmul=True)
+            r = runner()
+            zero_counts()
+            want = {p: tokens(r, p) for p in prompts}
+            one = route_counts(("quant_matmul", "decode_attention_batched"),
+                               STEP_KERNELS)
+            eng = BatchedLlamaEngine(r.cfg, r.weights, r.tokenizer, n_slots=2,
+                                     chunk=32)
+            if r.mega is not None or eng.mega is not None:
+                raise AssertionError("TTS_TPU_MEGAKERNEL=0 left a fused route")
+            zero_counts()
+            engine_parity("Orpheus per matmul, K4", eng, prompts, want.get,
+                          lambda a, b: a == b)
+            many = route_counts(("quant_matmul", "decode_attention_batched"),
+                                STEP_KERNELS)
+            log(f"  runner {one}, engine {many}")
 
 
 # ---------------------------------------------------------------------------
@@ -3823,6 +4129,10 @@ def check_small_orpheus(tmp, hidden=256, heads=4, kv_heads=2,
 # ---------------------------------------------------------------------------
 
 ORPHEUS_PATH = ("quant_matmul", "llama_flat_megastep")
+# the Orpheus CLI's generation window, of the model's 2100 tokens: a depth
+# cut that keeps the script in its time; its K6 positions reach ~1040, and
+# check_llama holds K6 up to row 3583
+ORPHEUS_CLI_TOKENS = 1024
 # kernels the Orpheus single stream must not launch: K6 and K8 run their
 # GEMVs and attention inside their one launch
 ORPHEUS_NOT_PATH = ("decode_attention", "decode_attention_batched",
@@ -3835,7 +4145,8 @@ TOKEN_AUDIO_S = 2048 / 7 / 24000   # 7 tokens -> 4 SNAC frames of 512 samples
 
 def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
     """Orpheus-3B Q4_0 (Q4_0 head) + SNAC-24k text -> WAV through the port's
-    CLI on the card (sampled, top-k 50, fixed seed, up to 2100 tokens);
+    CLI on the card (sampled, top-k 50, fixed seed, up to
+    ORPHEUS_CLI_TOKENS tokens);
     counters set to 0 just before, read just after: K1 and K6 must have
     risen, and neither K3 nor a launch-sequence GEMV (K6 runs them inside
     its one launch). Then the same path timed stage by stage (one K6 launch
@@ -3858,7 +4169,7 @@ def run_orpheus_main_path(tmp) -> tuple[dict, dict]:
                   kv_heads=ORPHEUS["kv_heads"], ffn=ORPHEUS["ffn"],
                   vocab=ORPHEUS["vocab"], q4_head=True,
                   snac_dims=SNAC_24K["dims"], snac_latent=SNAC_24K["latent"],
-                  max_generation=omodel.OrpheusConfig().max_generation_size)
+                  max_generation=ORPHEUS_CLI_TOKENS)
     log(f"Orpheus main path: wrote {os.path.getsize(path) / 1e6:.1f} MB GGUF in "
         f"{time.perf_counter() - t0:.1f} s; voice {VOICE!r}, prompt {PROMPT!r}")
     wav = os.path.join(tmp, "orpheus.wav")
@@ -4133,11 +4444,12 @@ def run_orpheus_serving(path) -> dict:
 # 12-layer encoder of H 1024 (16 heads of 128, F 4096) over a 1024-byte
 # window, an 18-layer decoder of H 2048 (16 q / 4 kv heads of 128, F 8192,
 # cross-attention 16 x 128), 9 codebooks of vocab 1028, the DAC-44k decoder.
-# The one cut: max_generation_size 1024 of 3072 in the GGUF, so that the
-# runs fit (the kernel checks keep the 3072-row cache).
+# The one cut: max_generation_size 512 of 3072 in the GGUF, so that the
+# runs fit in the script's time (the kernel checks keep the 3072-row
+# cache).
 DIA = dict(enc_layers=12, enc_hidden=1024, enc_heads=16, enc_ffn=4096,
            n_layers=18, hidden=2048, heads=16, kv_heads=4, ffn=8192, n_out=9,
-           vocab=1028, tc=1024, max_gen=1024)
+           vocab=1028, tc=1024, max_gen=512)
 DIA_CTX = 3072                                 # the published cache rows
 DIA_POS = (0, 255, 256, 1000, 3071)            # around K4's 256-row pages
 DIA_BUCKETS = ((128, 896), (1024, 0))          # (Sb, n_tail)
@@ -4558,11 +4870,12 @@ def write_dia(path, rng, *, enc_layers, enc_hidden, enc_heads, enc_ffn,
 
 
 def dia_small_runners(tmp, hidden=256, heads=4, kv_heads=2,
-                      name="dia-small.gguf"):
+                      name="dia-small.gguf", per_matmul=False):
     """A small Q4_0 Dia (L=2, H=256, 4/2 heads of 64 unless told otherwise,
     F 1024; a 1-layer encoder of H 128; 9 codebooks of 1028; a 1024-byte
     window; a small DAC) written to tmp/name and loaded on the card, on the
-    CPU, and on the CPU with every decoder embedding moved by one ulp."""
+    CPU, and on the CPU with every decoder embedding moved by one ulp; on
+    the K10 route, or the per-matmul one with `per_matmul`."""
     from tts_tpu_torch.models.registry import runner_from_file
     path = os.path.join(tmp, name)
     write_dia(path, np.random.default_rng(SEED + 3), enc_layers=1,
@@ -4574,28 +4887,35 @@ def dia_small_runners(tmp, hidden=256, heads=4, kv_heads=2,
                (DEV, torch.device("cpu"), torch.device("cpu"))]
     e = runners[2].weights.dec_embds
     e.mul_(1 + (torch.randint(0, 2, e.shape, generator=gen) * 2 - 1) * 2 ** -23)
-    if any(r.mega is None or r.mega.persistent !=
-           (hidden // heads in da.STEP_HEAD_SIZES) for r in runners):
+    if per_matmul:
+        if any(r.mega is not None for r in runners):
+            raise AssertionError("small Dia must take the per-matmul route")
+    elif any(r.mega is None or r.mega.persistent !=
+             (hidden // heads in da.STEP_HEAD_SIZES) for r in runners):
         raise AssertionError("small Dia must take the K10 route (K11 at one "
                              "pair for heads other than 64 / 128)")
     return runners
 
 
 def check_small_dia(tmp, hidden=256, heads=4, kv_heads=2,
-                    name="dia-small.gguf", n_steps=48) -> None:
+                    name="dia-small.gguf", n_steps=48, per_matmul=False) -> None:
     """A small Q4_0 Dia: its encoder on the card against the CPU's (f32,
     1e-4 of the largest value); then greedy decoding on the CPU (plain
     versions) while the card (kernels) follows the same token history
     (teacher forcing) from the same cross K/V, float32 caches on both: the
     CFG-merged logits must match at every step, within 4x the CPU's own
     change when every decoder embedding moves by one ulp, or 1e-3 (the
-    Parler check's rule). Then the CPU's codes vocoded on both."""
+    Parler check's rule). Then the CPU's codes vocoded on both. With
+    `per_matmul` (TTS_TPU_MEGAKERNEL=0, or heads that are not a multiple of
+    64) on the per-matmul route: K1 and K4 on the card, no step kernel. On
+    the default GGUF the runtime switches follow (dia_switches)."""
     from tts_tpu_torch.models.dia import model as dmodel
     log(f"Reference: small Q4_0 Dia (decoder L=2, H={hidden}, {heads}/"
         f"{kv_heads} heads of {hidden // heads}; encoder L=1, H=128; "
-        f"1024-byte window), f32 caches, {n_steps} steps, card kernels vs CPU "
+        f"1024-byte window), f32 caches, {n_steps} steps, "
+        f"{'per matmul' if per_matmul else 'K10'}, card kernels vs CPU "
         f"plain versions:")
-    runners = dia_small_runners(tmp, hidden, heads, kv_heads, name)
+    runners = dia_small_runners(tmp, hidden, heads, kv_heads, name, per_matmul)
     rg, rc, _ = runners
     cfg = rc.cfg
     ids = dmodel.tokenize_sentence(DIA_PROMPT, cfg)
@@ -4612,6 +4932,7 @@ def check_small_dia(tmp, hidden=256, heads=4, kv_heads=2,
         st = dmodel.init_state(cfg, n_steps + 1, r.device)
         states.append(st._replace(kv_k=st.kv_k.float(), kv_v=st.kv_v.float()))
     worst, sens, agree = 0.0, 0.0, 0
+    zero_counts()
     with torch.no_grad():
         for _ in range(n_steps):
             lgs = []
@@ -4638,11 +4959,16 @@ def check_small_dia(tmp, hidden=256, heads=4, kv_heads=2,
                                  delay_steps=sc.delay_steps.to(s.pos.device),
                                  done=sc.done.to(s.pos.device)) for s in new]
     tol = max(4 * sens, 1e-3)
+    launched = route_counts(("quant_matmul", "decode_attention_batched"),
+                            STEP_KERNELS) if per_matmul else \
+        {n: c for n, c in read_counts().items() if c}
     log(f"  encoder cross K / V, max |card - cpu| / max: {enc_err:.3e} (tol "
-        f"1e-4: f32, TF32 off); teacher-forced logits (K10, Sb "
+        f"1e-4: f32, TF32 off); teacher-forced logits "
+        f"({'per matmul' if per_matmul else 'K10'}, Sb "
         f"{cross.ck.shape[2]}, n_tail {cross.n_tail}): {worst:.3e}; the "
         f"CPU's own change under 1-ulp embedding changes: {sens:.3e}; tol "
-        f"{tol:.3e}; argmax agreement {agree}/{n_steps * cfg.n_output_heads}")
+        f"{tol:.3e}; argmax agreement {agree}/{n_steps * cfg.n_output_heads}; "
+        f"launches {launched}")
     if enc_err > 1e-4 or worst > tol:
         raise AssertionError("small-model Dia differs between card and CPU")
     n = int(states[1].pos)
@@ -4655,6 +4981,135 @@ def check_small_dia(tmp, hidden=256, heads=4, kv_heads=2,
             or wa.shape != wb.shape or err > 1e-3:
         raise AssertionError("small-model Dia waveform differs between card "
                              "and CPU")
+    if name == "dia-small.gguf" and not per_matmul:
+        dia_switches(tmp)
+
+
+def dia_engine_vs_cpu(path, runner, prompts, label, n_steps=24) -> dict:
+    """Greedy `prompts` through 2-slot Dia engines of the GGUF at `path` on
+    the card (the runner's weights) and on the CPU (plain versions), one
+    step at a time for n_steps, both from the CPU encoder's cross K/V and
+    on float32 caches (TTS_TPU_KV_DTYPE=float32): after each step the card engine takes the CPU engine's token history
+    (teacher forcing: the feed, wind-down, stop, positions and output
+    rows), and the CFG-merged logits of every slot
+    (batched_dia.cfg_logits, recorded) must match within 1e-3 of their
+    largest (check_small_dia's floor, for a free-running greedy history
+    parts at a near-tie). The engine reads the bucketed bf16 cross K/V with
+    the tail fold, as the JAX engine does on this route. Returns the card
+    run's launches."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime import batched_dia
+    cpu_w = runner_from_file(path, device="cpu").weights
+    encode = batched_dia.encode_request
+
+    def cpu_encode(cfg, w, ids):
+        # both engines decode from the CPU encoder's cross K/V: the card's
+        # encoder is 1e-6 off it, which can move a bf16 element of the
+        # bucketed cross K/V by one ulp (check_small_dia shares them too)
+        return tuple(t.to(w.dec_embds.device) for t in encode(cfg, cpu_w, ids))
+
+    engines = []
+    batched_dia.encode_request = cpu_encode
+    try:
+        for w, dev in ((runner.weights, DEV), (cpu_w, torch.device("cpu"))):
+            # float32 caches on both: on an H100 the card's default bf16
+            # caches alone moved these logits by 5.0e-3 against the CPU's
+            with env_set("TTS_TPU_KV_DTYPE", "float32"):
+                eng = batched_dia.BatchedDiaEngine(runner.cfg, w, n_slots=2,
+                                                   chunk=1, device=dev)
+            if eng.state.kv_k.dtype != torch.float32:
+                raise AssertionError(f"{label}: caches not float32")
+            for p in prompts:
+                eng.submit(p, GenerationConfig(sample=False))
+            if any(r is None for r in eng.slot_req):
+                raise AssertionError(f"{label}: a slot is idle")
+            engines.append(eng)
+    finally:
+        batched_dia.encode_request = encode
+    worst, agree, n = 0.0, 0, 0
+    zero_counts()
+    with recording(batched_dia, "cfg_logits") as seen:
+        for _ in range(n_steps):
+            for e in engines:
+                e.state = batched_dia.batched_dia_decode_chunk(
+                    e.cfg, e.weights, e.state, 1, e.generator, n_tail=e.n_tail,
+                    mega=e.mega, scratch=e.scratch)
+            lg, lc = seen[-2].cpu(), seen[-1]
+            fin = torch.isfinite(lc)
+            if not torch.equal(fin, torch.isfinite(lg)):
+                raise AssertionError(f"{label}: card and CPU mask different "
+                                     f"tokens")
+            worst = max(worst, max_err(lg[fin], lc[fin]) /
+                        float(lc[fin].abs().max()))
+            agree += int((lg.argmax(-1) == lc.argmax(-1)).sum())
+            n += lc.shape[0] * lc.shape[1]
+            sc = engines[1].state
+            engines[0].state = engines[0].state._replace(**{
+                f: getattr(sc, f).to(DEV) for f in (
+                    "tokens_in", "delay_steps", "done", "pos", "out_tokens")})
+    torch.cuda.synchronize()
+    launched = {k: c for k, c in read_counts().items() if c}
+    log(f"  {label} (2 slots, {n_steps} steps teacher-forced): logits max "
+        f"|card - cpu| / max|logit| {worst:.3e} (tol 1e-3); argmax agreement "
+        f"{agree}/{n}; launches {launched}")
+    if worst > 1e-3:
+        raise AssertionError(f"{label}: logits differ between card and CPU")
+    return launched
+
+
+def dia_switches(tmp) -> None:
+    """The small Dia (K10) under the JAX package's switches, on the card,
+    2 prompts of 129-256 bytes (the runner's cross bucket is then the
+    engine's). TTS_TPU_KV_DTYPE=float32: the runner's self-attention
+    caches are float32 (its cross K/V stay packed bf16) on K10's route, and
+    the engine's greedy codes (K11, its state float32) equal the runner's.
+    TTS_TPU_MEGAKERNEL=0: the runner teacher-forced against the CPU on the
+    per-matmul route (check_small_dia: K1 and K4 on the card, no step
+    kernel); the engine (K1 and K4) reads the bucketed bf16 cross K/V where
+    the runner reads the f32 window, as the JAX engine does, so it is held
+    to the CPU engine, teacher-forced (dia_engine_vs_cpu)."""
+    from tts_tpu_torch.common import GenerationConfig
+    from tts_tpu_torch.models.dia import model as dmodel
+    from tts_tpu_torch.models.dia.model import tokenize_sentence
+    from tts_tpu_torch.models.registry import runner_from_file
+    from tts_tpu_torch.runtime.batched_dia import BatchedDiaEngine
+    greedy = GenerationConfig(sample=False)
+    path = os.path.join(tmp, "dia-small.gguf")
+    same = (lambda a, b: a.shape == b.shape and np.array_equal(a, b))
+    log("Switches, small Dia: TTS_TPU_KV_DTYPE=float32")
+    with env_set("TTS_TPU_KV_DTYPE", "float32"):
+        r = runner_from_file(path)
+        prompts = dia_prompts(n=2, lo=130, hi=250)
+        if not all(128 < len(tokenize_sentence(p, r.cfg)) <= 256
+                   for p in prompts):
+            raise AssertionError("Dia prompts outside 129-256 bytes")
+        zero_counts()
+        with recording(dmodel, "kv_cache_dtype") as seen:
+            want = {p: r.generate_codes(p, greedy) for p in prompts}
+        want_f32(seen, "Dia runner")
+        one = route_counts(("dia_megastep",), ("dia_megastep_batched",))
+        eng = BatchedDiaEngine(r.cfg, r.weights, n_slots=2, chunk=32)
+        if eng.state.kv_k.dtype != torch.float32:
+            raise AssertionError("Dia engine: caches not float32")
+        zero_counts()
+        engine_parity("Dia f32 caches, K11", eng, prompts, want.get, same)
+        many = route_counts(("dia_megastep_batched",), ("dia_megastep",))
+        log(f"  runner, f32 caches: {one}; engine {many}")
+    log("Switches, small Dia: TTS_TPU_MEGAKERNEL=0")
+    with env_set("TTS_TPU_MEGAKERNEL", "0"):
+        check_small_dia(tmp, name="dia-small-pm.gguf", n_steps=24,
+                        per_matmul=True)
+        r = runner_from_file(path)
+        if r.mega is not None:
+            raise AssertionError("TTS_TPU_MEGAKERNEL=0 left a fused route")
+        launched = dia_engine_vs_cpu(path, r, prompts, "Dia per-matmul engine")
+        for n in ("quant_matmul", "decode_attention_batched"):
+            if not launched.get(n):
+                raise AssertionError(f"Dia per-matmul engine: no {n} launch")
+        if any(launched.get(n) for n in STEP_KERNELS):
+            raise AssertionError(f"Dia per-matmul engine launched a step "
+                                 f"kernel: {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -4666,8 +5121,8 @@ DIA_KERNELS_PER_STEP = 95   # the Dia CLI's device trace may show at most
 DIA_SERVING_PATH = ("quant_matmul", "decode_attention_batched",
                     "dia_megastep_batched", "dia_cross_attention_batched")
 DIA_GREEDY_STEPS = 300   # the greedy parity check's generation window
-# Dia serving's generation window, half the GGUF's 1024 steps: a depth cut
-# that keeps the whole script in its time on slower hosts
+# Dia serving's generation window, a depth cut that keeps the whole script
+# in its time on slower hosts
 DIA_SERVING_STEPS = 512
 DIA_SAMPLE = dict(do_sample=True, temperature=1.0, top_k=50, top_p=1.0,
                   repetition_penalty=1.0)
@@ -4884,19 +5339,26 @@ def engine_parity(label, eng, prompts, want, same) -> None:
         f"{launched}: ok")
 
 
-# head sizes past 64 / 128, each family at (hidden, q heads, kv heads)
-HEAD_SIZE_MODELS = {256: (512, 2, 1), 192: (768, 4, 2)}
+# head sizes other than 64 / 128, each family at (hidden, q heads, kv
+# heads): 256 and 192 take the fused routes' launch sequences; 100 fails
+# the gates' `head_size % 64` test and takes the per-matmul route (K1's K,
+# 16 x 100, a multiple of 64)
+HEAD_SIZE_MODELS = {256: (512, 2, 1), 192: (768, 4, 2), 100: (1600, 16, 4)}
 
 
 def check_head_sizes(tmp) -> None:
-    """Small Q4_0 Parler, Orpheus and Dia models with heads of 256 and 192
-    (decode attention on K3 / K4's generic path; the persistent steps take
-    64 and 128 only, so Orpheus's single stream takes K7 / K9 at one slot
-    and Dia's K11 at one pair): each through its runner on the card,
-    teacher-forced against the CPU's plain versions (check_small_reference,
-    check_small_orpheus, check_small_dia, fewer steps), then its engine on
-    the card (2 slots) against the card runner's greedy codes (tokens),
-    equal."""
+    """Small Q4_0 Parler, Orpheus and Dia models with heads of 256, 192 and
+    100 (decode attention on K3 / K4's generic path; the persistent steps
+    take 64 and 128 only, so at 256 / 192 Orpheus's single stream takes K7
+    / K9 at one slot and Dia's K11 at one pair; at 100 every family takes
+    the per-matmul route, K1 and K3 / K4, as the JAX gates send it there):
+    each through its runner on the card, teacher-forced against the CPU's
+    plain versions (check_small_reference, check_small_orpheus,
+    check_small_dia, fewer steps), then its engine on the card (2 slots)
+    against the card runner's greedy codes (tokens), equal; on the
+    per-matmul route Dia's engine reads the bucketed bf16 cross K/V where
+    its runner reads the f32 window, so it is held to the CPU engine,
+    teacher-forced (dia_engine_vs_cpu)."""
     from tts_tpu_torch.models.dia.model import tokenize_sentence
     from tts_tpu_torch.models.orpheus import model as omodel
     from tts_tpu_torch.models.registry import runner_from_file
@@ -4907,22 +5369,29 @@ def check_head_sizes(tmp) -> None:
     greedy = GenerationConfig(sample=False)
     same_codes = (lambda a, b: a.shape == b.shape and np.array_equal(a, b))
     for d, (hidden, heads, kv) in HEAD_SIZE_MODELS.items():
-        # Parler: K2 and K5 with K3 / K4 at heads of d
+        per_matmul = d % 64 != 0
+        # Parler: K2 and K5 with K3 / K4 at heads of d (per matmul: K1)
         name = f"parler-d{d}.gguf"
-        check_small_reference(tmp, hidden, heads, name, n_steps=12)
+        check_small_reference(tmp, hidden, heads, name, n_steps=12,
+                              per_matmul=per_matmul)
         runner = runner_from_file(os.path.join(tmp, name))
         prompts = serving_prompts(runner.tokenizer, n=2, lo=3, hi=20)
         lens = [len(runner.tokenizer.tokenize(p)) + 1 for p in prompts]
         single = copy.copy(runner)
         single.cfg = dataclasses.replace(runner.cfg,
                                          max_generation_size=max(lens) + 24)
-        engine_parity(f"Parler heads of {d}, K5", BatchedParlerEngine(
-            single.cfg, runner.weights, runner.tokenizer, n_slots=2, chunk=32),
-            prompts, lambda p: single.generate_codes(p, greedy), same_codes)
-        # Orpheus: K7 / K9 (the single stream at one slot)
-        check_small_orpheus(tmp, hidden, heads, kv, n_steps=12)
+        engine_parity(f"Parler heads of {d}, {'K4' if per_matmul else 'K5'}",
+                      BatchedParlerEngine(single.cfg, runner.weights,
+                                          runner.tokenizer, n_slots=2, chunk=32),
+                      prompts, lambda p: single.generate_codes(p, greedy),
+                      same_codes)
+        # Orpheus: K7 / K9 (the single stream at one slot), or per matmul
+        check_small_orpheus(tmp, hidden, heads, kv, n_steps=12,
+                            per_matmul=per_matmul)
         with small_orpheus_prompt_ids():
-            runner = runner_from_file(os.path.join(tmp, f"orpheus-small-K6-d{d}.gguf"))
+            route = "per-matmul" if per_matmul else "K6"
+            runner = runner_from_file(os.path.join(
+                tmp, f"orpheus-small-{route}-d{d}.gguf"))
             single = copy.copy(runner)
             single.cfg = dataclasses.replace(runner.cfg, max_generation_size=24)
             eng = BatchedLlamaEngine(single.cfg, runner.weights,
@@ -4931,28 +5400,34 @@ def check_head_sizes(tmp) -> None:
             # (the head per matmul) for the others, as the JAX engine does;
             # the runner takes the engine's route here, at one slot
             single._mega, single._mega_ready = eng.mega, True
-            if single.mega.persistent:
-                raise AssertionError(f"heads of {d} took the persistent step")
+            if (single.mega is None) != per_matmul or \
+                    (single.mega is not None and single.mega.persistent):
+                raise AssertionError(f"heads of {d} took the wrong route")
 
             def want(p):
                 out, n_out, _ = single.generate_tokens(p, greedy)
                 return omodel.prepare_output_tokens(out, n_out)
 
             engine_parity(f"Orpheus heads of {d}, "
-                          f"{'K7' if d % 128 == 0 else 'K9'}", eng,
-                          ["hey?", "how are you doing?"], want,
+                          f"{'K4' if per_matmul else 'K7' if d % 128 == 0 else 'K9'}",
+                          eng, ["hey?", "how are you doing?"], want,
                           lambda a, b: a == b)
         # Dia: K11 (the single stream at one pair), prompts of 129-256 bytes
         name = f"dia-d{d}.gguf"
-        check_small_dia(tmp, hidden, heads, kv, name, n_steps=24)
+        check_small_dia(tmp, hidden, heads, kv, name, n_steps=24,
+                        per_matmul=per_matmul)
         runner = runner_from_file(os.path.join(tmp, name))
         prompts = dia_prompts(n=2, lo=130, hi=250)
         if not all(128 < len(tokenize_sentence(p, runner.cfg)) <= 256
                    for p in prompts):
             raise AssertionError("Dia prompts outside 129-256 bytes")
-        engine_parity(f"Dia heads of {d}, K11", BatchedDiaEngine(
-            runner.cfg, runner.weights, n_slots=2, chunk=32), prompts,
-            lambda p: runner.generate_codes(p, greedy), same_codes)
+        if not per_matmul:
+            engine_parity(f"Dia heads of {d}, K11", BatchedDiaEngine(
+                runner.cfg, runner.weights, n_slots=2, chunk=32), prompts,
+                lambda p: runner.generate_codes(p, greedy), same_codes)
+            continue
+        dia_engine_vs_cpu(os.path.join(tmp, name), runner, prompts,
+                          f"Dia heads of {d}, per-matmul engine (K4)")
 
 
 def check_slot_groups(tmp) -> None:
@@ -6373,6 +6848,11 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+# the run's time budget (its time limit is 1200 s): phases after the build,
+# and the build and phases together
+PHASE_BUDGET_S, TOTAL_BUDGET_S = 700, 900
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6382,7 +6862,8 @@ def main() -> int:
         f"{torch.__version__} CUDA {torch.version.cuda}")
     t_start = t0 = time.perf_counter()
     times = _build.build()
-    log(f"built {sorted(times)} in {time.perf_counter() - t0:.1f} s "
+    t_phases = time.perf_counter()
+    log(f"built {sorted(times)} in {t_phases - t0:.1f} s "
         f"(per source {', '.join(f'{k} {v:.1f} s' for k, v in times.items())})")
     for src in _build.SOURCES:
         for line in ptxas_summary(src):
@@ -6479,7 +6960,10 @@ def main() -> int:
     rows.append(tool_row)   # its launches: the tool's Q4_0 run (phase 4b)
     log("streams, time to the first chunk (runners) or samples (servers) and "
         f"their match: {json.dumps(STREAMS)}")
-    log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
+    t_end = time.perf_counter()
+    log(f"chip_smoke phases took {t_end - t_phases:.1f} s (budget "
+        f"{PHASE_BUDGET_S} s; the build {t_phases - t_start:.1f} s, "
+        f"{t_end - t_start:.1f} s in all, budget {TOTAL_BUDGET_S} s)")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(card)

@@ -2,7 +2,8 @@
 """Compare the port's decode-step kernels with other versions of the port on
 one card, in turns, by device time.
 
-    python3 gemv_ab.py [--only attention|steps|dia|k1] [--census LOG] [OTHER ...]
+    python3 gemv_ab.py [--only attention|steps|dia|k1] [--census LOG]
+                       [--heads D,D,...] [OTHER ...]
 
 OTHER is another version of the `tts_tpu_torch` package: its directory, or a
 directory that holds it (for example a parent commit's, unpacked with `git
@@ -19,6 +20,8 @@ widths, it measures in turns (OTHER, committed, committed, OTHER):
   taken in turn so that the K/V rows come from device memory), and K4 at 8
   slots at mixed positions at the same shapes; PyTorch's
   scaled_dot_product_attention on the same inputs is timed beside them;
+  with `--heads`, at Orpheus's 24 q / 8 kv heads of each size D listed
+  instead (sizes every version compared takes);
 - the steps: K8 / K6 at one slot (pos 1000 and 3583, the cache's last
   row; one launch of csrc/llama_flat.cu, an older version's may be the
   launch sequence), K9 / K7 at 8 and 16 slots
@@ -147,9 +150,9 @@ def compare(label, fns, extra="", nbytes=None, rewind=None) -> None:
               f"bit-equal {same}{diff}{extra}", flush=True)
 
 
-def attention(versions, gen) -> None:
+def attention(versions, gen, shapes=ATTN_SHAPES) -> None:
     dev, ctx, p = cs.DEV, 4096, 1000
-    for name, hq, hkv, d in ATTN_SHAPES:
+    for name, hq, hkv, d in shapes:
         kc, vc = ((torch.randn((ATTN_LAYERS, hkv, ctx, d), generator=gen,
                                device=dev) * 0.5).to(torch.bfloat16)
                   for _ in range(2))
@@ -566,6 +569,8 @@ def main(argv) -> int:
     ap.add_argument("--only", choices=("attention", "steps", "dia", "k1"))
     ap.add_argument("--census", metavar="LOG",
                     help="k1: the shapes of a chip_smoke log's census")
+    ap.add_argument("--heads", metavar="D,D,...",
+                    help="attention: at 24 q / 8 kv heads of each size D")
     ap.add_argument("paths", nargs="*", metavar="OTHER")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -582,7 +587,9 @@ def main(argv) -> int:
     gen = torch.Generator(device=cs.DEV)
     gen.manual_seed(cs.SEED)
     if args.only in (None, "attention"):
-        attention(versions, gen)
+        shapes = ATTN_SHAPES if args.heads is None else tuple(
+            ("orpheus", 24, 8, int(d)) for d in args.heads.split(","))
+        attention(versions, gen, shapes)
     if args.only in (None, "steps"):
         llama_steps(versions, gen)
     if args.only in (None, "steps", "dia"):

@@ -305,13 +305,15 @@ def test_k3_k4_gqa_d128_match_plain(dev, cache_dtype, n_rep):
         assert torch.equal(got[s], one)
 
 
-@pytest.mark.parametrize("d", [8, 80, 96, 192, 256])
+@pytest.mark.parametrize("d", [1, 8, 36, 80, 96, 100, 192, 256, 320, 512, 1024])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_rep", [1, 3])
+@pytest.mark.parametrize("n_rep", [1, 3, 4])
 def test_k3_k4_other_head_sizes_match_plain(dev, cache_dtype, n_rep, d):
-    """Head sizes past 64 / 128 on the generic path: rows wider than a
-    warp's 16-byte lanes (bf16 192 / 256, f32 192 / 256) and rows whose
-    chunks do not divide 32 (80, 96, 192). K3 at positions across the
+    """Head sizes other than 64 / 128 on the generic path, at each of its
+    widths (256, 512, 1024): rows wider than a warp's 16-byte lanes (bf16
+    192 / 256, f32 192 / 256 and past), rows whose chunks do not divide 32
+    (80, 96, 192), and rows that are not whole 16-byte chunks, read
+    element by element (1, 36 in bf16, 100). K3 at positions across the
     pages and K4 with slots at those positions, 1e-5 absolute against the
     plain versions (f32 softmax, sums in another order); each K4 slot
     equals K3 bit for bit."""
@@ -329,9 +331,9 @@ def test_k3_k4_other_head_sizes_match_plain(dev, cache_dtype, n_rep, d):
                                                             p[s:s + 1]))
 
 
-@pytest.mark.parametrize("d", [12, 264, 512])
+@pytest.mark.parametrize("d", [1025, 1536, 2048])
 def test_k3_refuses_head_sizes_it_does_not_take(dev, d):
-    """Heads that are not a multiple of 8 or are wider than 256 raise
+    """Heads wider than 1024 (a lane's registers, csrc/attention.cuh) raise
     before any launch."""
     q = torch.randn((2, d), device=dev)
     k = torch.randn((2, 64, d), device=dev)
@@ -342,7 +344,7 @@ def test_k3_refuses_head_sizes_it_does_not_take(dev, d):
     assert da.KERNEL.launches == before and not da.head_size_ok(d)
 
 
-@pytest.mark.parametrize("d", [80, 192, 256])
+@pytest.mark.parametrize("d", [1, 36, 80, 100, 192, 256, 320, 512])
 @pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
 def test_dia_cross_attention_other_head_sizes(dev, cache_dtype, d):
     """The cross-attention entry takes K4's head sizes: bucket 256 with a
@@ -1593,3 +1595,60 @@ def test_quantize_counter_and_refusals(dev):
         oq.quantize_blocks_cuda(torch.randn(48, device=dev), quants.GGML_TYPE_Q4_0)
     with pytest.raises(ValueError, match="no block format"):
         oq.quantize_blocks_cuda(x, quants.GGML_TYPE_F16)
+
+
+# ---------------------------------------------------------------------------
+# TTS_TPU_KV_DTYPE=float32: the persistent steps on the caches it makes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("family", ["parler", "orpheus", "dia"])
+def test_persistent_step_on_the_variables_f32_cache(dev, monkeypatch, family):
+    """With TTS_TPU_KV_DTYPE=float32, `kv_cache_dtype` gives the card
+    float32 caches (unset: bfloat16), and each family's persistent step
+    (K12, the llama step K8, K10) runs on them in one launch on its own
+    counter, bit for bit equal to its launch sequence (K2; K9 at one
+    slot; K11 at one pair), at pos 300 (two pages)."""
+    from tts_tpu_torch.common import kv_cache_dtype
+    monkeypatch.delenv("TTS_TPU_KV_DTYPE", raising=False)
+    assert kv_cache_dtype(dev) == torch.bfloat16
+    monkeypatch.setenv("TTS_TPU_KV_DTYPE", "float32")
+    dt = kv_cache_dtype(dev)
+    assert dt == torch.float32
+    torch.manual_seed(0)
+    p = torch.tensor([300], dtype=torch.int32, device=dev)
+    if family == "parler":
+        mega, qt = _tiny_mega(dev, quants.GGML_TYPE_Q4_0, tc=300)
+        flat = pf.prep_parler_flat(mega, qt, 640)
+        x = torch.randn((1, 256), device=dev)
+        kc = torch.randn((2, 4, 640, 64), device=dev).to(dt)
+        counter = pf.KERNEL
+        step = lambda k, v: pf.parler_flat_megastep(  # noqa: E731
+            flat, x, k, v, p, qtype=qt, n_heads=4)
+        seq = lambda k, v: pm.parler_megastep_cuda(  # noqa: E731
+            mega, x, k, v, p, qtype=qt, use_cross=True, n_heads=4)
+    elif family == "orpheus":
+        mega, _, _, kw = _tiny_llama(dev, quants.GGML_TYPE_Q4_0)
+        x = torch.randn((1, 256), device=dev)
+        kc = torch.randn((2, kw["n_kv"], 640, 64), device=dev).to(dt)
+        counter = lm.KERNEL
+        step = lambda k, v: lm.llama_megastep(mega, x, k, v, p, **kw)  # noqa: E731
+        seq = lambda k, v: _llama_sequence(mega, x, k, v, p, kw)  # noqa: E731
+    else:
+        mega, kw = _tiny_dia(dev, quants.GGML_TYPE_Q4_0)
+        x, kc, _, (ck, cv, vt) = _dia_state(dev, dt, 640, 128)
+        counter = dm.KERNEL
+        step = lambda k, v: dm.dia_megastep(  # noqa: E731
+            mega, x, k, v, p, ck.flatten(1, 2), cv.flatten(1, 2),
+            vt.flatten(1, 2), 896, **kw)
+        seq = lambda k, v: _launch_sequence(  # noqa: E731
+            mega, x, k, v, p, ck, cv, vt, 896, kw)
+    vc = torch.randn_like(kc)
+    k1, v1, k2, v2 = kc.clone(), vc.clone(), kc.clone(), vc.clone()
+    before = counter.launches
+    got = step(k1, v1)
+    torch.cuda.synchronize()
+    assert counter.launches - before == 1
+    for a, b in zip(got, seq(k2, v2)):
+        assert torch.equal(a, b)
+    assert k1.dtype == torch.float32
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)

@@ -173,27 +173,27 @@ TEXT, VOICE = "abcd cab", "zoe"
 MAX_GEN, MAX_CTX = 21, 64
 
 
-def write_tiny_orpheus(path, rng, heads=HEADS, kv=KV):
+def write_tiny_orpheus(path, rng, heads=HEADS, kv=KV, d=None):
     """Random F32 Orpheus + SNAC weights (projections of std 0.05, head 0.1,
     embeddings 1.0: logits of O(1)), a BPE vocab with merges, and the
     special ids PRE/APP/STOP inside the 300-token vocab. `heads` / `kv` set
-    the attention heads (head_d = H / heads)."""
+    the attention heads, `d` their size (default H / heads)."""
     def r(*s, scale=0.05):
         return rng.standard_normal(s).astype(np.float32) * scale
 
     t = {"orpheus.embed_tokens": r(VOCAB, H, scale=1.0),
          "orpheus.norm": r(H) + 1, "orpheus.lm_head": r(VOCAB, H, scale=0.1),
          "orpheus.rope_frequencies":
-             (1.0 + rng.random(H // heads // 2)).astype(np.float32)}
-    d = H // heads
+             (1.0 + rng.random((d or H // heads) // 2)).astype(np.float32)}
+    d = d or H // heads
     for l in range(L):
         b = f"orpheus.layers.{l}."
         t[b + "input_layernorm"] = r(H) + 1
         t[b + "post_attention_layernorm"] = r(H) + 1
-        for n, shape in (("self_attn.q_proj", (H, H)),
+        for n, shape in (("self_attn.q_proj", (heads * d, H)),
                          ("self_attn.k_proj", (kv * d, H)),
                          ("self_attn.v_proj", (kv * d, H)),
-                         ("self_attn.o_proj", (H, H)),
+                         ("self_attn.o_proj", (H, heads * d)),
                          ("mlp.gate_proj", (F, H)), ("mlp.up_proj", (F, H)),
                          ("mlp.down_proj", (H, F))):
             t[b + n] = r(*shape)

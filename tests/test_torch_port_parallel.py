@@ -58,7 +58,9 @@ def test_dac_valid_masks_the_padding(tiny_dac_path, t, pad):
 def test_sharded_dac_decode_exact(tiny_dac_path, tmp_path):
     """Frames over 2 and 4 ranks with a halo of 24 (the tiny strides 4, 2
     give a larger receptive field in frames than the real 512x model): bit
-    for bit the unsharded decode, on every rank."""
+    for bit the unsharded decode, on every rank; with bf16 convolution
+    weights (`bf16_conv_weights`, as TTS_TPU_DAC_DTYPE=bfloat16 gives a
+    runner) over 4 ranks, bit for bit the unsharded bf16 decode."""
     r = GGUFReader(tiny_dac_path)
     cfg = dac.DACConfig.from_gguf(r)
     w = dac.load_dac_weights(r, cfg, device="cpu")
@@ -66,10 +68,12 @@ def test_sharded_dac_decode_exact(tiny_dac_path, tmp_path):
     full = dac.dac_decode(cfg, w, codes)
     outs = on_ranks(tmp_path, "dac_sp", dict(path=tiny_dac_path, codes=codes,
                                              margin=24))
+    full_bf16 = dac.dac_decode(cfg, dac.bf16_conv_weights(w), codes)
     for rank, o in enumerate(outs):
         for n in (2, 4):
             assert o[n].shape == full.shape
             assert torch.equal(o[n], full), (rank, n)
+        assert torch.equal(o["bf16"], full_bf16), rank
 
 
 def test_serving_mesh_is_host_major(tmp_path):

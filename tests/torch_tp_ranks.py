@@ -118,7 +118,9 @@ def dia_tp(d):
 
 
 def dac_sp(d):
-    """sharded_dac_decode over sp 2 (a 2 x 2 mesh's tp axis) and sp 4."""
+    """sharded_dac_decode over sp 2 (a 2 x 2 mesh's tp axis) and sp 4; and
+    over sp 4 with the runner's bf16 convolution weights
+    (TTS_TPU_DAC_DTYPE=bfloat16's `bf16_conv_weights`)."""
     from torch.distributed.device_mesh import DeviceMesh
     from tts_tpu_torch.gguf import GGUFReader
     from tts_tpu_torch.models.codec import dac
@@ -133,6 +135,8 @@ def dac_sp(d):
     for n, mesh, axis in ((2, sp2, "tp"), (4, sp4, "sp")):
         out[n] = sharded_dac_decode(cfg, w, a["codes"], mesh, axis=axis,
                                     margin=a["margin"])
+    out["bf16"] = sharded_dac_decode(cfg, dac.bf16_conv_weights(w), a["codes"],
+                                     sp4, axis="sp", margin=a["margin"])
     _save(d, out)
 
 

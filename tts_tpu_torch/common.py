@@ -6,10 +6,24 @@ copies of the JAX package's `common.py` (parity:
 reference include/common.h:45-74). `kv_cache_dtype` and `default_device`
 are the port's own: they key on the torch device instead of the JAX
 platform.
+
+Runtime switches, read by the JAX package's variable names and meanings,
+so that a deployment's settings carry over (each is read where it takes
+effect, not cached):
+  * TTS_TPU_KV_DTYPE=float32|bfloat16: the self-attention caches' dtype
+    (`kv_cache_dtype`; unset: by device).
+  * TTS_TPU_MEGAKERNEL=0: every decode route gate returns None, so runners
+    and engines take the per-matmul route, K1 per projection and K3 / K4
+    for attention (`megakernel_enabled`). "1", or unset: the gates choose
+    by the weights, never by the device; that is the port's counterpart of
+    the JAX package forcing its fused path off the TPU.
+  * TTS_TPU_DAC_DTYPE=bfloat16: the DAC's convolution weights in bf16
+    (models/codec/dac.py `default_dac_dtype`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import numpy as np
@@ -73,11 +87,30 @@ def default_device(device=None) -> torch.device:
     return dev
 
 
+KV_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def kv_cache_dtype(device) -> torch.dtype:
-    """Dtype for autoregressive KV caches: bfloat16 on the card (halves the
-    per-step cache read), float32 on the CPU so parity tests stay exact."""
+    """Dtype for autoregressive KV caches: TTS_TPU_KV_DTYPE (float32 or
+    bfloat16, the dtypes every cache-reading kernel takes) when set, as in
+    the JAX package's `kv_cache_dtype`; else bfloat16 on the card (halves
+    the per-step cache read) and float32 on the CPU so parity tests stay
+    exact."""
+    env = os.environ.get("TTS_TPU_KV_DTYPE")
+    if env:
+        if env not in KV_DTYPES:
+            raise ValueError(f"TTS_TPU_KV_DTYPE={env!r}: the caches take "
+                             f"{' or '.join(KV_DTYPES)}")
+        return KV_DTYPES[env]
     return torch.bfloat16 if torch.device(device).type == "cuda" \
         else torch.float32
+
+
+def megakernel_enabled() -> bool:
+    """False when TTS_TPU_MEGAKERNEL is "0" (the JAX package's test: only
+    "0" turns the fused routes off): the route gates then return None and
+    every runner and engine takes the per-matmul route."""
+    return os.environ.get("TTS_TPU_MEGAKERNEL") != "0"
 
 
 def chunk_schedule(first: int = 64, cap: int = 256):

@@ -46,6 +46,29 @@ __device__ __forceinline__ uint4 load16(const void* p) {
   }
 }
 
+// The first n (1 .. 16 / sizeof(T)) elements at p, which may sit on any
+// element boundary, as 16 bytes laid out as load16 gives them (the rest
+// zero): the generic path's loads where a row is not whole 16-byte chunks
+// on 16-byte boundaries (D not a multiple of 8 for bf16, of 4 for f32).
+template <typename T, bool NC>
+__device__ __forceinline__ uint4 load_part(const T* p, int n) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if constexpr (sizeof(T) == 4) {
+    const unsigned int* u = reinterpret_cast<const unsigned int*>(p);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (i < n) w[i] = NC ? __ldg(u + i) : u[i];
+    }
+  } else {
+    const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (i < n) w[i / 2] |= (uint32_t)(NC ? __ldg(u + i) : u[i]) << (16 * (i % 2));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // The eight (bf16) or four (f32) elements of 16 loaded bytes.
 template <typename T>
 __device__ __forceinline__ void unpack16(uint4 v, float* out);
@@ -83,19 +106,36 @@ __device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
 // The last page (0-based) a slot at position pos reads.
 __device__ __forceinline__ int last_page(int pos) { return pos / PAGE; }
 
-// The head sizes the pages take: D a multiple of 8 from 8 to MAX_D, for
-// bf16 and f32 caches (ops/decode_attention.py head_size_ok is the same
-// rule). A row of D elements is C = D / VEC 16-byte chunks. LPR lanes
-// share a row, the smallest power of two >= C but at most 32, so that a
-// warp reads RPW = 32 / LPR rows a pass; lane sub of a row takes chunks
-// sub, sub + LPR, ... (CPL of them). Where C is a power of two up to 32
-// (bf16 D 64 / 128 / 256, f32 D 64 / 128) each lane takes one chunk and no
-// lane idles; where it is not (D 80, 96, 192) the lanes past C idle; past
-// 32 chunks (f32 D 136-256) a lane takes two.
-constexpr int MAX_D = 256;
+// The head sizes the pages take: every D from 1 to MAX_D, for bf16 and
+// f32 caches (ops/decode_attention.py head_size_ok is the same rule). A
+// row of D elements is C = ceil(D / VEC) chunks of 16 bytes, the last one
+// short where VEC does not divide D (it is then read element by element,
+// load_part, as is every chunk of such a row: its rows do not start on
+// 16-byte boundaries). LPR lanes share a row, the smallest power of two
+// >= C but at most 32, so that a warp reads RPW = 32 / LPR rows a pass;
+// lane sub of a row takes chunks sub, sub + LPR, ... (CPL of them). Where
+// C is a power of two up to 32 (bf16 D 64 / 128 / 256, f32 D 64 / 128)
+// each lane takes one chunk and no lane idles; where it is not (D 80, 96,
+// 192, 100) the lanes past C idle; past 32 chunks a lane takes several.
+//
+// The limit: a lane holds E = CPL * VEC elements of q, E of the
+// accumulator and, while the warp merges, E of its partner's, plus the
+// PF * CPL * 8 words of its loads in flight. The generic path compiles
+// three widths DCAP (256, 512, 1024: E = 8, 16, 32 for bf16 and f32
+// alike) with PF * CPL <= 8, so at 1024 a lane holds 3 * 32 + 64 = 160 of
+// the 255 registers a thread can address; 2048 would hold 3 * 64 + 64 =
+// 256, past them. Shared memory: the row-warps' merge keeps NWARPS * G *
+// DCAP floats, 16 * G * DCAP bytes, within the 48 KB a block has without
+// an opt-in for G <= 2 at 1024 (32 KB) and G <= 4 at 512 (32 KB).
+constexpr int MAX_D = 1024;
 
 __host__ __device__ constexpr bool head_size_ok(int d) {
-  return d >= 8 && d <= MAX_D && d % 8 == 0;
+  return d >= 1 && d <= MAX_D;
+}
+
+// The generic path's compiled width for heads of d (head_size_ok).
+__host__ __device__ constexpr int generic_cap(int d) {
+  return d <= 256 ? 256 : d <= 512 ? 512 : 1024;
 }
 
 __host__ __device__ constexpr int lanes_per_row(int chunks) {
@@ -118,22 +158,28 @@ __host__ __device__ constexpr int lanes_per_row(int chunks) {
 // q_bstride and its cache at kc/vc + s * kv_bstride. With a tail, the state
 // (0, n_tail, tail[(s * hq + h) * D ..]) is merged last. Returns at once
 // (for the whole block) for a page past pos. D > 0 fixes the head size at
-// compile time (the models' 64 and 128); D = 0 takes any head_size_ok size
-// d at run time, with shared memory for MAX_D.
-template <typename T, int D, int G, bool NC, int PF>
+// compile time (the models' 64 and 128); D = 0 takes any head size d up to
+// DCAP (generic_cap) at run time, with registers and shared memory for
+// DCAP. WHOLE: d's rows are whole 16-byte chunks (d a multiple of VEC),
+// read 16 bytes at a time; else element by element (load_part). A
+// compile-time choice: on an H100 a run-time branch in the load loop
+// slowed K4 at heads of 80 / 192 / 256 by ~40%.
+template <typename T, int D, int G, bool NC, int PF, int DCAP = D,
+          bool WHOLE = true>
 __device__ __forceinline__ void attn_page(
     const float* q, const T* kc, const T* vc, int pos, float* out,
     float* part_ml, float* part_acc, int bg, int page, int n_pages, int hq,
     int n_rep, int ctx, long long q_bstride, long long kv_bstride,
     float scale, const float* tail, float n_tail, int d = D) {
   constexpr int VEC = 16 / sizeof(T);                   // elements per 16-byte load
-  constexpr int DMAX = D > 0 ? D : MAX_D;
+  constexpr int DMAX = D > 0 ? D : DCAP;
   constexpr int LPR_MAX = lanes_per_row(DMAX / VEC);
   constexpr int CPL = (DMAX / VEC + LPR_MAX - 1) / LPR_MAX;   // chunks a lane holds at most
   constexpr int E = CPL * VEC;                          // elements a lane holds
   static_assert(head_size_ok(DMAX) && DMAX % VEC == 0, "unsupported head size");
   const int dd = D > 0 ? D : d;
-  const int chunks = dd / VEC;
+  const int chunks = WHOLE ? dd / VEC : (dd + VEC - 1) / VEC;
+  static_assert(D == 0 || WHOLE, "a compiled head size has whole chunks");
   const int LPR = D > 0 ? LPR_MAX : lanes_per_row(chunks);   // lanes per cache row
   const int RPW = 32 / LPR;                             // rows per warp pass
   const int STEP = NWARPS * RPW;                        // rows between a warp's passes
@@ -156,7 +202,8 @@ __device__ __forceinline__ void attn_page(
       const int c = sub + LPR * j;
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
-        qv[j * VEC + i] = c < chunks ? qs[c * VEC + i] * scale : 0.f;
+        const bool in = WHOLE ? c < chunks : c * VEC + i < dd;
+        qv[j * VEC + i] = in ? qs[c * VEC + i] * scale : 0.f;
         acc[j * VEC + i] = 0.f;
       }
     }
@@ -172,9 +219,16 @@ __device__ __forceinline__ void attn_page(
         const int t = base + f * STEP + r;
 #pragma unroll
         for (int j = 0; j < CPL; ++j) {
-          if (t <= row_end && sub + LPR * j < chunks) {
-            kr[f][j] = load16<NC>(kp + (size_t)t * dd + LPR * j * VEC);
-            vr[f][j] = load16<NC>(vp + (size_t)t * dd + LPR * j * VEC);
+          const int c = sub + LPR * j;
+          if (t <= row_end && c < chunks) {
+            if constexpr (WHOLE) {
+              kr[f][j] = load16<NC>(kp + (size_t)t * dd + LPR * j * VEC);
+              vr[f][j] = load16<NC>(vp + (size_t)t * dd + LPR * j * VEC);
+            } else {
+              const int n = min(VEC, dd - c * VEC);
+              kr[f][j] = load_part<T, NC>(kp + (size_t)t * dd + LPR * j * VEC, n);
+              vr[f][j] = load_part<T, NC>(vp + (size_t)t * dd + LPR * j * VEC, n);
+            }
           } else {
             kr[f][j] = vr[f][j] = make_uint4(0u, 0u, 0u, 0u);
           }
@@ -237,7 +291,11 @@ __device__ __forceinline__ void attn_page(
         const int c = sub + LPR * j;
         if (c < chunks) {
 #pragma unroll
-          for (int i = 0; i < VEC; ++i) sm_acc[rw][hj][c * VEC + i] = acc[j * VEC + i];
+          for (int i = 0; i < VEC; ++i) {
+            if (WHOLE || c * VEC + i < dd) {
+              sm_acc[rw][hj][c * VEC + i] = acc[j * VEC + i];
+            }
+          }
         }
       }
     }

@@ -43,10 +43,14 @@
 // pass in flight, so the outputs are the two-launch design's bit for bit.
 // The K/V batch stride may be 0: the Parler cross-attention K/V are shared
 // by every slot, so one kernel serves both attentions of the batched step.
-// Head sizes: the models' 64 and 128 are compiled for; every other multiple
-// of 8 from 8 to 256 (attention.cuh head_size_ok) runs on one generic
-// instantiation per cache dtype and group, which takes the head size at run
-// time and spreads a row over the lanes as attention.cuh's lane layout says.
+// Head sizes: the models' 64 and 128 are compiled for; every other size
+// from 1 to 1024 (attention.cuh head_size_ok; the JAX kernel takes any D)
+// runs on a generic instantiation per cache dtype, group and width (256,
+// 512, 1024: attention.cuh generic_cap), which takes the head size at run
+// time and spreads a row over the lanes as attention.cuh's lane layout
+// says; a row that is not whole 16-byte chunks is read element by element
+// (its own instantiation: WHOLE false).
+// Past 512 a block serves at most 2 q heads (its merge's shared memory).
 //
 // The Dia steps' cross-attention (K10 / K11, ops/dia_megastep.py) is the
 // same kernel through its own entry, tts_cross_attention: every row of the
@@ -77,9 +81,9 @@ using namespace tts::attn;
 // q at q + s * q_bstride, its cache at kc/vc + s * kv_bstride and its
 // position at pos[s * pos_stride] (every row of the cache when pos_ptr is
 // null). With a tail, the state (0, n_tail, tail[(s * Hq + h) * D ..]) is
-// merged last (see the header). D 0: the head size is d (the generic
-// path), else D.
-template <typename T, int D, int G, int PF>
+// merged last (see the header). D 0: the head size is d, up to DCAP (the
+// generic path; WHOLE: d a multiple of 16 / sizeof(T)), else D.
+template <typename T, int D, int G, int PF, int DCAP, bool WHOLE>
 __global__ void __launch_bounds__(NWARPS * G * 32)
 attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  const T* __restrict__ vc, const int* __restrict__ pos_ptr,
@@ -91,7 +95,7 @@ attn_page_kernel(const float* __restrict__ q, const T* __restrict__ kc,
                  float n_tail, int d) {
   const int bg = blockIdx.x, s = bg / (hq / G);
   const int pos = pos_ptr ? min(pos_ptr[(size_t)s * pos_stride], ctx - 1) : ctx - 1;
-  attn_page<T, D, G, true, PF>(
+  attn_page<T, D, G, true, PF, DCAP, WHOLE>(
       q, kc, vc, pos, out, part_ml, part_acc, bg, blockIdx.y, gridDim.y, hq,
       n_rep, ctx, q_bstride, kv_bstride, scale, tail, n_tail, d);
   if (last_page(pos) > 0 && (int)blockIdx.y <= last_page(pos)) {
@@ -119,15 +123,19 @@ int passes_in_flight(long long blocks) {
 }
 
 // The q heads one block serves: the largest of 4, 3, 2, 1 that divides
-// n_rep.
-int group_of(int n_rep) {
-  return n_rep % 4 == 0 ? 4 : n_rep % 3 == 0 ? 3 : n_rep % 2 == 0 ? 2 : 1;
+// n_rep, and at most 2 for heads past 512 (the merge's shared memory,
+// attention.cuh).
+int group_of(int n_rep, int d) {
+  if (d <= 512 && n_rep % 4 == 0) return 4;
+  if (d <= 512 && n_rep % 3 == 0) return 3;
+  return n_rep % 2 == 0 ? 2 : 1;
 }
 
-// The generic path (D 0) keeps 4 passes in flight: a lane of an f32 row
-// of more than 128 elements holds two chunks, so 8 passes' loads would
-// take 128 registers.
-template <typename T, int D, int G>
+// The generic path (D 0) keeps 4 passes in flight at width 256 (a lane of
+// an f32 row of more than 128 elements holds two chunks, so 8 passes'
+// loads would take 128 registers), 2 at 512 and 1 at 1024: a lane's loads
+// in flight stay within 64 registers (attention.cuh, the limit).
+template <typename T, int D, int G, int DCAP, bool WHOLE>
 void launch(const float* q, const void* kc, const void* vc, const int* pos,
             float* out, float* part_ml, float* part_acc,
             unsigned int* arrivals, int b, int hq, int n_rep, int ctx,
@@ -136,9 +144,13 @@ void launch(const float* q, const void* kc, const void* vc, const int* pos,
             cudaStream_t s) {
   const int n_pages = (ctx + PAGE - 1) / PAGE;
   const dim3 grid(b * hq / G, n_pages);
-  auto kern = attn_page_kernel<T, D, G, 4>;
+  constexpr int PF_GENERIC = DCAP <= 256 ? 4 : DCAP <= 512 ? 2 : 1;
+  constexpr int PF = D > 0 ? 4 : PF_GENERIC;
+  auto kern = attn_page_kernel<T, D, G, PF, DCAP, WHOLE>;
   if constexpr (D > 0) {
-    if (passes_in_flight((long long)grid.x * grid.y) == 8) kern = attn_page_kernel<T, D, G, 8>;
+    if (passes_in_flight((long long)grid.x * grid.y) == 8) {
+      kern = attn_page_kernel<T, D, G, 8, DCAP, WHOLE>;
+    }
   }
   kern<<<grid, NWARPS * G * 32, 0, s>>>(
       q, reinterpret_cast<const T*>(kc), reinterpret_cast<const T*>(vc), pos,
@@ -146,7 +158,8 @@ void launch(const float* q, const void* kc, const void* vc, const int* pos,
       pos_stride, scale, tail, n_tail, d);
 }
 
-template <typename T, int D>
+// G 3 and 4 are compiled for widths up to 512 only (group_of).
+template <typename T, int D, int DCAP = D, bool WHOLE = true>
 void launch_group(int g, const float* q, const void* kc, const void* vc,
                   const int* pos, float* out, float* part_ml, float* part_acc,
                   unsigned int* arrivals, int b, int hq, int n_rep, int ctx,
@@ -156,14 +169,39 @@ void launch_group(int g, const float* q, const void* kc, const void* vc,
 #define TTS_ATTN_ARGS q, kc, vc, pos, out, part_ml, part_acc, arrivals, b, hq, \
                       n_rep, ctx, q_bstride, kv_bstride, pos_stride, scale,   \
                       tail, n_tail, d, s
-  if (g == 4) {
-    launch<T, D, 4>(TTS_ATTN_ARGS);
-  } else if (g == 3) {
-    launch<T, D, 3>(TTS_ATTN_ARGS);
-  } else if (g == 2) {
-    launch<T, D, 2>(TTS_ATTN_ARGS);
+  if constexpr (DCAP <= 512) {
+    if (g == 4) {
+      launch<T, D, 4, DCAP, WHOLE>(TTS_ATTN_ARGS);
+      return;
+    } else if (g == 3) {
+      launch<T, D, 3, DCAP, WHOLE>(TTS_ATTN_ARGS);
+      return;
+    }
+  }
+  if (g == 2) {
+    launch<T, D, 2, DCAP, WHOLE>(TTS_ATTN_ARGS);
   } else {
-    launch<T, D, 1>(TTS_ATTN_ARGS);
+    launch<T, D, 1, DCAP, WHOLE>(TTS_ATTN_ARGS);
+  }
+#undef TTS_ATTN_ARGS
+}
+
+// Every other head size, on the generic path of its width, its rows read
+// 16 bytes at a time where they are whole 16-byte chunks.
+template <typename T, bool WHOLE>
+void generic(int g, const float* q, const void* kc, const void* vc,
+             const int* pos, float* out, float* part_ml, float* part_acc,
+             unsigned int* arrivals, int b, int hq, int n_rep, int ctx,
+             long long q_bstride, long long kv_bstride, int pos_stride,
+             float scale, const float* tail, float n_tail, int d,
+             cudaStream_t s) {
+#define TTS_ATTN_ARGS g, q, kc, vc, pos, out, part_ml, part_acc, arrivals, b, \
+                      hq, n_rep, ctx, q_bstride, kv_bstride, pos_stride,       \
+                      scale, tail, n_tail, d, s
+  switch (generic_cap(d)) {
+    case 256: launch_group<T, 0, 256, WHOLE>(TTS_ATTN_ARGS); break;
+    case 512: launch_group<T, 0, 512, WHOLE>(TTS_ATTN_ARGS); break;
+    default: launch_group<T, 0, 1024, WHOLE>(TTS_ATTN_ARGS); break;
   }
 #undef TTS_ATTN_ARGS
 }
@@ -179,7 +217,7 @@ int dispatch(const float* q, const void* kc, const void* vc, const int* pos,
     return (int)cudaErrorInvalidValue;
   }
   if (!head_size_ok(d)) return (int)cudaErrorInvalidValue;
-  const int g = group_of(n_rep);
+  const int g = group_of(n_rep, d);
 #define TTS_ATTN_ARGS g, q, kc, vc, pos, out, part_ml, part_acc, arrivals, b, \
                       hq, n_rep, ctx, q_bstride, kv_bstride, pos_stride,       \
                       scale, tail, n_tail, d, s
@@ -192,10 +230,14 @@ int dispatch(const float* q, const void* kc, const void* vc, const int* pos,
     launch_group<float, 64>(TTS_ATTN_ARGS);
   } else if (!cache_bf16 && d == 128) {
     launch_group<float, 128>(TTS_ATTN_ARGS);
+  } else if (cache_bf16 && d % 8 == 0) {
+    generic<__nv_bfloat16, true>(TTS_ATTN_ARGS);
   } else if (cache_bf16) {
-    launch_group<__nv_bfloat16, 0>(TTS_ATTN_ARGS);
+    generic<__nv_bfloat16, false>(TTS_ATTN_ARGS);
+  } else if (d % 4 == 0) {
+    generic<float, true>(TTS_ATTN_ARGS);
   } else {
-    launch_group<float, 0>(TTS_ATTN_ARGS);
+    generic<float, false>(TTS_ATTN_ARGS);
   }
 #undef TTS_ATTN_ARGS
   return (int)cudaGetLastError();
@@ -213,7 +255,7 @@ extern "C" int tts_attention_abi(void) { return 2; }
 // out (b, hq, d) f32; part_ml (b * hq, ceil(ctx/256), 2) and part_acc
 // (b * hq, ceil(ctx/256), d) f32 scratch; arrivals at least b * hq zeroed
 // uint32 counters, left zeroed (launches that share them must be ordered,
-// as on one stream). d a multiple of 8 from 8 to 256 (head_size_ok). K3 is
+// as on one stream). d from 1 to 1024 (head_size_ok). K3 is
 // the call with b = 1.
 extern "C" int tts_decode_attention(
     const float* q, const void* kc, const void* vc, const int* pos,

@@ -14,11 +14,14 @@ Structure (dac_model.cpp:146-170, general_neural_audio_codec.cpp:133-172):
             -> 3 residual units (dilation 3^j, pad 3^(j+1))
   x      = snake -> conv1d(k=7, p=3) -> tanh
 
-Convolutions are float32 without TF32 (common.strict_fp32).
+Convolutions are float32 without TF32 (common.strict_fp32), or bf16 with
+TTS_TPU_DAC_DTYPE=bfloat16 / `DACRunner(compute_dtype="bfloat16")`
+(`bf16_conv_weights`, as in the JAX package).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Any, List, NamedTuple
 
 import numpy as np
@@ -203,14 +206,43 @@ def load_dac_weights(r: GGUFReader, cfg: DACConfig, prefix: str = "audio_encoder
         out_w=get(prefix + "final.weight"), out_b=bias(prefix + "final.bias"))
 
 
+def bf16_conv_weights(w: DACWeights) -> DACWeights:
+    """The convolution kernels (tensors of 3 or more dimensions) cast to
+    bf16, so that the decoder's convolutions run in bf16 (ops/conv casts
+    the activations to match); codebooks, biases and snake alphas stay
+    float32. The JAX package's `bf16_conv_weights` (models/codec/dac.py):
+    opt-in, since bf16 rounding compounds through the conv stack."""
+    def cast(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(torch.bfloat16) if a.dim() >= 3 else a
+        if isinstance(a, list):
+            return [cast(b) for b in a]
+        if isinstance(a, tuple):   # the weights' NamedTuples
+            return type(a)(*[cast(b) for b in a])
+        return a
+    return cast(w)
+
+
+def default_dac_dtype() -> str:
+    """TTS_TPU_DAC_DTYPE, the JAX package's variable: "bfloat16" opts into
+    bf16 convolution weights; anything else (default "float32") keeps
+    them float32."""
+    return os.environ.get("TTS_TPU_DAC_DTYPE", "float32")
+
+
 class DACRunner:
     """Decode wrapper (reference dac_runner::run, dac_model.cpp:172-212):
-    numpy codes in, numpy waveform out, float32 convolutions on the
-    weights' device."""
+    numpy codes in, numpy waveform out, on the weights' device. Float32
+    convolutions by default; `compute_dtype="bfloat16"` (or, when it is
+    None, TTS_TPU_DAC_DTYPE=bfloat16) casts the convolution weights to bf16
+    (`bf16_conv_weights`), as the JAX `DACRunner` does."""
 
-    def __init__(self, cfg: DACConfig, weights: DACWeights):
+    def __init__(self, cfg: DACConfig, weights: DACWeights,
+                 compute_dtype: str | None = None):
         strict_fp32()
         self.cfg = cfg
+        if (compute_dtype or default_dac_dtype()) == "bfloat16":
+            weights = bf16_conv_weights(weights)
         self.weights = weights
         self.device = weights.in_w.device
 

@@ -48,7 +48,7 @@ import torch
 
 from ...common import (GenerationConfig, SAMPLE_RATE_DAC, TTSResponse,
                        chunk_schedule, default_device, kv_cache_dtype,
-                       strict_fp32)
+                       megakernel_enabled, strict_fp32)
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import apply_rope_neox, sdpa
@@ -236,12 +236,14 @@ def maybe_prep_dia_mega(cfg: DiaConfig, w: DiaWeights) -> Mega | None:
     projections and kernel-friendly dims (the JAX package's gate,
     model.py:377-383, without its platform test: the weights choose the
     route, not the device; the widths the GEMV takes are `prep_dia_mega`'s
-    to refuse). None -> the per-matmul route. Heads that no decode route's
+    to refuse); TTS_TPU_MEGAKERNEL=0 turns it off, as in the JAX gate
+    (unset or "1": by the weights; common.megakernel_enabled). None -> the
+    per-matmul route (K1 per projection, K4). Heads that no decode route's
     attention takes raise ValueError (every route runs K4); heads that the
     persistent K10 does not take (other than 64 and 128) get K11's launch
     sequence (`persistent` False)."""
     require_head_size(cfg.head_size, "Dia")
-    if cfg.head_size % 64:
+    if not megakernel_enabled() or cfg.head_size % 64:
         return None
     try:
         layers, qtype = prep_dia_mega(w.dec_layers, cfg.head_size)

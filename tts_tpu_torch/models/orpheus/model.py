@@ -42,7 +42,7 @@ import torch
 
 from ...common import (GenerationConfig, SAMPLE_RATE_SNAC, TTSResponse,
                        chunk_schedule, default_device, kv_cache_dtype,
-                       strict_fp32)
+                       megakernel_enabled, strict_fp32)
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import apply_rope_neox, gqa_prefill, rope_freqs
@@ -228,12 +228,15 @@ def maybe_prep_llama_mega(cfg: OrpheusConfig, w: OrpheusWeights) -> Mega | None:
     """K8's weights when its route applies: uniformly quantized projections
     and kernel-friendly dims (the JAX package's gate, model.py:222-228; the
     widths the GEMV takes are `prep_llama_mega`'s to refuse). Depends on
-    the weights, not on the device. None -> the per-matmul route. Heads
-    that no decode route's attention takes raise ValueError (every route
-    runs K3 / K4); heads that the persistent step does not take (other
-    than 64 and 128) get the launch sequence (`persistent` False)."""
+    the weights, not on the device; TTS_TPU_MEGAKERNEL=0 turns it off, as
+    in the JAX gate (unset or "1": by the weights; common.
+    megakernel_enabled). None -> the per-matmul route (K1 per projection,
+    K3 / K4). Heads that no decode route's attention takes raise
+    ValueError (every route runs K3 / K4); heads that the persistent step
+    does not take (other than 64 and 128) get the launch sequence
+    (`persistent` False)."""
     require_head_size(cfg.head_size, "Orpheus")
-    if cfg.head_size % 64:
+    if not megakernel_enabled() or cfg.head_size % 64:
         return None
     try:
         mega, qtype = prep_llama_mega(w.layers, cfg.head_size)

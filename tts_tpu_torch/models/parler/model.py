@@ -39,7 +39,7 @@ import torch
 
 from ...common import (GenerationConfig, SAMPLE_RATE_DAC, TTSResponse,
                        chunk_schedule, default_device, kv_cache_dtype,
-                       strict_fp32)
+                       megakernel_enabled, strict_fp32)
 from ...gguf.reader import GGUFReader
 from ...ops import sampling
 from ...ops.attention import sdpa
@@ -360,9 +360,13 @@ def maybe_prep_mega(cfg: ParlerConfig, w: ParlerWeights) -> Mega | None:
     """The megastep's weights when its path applies: all 8 projections
     block-quantized with one qtype and kernel-friendly dims (as the JAX
     package's gate, model.py:461-463). Depends on the weights, not on the
-    device. None -> the per-matmul path. Heads that no decode route's
+    device; TTS_TPU_MEGAKERNEL=0 turns it off, as in the JAX gate (unset or
+    "1": by the weights; common.megakernel_enabled). None -> the per-matmul
+    path (K1 per projection, K3 / K4). Heads that no decode route's
     attention takes raise ValueError (every route runs K3 / K4)."""
     require_head_size(cfg.head_size, "Parler")
+    if not megakernel_enabled():
+        return None
     if (cfg.hidden_size % 128 or cfg.head_size % 64 or
             cfg.hidden_size // 32 < 8):
         return None

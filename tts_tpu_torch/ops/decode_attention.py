@@ -8,7 +8,7 @@ once, each at its own position: q (B, Hq, D), k/v (B, Hkv, CTX, D) (or one
 `decode_attention` / `decode_attention_batched` launch the hand-written
 kernel (csrc/decode_attention.cu, one kernel for both: K3 is K4 with B = 1),
 which reads only the rows up to each pos, for any head size `head_size_ok`
-takes (a multiple of 8 from 8 to 256); on CPU tensors they run
+takes (every size from 1 to 1024); on CPU tensors they run
 `decode_attention_plain` / `decode_attention_batched_plain`, the masked
 softmax the JAX package's `_xla_fallback` computes (vmapped for K4).
 
@@ -34,7 +34,9 @@ from . import _build
 
 PAGE = 256  # rows per block in the kernel; scratch is sized by it
 MIN_ARRIVALS = 4096  # counters made at least, so that buffers rarely grow
-MAX_HEAD = 256       # the largest head size the kernel takes
+# the largest head size the kernel takes: a lane's registers bound its
+# layout (csrc/attention.cuh, the limit)
+MAX_HEAD = 1024
 # head sizes the persistent steps (K10, K12's 64, the llama step) compile
 # their attention phases for; their gates send other sizes to a route of
 # K3 / K4
@@ -51,11 +53,10 @@ KERNEL_BATCHED = _build.Kernel("decode_attention", "tts_decode_attention", _ARGS
 
 def head_size_ok(d: int, dtype=torch.bfloat16) -> bool:
     """Whether K3 / K4 (and the cross-attention entry) take heads of d over
-    a cache of `dtype`: multiples of 8 from 8 to 256, bf16 or f32 alike
+    a cache of `dtype`: every size from 1 to MAX_HEAD, bf16 or f32 alike
     (csrc/attention.cuh head_size_ok). 64 and 128 run on code compiled for
     them, the others on the generic path."""
-    return dtype in (torch.bfloat16, torch.float32) and \
-        d % 8 == 0 and 8 <= d <= MAX_HEAD
+    return dtype in (torch.bfloat16, torch.float32) and 1 <= d <= MAX_HEAD
 
 
 def require_head_size(d: int, what: str) -> None:
@@ -64,8 +65,8 @@ def require_head_size(d: int, what: str) -> None:
     heads it refuses is refused when its runner or engine is built."""
     if not head_size_ok(d):
         raise ValueError(f"{what}: heads of {d} are not a size the decode "
-                         f"attention takes (a multiple of 8 from 8 to "
-                         f"{MAX_HEAD})")
+                         f"attention takes (1 to {MAX_HEAD}: the registers "
+                         f"of its lane layout, csrc/attention.cuh)")
 
 
 def _scale(q, scale):
@@ -139,9 +140,13 @@ def _launch(kernel, q, kv_k, kv_v, pos, scale, out, scratch):
     """Validate and launch the kernel for q (B, Hq, D); see
     decode_attention_batched_cuda."""
     dev = q.device
+    # rows of whole 16-byte chunks are read 16 bytes at a time; others
+    # element by element
+    size = kv_k.element_size()
+    align = 16 if q.shape[-1] % (16 // size) == 0 else size
     _build.require(kv_k, "kv_k", device=dev,
-                   dtypes=(torch.bfloat16, torch.float32))
-    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,))
+                   dtypes=(torch.bfloat16, torch.float32), align=align)
+    _build.require(kv_v, "kv_v", device=dev, dtypes=(kv_k.dtype,), align=align)
     _build.require(pos, "pos", device=dev, dtypes=(torch.int32,), align=4)
     if q.dtype != torch.float32 or q.dim() != 3:
         raise ValueError(f"q must be (B, Hq, D) float32, got {q.dtype} "

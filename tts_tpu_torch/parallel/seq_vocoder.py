@@ -13,6 +13,8 @@ edge windows are flush with the global edges, and `valid` masks the global
 tail's padding (models/codec/dac.dac_decode), so the result equals the
 unsharded decode up to the convolutions' own algorithm choice for another
 length (bit for bit on the CPU). The waveform is gathered on every rank.
+It takes a `DACRunner`'s weights as they are: bf16 convolution weights
+(TTS_TPU_DAC_DTYPE=bfloat16, `bf16_conv_weights`) run in bf16 here too.
 
 Margin: the DAC decoder's receptive field in input frames is ~3 (in conv)
 + sum_l 39 / prod(strides[:l+1]) + ~1 a layer; 16 covers the real 512x
