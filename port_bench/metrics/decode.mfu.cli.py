@@ -1,0 +1,5 @@
+"""decode.mfu.cli: decode.mfu.serve's reading in a single-stream cell, where it
+moves audio_s_per_wall_s."""
+from port_bench import common
+
+read = common.metric_reader("decode.mfu.serve").read
